@@ -1,0 +1,118 @@
+"""DASE component protocols and the engine context.
+
+The same four stages as the JAX package (controller/Engine.scala:82):
+
+  DataSource.read_training(ctx) -> TD
+  Preparator.prepare(ctx, td) -> PD
+  Algorithm.train(ctx, pd) -> M ; .predict(m, q) -> P
+  Serving.supplement(q) / .serve(q, [P]) -> P
+
+Where the JAX context carries a device mesh and a PRNG key, this one carries
+a ``torch.device`` and hands out seeded ``torch.Generator``s.  There is no
+mesh: the port serves on one device.
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass, field
+from typing import Any, Generic, Sequence, TypeVar
+
+import torch
+
+from predictionio_tpu_torch.data.storage.config import StorageRuntime
+from predictionio_tpu_torch.device import resolve_device
+
+TD = TypeVar("TD")  # training data
+EI = TypeVar("EI")  # evaluation info
+PD = TypeVar("PD")  # prepared data
+Q = TypeVar("Q")  # query
+PR = TypeVar("PR")  # predicted result
+A = TypeVar("A")  # actual result
+M = TypeVar("M")  # model
+
+#: Algorithm flavors, named for parity with the reference's
+#: PAlgorithm/P2LAlgorithm/LAlgorithm.
+P, P2L, L = "P", "P2L", "L"  # noqa: E741
+
+
+@dataclass
+class EngineContext:
+    """Storage runtime, device, base seed and mode, passed to every DASE
+    stage.  ``device=None`` means CUDA and raises on a host without a card;
+    pass ``device="cpu"`` to run on the CPU."""
+
+    storage: StorageRuntime | None = None
+    seed: int = 0
+    mode: str = "train"  # train | eval | serving | batchpredict
+    device: torch.device | str | None = field(default=None)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def generator(self, salt: int = 0) -> torch.Generator:
+        """A generator on ``device`` seeded from ``seed`` and ``salt``, with
+        the JAX context's seed mixing (``core/base.py`` ``rng``)."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed((self.seed * 0x9E3779B1 + salt) & 0xFFFFFFFF)
+        return g
+
+
+class DataSource(abc.ABC, Generic[TD, EI, Q, A]):
+    """Reads training and evaluation data (core/BaseDataSource.scala:34)."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx: EngineContext) -> TD: ...
+
+
+class Preparator(abc.ABC, Generic[TD, PD]):
+    """Transforms training data for the algorithms (core/BasePreparator.scala:33)."""
+
+    @abc.abstractmethod
+    def prepare(self, ctx: EngineContext, td: TD) -> PD: ...
+
+
+class Algorithm(abc.ABC, Generic[PD, M, Q, PR]):
+    """Train a model and answer queries (core/BaseAlgorithm.scala:58)."""
+
+    flavor: str = P2L
+
+    @abc.abstractmethod
+    def train(self, ctx: EngineContext, pd: PD) -> M: ...
+
+    @abc.abstractmethod
+    def predict(self, model: M, query: Q) -> PR: ...
+
+    def batch_predict(
+        self, model: M, queries: Sequence[tuple[int, Q]]
+    ) -> list[tuple[int, PR]]:
+        """Bulk predict: [(index, query)] -> [(index, prediction)]."""
+        return [(i, self.predict(model, q)) for i, q in queries]
+
+    def make_persistent_model(self, ctx: EngineContext, model: M) -> Any:
+        """Convert the trained model into its checkpointable form."""
+        return model
+
+    def load_persistent_model(self, ctx: EngineContext, data: Any) -> M:
+        """Inverse of make_persistent_model at deploy time."""
+        return data
+
+
+class Serving(abc.ABC, Generic[Q, PR]):
+    """Combine per-algorithm predictions into one result (core/BaseServing.scala)."""
+
+    def supplement(self, query: Q) -> Q:
+        return query
+
+    @abc.abstractmethod
+    def serve(self, query: Q, predictions: Sequence[PR]) -> PR: ...
+
+
+class FirstServing(Serving):
+    """Serve the first algorithm's prediction (controller/LFirstServing.scala:28)."""
+
+    def __init__(self, params: Any = None):
+        pass
+
+    def serve(self, query, predictions):
+        return predictions[0]

@@ -1,0 +1,78 @@
+"""Local-filesystem model blob store (reference storage/localfs/LocalFSModels.scala:32)."""
+
+from __future__ import annotations
+
+import os
+import secrets
+from pathlib import Path
+
+from predictionio_tpu_torch.data.storage import base
+
+
+class LocalFSModels(base.Models):
+    def __init__(self, path: str | Path):
+        self.root = Path(path)
+        self.root.mkdir(parents=True, exist_ok=True)
+
+    def _file(self, instance_id: str) -> Path:
+        # instance ids are hex/uuid strings; guard against path traversal anyway
+        safe = instance_id.replace("/", "_").replace("..", "_")
+        return self.root / f"pio_model_{safe}.bin"
+
+    def insert(self, instance_id: str, blob: bytes) -> None:
+        """Durable atomic publish: write a per-writer unique tmp file,
+        fsync it, rename over the final name, fsync the directory.
+
+        The unique tmp name means two concurrent trainers staging the same
+        key race only at the (atomic) rename — neither can truncate or
+        interleave the other's half-written bytes, and the final file is
+        always exactly one writer's blob.  The fsyncs make the
+        write-then-rename ordering hold across a power cut / SIGKILL: a
+        crash at ANY point leaves either the old complete blob or the new
+        complete blob, never a torn file.
+        """
+        final = self._file(instance_id)
+        tmp = final.with_name(
+            f"{final.name}.{os.getpid()}.{secrets.token_hex(6)}.tmp"
+        )
+        fd = os.open(str(tmp), os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o644)
+        try:
+            try:
+                os.write(fd, blob)
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+            os.replace(str(tmp), str(final))
+        except BaseException:
+            # a failed publish must not leak its tmp (the unique name would
+            # otherwise accumulate per retry); the final file is untouched
+            try:
+                os.unlink(str(tmp))
+            except OSError:
+                pass
+            raise
+        self._fsync_dir()
+
+    def _fsync_dir(self) -> None:
+        """Persist the rename itself (directory entry) — without this a
+        crash can resurrect the OLD name even though the data blocks of
+        the new blob reached disk."""
+        try:
+            dfd = os.open(str(self.root), os.O_RDONLY)
+        except OSError:
+            return  # platforms without directory fds: rename still atomic
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+
+    def get(self, instance_id: str) -> bytes | None:
+        f = self._file(instance_id)
+        return f.read_bytes() if f.exists() else None
+
+    def delete(self, instance_id: str) -> bool:
+        f = self._file(instance_id)
+        if f.exists():
+            f.unlink()
+            return True
+        return False

@@ -1,0 +1,340 @@
+"""Top-k for serving paths: host replicas AND the fused device kernel.
+
+Host half: solo queries are answered from a host numpy replica of the
+factor tables (the reference's P2L local-model serving,
+controller/P2LAlgorithm.scala:46-76).  ``host_topk``/``host_topk_batch`` are
+the JAX package's, verbatim: their tie order (argpartition, then argsort
+reversed) is part of the host-path contract.
+
+Device half (:func:`fused_topk_batch`): ``queries [B, r] x table [N, r] ->
+packed [2, B, k]`` with selection by ``(value desc, global id asc)`` —
+exactly ``lax.top_k``'s tie rule, the contract of the JAX package's Pallas
+kernel.  On CUDA tensors it launches the hand-written kernel in
+``csrc/fused_topk.cu``, which never materializes the ``[B, N]`` score row;
+on CPU tensors it runs :func:`fused_topk_plain`, the plain PyTorch version
+of the same function.  There is no other path: a CUDA tensor either
+launches the kernel or raises.
+
+Shapes off the fused menu (``k`` past :data:`MAX_FUSED_K`) raise
+:class:`FusedTopKUnsupported`.  :func:`full_row_topk` answers them under the
+same tie rule on CPU tensors, counted with :func:`note_full_row_fallback`;
+on CUDA tensors it raises too: the full-row device top-k is not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.ops import _kernels
+
+log = logging.getLogger("predictionio_tpu_torch.ops.topk")
+
+#: the JAX kernel's score-slab rows per grid step (kept for its roofline
+#: model, :func:`fused_topk_roofline`)
+TILE_ROWS = 1024
+
+#: the JAX kernel's batch rows per block
+BATCH_BLOCK = 128
+
+#: largest k on the fused menu (the CUDA kernel keeps k/32 register slots
+#: per lane, at most 4)
+MAX_FUSED_K = 128
+
+#: retired-entry / padding sentinel id — a power of two, exactly
+#: representable in f32, above the 2^24 packed-id ceiling; must match
+#: kRetiredId in csrc/fused_topk.cu
+RETIRED_ID = float(1 << 25)
+
+#: queries per pass-1 CTA of the CUDA kernel (one warp each); must match
+#: kQueriesPerCta in csrc/fused_topk.cu
+QUERIES_PER_CTA = 8
+
+#: table rows staged in shared memory per tile, at most
+MAX_TILE_ROWS = 256
+
+#: shared memory a CTA may use without opting in (48 KB), in floats
+SMEM_FLOATS = 48 * 1024 // 4
+
+#: pass-1 CTAs aimed for per SM, so small waves still fill the card
+CTAS_PER_SM = 4
+
+#: the most recent fused launch per name: its route ("cuda" or "plain"),
+#: the widest score slab it held (``rows_tile``: a kernel tile on CUDA, the
+#: whole row for the plain version) and its grid
+LAST_KERNEL_SHAPES: dict[str, dict] = {}
+
+#: launches of each hand-written kernel, counted where it is launched
+KERNEL_LAUNCHES: dict[str, int] = {"fused_topk": 0}
+
+#: full-score-row top-k dispatches per ``where`` (off-menu shapes)
+FULL_ROW_FALLBACKS: dict[str, int] = {}
+
+_SM_COUNT: dict[int, int] = {}
+
+
+class FusedTopKUnsupported(ValueError):
+    """The requested (batch, k, n_items) shape is off the fused menu."""
+
+
+def host_topk(scores: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Top-k (values, indices) of a 1-D score vector, sorted descending."""
+    n = scores.shape[0]
+    k = min(k, n)
+    if k <= 0:
+        return scores[:0], np.zeros((0,), np.int64)
+    if k < n:
+        idx = np.argpartition(scores, n - k)[n - k:]
+    else:
+        idx = np.arange(n)
+    order = np.argsort(scores[idx])[::-1]
+    idx = idx[order]
+    return scores[idx], idx
+
+
+def host_topk_batch(scores: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Row-wise top-k of a [B, n] score matrix, each row sorted descending."""
+    b, n = scores.shape
+    k = min(k, n)
+    if k <= 0:
+        return scores[:, :0], np.zeros((b, 0), np.int64)
+    if k < n:
+        idx = np.argpartition(scores, n - k, axis=1)[:, n - k:]
+    else:
+        idx = np.broadcast_to(np.arange(n), (b, n)).copy()
+    vals = np.take_along_axis(scores, idx, axis=1)
+    order = np.argsort(vals, axis=1)[:, ::-1]
+    idx = np.take_along_axis(idx, order, axis=1)
+    return np.take_along_axis(scores, idx, axis=1), idx
+
+
+def fused_supported(batch: int, k: int, n_items: int) -> bool:
+    """True when (batch, k, n_items) is on the fused menu."""
+    return 0 < k <= MAX_FUSED_K and k <= n_items and batch > 0
+
+
+#: shapes already warned about — the counter ticks per dispatch, the log
+#: once per distinct shape
+_WARNED_FALLBACK_SHAPES: set[tuple] = set()
+
+
+def note_full_row_fallback(
+    batch: int, k: int, n_items: int, where: str
+) -> None:
+    """Count (and name, once per shape) one top-k that had to score the
+    whole ``[batch, n_items]`` row because its shape is off the fused
+    menu."""
+    FULL_ROW_FALLBACKS[where] = FULL_ROW_FALLBACKS.get(where, 0) + 1
+    shape = (where, batch, k, n_items)
+    if shape not in _WARNED_FALLBACK_SHAPES:
+        _WARNED_FALLBACK_SHAPES.add(shape)
+        log.warning(
+            "full-score-row top-k fallback at %s: batch=%d k=%d n_items=%d "
+            "(off the fused menu: k<=%d; counted per dispatch in "
+            "FULL_ROW_FALLBACKS, logged once per shape)",
+            where, batch, k, n_items, MAX_FUSED_K,
+        )
+
+
+def fused_topk_plain(
+    q: torch.Tensor, t: torch.Tensor, k: int, limit: int
+) -> torch.Tensor:
+    """The plain PyTorch version of the fused kernel: the full score row,
+    the limit mask, a stable descending sort (equal values keep id order:
+    id ascending) and the first k.  ``torch.topk`` promises no tie order,
+    so it is not used."""
+    # + 0.0 turns -0.0 into +0.0: the kernel's sums start from +0, and the
+    # two zeros must tie by id, not order by sign bit
+    scores = q @ t.T + 0.0
+    if limit < t.shape[0]:
+        scores[:, max(limit, 0):] = float("-inf")
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return torch.stack([vals[:, :k], idx[:, :k].to(torch.float32)])
+
+
+def kernel_geometry(
+    batch: int, n_rows: int, rank: int, sm_count: int
+) -> dict[str, int]:
+    """The CUDA kernel's launch shape: table rows per shared-memory tile
+    (the widest score slab that exists), and N cut into ``n_splits`` slabs
+    of ``rows_per_split`` rows so that about ``CTAS_PER_SM`` pass-1 CTAs
+    land on each SM even for small waves."""
+    rs = rank | 1  # the kernel's odd shared-memory row stride
+    tile_rows = min(
+        MAX_TILE_ROWS, (SMEM_FLOATS - QUERIES_PER_CTA * rank) // rs // 32 * 32
+    )
+    if rank < 1 or tile_rows < 32:
+        raise FusedTopKUnsupported(
+            f"fused top-k: rank {rank} does not fit the kernel's 48 KB of "
+            "shared memory per CTA"
+        )
+    n_qblocks = -(-batch // QUERIES_PER_CTA)
+    n_tiles = -(-n_rows // tile_rows)
+    n_splits = min(n_tiles, max(1, -(-CTAS_PER_SM * sm_count // n_qblocks)))
+    tiles_per_split = -(-n_tiles // n_splits)
+    return {
+        "tile_rows": tile_rows,
+        "rows_per_split": tiles_per_split * tile_rows,
+        "n_splits": -(-n_tiles // tiles_per_split),
+        "n_qblocks": n_qblocks,
+        "n_tiles": n_tiles,
+    }
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def fused_topk_cuda(
+    q: torch.Tensor, t: torch.Tensor, k: int, limit: int, geo: dict[str, int]
+) -> torch.Tensor:
+    """Launch ``csrc/fused_topk.cu`` on the current stream (no sync) and
+    return the packed ``[2, B, k]`` output; raises on any input the kernel
+    does not take and on a refused launch."""
+    for name, x in (("queries", q), ("table", t)):
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_topk_cuda: {name} is on {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"fused_topk_cuda: {name} is {x.dtype}, not float32")
+        if x.dim() != 2 or not x.is_contiguous():
+            raise ValueError(f"fused_topk_cuda: {name} must be 2-D contiguous")
+    if q.device != t.device:
+        raise ValueError(f"fused_topk_cuda: queries on {q.device}, table on {t.device}")
+    b, rank = q.shape
+    n = t.shape[0]
+    if t.shape[1] != rank:
+        raise ValueError(f"fused_topk_cuda: rank {rank} vs table {tuple(t.shape)}")
+    if not fused_supported(b, k, n) or n >= 1 << 24:
+        raise FusedTopKUnsupported(
+            f"fused_topk_cuda: batch={b} k={k} n_items={n} (k in 1..{MAX_FUSED_K}, "
+            "k <= n_items < 2^24)"
+        )
+    fn = _kernels.load("fused_topk")
+    splits = geo["n_splits"]
+    cand_v = torch.empty((b, splits, k), dtype=torch.float32, device=q.device)
+    cand_i = torch.empty((b, splits, k), dtype=torch.int32, device=q.device)
+    out = torch.empty((2, b, k), dtype=torch.float32, device=q.device)
+    err = fn(
+        q.data_ptr(), t.data_ptr(), b, n, rank, k, min(max(limit, 0), n),
+        geo["tile_rows"], geo["rows_per_split"], splits,
+        cand_v.data_ptr(), cand_i.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_topk kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES["fused_topk"] += 1
+    return out
+
+
+def fused_topk_batch(
+    queries,
+    table,
+    k: int,
+    limit: int | None = None,
+    *,
+    name: str = "fused_topk",
+) -> torch.Tensor:
+    """Fused score+top-k: ``queries [B, r] x table [N, r] -> packed
+    [2, B, k]`` f32 (row 0 scores, row 1 global row ids, exact < 2^24).
+
+    ``limit`` is the number of valid table rows (default N): rows at or
+    past it score ``-inf`` and keep their real ids, so they surface only
+    when ``k`` exceeds it.  CUDA tensors launch the kernel (asynchronously,
+    on the current stream); CPU tensors take :func:`fused_topk_plain`.
+
+    Raises :class:`FusedTopKUnsupported` off the menu."""
+    q = torch.as_tensor(queries, dtype=torch.float32)
+    t = torch.as_tensor(table)
+    b, rank = q.shape
+    n_rows = t.shape[0]
+    if not fused_supported(b, k, n_rows):
+        raise FusedTopKUnsupported(
+            f"fused top-k menu: batch={b} k={k} n_items={n_rows} "
+            f"(k must be in 1..{MAX_FUSED_K} and <= n_items)"
+        )
+    limit = n_rows if limit is None else int(limit)
+    if q.device.type == "cuda":
+        geo = kernel_geometry(b, n_rows, rank, _sm_count(q.device))
+        LAST_KERNEL_SHAPES[name] = {
+            "route": "cuda",
+            "rows_tile": min(geo["tile_rows"], n_rows),
+            "batch": b,
+            "batch_block": QUERIES_PER_CTA,
+            "k": k,
+            "n_rows": n_rows,
+            "n_tiles": geo["n_tiles"],
+            "n_splits": geo["n_splits"],
+        }
+        return fused_topk_cuda(q, t, k, limit, geo)
+    if q.device.type != "cpu" or t.device.type != "cpu":
+        raise ValueError(
+            f"fused_topk_batch: queries on {q.device}, table on {t.device}"
+        )
+    LAST_KERNEL_SHAPES[name] = {
+        "route": "plain",
+        "rows_tile": n_rows,
+        "batch": b,
+        "batch_block": b,
+        "k": k,
+        "n_rows": n_rows,
+        "n_tiles": 1,
+        "n_splits": 1,
+    }
+    return fused_topk_plain(q, t.to(torch.float32), k, limit)
+
+
+def full_row_topk(
+    queries: torch.Tensor, table: torch.Tensor, k: int, *, where: str
+) -> torch.Tensor:
+    """Top-k over the whole ``[B, N]`` score row for shapes off the fused
+    menu (``k`` past :data:`MAX_FUSED_K`): the same packed ``[2, B, k]``
+    output and (value desc, id asc) tie rule as :func:`fused_topk_batch`,
+    counted per ``where``.  CPU tensors take :func:`fused_topk_plain`; on
+    CUDA tensors it raises :class:`FusedTopKUnsupported`, since the port
+    has no full-row kernel yet."""
+    b, n_rows = queries.shape[0], table.shape[0]
+    if queries.device.type != "cpu" or table.device.type != "cpu":
+        raise FusedTopKUnsupported(
+            f"{where}: top-k with k={k} over {n_rows} rows is off the fused "
+            f"menu (k <= {MAX_FUSED_K}) and the full-row device top-k is not "
+            f"ported yet; queries on {queries.device}, table on {table.device}"
+        )
+    if not 0 < k <= n_rows:
+        raise FusedTopKUnsupported(f"{where}: k={k} with {n_rows} rows")
+    note_full_row_fallback(b, k, n_rows, where)
+    return fused_topk_plain(queries, table.to(torch.float32), k, n_rows)
+
+
+def fused_topk_roofline(
+    batch: int, rank: int, n_items: int, k: int
+) -> dict[str, float]:
+    """Analytic per-launch HBM bytes and flops of the JAX package's fused
+    kernel (its tiling: the table read once per ``BATCH_BLOCK`` batch
+    block, the queries once per ``TILE_ROWS`` tile, the winners written
+    once)."""
+    nb = -(-batch // BATCH_BLOCK)
+    nt = -(-n_items // TILE_ROWS)
+    bytes_moved = (
+        n_items * rank * 4.0 * nb         # table slabs, once per batch block
+        + batch * rank * 4.0 * nt         # query block re-read per tile
+        + 2.0 * batch * k * 4.0           # packed winners out
+    )
+    flops = 2.0 * batch * n_items * rank  # the score contraction
+    return {"bytes": bytes_moved, "flops": flops}
+
+
+def fused_topk_least_work(
+    batch: int, rank: int, n_items: int, k: int
+) -> dict[str, float]:
+    """The least work of one fused top-k: each input read once, the packed
+    output written once, and the score contraction's flops (the bound a
+    time on the card is held against)."""
+    return {
+        "bytes": 4.0 * (batch * rank + n_items * rank + 2 * batch * k),
+        "flops": 2.0 * batch * n_items * rank,
+    }
