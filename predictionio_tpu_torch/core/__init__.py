@@ -1,1 +1,2 @@
-"""DASE core of the port: engine context, components, engines, persistence."""
+"""DASE core of the port: engine context, components, engines, the train
+workflow, warm starts, persistence."""

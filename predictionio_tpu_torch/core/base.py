@@ -20,7 +20,8 @@ from typing import Any, Generic, Sequence, TypeVar
 
 import torch
 
-from predictionio_tpu_torch.data.storage.config import StorageRuntime
+from predictionio_tpu_torch.data.storage.config import StorageRuntime, get_storage
+from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.device import resolve_device
 
 TD = TypeVar("TD")  # training data
@@ -36,6 +37,10 @@ M = TypeVar("M")  # model
 P, P2L, L = "P", "P2L", "L"  # noqa: E741
 
 
+class SanityCheckError(AssertionError):
+    """A data stage failed its sanity check (controller/SanityCheck.scala:27)."""
+
+
 @dataclass
 class EngineContext:
     """Storage runtime, device, base seed and mode, passed to every DASE
@@ -46,9 +51,21 @@ class EngineContext:
     seed: int = 0
     mode: str = "train"  # train | eval | serving | batchpredict
     device: torch.device | str | None = field(default=None)
+    #: previous generation's persisted per-algorithm models (set by
+    #: ``run_train(warm_start_from=...)``); algorithms that understand the
+    #: shape seed their init from it, everything else trains cold
+    warm_start: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    @property
+    def storage_runtime(self) -> StorageRuntime:
+        return self.storage or get_storage()
+
+    @property
+    def p_event_store(self) -> PEventStore:
+        return PEventStore(self.storage_runtime)
 
     def generator(self, salt: int = 0) -> torch.Generator:
         """A generator on ``device`` seeded from ``seed`` and ``salt``, with
@@ -56,6 +73,13 @@ class EngineContext:
         g = torch.Generator(device=self.device)
         g.manual_seed((self.seed * 0x9E3779B1 + salt) & 0xFFFFFFFF)
         return g
+
+
+def run_sanity_check(obj: Any) -> None:
+    """Invoke obj.sanity_check() when present (train pipeline hook)."""
+    check = getattr(obj, "sanity_check", None)
+    if callable(check):
+        check()
 
 
 class DataSource(abc.ABC, Generic[TD, EI, Q, A]):

@@ -1,13 +1,15 @@
-"""Engine: binds named DASE component classes; deploy-time model loading.
+"""Engine: binds named DASE component classes, trains, loads for deploy.
 
-Mirrors controller/Engine.scala:82 (class maps + params) and
-prepareDeploy:198, as the JAX package's ``core/engine.py`` does.  The train
-and eval pipelines arrive with the training slice.
+Mirrors controller/Engine.scala:82 (class maps + params), the train
+pipeline (Engine.train:623: read -> sanity -> prepare -> sanity -> train per
+algorithm -> sanity) and prepareDeploy:198, as the JAX package's
+``core/engine.py`` does.  The eval pipeline arrives with a later slice.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping, Sequence, Type
 
@@ -17,6 +19,7 @@ from predictionio_tpu_torch.core.base import (
     EngineContext,
     Preparator,
     Serving,
+    run_sanity_check,
 )
 from predictionio_tpu_torch.utils.params import extract_params, params_to_dict
 from predictionio_tpu_torch.utils.registry import (
@@ -132,6 +135,77 @@ class Engine:
         ]
         serving = doer(self.serving_classes[params.serving[0]], params.serving[1])
         return ds, prep, algos, serving
+
+    def train_full(
+        self,
+        ctx: EngineContext,
+        params: EngineParams,
+        skip_sanity_check: bool = False,
+        stop_after_read: bool = False,
+        stop_after_prepare: bool = False,
+        stages: dict[str, float] | None = None,
+    ) -> tuple[list[Algorithm], list[Any]]:
+        """Run the train pipeline; returns (algorithm instances, models).
+
+        The instances that trained are returned so that train-time state
+        reaches make_persistent_model.  Models are empty when stopped early
+        by the flags.  ``stages``, when given, receives the seconds of each
+        DASE stage (``datasource.read``, ``preparator.prepare``,
+        ``algorithm.<name>``) on the host clock."""
+        stages = {} if stages is None else stages
+        ds, prep, algos, _ = self.instantiate(params)
+        t0 = time.perf_counter()
+        td = ds.read_training(ctx)
+        stages["datasource.read"] = time.perf_counter() - t0
+        if not skip_sanity_check:
+            run_sanity_check(td)
+        if stop_after_read:
+            return algos, []
+        t0 = time.perf_counter()
+        pd = prep.prepare(ctx, td)
+        stages["preparator.prepare"] = time.perf_counter() - t0
+        if not skip_sanity_check:
+            run_sanity_check(pd)
+        if stop_after_prepare:
+            return algos, []
+        models = []
+        for (name, _), algo in zip(params.algorithms, algos):
+            t0 = time.perf_counter()
+            model = algo.train(ctx, pd)
+            stages[f"algorithm.{name or type(algo).__name__}"] = (
+                time.perf_counter() - t0
+            )
+            if not skip_sanity_check:
+                run_sanity_check(model)
+            models.append(model)
+        return algos, models
+
+    def train(
+        self,
+        ctx: EngineContext,
+        params: EngineParams,
+        skip_sanity_check: bool = False,
+        stop_after_read: bool = False,
+        stop_after_prepare: bool = False,
+    ) -> list[Any]:
+        return self.train_full(
+            ctx,
+            params,
+            skip_sanity_check=skip_sanity_check,
+            stop_after_read=stop_after_read,
+            stop_after_prepare=stop_after_prepare,
+        )[1]
+
+    def make_persistent_models(
+        self,
+        ctx: EngineContext,
+        params: EngineParams,
+        models: Sequence[Any],
+        algos: Sequence[Algorithm] | None = None,
+    ) -> list[Any]:
+        if algos is None:
+            _, _, algos, _ = self.instantiate(params)
+        return [a.make_persistent_model(ctx, m) for a, m in zip(algos, models)]
 
     def prepare_deploy(
         self,

@@ -1,1 +1,2 @@
-"""Data layer of the port: id vocabularies and storage."""
+"""Data layer of the port: events, id vocabularies, storage and the event
+store facade."""

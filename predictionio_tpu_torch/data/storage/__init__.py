@@ -1,5 +1,6 @@
-"""Storage for the port: engine-instance records and model blobs, in the
-JAX package's sqlite/localfs layouts (see ``config`` for the env vars)."""
+"""Storage for the port: events, app metadata, engine-instance records and
+model blobs, in the JAX package's sqlite/localfs layouts (see ``config``
+for the env vars)."""
 
 from predictionio_tpu_torch.data.storage.base import EngineInstance, Models
 from predictionio_tpu_torch.data.storage.config import (

@@ -4,8 +4,9 @@ The same variables as the JAX package (Storage.scala:158-223): sources from
 ``PIO_STORAGE_SOURCES_<NAME>_*``, repositories from
 ``PIO_STORAGE_REPOSITORIES_<REPO>_{NAME,SOURCE}``; with no configuration at
 all, everything lives in ``$PIO_HOME/pio.sqlite`` (default
-``~/.predictionio_tpu``).  This slice supports the ``sqlite`` source type
-(metadata + models) and ``localfs`` (models only); any other type raises.
+``~/.predictionio_tpu``).  The port supports the ``sqlite`` source type
+(events, metadata and models) and ``localfs`` (models only); any other
+type raises.
 """
 
 from __future__ import annotations
@@ -20,9 +21,14 @@ from typing import Mapping
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.localfs_models import LocalFSModels
 from predictionio_tpu_torch.data.storage.sqlite_backend import (
+    SQLiteAccessKeys,
+    SQLiteApps,
+    SQLiteChannels,
     SQLiteClient,
     SQLiteEngineInstances,
+    SQLiteLEvents,
     SQLiteModels,
+    SQLitePEvents,
     create_tables,
 )
 
@@ -92,6 +98,8 @@ class StorageRuntime:
     def __init__(self, config: StorageConfig | None = None):
         self.config = config or StorageConfig.from_env()
         self._clients: dict[str, SQLiteClient] = {}
+        #: the event DAOs, kept: the row DAO remembers the tables it made
+        self._events: dict[str, object] = {}
         self._lock = threading.RLock()
 
     def _sql_client(self, name: str, props: dict[str, str]) -> SQLiteClient:
@@ -101,7 +109,7 @@ class StorageRuntime:
                 if typ != "sqlite":
                     raise StorageError(
                         f"source {name} has TYPE {typ!r}; this port supports "
-                        "sqlite (metadata, models) and localfs (models)"
+                        "sqlite (events, metadata, models) and localfs (models)"
                     )
                 path = props.get("PATH") or props.get("URL") or ":memory:"
                 client = SQLiteClient(path)
@@ -109,9 +117,37 @@ class StorageRuntime:
                 self._clients[name] = client
             return self._clients[name]
 
-    def engine_instances(self) -> base.EngineInstances:
+    def _meta_client(self) -> SQLiteClient:
         name, props = self.config.source_for("METADATA")
-        return SQLiteEngineInstances(self._sql_client(name, props))
+        return self._sql_client(name, props)
+
+    def apps(self) -> base.Apps:
+        return SQLiteApps(self._meta_client())
+
+    def access_keys(self) -> base.AccessKeys:
+        return SQLiteAccessKeys(self._meta_client())
+
+    def channels(self) -> base.Channels:
+        return SQLiteChannels(self._meta_client())
+
+    def engine_instances(self) -> base.EngineInstances:
+        return SQLiteEngineInstances(self._meta_client())
+
+    def l_events(self) -> base.LEvents:
+        with self._lock:
+            if "l" not in self._events:
+                name, props = self.config.source_for("EVENTDATA")
+                self._events["l"] = SQLiteLEvents(self._sql_client(name, props))
+            return self._events["l"]
+
+    def p_events(self) -> base.PEvents:
+        with self._lock:
+            if "p" not in self._events:
+                name, props = self.config.source_for("EVENTDATA")
+                self._events["p"] = SQLitePEvents(
+                    self._sql_client(name, props), self.l_events()
+                )
+            return self._events["p"]
 
     def models(self) -> base.Models:
         name, props = self.config.source_for("MODELDATA")
@@ -126,6 +162,7 @@ class StorageRuntime:
             for c in self._clients.values():
                 c.close()
             self._clients.clear()
+            self._events.clear()
 
 
 _runtime: StorageRuntime | None = None

@@ -1,9 +1,16 @@
-"""Recommendation engine template, serving half: explicit-feedback ALS.
+"""Recommendation engine template: explicit-feedback ALS.
 
-The port of the JAX package's ``models/recommendation/engine.py`` for a
-persisted model: the same Query/PredictedResult/params classes, the same
-persisted blob (numpy factors + BiMap states, ``make_persistent_model``), so
-a model written by either package deploys on the other.
+The port of the JAX package's ``models/recommendation/engine.py``: the same
+Query/PredictedResult/params classes, the same persisted blob (numpy
+factors + BiMap states, ``make_persistent_model``), so a model written by
+either package deploys on the other.
+
+- Training: ``RatingsDataSource`` reads ``rate``/``buy`` events through the
+  event store (``buy`` = implicit rating ``buy_rating``),
+  ``RatingsPreparator`` builds the BiMap vocabularies and COO arrays, and
+  ``ALSAlgorithm.train`` runs ``ops.als.train_als`` on the context's device
+  (the hand-written accumulator kernels on a card).  ``read_eval`` (k-fold
+  evaluation) arrives with the eval slice.
 
 - Solo queries (``predict``, every HTTP ``/queries.json``) are answered from
   the host numpy replica: the same numpy matvec and ``host_topk`` as the
@@ -14,8 +21,6 @@ a model written by either package deploys on the other.
   on a card, its plain version on the CPU.  A wave whose ``num`` is past
   the fused menu (k > 128) takes ``full_row_topk``: the plain version on
   the CPU, ``FusedTopKUnsupported`` on a card, where it is not ported yet.
-
-Training (``train``) arrives with the training slice and raises here.
 """
 
 from __future__ import annotations
@@ -32,20 +37,18 @@ from predictionio_tpu_torch.core.base import (
     EngineContext,
     FirstServing,
     Preparator,
+    SanityCheckError,
 )
 from predictionio_tpu_torch.core.engine import Engine, engine_factory
+from predictionio_tpu_torch.core.warmstart import align_warm_factors, find_warm_start
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.ops.als import ALSParams, train_als
 from predictionio_tpu_torch.ops.topk import (
     full_row_topk,
     fused_supported,
     fused_topk_batch,
     host_topk,
     host_topk_batch,
-)
-
-_TRAINING_SLICE = (
-    "ALS training (ops/als.py, the two segment-accumulator kernels and "
-    "pio train) is ported in the next slice"
 )
 
 # ---------------------------------------------------------------------------
@@ -77,9 +80,34 @@ class PredictedResult:
         }
 
 
+@dataclass
+class TrainingData:
+    """Raw (user, item, rating) triples as columnar arrays."""
+
+    users: np.ndarray  # object[str]
+    items: np.ndarray  # object[str]
+    ratings: np.ndarray  # float32
+
+    def sanity_check(self):
+        if len(self.ratings) == 0:
+            raise SanityCheckError(
+                "TrainingData has no ratings — check appName/eventNames"
+            )
+
+
+@dataclass
+class PreparedData:
+    """Vocab-mapped COO ratings ready for device staging."""
+
+    user_vocab: BiMap
+    item_vocab: BiMap
+    user_idx: np.ndarray  # int32
+    item_idx: np.ndarray  # int32
+    ratings: np.ndarray  # float32
+
+
 # ---------------------------------------------------------------------------
-# DataSource / Preparator: their params parse a persisted engine instance;
-# reading events is the training slice's work
+# DataSource / Preparator
 # ---------------------------------------------------------------------------
 
 
@@ -112,16 +140,43 @@ class RatingsDataSource(DataSource):
     def __init__(self, params: DataSourceParams | None = None):
         self.params = params or DataSourceParams()
 
-    def read_training(self, ctx: EngineContext):
-        raise NotImplementedError(_TRAINING_SLICE)
+    def _read(self, ctx: EngineContext) -> TrainingData:
+        frame = ctx.p_event_store.find(
+            self.params.app_name,
+            channel_name=self.params.channel_name,
+            entity_type="user",
+            target_entity_type="item",
+            event_names=["rate", "buy"],
+        )
+        ratings = frame.property_column("rating", default=np.nan)
+        # buy events carry no rating property -> fixed implicit rating
+        is_buy = frame.event == "buy"
+        ratings = np.where(is_buy, self.params.buy_rating, ratings)
+        keep = ~np.isnan(ratings)
+        return TrainingData(
+            users=frame.entity_id[keep],
+            items=frame.target_entity_id[keep],
+            ratings=ratings[keep].astype(np.float32),
+        )
+
+    def read_training(self, ctx: EngineContext) -> TrainingData:
+        return self._read(ctx)
 
 
 class RatingsPreparator(Preparator):
     def __init__(self, params: Any = None):
         pass
 
-    def prepare(self, ctx: EngineContext, td):
-        raise NotImplementedError(_TRAINING_SLICE)
+    def prepare(self, ctx: EngineContext, td: TrainingData) -> PreparedData:
+        user_vocab = BiMap.from_keys(td.users)
+        item_vocab = BiMap.from_keys(td.items)
+        return PreparedData(
+            user_vocab=user_vocab,
+            item_vocab=item_vocab,
+            user_idx=user_vocab.to_index_array(td.users).astype(np.int32),
+            item_idx=item_vocab.to_index_array(td.items).astype(np.int32),
+            ratings=td.ratings,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +212,10 @@ class ALSModel:
     item_factors: torch.Tensor  # [num_items, rank]
     user_vocab: BiMap
     item_vocab: BiMap
+
+    def sanity_check(self):
+        if not torch.isfinite(self.user_factors).all():
+            raise SanityCheckError("ALS user factors contain non-finite values")
 
     @classmethod
     def from_jax_params(
@@ -195,8 +254,8 @@ class ALSModel:
 
 
 class ALSAlgorithm(Algorithm):
-    """Explicit-feedback ALS (reference ALSAlgorithm.scala:97 predict via
-    recommendProducts top-N)."""
+    """Explicit-feedback ALS (reference ALSAlgorithm.scala:52 train, :97
+    predict via recommendProducts top-N)."""
 
     flavor = "P2L"
     params_class = ALSAlgorithmParams
@@ -209,11 +268,62 @@ class ALSAlgorithm(Algorithm):
     def __init__(self, params: ALSAlgorithmParams | None = None):
         self.params = params or ALSAlgorithmParams()
 
-    def train(self, ctx: EngineContext, pd) -> ALSModel:
-        raise NotImplementedError(_TRAINING_SLICE)
+    def _als_params(self) -> ALSParams:
+        p = self.params
+        return ALSParams(
+            rank=p.rank,
+            num_iterations=p.num_iterations,
+            reg=p.reg,
+            seed=p.seed,
+            chunk_size=p.chunk_size,
+            implicit_prefs=False,
+        )
 
-    def _warm_start_init(self, ctx: EngineContext, pd):
-        raise NotImplementedError(_TRAINING_SLICE)
+    def train(self, ctx: EngineContext, pd: PreparedData) -> ALSModel:
+        """Factors on ``ctx.device``: the accumulator kernels on a card."""
+        state = train_als(
+            pd.user_idx,
+            pd.item_idx,
+            pd.ratings,
+            num_users=len(pd.user_vocab),
+            num_items=len(pd.item_vocab),
+            params=self._als_params(),
+            device=ctx.device,
+            init_factors=self._warm_start_init(ctx, pd),
+        )
+        return ALSModel(
+            user_factors=state.user_factors,
+            item_factors=state.item_factors,
+            user_vocab=pd.user_vocab,
+            item_vocab=pd.item_vocab,
+        )
+
+    def _warm_start_init(
+        self, ctx: EngineContext, pd: PreparedData
+    ) -> tuple[np.ndarray, np.ndarray] | None:
+        """Previous-generation factors mapped through the old -> new vocab:
+        entities present in both generations keep their trained rows, new
+        ones get the standard random init (numpy, seeded with the params'
+        seed, as the JAX package draws it).  Anything unusable (another
+        rank, a foreign persisted shape) degrades to a cold start."""
+        prev = find_warm_start(
+            ctx, ("user_factors", "item_factors", "user_vocab", "item_vocab")
+        )
+        if prev is None:
+            return None
+        rank = self.params.rank
+        Uw = np.asarray(prev["user_factors"], np.float32)
+        Vw = np.asarray(prev["item_factors"], np.float32)
+        if Uw.ndim != 2 or Uw.shape[1] != rank or Vw.shape[1] != rank:
+            return None
+        rng = np.random.default_rng(self.params.seed)
+        U0 = align_warm_factors(
+            Uw, BiMap.from_state(prev["user_vocab"]), pd.user_vocab, rng
+        )
+        V0 = align_warm_factors(
+            Vw, BiMap.from_state(prev["item_vocab"]), pd.item_vocab, rng
+        )
+        return U0, V0
 
     def _sharded_topk(self, model: ALSModel, uidx: np.ndarray, k: int):
         raise NotImplementedError(

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point, compiled by
-``nvcc`` for ``sm_90a`` into a shared library and called through ``ctypes``
-(no PyTorch headers, so a build takes seconds).  Libraries are built at
-first use, named by a hash of the source and the flags, into
+Each kernel is a plain C entry point in a ``csrc/*.cu`` file (one file may
+hold several), compiled by ``nvcc`` for ``sm_90a`` into one shared library
+per file and called through ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  Libraries are built at first use, named by a hash of the source
+and the flags, into
 :func:`build_dir`: ``$PIO_KERNEL_BUILD_DIR`` when set, else the git-ignored
 ``build/kernels/`` when the package runs from a checkout, else a per-user
 cache.  A failed build raises :class:`KernelBuildError` with the
@@ -38,6 +39,18 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "fused_topk": (
         "fused_topk.cu", "pio_fused_topk",
         [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    # seg, block_map, oth, wrv, factors, n_tiles, k, width, bf16,
+    # out, carry, carry_seg, stream
+    "als_fused_accum": (
+        "als_accum.cu", "pio_als_fused_accum",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    # seg, block_map, rows, n_tiles, width, bf16, out, carry, carry_seg,
+    # stream
+    "als_segment_accum": (
+        "als_accum.cu", "pio_als_segment_accum",
+        [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     ),
 }
 
@@ -75,37 +88,40 @@ def build_dir() -> Path:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
+    """The shared library that holds kernel ``name`` (one per source)."""
+    source = KERNELS[name][0]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return build_dir() / f"{name}-{digest}.so"
+    return build_dir() / f"{Path(source).stem}-{digest}.so"
 
 
 def build_log(name: str) -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) from
-    the build of ``name``, or "" when it was not built by this checkout."""
+    the build of the source of ``name``, or "" when it was not built by
+    this checkout."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 def build(names=None) -> dict[str, float]:
-    """Compile every named kernel (default: all) whose library is missing,
-    one ``nvcc`` process per source, all started together.  Returns the
-    build seconds of each kernel compiled now."""
+    """Compile the source of every named kernel (default: all) whose library
+    is missing, one ``nvcc`` process per source, all started together.
+    Returns the build seconds of each source compiled now."""
     names = list(KERNELS if names is None else names)
     build_dir().mkdir(parents=True, exist_ok=True)
     started = {}
     for name in names:
+        source = KERNELS[name][0]
         out = library_path(name)
-        if out.exists():
+        if source in started or out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-        started[name] = (proc, tmp, out, time.perf_counter())
+        started[source] = (proc, tmp, out, time.perf_counter())
     seconds, failures = {}, []
     for name, (proc, tmp, out, t0) in started.items():
         text, _ = proc.communicate()

@@ -78,6 +78,9 @@ def test_scan_sees_the_whole_package():
         "predictionio_tpu_torch/ops/topk.py",
         "predictionio_tpu_torch/server/prediction_server.py",
         "predictionio_tpu_torch/models/recommendation/engine.py",
+        "predictionio_tpu_torch/ops/als.py",
+        "predictionio_tpu_torch/ops/als_accum.py",
+        "predictionio_tpu_torch/core/workflow.py",
     ):
         assert must in rel
     assert _forbidden("jax.numpy") and _forbidden("predictionio_tpu.ops.topk")
@@ -89,7 +92,9 @@ def test_kernel_source_ships_as_package_data():
     assert "csrc/*.cu" in cfg["tool"]["setuptools"]["package-data"][
         "predictionio_tpu_torch"
     ]
-    assert (_kernels.CSRC / "fused_topk.cu").is_file()
+    for source in {src for src, _, _ in _kernels.KERNELS.values()}:
+        assert (_kernels.CSRC / source).is_file()
+    assert _kernels.KERNELS["als_fused_accum"][0] == "als_accum.cu"
 
 
 @pytest.fixture()

@@ -401,9 +401,17 @@ def test_from_jax_params_round_trip(trained):
 
 
 def test_training_is_the_next_slice():
-    algo = pt_rec.ALSAlgorithm()
+    # the training slice has landed: train() returns a model on the
+    # context's device; factor-sharded serving still waits for its slice
+    algo = pt_rec.ALSAlgorithm(pt_rec.ALSAlgorithmParams(rank=3, num_iterations=2))
     ctx = EngineContext(device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        algo.train(ctx, None)
+    td = pt_rec.TrainingData(
+        users=np.array(["u0", "u1", "u1"], object),
+        items=np.array(["i0", "i0", "i1"], object),
+        ratings=np.array([4.0, 3.0, 5.0], np.float32),
+    )
+    model = algo.train(ctx, pt_rec.RatingsPreparator().prepare(ctx, td))
+    assert model.user_factors.shape == (2, 3)
+    assert model.item_factors.device == ctx.device
     with pytest.raises(NotImplementedError):
         algo._sharded_topk(None, np.zeros(1, np.int32), 1)
