@@ -12,7 +12,8 @@ calls:
 
 - serving at the ML-20M shape: ``run_batch_predict`` over 4,096 queries
   (one fused top-k wave) and a threaded prediction server answering solo
-  ``POST /queries.json`` requests;
+  ``POST /queries.json`` requests; then a 4,096-query wave with num=200,
+  past the fused menu, answered on the card by the full-row route;
 - ``pio app new`` -> ``pio import`` -> ``pio train`` -> ``pio batchpredict``
   and solo queries on an event store at the ML-100K shape (the CLI verbs
   of ``predictionio_tpu_torch.tools.cli``), with the card's factors held
@@ -133,6 +134,13 @@ def make_inputs(kind: str, b: int, n: int, r: int, rng, dup_rows=()):
     elif kind == "normal":
         q = rng.standard_normal((b, r))
         t = rng.standard_normal((n, r))
+    elif kind == "rising":
+        # score of row j = q[:, 0] * j, exact and rising along the table:
+        # every row beats the running k-th entry, every queue overflows
+        q = np.zeros((b, r))
+        q[:, 0] = rng.integers(1, 9, b) / 8.0
+        t = np.zeros((n, r))
+        t[:, 0] = np.arange(n)
     else:  # all-equal scores
         q = np.ones((b, r))
         t = np.zeros((n, r))
@@ -261,25 +269,116 @@ def kernel_phase() -> tuple[list, list]:
          "limit": 20_000},
         {"name": "limit < k", "kind": "exact", "shape": [64, 3000, 8, 32],
          "limit": 20},
+        # a rank past 32 and k at the menu's top; k and r neither a multiple
+        # of 32 nor of 4; scores that rise along the table (queue overflow)
+        {"name": "exact r64 k128", "kind": "exact", "shape": [1024, ML20M_ITEMS, 64, 128]},
+        {"name": "exact r33 k100", "kind": "exact", "shape": [512, ML20M_ITEMS, 33, 100]},
+        {"name": "exact r130 k64", "kind": "exact", "shape": [256, ML20M_ITEMS, 130, 64]},
+        {"name": "rising k128", "kind": "rising", "shape": [WAVE, ML20M_ITEMS, 10, 128]},
+        {"name": "rising k1", "kind": "rising", "shape": [512, ML20M_ITEMS, 10, 1]},
+        # one block of 32 queries: every queue is due after every tile
+        {"name": "rising 32 k64", "kind": "rising", "shape": [32, ML20M_ITEMS, 10, 64]},
     ]
     results = [check_case(c, rng) for c in cases]
     emit({"phase": "kernel_vs_plain", "all_passed": True, "cases": results})
+    # the main and wide shapes, two that split the wide one's time between
+    # scoring (r=32, k=10) and selection (r=10, k=128), and the two smallest
+    # device waves (512 and 1,024 queries: blocks of 8 and of 32 queries)
     timings = [
         time_case(b, n, r, k, rng)
         for b, n, r, k in (
             (512, ML20M_ITEMS, 10, 10),
+            (1024, ML20M_ITEMS, 10, 10),
             (WAVE, ML20M_ITEMS, 10, 10),
             (WAVE, ML20M_ITEMS, 32, 128),
+            (WAVE, ML20M_ITEMS, 32, 10),
+            (WAVE, ML20M_ITEMS, 10, 128),
         )
     ]
     emit({"phase": "kernel_timing", "timings": timings})
+    emit({"phase": "kernel_launch_shapes", "timings": launch_shape_sweep(rng)})
+    emit({"phase": "kernel_breakdown", "shapes": kernel_breakdown(rng)})
     return results, timings
 
 
-def write_model(storage, home: Path) -> tuple[str, np.ndarray, np.ndarray]:
+def kernel_breakdown(rng) -> list:
+    """Where the fused top-k's time goes at the smallest device wave, the
+    main shape and the wide one: device time per kernel (pass 1, pass 2)
+    from ``torch.profiler`` over 20 launches, and the host time per call
+    of ``fused_topk_batch`` (geometry, allocation, launch) without a sync."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from predictionio_tpu_torch.ops.topk import fused_topk_batch
+
+    out = []
+    for b, r, k in ((512, 10, 10), (WAVE, 10, 10), (WAVE, 32, 128)):
+        q, t = make_inputs("normal", b, ML20M_ITEMS, r, rng)
+        for _ in range(3):
+            fused_topk_batch(q, t, k, name="chip_smoke")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fused_topk_batch(q, t, k, name="chip_smoke")
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fused_topk_batch(q, t, k, name="chip_smoke")
+            torch.cuda.synchronize()
+        device_us = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = e.self_cuda_time_total
+                device_us[e.key] = device_us.get(e.key, 0.0) + us / 20
+        out.append({"shape": [b, ML20M_ITEMS, r, k], "host_us_per_call": host_us,
+                    "device_us_per_call": device_us})
+    return out
+
+
+def launch_shape_sweep(rng) -> list:
+    """Variants of the fused top-k's launch shape, timed beside the one
+    ``fused_topk_batch`` picks (not on the main path): each wave size with
+    blocks of 8 and of 32 queries, and N cut for 2, 4 or 8 pass-1 CTAs per
+    SM.  ``topk.SMALL_WAVE``, ``topk.WIDE_K`` and ``topk.CTAS_PER_SM`` are
+    read from it."""
+    from predictionio_tpu_torch.ops import topk
+
+    out = []
+    for b, r, k in ((512, 10, 10), (1024, 10, 10), (1536, 10, 10),
+                    (WAVE, 10, 10), (WAVE, 10, 64), (WAVE, 10, 128),
+                    (WAVE, 32, 128)):
+        q, t = make_inputs("normal", b, ML20M_ITEMS, r, rng)
+        picked = topk.cuda_geometry(b, ML20M_ITEMS, r, k, q.device)
+        sms = topk.card_limits(q.device).sm_count
+        for qpc in topk.QUERY_BLOCKS:
+            geo = topk.cuda_geometry(b, ML20M_ITEMS, r, k, q.device, qpc=qpc)
+            for per_sm in (2, 4, 8):
+                splits = min(geo["n_tiles"], max(1, per_sm * sms // geo["n_qblocks"]))
+                tiles = -(-geo["n_tiles"] // splits)
+                g = dict(geo, n_splits=-(-geo["n_tiles"] // tiles),
+                         rows_per_split=tiles * topk.TILE_ROWS_CUDA)
+                out.append({
+                    "shape": [b, ML20M_ITEMS, r, k],
+                    "queries_per_cta": qpc,
+                    "ctas_per_sm_aimed": per_sm,
+                    "n_splits": g["n_splits"],
+                    "picked": (qpc, g["n_splits"])
+                    == (picked["queries_per_cta"], picked["n_splits"]),
+                    "ms": time_ms(lambda: topk.fused_topk_cuda(q, t, k, ML20M_ITEMS, g)),
+                })
+    return out
+
+
+def write_model(storage, home: Path, exact: bool = False
+                ) -> tuple[str, np.ndarray, np.ndarray]:
     """A seeded ALS model at the ML-20M shape, persisted as a COMPLETED
     engine instance through the port's storage and save_models (factors as
-    ops/als.py initializes them: abs(normal) / sqrt(rank))."""
+    ops/als.py initializes them: abs(normal) / sqrt(rank); or, ``exact``,
+    integers in [1, 8] over 8, whose scores are exact in fp32 and tie
+    often)."""
     from predictionio_tpu_torch.core.engine import EngineParams
     from predictionio_tpu_torch.core.persistence import save_models
     from predictionio_tpu_torch.data.storage.base import EngineInstance
@@ -295,6 +394,9 @@ def write_model(storage, home: Path) -> tuple[str, np.ndarray, np.ndarray]:
     V = (np.abs(rng.standard_normal((ML20M_ITEMS, RANK))) / np.sqrt(RANK)).astype(
         np.float32
     )
+    if exact:
+        U = (rng.integers(1, 9, U.shape) / 8.0).astype(np.float32)
+        V = (rng.integers(1, 9, V.shape) / 8.0).astype(np.float32)
     blob = {
         "user_factors": U,
         "item_factors": V,
@@ -478,6 +580,99 @@ def main_path_phase() -> dict:
     return out
 
 
+OFF_MENU_NUM = 200  # past the fused menu's k <= 128
+
+
+def off_menu_phase() -> dict:
+    """A 4,096-query wave with num=200 through ``run_batch_predict`` on a
+    CUDA model at the ML-20M shape: answered on the card by the full-row
+    route (score row + stable sort, a slice of queries at a time), counted
+    in ``FULL_ROW_FALLBACKS``, no kernel launched, and the fused kernel's
+    plain version not called.  Exact factors, so 512 sampled rows must
+    equal ``fused_topk_plain`` on the CPU, ids and scores bit for bit.
+    Then the route alone on 512 random-normal queries: within rtol 1e-5 of
+    the plain version on the CPU (TF32 products would miss by ~1e-3)."""
+    from predictionio_tpu_torch.core.batch_predict import run_batch_predict
+    from predictionio_tpu_torch.data.storage.config import (
+        StorageConfig,
+        StorageRuntime,
+    )
+    from predictionio_tpu_torch.ops import topk
+
+    out: dict = {"phase": "off_menu_wave", "queries": WAVE, "num": OFF_MENU_NUM}
+    with tempfile.TemporaryDirectory() as tmp:
+        home = Path(tmp) / "pio_home"
+        storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(home)}))
+        _, U, V = write_model(storage, home, exact=True)
+        users = np.random.default_rng(SEED + 4).integers(0, ML20M_USERS, WAVE)
+        qfile, pfile = Path(tmp) / "queries.jsonl", Path(tmp) / "preds.jsonl"
+        qfile.write_text("".join(
+            json.dumps({"user": f"u{u}", "num": OFF_MENU_NUM}) + "\n" for u in users
+        ))
+        before = topk.FULL_ROW_FALLBACKS.get("als.batch_topk", 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plain = topk.fused_topk_plain
+        topk.fused_topk_plain = None  # the route must not call it
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            n = run_batch_predict("recommendation", qfile, pfile, storage=storage)
+            torch.cuda.synchronize()
+        finally:
+            topk.fused_topk_plain = plain
+        out["wall_s"] = time.perf_counter() - t0
+        launches = read_launches()
+        out["peak_bytes_over_base"] = torch.cuda.max_memory_allocated() - base
+        per_slice = topk.full_row_slices(WAVE, ML20M_ITEMS)
+        out["queries_per_slice"] = per_slice
+        out["peak_bytes_per_score"] = out["peak_bytes_over_base"] / (
+            per_slice * ML20M_ITEMS
+        )
+        out["full_row_fallbacks"] = (
+            topk.FULL_ROW_FALLBACKS.get("als.batch_topk", 0) - before
+        )
+        storage.close()
+        assert n == WAVE, n
+        assert out["full_row_fallbacks"] == 1, out
+        assert not any(launches.values()), launches
+        lines = [json.loads(x) for x in pfile.read_text().splitlines()]
+    rows = np.random.default_rng(SEED + 5).choice(WAVE, 512, replace=False)
+    want = topk.fused_topk_plain(
+        torch.from_numpy(U[users[rows]]), torch.from_numpy(V), OFF_MENU_NUM,
+        ML20M_ITEMS,
+    ).numpy()
+    for j, row in enumerate(rows):
+        got = lines[row]["prediction"]["itemScores"]
+        assert [x["item"] for x in got] == [f"i{int(i)}" for i in want[1, j]], row
+        assert [x["score"] for x in got] == [float(s) for s in want[0, j]], row
+    out.update(rows_checked_vs_cpu_plain=len(rows), launches=launches)
+    # the route alone on random-normal inputs
+    rng = np.random.default_rng(SEED + 6)
+    qn = rng.standard_normal((512, RANK)).astype(np.float32)
+    want = topk.fused_topk_plain(
+        torch.from_numpy(qn), torch.from_numpy(V), OFF_MENU_NUM + 1, ML20M_ITEMS
+    ).numpy()
+    got = topk.full_row_topk(
+        torch.from_numpy(qn).cuda(), torch.from_numpy(V).cuda(), OFF_MENU_NUM,
+        where="chip_smoke.normal",
+    ).cpu().numpy()
+    err = np.abs(got[0] - want[0, :, :OFF_MENU_NUM])
+    if (err > RTOL * np.abs(want[0, :, :OFF_MENU_NUM]) + 1e-6).any():
+        raise AssertionError(f"off-menu route on normal inputs: error {err.max()}")
+    v = want[0]
+    tie = np.abs(np.diff(v, axis=1)) <= RTOL * np.abs(v[:, 1:]) + 1e-6
+    near = np.zeros(v.shape, bool)
+    near[:, 1:] |= tie
+    near[:, :-1] |= tie
+    swaps = got[1] != want[1, :, :OFF_MENU_NUM]
+    if (swaps & ~near[:, :OFF_MENU_NUM]).any():
+        raise AssertionError("off-menu route on normal inputs: an id differs without a tie")
+    out.update(normal_max_abs_err=float(err.max()), normal_near_tie_id_swaps=int(swaps.sum()))
+    return out
+
+
 # -- the ALS accumulators -----------------------------------------------------
 
 
@@ -534,8 +729,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 
 
 def als_kernel_phase() -> list:
-    """Both ALS kernels against their plain versions: ranks 6, 10, 17 and
-    32, explicit and implicit, "highest" and "bf16", on a stream with an
+    """Both ALS kernels against their plain versions: ranks 1, 2, 6, 10, 11,
+    17 and 32, explicit and implicit, "highest" and "bf16", on a stream with an
     all-padding block and a segment over more than 3 tiles (the chunked
     one cut into 2-tile chunks, so blocks cross chunks); bitwise on exact
     inputs, within ALS_RTOL on random-normal ones, and a repeat run gives
@@ -548,7 +743,7 @@ def als_kernel_phase() -> list:
     n_seg_pad, n_oth, n, hot = 512, 300, 9000, 3500
     cases = []
     for kind in ("exact", "normal"):
-        for k in (6, 10, 17, 32):
+        for k in (1, 2, 6, 10, 11, 17, 32):
             seg, oth, rating, factors = als_stream(kind, n, n_seg_pad, n_oth, k, rng, hot)
             st = als._stage(seg, oth, rating, n_seg_pad, "fused", cuda)
             f = torch.from_numpy(factors).cuda()
@@ -878,10 +1073,26 @@ def fused_timing(staged: dict, other: torch.Tensor, p) -> dict:
         plan.padded_len, p.rank, plan.n_blocks * 128, other.shape[0], valid
     )
     bytes_s, ops_s = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / FP32_FLOPS_PER_S
+    # the same stream at rank 32 (random factors): a kernel bound by its
+    # stream's bytes barely slows; one bound by its arithmetic slows ~9x
+    wide = torch.from_numpy(
+        np.random.default_rng(SEED + 6).standard_normal((other.shape[0], 32))
+        .astype(np.float32)
+    ).to(other.device)
+    wide_args = (*args[:3], wide, plan.n_blocks)
+    wide_work = als_accum.als_accum_least_work(
+        plan.padded_len, 32, plan.n_blocks * 128, other.shape[0], valid
+    )
     return {
         "shape": [plan.padded_len, p.rank, plan.n_blocks * 128, other.shape[0]],
         "valid_rows": valid,
         "max_abs_err": err,
+        "rank32_ms": time_ms(
+            lambda: als_accum.segment_stats_fused(*wide_args, p.pallas_precision),
+            launches=3, repeats=5,
+        ),
+        "rank32_bound_ms": 1e3 * max(wide_work["bytes"] / HBM_BYTES_PER_S,
+                                     wide_work["flops"] / FP32_FLOPS_PER_S),
         "ms": time_ms(lambda: als_accum.segment_stats_fused(*args, p.pallas_precision)),
         "plain_ms": time_ms(
             lambda: als_accum.segment_stats_fused_plain(*args, p.pallas_precision),
@@ -1130,6 +1341,7 @@ def main() -> int:
     als_cases = als_kernel_phase()
     main_path = main_path_phase()
     emit(main_path)
+    emit(off_menu_phase())
     cli_train = train_cli_phase()
     emit(cli_train)
     ml20m, fused_t, chunk_t = train_ml20m_phase()
@@ -1137,6 +1349,8 @@ def main() -> int:
     emit({"phase": "als_kernel_timing", "als_fused_accum": fused_t,
           "als_segment_accum": chunk_t})
     main_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 10, 10])
+    wide_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 32, 128])
+    small_t = next(t for t in timings if t["shape"] == [512, ML20M_ITEMS, 10, 10])
     normal = [c for c in cases if c["kind"] == "normal"]
 
     def als_row(name, replaces, launches, t, **extra):
@@ -1176,6 +1390,17 @@ def main() -> int:
                     "bound_by": main_t["bound_by"],
                     "library_ms": main_t["library_ms"],
                     "shape": main_t["shape"],
+                    "wide_shape": wide_t["shape"],
+                    "wide_ms": wide_t["kernel_ms"],
+                    "wide_plain_ms": wide_t["plain_ms"],
+                    "wide_library_ms": wide_t["library_ms"],
+                    "wide_bound_ms": wide_t["bound_ms"],
+                    # the smallest device wave (512 queries)
+                    "small_shape": small_t["shape"],
+                    "small_ms": small_t["kernel_ms"],
+                    "small_plain_ms": small_t["plain_ms"],
+                    "small_library_ms": small_t["library_ms"],
+                    "small_bound_ms": small_t["bound_ms"],
                 },
                 # launches: the ML-100K `pio train` through the CLI; times at
                 # the ML-20M user half-step, rank 10; no single PyTorch call

@@ -24,26 +24,43 @@
 // row written once; the arithmetic is ~3k^2 fp32 operations per row, below the
 // H100's operations-per-byte balance at every rank <= 32.  So it is bound by
 // bytes; the opposite factor table (at most a few MB) stays in the 50 MB L2.
+// Tensor cores are not used: at k=10 the per-segment Gram is 10 x 10, so a
+// 16 x 8 MMA tile is mostly padding, and "bf16" rounds each formed product,
+// which an MMA over bf16 operands cannot reproduce.
 //
-// What the design does about that (simple and deterministic, no float atomics):
-//  * Pass 1: one CTA per (tile, 128-column slab), one thread per column.  The
-//    CTA stages 256 rows at a time in shared memory (segment ids, weights and,
-//    for the fused kernel, the gathered factor rows) and every thread walks the
-//    rows in order with a running sum in a register.  A run that starts and
-//    ends inside the tile is a whole segment: it is added to the output
-//    directly.  The tile's first run (it may continue from the tile before)
-//    and its run at the last row (it may continue into the next tile) go to a
-//    carry buffer [n_tiles, 2, width] instead, their global segment ids to
-//    carry_seg [n_tiles, 2] (-1: no such run).
-//  * Pass 2: one CTA per (carry entry, slab).  The first entry of each carried
-//    segment sums that segment's entries in tile order and adds the sum to the
-//    output.  A hot segment spread over many tiles is summed by many pass-1
-//    CTAs in parallel and only its carries are summed in turn.
+// Both kernels share the run/carry structure, with no float atomics:
+//  * Pass 1: a run of a segment that starts and ends inside a tile is a whole
+//    segment and is written to the output directly.  The tile's first run (it
+//    may continue from the tile before) and its run at the last row (it may
+//    continue into the next tile) go to a carry buffer [n_tiles, 2, width]
+//    instead, their global segment ids to carry_seg [n_tiles, 2] (-1: none).
+//  * Pass 2 (reduce_carries): the first entry of each carried segment sums that
+//    segment's entries in tile order and adds the sum to the output.
 //  * Every segment has one writer per launch and every sum has a fixed order,
 //    so two runs give the same bits.  Each row value is formed with
 //    __fmul_rn/__fadd_rn (never contracted into an FMA), as the plain version
-//    forms it: (v[a]*v[b])*w, v[a]*rhs, valid; in "bf16" it is rounded to
-//    bf16 (round to nearest even) before it is added.
+//    forms it: (v[a]*v[b])*w, v[a]*rhs, valid; in "bf16" it is rounded to bf16
+//    (round to nearest even) before it is added.
+//
+// Pass 1 of the fused kernel (accum_fused), one CTA per tile for all columns:
+//  * Form each distinct value once.  With u = [v, 1] (length k+1), every value
+//    of the row is u[a]*u[b] times a weight, a <= b <= k: w for b < k, rhs for
+//    b = k (v[a]*1*rhs), and the count at a = b = k; that is the upper
+//    triangle of u's Gram, k(k+1)/2 + k + 1 values (66 at k=10, 561 at k=32,
+//    against 128 and 1,152 row columns).  The mirror column b*k+a is written
+//    from the same register: (v[b]*v[a])*w and (v[a]*v[b])*w are the same bits.
+//  * Every thread does useful work.  u is cut into groups of 4; a thread owns
+//    one 4x4 block (ga <= gb) of the triangle, 16 sums in registers, and per
+//    row reads 4 entries of u for its rows and 4 for its columns with two
+//    16-byte shared loads (the weights come 4 rows at a time).  The tile's
+//    1,024 rows are cut into row groups, one set of block threads each; a row
+//    group's first and last runs are combined with their neighbours' in row
+//    group order after the walk, so every segment's sum still has one fixed
+//    order.
+//  * Double-buffered staging with cp.async: 256 rows at a time (their segment
+//    ids, weights and gathered factor rows, one or a few cp.async per row,
+//    16 bytes where the rank allows it; Hopper's TMA has no row gather) are in
+//    flight while the 256 before them are summed.  No per-element division.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (predictionio_tpu_torch/ops/_kernels.py).
@@ -57,40 +74,35 @@ namespace {
 
 constexpr int kTile = 1024;  // rows per tile: T in ops/als_accum.py
 constexpr int kSeg = 128;    // segments per block: S in ops/als_accum.py
-constexpr int kSlab = 128;   // columns per CTA, one thread each
+constexpr int kSlab = 128;   // columns per CTA of the chunk kernel, one each
 constexpr int kPiece = 256;  // rows staged in shared memory at a time
 constexpr int kMaxRank = 32;
+// the fused kernel: threads per CTA at most, row groups at most
+constexpr int kFusedThreads = 256;
+constexpr int kMaxRowGroups = 64;
+constexpr int kAbsent = -2;  // a row group whose first run is also its last
+constexpr int kNoRun = -4;
+static_assert(kPiece == 256, "a piece's four words are 4 x 64 chunks of 4 rows");
 
 __device__ __forceinline__ float round_row(float x, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
-// Pass 1.  kBuild: the fused kernel (rows made from oth, wrv and factors);
-// else rows are read from `rows` [n_tiles * 1024, width].
-template <bool kBuild>
+// -- the chunk kernel's pass 1 ----------------------------------------------
+
+// One CTA per (tile, 128-column slab), one thread per column; rows are read
+// from `rows` [n_tiles * 1024, width].
 __global__ void __launch_bounds__(kSlab)
 accum_tiles(const int* __restrict__ seg, const int* __restrict__ block_map,
-            const int* __restrict__ oth, const float* __restrict__ wrv,
-            const float* __restrict__ factors, const float* __restrict__ rows,
-            int k, int width, int bf16, float* __restrict__ out,
-            float* __restrict__ carry, int* __restrict__ carry_seg) {
-  extern __shared__ float smem[];
-  int* sseg = reinterpret_cast<int*>(smem);  // [kPiece]
-  float* sw = smem + kPiece;                 // [kPiece] w
-  float* srhs = sw + kPiece;                 // [kPiece] rhs
-  float* sval = srhs + kPiece;               // [kPiece] valid
-  float* sv = sval + kPiece;                 // [kPiece][k] gathered factors
+            const float* __restrict__ rows, int width, int bf16,
+            float* __restrict__ out, float* __restrict__ carry,
+            int* __restrict__ carry_seg) {
+  __shared__ int sseg[kPiece];
 
   const int t = blockIdx.x;
   const int c = blockIdx.y * kSlab + threadIdx.x;
   const size_t row0 = static_cast<size_t>(t) * kTile;
   const int blk = block_map[t];
-
-  // what column c takes from a built row
-  const int kk = k * k;
-  const int kind = c < kk ? 0 : (c < kk + k ? 1 : (c == kk + k ? 2 : 3));
-  const int a = kind == 0 ? c / k : (kind == 1 ? c - kk : 0);
-  const int b = kind == 0 ? c - (c / k) * k : 0;
 
   int cur = -1;    // segment of the current run (-1: none, or padding)
   int start = 0;   // row of the tile where the current run began
@@ -115,22 +127,6 @@ accum_tiles(const int* __restrict__ seg, const int* __restrict__ block_map,
     __syncthreads();  // the previous piece is consumed
     for (int i = threadIdx.x; i < kPiece; i += kSlab) {
       sseg[i] = seg[row0 + base + i];
-      if (kBuild) {
-        const size_t wo = static_cast<size_t>(t) * 3 * kTile + base + i;
-        sw[i] = wrv[wo];
-        srhs[i] = wrv[wo + kTile];
-        sval[i] = wrv[wo + 2 * kTile];
-      }
-    }
-    if (kBuild) {
-      __syncthreads();  // sseg is written
-      for (int i = threadIdx.x; i < kPiece * k; i += kSlab) {
-        const int r = i / k;
-        sv[i] = sseg[r] >= 0
-                    ? factors[static_cast<size_t>(oth[row0 + base + r]) * k +
-                              (i - r * k)]
-                    : 0.f;
-      }
     }
     __syncthreads();
     if (base == 0) first = sseg[0];
@@ -143,20 +139,7 @@ accum_tiles(const int* __restrict__ seg, const int* __restrict__ block_map,
         acc = 0.f;
       }
       if (s < 0) continue;
-      float x;
-      if (kBuild) {
-        const float* v = sv + r * k;
-        if (kind == 0) {
-          x = __fmul_rn(__fmul_rn(v[a], v[b]), sw[r]);
-        } else if (kind == 1) {
-          x = __fmul_rn(v[a], srhs[r]);
-        } else {
-          x = kind == 2 ? sval[r] : 0.f;
-        }
-      } else {
-        x = rows[(row0 + base + r) * width + c];
-      }
-      acc = __fadd_rn(acc, round_row(x, bf16));
+      acc = __fadd_rn(acc, round_row(rows[(row0 + base + r) * width + c], bf16));
     }
   }
   finish(true);
@@ -166,9 +149,11 @@ accum_tiles(const int* __restrict__ seg, const int* __restrict__ block_map,
   }
 }
 
-// Pass 2: entry e = 2*tile + slot of carry_seg / carry.  The entries of one
-// segment follow each other in tile order, with an empty slot 1 between two
-// where a tile holds that segment alone.
+// -- pass 2, shared by both kernels -----------------------------------------
+
+// Entry e = 2*tile + slot of carry_seg / carry.  The entries of one segment
+// follow each other in tile order, with an empty slot 1 between two where a
+// tile holds that segment alone.
 __global__ void __launch_bounds__(kSlab)
 reduce_carries(const int* __restrict__ carry_seg,
                const float* __restrict__ carry, int n_entries, int width,
@@ -202,29 +187,390 @@ reduce_carries(const int* __restrict__ carry_seg,
   *o = __fadd_rn(*o, sum);
 }
 
-template <bool kBuild>
-int launch(const int* seg, const int* block_map, const int* oth,
-           const float* wrv, const float* factors, const float* rows,
-           int n_tiles, int k, int width, int bf16, float* out, float* carry,
-           int* carry_seg, cudaStream_t stream) {
-  if (n_tiles <= 0 || width <= 0 || width % kSlab != 0) {
-    return n_tiles == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+// -- the fused kernel's pass 1 ------------------------------------------------
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
   }
-  if (kBuild && (k < 1 || k > kMaxRank || k * k + k + 1 > width)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The geometry of one fused CTA, from the rank alone: u = [v, 1] in g
+// groups of 4 (row stride 4g floats in shared memory), items = g(g+1)/2
+// blocks, row_groups sets of block threads, each walking kTile / row_groups
+// rows.
+struct FusedGeom {
+  int g, stride, items, row_groups, threads, group_rows, piece_rows;
+};
+
+__host__ __device__ inline FusedGeom fused_geom(int k) {
+  FusedGeom f;
+  f.g = (k + 4) / 4;
+  f.stride = 4 * f.g;
+  f.items = f.g * (f.g + 1) / 2;
+  f.row_groups = 1;
+  while (f.row_groups * 2 <= kMaxRowGroups &&
+         f.items * f.row_groups * 2 <= kFusedThreads) {
+    f.row_groups *= 2;
   }
-  const dim3 grid1(n_tiles, width / kSlab);
-  const size_t smem =
-      (4 * kPiece + (kBuild ? kPiece * k : 0)) * sizeof(float);
-  accum_tiles<kBuild><<<grid1, kSlab, smem, stream>>>(
-      seg, block_map, oth, wrv, factors, rows, k, width, bf16, out, carry,
-      carry_seg);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  f.threads = f.items * f.row_groups;
+  f.group_rows = kTile / f.row_groups;
+  f.piece_rows = kPiece / f.row_groups;  // per row group, per piece
+  return f;
+}
+
+// floats of one staging buffer: u rows (one spare row between row groups
+// keeps the groups' reads on other banks) and the four per-row words
+__host__ __device__ inline int fused_buffer_floats(const FusedGeom& f) {
+  return (kPiece + f.row_groups) * f.stride + 4 * kPiece;
+}
+
+// The output columns of Gram entry (a, b), a <= b <= k: the column and its
+// mirror (-1: none).
+__device__ __forceinline__ void gram_cols(int a, int b, int k, int* col,
+                                          int* mirror) {
+  if (b < k) {
+    *col = a * k + b;
+    *mirror = a == b ? -1 : b * k + a;
+  } else {
+    *col = k * k + a;  // rhs * v[a], or the count at a = k
+    *mirror = -1;
+  }
+}
+
+// Grid (n_tiles).  Thread tid owns block `item = tid % items` (rows 4ga..,
+// columns 4gb.. of u's Gram) for row group `rg = tid / items`.
+template <bool kBf16>
+__global__ void __launch_bounds__(kFusedThreads, 3)
+accum_fused(const int* __restrict__ seg, const int* __restrict__ block_map,
+            const int* __restrict__ oth, const float* __restrict__ wrv,
+            const float* __restrict__ factors, int k, int width,
+            float* __restrict__ out, float* __restrict__ carry,
+            int* __restrict__ carry_seg) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const FusedGeom f = fused_geom(k);
+  const int buf_floats = fused_buffer_floats(f);
+  const int ncol = 16 * f.items;
+  const int tid = threadIdx.x;
+  const int t = blockIdx.x;
+  const int blk = block_map[t];
+  const int item = tid % f.items;
+  const int rg = tid / f.items;
+  int ga = 0, rem = item;
+  while (rem >= f.g - ga) {
+    rem -= f.g - ga;
+    ++ga;
+  }
+  const int gb = ga + rem;
+  // the products this thread forms: a <= b <= k, a < k (a = b = k is the
+  // count, kept in its own sum); jk: the column of this block holding b = k
+  unsigned mask = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = 4 * ga + i, b = 4 * gb + j;
+      if (a <= b && b <= k && a < k) mask |= 1u << (4 * i + j);
+    }
+  }
+  const int jk = k - 4 * gb;  // in 0..3 when this block's columns reach b = k
+  const size_t row0 = static_cast<size_t>(t) * kTile;
+  const int cp_bytes = k % 4 == 0 ? 16 : (k % 2 == 0 ? 8 : 4);
+  const int cp_floats = cp_bytes / 4;
+  const int n_pieces = f.group_rows / f.piece_rows;
+  // the row groups' first runs [row_groups][ncol], past the staging buffers
+  float* fcarry = smem + 2 * buf_floats;
+
+  // u[k] = 1 and the zero columns past it never change: set them once in
+  // both buffers (the gathers write columns 0..k-1 only)
+  for (int e = tid; e < 2 * (kPiece + f.row_groups); e += f.threads) {
+    float* row = smem + (e / (kPiece + f.row_groups)) * buf_floats +
+                 (e % (kPiece + f.row_groups)) * f.stride;
+    for (int d = k; d < f.stride; ++d) row[d] = d == k ? 1.f : 0.f;
+  }
+
+  // tile row of piece-local row pl of piece p (row group pl / piece_rows;
+  // both counts are powers of two, so shifts and masks)
+  const int lpr = __ffs(f.piece_rows) - 1;
+  const int lgr = __ffs(f.group_rows) - 1;
+  auto tile_row = [&](int p, int pl) {
+    return ((pl >> lpr) << lgr) + p * f.piece_rows + (pl & (f.piece_rows - 1));
+  };
+  // the segment ids and opposite rows a thread gathers for (piece-local
+  // rows tid + i * threads), loaded a piece ahead of their gathers
+  int gseg[4], goth[4];
+  auto fetch = [&](int p) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pl = tid + i * f.threads;
+      if (pl < kPiece) {
+        const size_t r = row0 + tile_row(p, pl);
+        gseg[i] = seg[r];
+        goth[i] = oth[r];
+      }
+    }
+  };
+  // copy piece p into buffer b: its four per-row words, and each real
+  // row's factors (padding rows' factors are never read)
+  auto stage = [&](int p, int b) {
+    float* u = smem + b * buf_floats;
+    int* sseg = reinterpret_cast<int*>(u + (kPiece + f.row_groups) * f.stride);
+    for (int e = tid; e < kPiece; e += f.threads) {
+      const int j = e >> 6;          // which word: seg, w, rhs, valid
+      const int pl = (e & 63) << 2;  // piece-local row, 4 at a time
+      const int r = tile_row(p, pl);
+      const void* src =
+          j == 0 ? static_cast<const void*>(seg + row0 + r)
+                 : static_cast<const void*>(wrv + row0 * 3 + (j - 1) * kTile + r);
+      cp_async(sseg + j * kPiece + pl, src, 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pl = tid + i * f.threads;
+      if (pl < kPiece && gseg[i] >= 0) {
+        const float* src = factors + static_cast<size_t>(goth[i]) * k;
+        float* dst = u + (pl + (pl >> lpr)) * f.stride;
+        for (int d = 0; d < k; d += cp_floats) cp_async(dst + d, src + d, cp_bytes);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[16];
+  float cacc = 0.f;  // the count, owned by the block with (k, k)
+#pragma unroll
+  for (int x = 0; x < 16; ++x) acc[x] = 0.f;
+  int cur = -1;    // segment of the current run (-1: none, or padding)
+  int start = 0;   // row of the row group where the current run began
+  int fseg = -1;   // segment of the row group's first row
+
+  // this thread's 16 sums (the count in its slot) to dst[16]
+  auto store16 = [&](float* dst) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool count = 4 * ga + i == k && 4 * gb + j == k;
+        dst[4 * i + j] = count ? cacc : acc[4 * i + j];
+      }
+    }
+  };
+  // a run that ended before the row group's end: the first run is kept for
+  // the combine; any other is a whole segment, written out
+  auto end_run = [&]() {
+    if (cur < 0) return;
+    if (start == 0) {
+      store16(fcarry + rg * ncol + 16 * item);
+      return;
+    }
+    float* o = out + static_cast<size_t>(blk * kSeg + cur) * width;
+#pragma unroll 1
+    for (int x = 0; x < 16; ++x) {
+      const int a = 4 * ga + x / 4, b = 4 * gb + x % 4;
+      if (a > b || b > k) continue;
+      int col, mirror;
+      gram_cols(a, b, k, &col, &mirror);
+      float v = acc[0];
+#pragma unroll
+      for (int y = 1; y < 16; ++y) v = x == y ? acc[y] : v;
+      v = a == k ? cacc : v;
+      o[col] = v;
+      if (mirror >= 0) o[mirror] = v;
+    }
+  };
+  // one stream row's products into the sums
+  auto form = [&](const float* ur, float w, float rhs, float val) {
+    const float4 xa = *reinterpret_cast<const float4*>(ur + 4 * ga);
+    const float4 yb = *reinterpret_cast<const float4*>(ur + 4 * gb);
+    const float xs[4] = {xa.x, xa.y, xa.z, xa.w};
+    const float ys[4] = {yb.x, yb.y, yb.z, yb.w};
+    float z[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) z[j] = j == jk ? rhs : w;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (mask & (1u << (4 * i + j))) {
+          const float x = __fmul_rn(__fmul_rn(xs[i], ys[j]), z[j]);
+          acc[4 * i + j] = __fadd_rn(acc[4 * i + j], round_row(x, kBf16 ? 1 : 0));
+        }
+      }
+    }
+    cacc = __fadd_rn(cacc, round_row(val, kBf16 ? 1 : 0));
+  };
+
+  fetch(0);
+  stage(0, 0);
+  if (n_pieces > 1) fetch(1);
+  for (int p = 0; p < n_pieces; ++p) {
+    if (p + 1 < n_pieces) {
+      stage(p + 1, (p + 1) & 1);
+      if (p + 2 < n_pieces) fetch(p + 2);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // piece p has landed for every thread
+    const float* u = smem + (p & 1) * buf_floats;
+    const int* sseg = reinterpret_cast<const int*>(u + (kPiece + f.row_groups) * f.stride);
+    const float* sw = reinterpret_cast<const float*>(sseg) + kPiece;
+    const float* urow = u + (rg * f.piece_rows + rg) * f.stride;
+    for (int i4 = 0; i4 < f.piece_rows; i4 += 4) {
+      const int pl = rg * f.piece_rows + i4;
+      const int4 s4 = *reinterpret_cast<const int4*>(sseg + pl);
+      if (cur >= 0 && s4.x == cur && s4.y == cur && s4.z == cur && s4.w == cur) {
+        // four rows of the current run: no run ends (the common case)
+        const float4 w4 = *reinterpret_cast<const float4*>(sw + pl);
+        const float4 r4 = *reinterpret_cast<const float4*>(sw + kPiece + pl);
+        const float4 v4 = *reinterpret_cast<const float4*>(sw + 2 * kPiece + pl);
+        const float* ur = urow + i4 * f.stride;
+        form(ur, w4.x, r4.x, v4.x);
+        form(ur + f.stride, w4.y, r4.y, v4.y);
+        form(ur + 2 * f.stride, w4.z, r4.z, v4.z);
+        form(ur + 3 * f.stride, w4.w, r4.w, v4.w);
+        continue;
+      }
+#pragma unroll 1
+      for (int q = 0; q < 4; ++q) {
+        const int s = sseg[pl + q];  // the same for the whole row group
+        if (s != cur) {
+          end_run();
+          cur = s;
+          start = p * f.piece_rows + i4 + q;
+          if (start == 0) fseg = s;
+#pragma unroll
+          for (int x = 0; x < 16; ++x) acc[x] = 0.f;
+          cacc = 0.f;
+        }
+        if (s < 0) continue;
+        form(urow + (i4 + q) * f.stride, sw[pl + q], sw[kPiece + pl + q],
+             sw[2 * kPiece + pl + q]);
+      }
+    }
+    __syncthreads();  // buffer p & 1 is consumed before piece p + 2 lands
+  }
+
+  // the row groups' last runs and segment ids, over the staging buffers
+  float* lcarry = smem;  // [row_groups][ncol]
+  int* rgseg = reinterpret_cast<int*>(smem + f.row_groups * ncol);  // [rg][2]
+  store16((start == 0 ? fcarry : lcarry) + rg * ncol + 16 * item);
+  if (item == 0) {
+    rgseg[2 * rg] = fseg;
+    rgseg[2 * rg + 1] = start != 0 ? cur : kAbsent;
+  }
+  __syncthreads();
+
+  // combine the row groups' edge runs in row group order: a run holding the
+  // tile's row 0 is carry slot 0, one reaching its last row carry slot 1,
+  // any other a whole segment
+  for (int c = tid; c < ncol; c += f.threads) {
+    const int it = c / 16;
+    int ca = 0, crem = it;
+    while (crem >= f.g - ca) {
+      crem -= f.g - ca;
+      ++ca;
+    }
+    const int a = 4 * ca + (c % 16) / 4, b = 4 * (ca + crem) + c % 4;
+    if (a > b || b > k) continue;
+    int col, mirror;
+    gram_cols(a, b, k, &col, &mirror);
+    int run = kNoRun;
+    bool has_start = false;
+    float sum = 0.f;
+    auto flush = [&](bool at_end) {
+      if (run < 0) return;
+      float* dst =
+          has_start ? carry + (static_cast<size_t>(t) * 2) * width
+          : at_end  ? carry + (static_cast<size_t>(t) * 2 + 1) * width
+                    : out + static_cast<size_t>(blk * kSeg + run) * width;
+      dst[col] = sum;
+      if (mirror >= 0) dst[mirror] = sum;
+    };
+    for (int g = 0; g < f.row_groups; ++g) {
+      for (int slot = 0; slot < 2; ++slot) {
+        const int s = rgseg[2 * g + slot];
+        if (slot == 1 && s == kAbsent) continue;
+        if (s != run) {
+          flush(false);
+          run = s;
+          sum = 0.f;
+          has_start = g == 0 && slot == 0;
+        }
+        if (s >= 0) {
+          sum = __fadd_rn(sum, (slot == 0 ? fcarry : lcarry)[g * ncol + c]);
+        }
+      }
+    }
+    flush(true);
+  }
+  // the zero columns of both carry slots, and the carried segments' ids
+  for (int c = k * k + k + 1 + tid; c < width; c += f.threads) {
+    carry[(static_cast<size_t>(t) * 2) * width + c] = 0.f;
+    carry[(static_cast<size_t>(t) * 2 + 1) * width + c] = 0.f;
+  }
+  if (tid == 0) {
+    const int first = rgseg[0];
+    int last = first;
+    bool one_run = true;
+    for (int e = 1; e < 2 * f.row_groups; ++e) {
+      const int s = rgseg[e];
+      if ((e & 1) && s == kAbsent) continue;
+      last = s;
+      one_run = one_run && s == first;
+    }
+    carry_seg[2 * t] = first >= 0 ? blk * kSeg + first : -1;
+    carry_seg[2 * t + 1] = (last >= 0 && !one_run) ? blk * kSeg + last : -1;
+  }
+}
+
+
+int launch_reduce(const int* carry_seg, const float* carry, int n_tiles,
+                  int width, float* out, cudaStream_t stream) {
   const dim3 grid2(2 * n_tiles, width / kSlab);
   reduce_carries<<<grid2, kSlab, 0, stream>>>(carry_seg, carry, 2 * n_tiles,
                                               width, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBf16>
+int launch_fused(const int* seg, const int* block_map, const int* oth,
+                 const float* wrv, const float* factors, int n_tiles, int k,
+                 int width, float* out, float* carry, int* carry_seg,
+                 cudaStream_t stream) {
+  const FusedGeom f = fused_geom(k);
+  // the staging buffers (later the last runs and the segment ids), then
+  // the first runs
+  const int staged = 2 * fused_buffer_floats(f);
+  const int ncol = 16 * f.items;
+  const int last_runs = f.row_groups * ncol + 2 * f.row_groups;
+  const size_t smem =
+      sizeof(float) *
+      ((staged > last_runs ? staged : last_runs) + f.row_groups * ncol);
+  cudaError_t err = cudaFuncSetAttribute(
+      accum_fused<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  accum_fused<kBf16><<<n_tiles, f.threads, smem, stream>>>(
+      seg, block_map, oth, wrv, factors, k, width, out, carry, carry_seg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_reduce(carry_seg, carry, n_tiles, width, out, stream);
 }
 
 }  // namespace
@@ -237,16 +583,23 @@ int launch(const int* seg, const int* block_map, const int* oth,
 // [-1, 128), block_map[t] * 128 + 127 < n_seg, oth below the factor rows.
 
 // The fused kernel: seg/oth [n_tiles, 1024] i32, wrv [n_tiles, 3, 1024] f32
-// (w, rhs, valid), factors [*, k] f32, width = row_width(k).
+// (w, rhs, valid), factors [*, k] f32, width = row_width(k).  It writes every
+// segment of the blocks its tiles map to (out must be zero there).
 extern "C" int pio_als_fused_accum(const int* seg, const int* block_map,
                                    const int* oth, const float* wrv,
                                    const float* factors, int n_tiles, int k,
                                    int width, int bf16, float* out,
                                    float* carry, int* carry_seg,
                                    void* stream) {
-  return launch<true>(seg, block_map, oth, wrv, factors, nullptr, n_tiles, k,
-                      width, bf16, out, carry, carry_seg,
-                      static_cast<cudaStream_t>(stream));
+  if (n_tiles <= 0) return n_tiles == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > kMaxRank || k * k + k + 1 > width || width % kSlab != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fused<true>(seg, block_map, oth, wrv, factors, n_tiles,
+                                   k, width, out, carry, carry_seg, s)
+              : launch_fused<false>(seg, block_map, oth, wrv, factors, n_tiles,
+                                    k, width, out, carry, carry_seg, s);
 }
 
 // The chunk kernel: seg [n_tiles, 1024] i32, rows [n_tiles * 1024, width] f32;
@@ -256,7 +609,14 @@ extern "C" int pio_als_segment_accum(const int* seg, const int* block_map,
                                      int width, int bf16, float* out,
                                      float* carry, int* carry_seg,
                                      void* stream) {
-  return launch<false>(seg, block_map, nullptr, nullptr, nullptr, rows,
-                       n_tiles, 0, width, bf16, out, carry, carry_seg,
-                       static_cast<cudaStream_t>(stream));
+  if (n_tiles <= 0 || width <= 0 || width % kSlab != 0) {
+    return n_tiles == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid1(n_tiles, width / kSlab);
+  accum_tiles<<<grid1, kSlab, 0, s>>>(seg, block_map, rows, width, bf16, out,
+                                      carry, carry_seg);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_reduce(carry_seg, carry, n_tiles, width, out, s);
 }

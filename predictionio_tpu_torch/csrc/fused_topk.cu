@@ -12,33 +12,56 @@
 // k=10) the inputs are ~1.2 MB and the output 0.33 MB, ~0.5 us of HBM time at
 // 3.35 TB/s, while the work is 2.2 GFLOP of fp32 FMA (~33 us at 67 TFLOP/s)
 // plus 110 M scored candidates to select from.  So it is bound by CUDA-core
-// FMA and selection work, not memory; r=10 is far too thin for tensor cores.
+// FMA and selection work, not memory.  Tensor cores are not used: r <= 32 is a
+// thin contraction, and each score must be one fixed-order fmaf chain from a
+// +0 start so that duplicate rows score the same bits and exact inputs stay
+// bitwise equal to the plain version.
 //
 // What the design does about that:
-//  * The TPU grid sweeps all of N per batch block on one core.  Here N is cut
-//    into slabs, one CTA per (8-query block, slab) pair, so even a 512-query
-//    wave puts several CTAs on each of the 132 SMs (pass 1).  Each CTA stages
-//    one tile of table rows in shared memory (row stride r|1 is odd, so the 32
-//    lanes reading 32 rows hit 32 banks) and every warp scores its own query
-//    against it with fp32 FMAs in a fixed order, so duplicate rows score
-//    bit-identically.
-//  * Selection keeps the running k-best of a query in the registers of its
-//    warp (position p lives in lane p%32, slot p/32), sorted under the
-//    two-key order.  A candidate is tested against the current k-th entry
-//    (one compare); only those that beat it are inserted, by a warp-wide
-//    rank count (ballot + popc) and a one-position shift (shuffles).  After
-//    the first tiles almost every candidate is rejected by the one compare.
-//  * Pass 2 merges the n_splits * k candidates of each query with the same
-//    warp routine and writes the packed output.  Slabs are disjoint, so the
-//    merge sees every id at most once and the result is exactly the top-k
-//    of the full row, ties included.
-//  * Empty slots hold the sentinel (-inf, RETIRED_ID = 2^25), which loses the
-//    id tie-break to every real row, masked rows included; callers guarantee
-//    k <= N, so it never reaches the output.
+//  * Register-blocked scoring.  A CTA of 128 threads takes a block of 32
+//    queries (8 for a small wave, so that it still fills the card with few
+//    slabs, or for a k past 64, so that the merges spread over more CTAs)
+//    against a tile of 64 table rows.  Queries and tile are staged in
+//    shared memory as rows, the rank padded with zeros to a multiple of 4
+//    (zero terms at the end of the chain keep every score's bits), each row
+//    an odd number of 16-byte words long so that 8 neighbouring rows' loads
+//    hit 8 bank groups.  Each thread holds a 4-query (or 1-query) x 4-row
+//    micro-tile of sums in registers: per 4 steps of d, four 16-byte loads
+//    of its queries and four of its rows feed 64 FMAs (0.125 load
+//    instructions, 0.5 loaded floats per FMA), and every staged row is read
+//    by all the block's queries.
+//  * Double-buffered staging with cp.async: the next tile is in flight
+//    while this one is scored.  A rank past 64 is staged and scored in
+//    chunks of 64 columns, the sums carried in registers between chunks, so
+//    any rank whose query block fits in shared memory is taken.
+//  * Threshold-filtered selection (the shape of WarpSelect/BlockSelect in
+//    Johnson, Douze and Jegou, "Billion-scale similarity search with GPUs",
+//    2017).  Each query keeps its k-best sorted in shared memory and its
+//    current k-th entry as a threshold; a score that beats it is appended to
+//    the query's queue in shared memory (a shared-memory integer atomic gives
+//    its slot).  Once a queue holds 32 entries (k of them, up to 64, for a
+//    larger k), or at the end, one warp merges it into the k-best: it sorts
+//    the queue in registers with a bitonic network of shuffles, then each
+//    queued entry's place is its rank plus a binary search in the k-best,
+//    and each k-best entry's place a binary search in the sorted queue,
+//    scattered in place.  Keys (value, id) are distinct (each row is scored
+//    once per query), so the result is the top-k under a total order: the
+//    order in which survivors reach the queue does not change it, and a
+//    repeat gives the same bits.
+//  * N is cut into slabs, one CTA per (query block, slab), so that small
+//    waves still fill the card (pass 1); with more than one slab, pass 2
+//    sorts each query's slab lists at once where they fit a warp's
+//    registers (n_slabs * k <= 128), else merges into its k-best the prefix
+//    of each slab list that beats its running k-th entry, with the same
+//    warp merge.
+//  * A k-best holds only real rows; an empty position is written as the
+//    sentinel (-inf, RETIRED_ID = 2^25), which pass 2 drops.  Callers
+//    guarantee k <= N, so the sentinel never reaches the output.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (predictionio_tpu_torch/ops/_kernels.py).
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -47,9 +70,21 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 // Must match RETIRED_ID in predictionio_tpu_torch/ops/topk.py.
 constexpr int kRetiredId = 1 << 25;
-// Queries per pass-1 CTA, one warp each.  Must match QUERIES_PER_CTA in
-// predictionio_tpu_torch/ops/topk.py, which sizes the grid and shared memory.
-constexpr int kQueriesPerCta = 8;
+// Table rows per staged tile; must match TILE_ROWS_CUDA in ops/topk.py
+// (pio_fused_topk refuses a slab that is not whole tiles).
+constexpr int kTileRows = 64;
+// Rank columns of a tile staged at once.
+constexpr int kChunk = 64;
+// Queue slots per query.
+constexpr int kQueueCap = 128;
+// Threads per pass-1 CTA (4 warps): 8 query groups x 16 row groups.
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+// Largest k (MAX_FUSED_K in ops/topk.py): a warp holds at most kMaxK / 32
+// entries per lane.
+constexpr int kMaxK = 128;
+constexpr int kPerLane = kMaxK / 32;
+static_assert(kQueueCap <= kMaxK, "a lane holds at most kPerLane queued entries");
 // Queries per pass-2 CTA, one warp each.
 constexpr int kMergeWarps = 4;
 
@@ -57,231 +92,559 @@ __device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
-// The running k-best of one query, held by one warp.  KW = ceil(k / 32)
-// register slots per lane; position p = m * 32 + lane.
-template <int KW>
-struct WarpTopK {
-  float v[KW];
-  int id[KW];
-  float kth_v;  // the entry at position k-1 (warp-uniform)
-  int kth_i;
-  int k;
-
-  __device__ __forceinline__ void init(int k_) {
-    k = k_;
+// Sort the 32 * U entries (v[u], id[u]) of a warp, entry e = 32u + lane,
+// under the two-key order, winners first (a bitonic network: compare and
+// exchange with shuffles across lanes, in registers across slots).  Equal
+// keys (the padding sentinels) are never exchanged.
+template <int U>
+__device__ __forceinline__ void warp_sort(float* v, int* id, int lane) {
 #pragma unroll
-    for (int m = 0; m < KW; ++m) {
-      v[m] = -CUDART_INF_F;
-      id[m] = kRetiredId;
-    }
-    kth_v = -CUDART_INF_F;
-    kth_i = kRetiredId;
-  }
-
-  // Insert (cv, ci) (warp-uniform) at its rank; the entry at k-1 falls off.
-  __device__ __forceinline__ void insert(float cv, int ci, int lane) {
-    int pos = 0;
+  for (int size = 2; size <= 32 * U; size <<= 1) {
 #pragma unroll
-    for (int m = 0; m < KW; ++m) {
-      const int p = m * 32 + lane;
-      pos += __popc(__ballot_sync(kFull, p < k && beats(v[m], id[m], cv, ci)));
-    }
-    if (pos >= k) return;
-    // shift positions > pos up by one, high slots first so each slot still
-    // reads its lower neighbour's old value
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {
+        const int du = stride >> 5;
 #pragma unroll
-    for (int m = KW - 1; m >= 0; --m) {
-      float up_v = __shfl_up_sync(kFull, v[m], 1);
-      int up_i = __shfl_up_sync(kFull, id[m], 1);
-      if (m > 0) {
-        const float carry_v = __shfl_sync(kFull, v[m > 0 ? m - 1 : 0], 31);
-        const int carry_i = __shfl_sync(kFull, id[m > 0 ? m - 1 : 0], 31);
-        if (lane == 0) {
-          up_v = carry_v;
-          up_i = carry_i;
+        for (int u = 0; u < U; ++u) {
+          if (u & du) continue;  // u is the lower entry of the pair
+          const int w = u | du;
+          // in a block sorted winners first the lower entry takes the winner
+          const bool first = ((32 * u + lane) & size) == 0;
+          if (first ? beats(v[w], id[w], v[u], id[u])
+                    : beats(v[u], id[u], v[w], id[w])) {
+            const float tv = v[u];
+            const int ti = id[u];
+            v[u] = v[w];
+            id[u] = id[w];
+            v[w] = tv;
+            id[w] = ti;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float ov = __shfl_xor_sync(kFull, v[u], stride);
+          const int oi = __shfl_xor_sync(kFull, id[u], stride);
+          const bool lower = (lane & stride) == 0;
+          const bool first = ((32 * u + lane) & size) == 0;
+          if (lower == first ? beats(ov, oi, v[u], id[u])
+                             : beats(v[u], id[u], ov, oi)) {
+            v[u] = ov;
+            id[u] = oi;
+          }
         }
       }
-      const int p = m * 32 + lane;
-      if (p > pos) {
-        v[m] = up_v;
-        id[m] = up_i;
-      } else if (p == pos) {
-        v[m] = cv;
-        id[m] = ci;
-      }
     }
-    const int mk = (k - 1) >> 5;
-    float tv = v[0];
-    int ti = id[0];
+  }
+}
+
+// Merge m unordered entries (qv, qi) into the sorted k-best (lv, li) of cnt
+// entries, in place, by one warp; sv/si are m slots of scratch.  Returns the
+// new count, min(k, cnt + m).  Keys must be distinct.
+__device__ int warp_merge(float* lv, int* li, int cnt, const float* qv,
+                          const int* qi, int m, float* sv, int* si, int k,
+                          int lane) {
+  float ev[kPerLane];
+  int ei[kPerLane], epos[kPerLane];
 #pragma unroll
-    for (int m = 1; m < KW; ++m) {
-      if (m == mk) {
-        tv = v[m];
-        ti = id[m];
+  for (int u = 0; u < kPerLane; ++u) {
+    const int i = lane + 32 * u;
+    ev[u] = i < m ? qv[i] : -CUDART_INF_F;  // the padding loses to all
+    ei[u] = i < m ? qi[i] : INT_MAX;
+  }
+  // the queue sorted: entry e = 32u + lane is the e-th best
+  if (m <= 32) {
+    warp_sort<1>(ev, ei, lane);
+  } else if (m <= 64) {
+    warp_sort<2>(ev, ei, lane);
+  } else {
+    warp_sort<kPerLane>(ev, ei, lane);
+  }
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    const int e = lane + 32 * u;
+    epos[u] = INT_MAX;
+    if (e < m) {
+      int lo = 0, hi = cnt;  // k-best entries that beat it
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (beats(lv[mid], li[mid], ev[u], ei[u])) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
       }
-    }
-    kth_v = __shfl_sync(kFull, tv, (k - 1) & 31);
-    kth_i = __shfl_sync(kFull, ti, (k - 1) & 31);
-  }
-
-  // Every lane offers one candidate; those that beat the k-th entry are
-  // inserted one at a time, lowest lane first.
-  __device__ __forceinline__ void offer(float cv, int ci, bool valid, int lane) {
-    unsigned pending =
-        __ballot_sync(kFull, valid && beats(cv, ci, kth_v, kth_i));
-    while (pending) {
-      const int src = __ffs(pending) - 1;
-      pending &= pending - 1;
-      const float bv = __shfl_sync(kFull, cv, src);
-      const int bi = __shfl_sync(kFull, ci, src);
-      if (beats(bv, bi, kth_v, kth_i)) insert(bv, bi, lane);
+      sv[e] = ev[u];
+      si[e] = ei[u];
+      epos[u] = e + lo;
     }
   }
-};
+  __syncwarp();
+  float fv[kPerLane];
+  int fi[kPerLane], fpos[kPerLane];
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    const int p = lane + 32 * u;
+    fpos[u] = INT_MAX;
+    if (p < cnt) {
+      fv[u] = lv[p];
+      fi[u] = li[p];
+      int lo = 0, hi = m;  // queued entries that beat it
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (beats(sv[mid], si[mid], fv[u], fi[u])) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      fpos[u] = p + lo;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    if (epos[u] < k) {
+      lv[epos[u]] = ev[u];
+      li[epos[u]] = ei[u];
+    }
+    if (fpos[u] < k) {
+      lv[fpos[u]] = fv[u];
+      li[fpos[u]] = fi[u];
+    }
+  }
+  __syncwarp();
+  return min(k, cnt + m);
+}
 
-// Pass 1: grid (ceil(B / kQueriesPerCta), n_splits).  CTA (x, y) scores
-// queries [x*8, x*8+8) against table rows [y*rows_per_split, ...) one tile of
-// tile_rows at a time and writes each query's slab k-best to
+// Write a k-best of cnt entries as k (value, id) pairs, sentinels past cnt;
+// ids as f32 into a packed output, or as int32.
+__device__ __forceinline__ void write_best(const float* lv, const int* li,
+                                           int cnt, int k, int lane,
+                                           float* out_v, float* out_if,
+                                           int* out_i) {
+  for (int p = lane; p < k; p += 32) {
+    const bool have = p < cnt;
+    out_v[p] = have ? lv[p] : -CUDART_INF_F;
+    const int id = have ? li[p] : kRetiredId;
+    if (out_if != nullptr) {
+      out_if[p] = static_cast<float>(id);
+    } else {
+      out_i[p] = id;
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared-memory row strides (floats) for padded rank rp: of the query block
+// (the whole rank) and of a table tile (one chunk of at most kChunk columns).
+// A stride of an odd number of 16-byte words puts the 16-byte loads of 8
+// neighbouring rows on 8 different bank groups.
+__host__ __device__ inline int query_stride(int rp) {
+  return (rp / 4) % 2 == 1 ? rp : rp + 4;
+}
+
+__host__ __device__ inline int tile_stride(int rp) {
+  return rp <= kChunk ? query_stride(rp) : query_stride(kChunk);
+}
+
+// Pass 1: grid (ceil(B / Q), n_splits) for a block of Q = 8 * QI queries
+// (QI = 4 or 1).  CTA (x, y) scores queries [Qx, Qx + Q) against table rows
+// [y * rows_per_split, ...) one 64-row tile at a time, each tile in chunks
+// of kChunk rank columns (one chunk up to rank 64); every (tile, chunk) is
+// copied in with cp.async while the one before it is scored.  With one
+// split it writes the packed output; else each query's slab k-best to
 // cand_{v,i}[query, y, :].
-template <int KW>
-__global__ void __launch_bounds__(kQueriesPerCta * 32)
+// (At least 6 CTAs of 8 queries per SM: ptxas then keeps that instantiation
+// at 80 registers without spills, where left alone it spilled.)
+template <int QI>
+__global__ void __launch_bounds__(kThreads, QI == 1 ? 6 : 4)
 fused_topk_partial(const float* __restrict__ q, const float* __restrict__ t,
-                   int B, int N, int r, int k, int limit, int tile_rows,
-                   int rows_per_split, int n_splits,
-                   float* __restrict__ cand_v, int* __restrict__ cand_i) {
-  extern __shared__ float smem[];
-  const int rs = r | 1;  // odd row stride: conflict-free column reads
-  float* qs = smem;                       // [kQueriesPerCta][r]
-  float* ts = smem + kQueriesPerCta * r;  // [tile_rows][rs]
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kQueriesPerCta;
-  const int qrow = q0 + warp;
-  const int split = blockIdx.y;
+                   int B, int N, int r, int k, int limit, int rows_per_split,
+                   int n_splits, float* __restrict__ cand_v,
+                   int* __restrict__ cand_i, float* __restrict__ out) {
+  // the block's queries: a warp's lanes stand for them in the merge step
+  constexpr int kQ = 8 * QI;
+  static_assert(kQ <= 32, "one lane per query of the block");
+  extern __shared__ float4 smem4[];
+  const int rp = (r + 3) / 4 * 4;
+  const int rsq = query_stride(rp);
+  const int rst = tile_stride(rp);
+  float* qs = reinterpret_cast<float*>(smem4);  // [kQ][rsq]
+  float* ts = qs + kQ * rsq;                    // [2][64][rst]
+  float* lv = ts + 2 * kTileRows * rst;         // [kQ][k] k-best values
+  int* li = reinterpret_cast<int*>(lv + kQ * k);                 // ids
+  float* quv = reinterpret_cast<float*>(li + kQ * k);            // [kQ][cap]
+  int* qui = reinterpret_cast<int*>(quv + kQ * kQueueCap);
+  float* sv = reinterpret_cast<float*>(qui + kQ * kQueueCap);
+  int* si = reinterpret_cast<int*>(sv + kWarps * kQueueCap);    // [4][cap]
+  int* qcnt = si + kWarps * kQueueCap;                            // [kQ]
+  int* lcnt = qcnt + kQ;                                          // [kQ]
+  float* thv = reinterpret_cast<float*>(lcnt + kQ);               // [kQ]
+  int* thi = reinterpret_cast<int*>(thv + kQ);                    // [kQ]
 
-  for (int i = threadIdx.x; i < kQueriesPerCta * r; i += blockDim.x) {
-    qs[i] = q0 + i / r < B ? q[(size_t)q0 * r + i] : 0.f;
-  }
-  WarpTopK<KW> best;
-  best.init(k);
-  const float* qv = qs + warp * r;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * kQ;
+  const int split = blockIdx.y;
+  const int qg = tid >> 4;  // queries qg + 8i (i < QI) of the block
+  const int rg = tid & 15;  // rows rg + 16j (j < 4) of the tile
+  // copy unit: 16 bytes where the rows allow it
+  const int cf = r % 4 == 0 ? 4 : (r % 2 == 0 ? 2 : 1);
+  const int n_chunks = (rp + kChunk - 1) / kChunk;
   const int row_begin = split * rows_per_split;
   const int row_end = min(N, row_begin + rows_per_split);
-  for (int base = row_begin; base < row_end; base += tile_rows) {
-    const int rows = min(tile_rows, row_end - base);
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    const float* src = t + (size_t)base * r;
-    for (int i = threadIdx.x; i < rows * r; i += blockDim.x) {
-      const int rr = i / r;
-      ts[rr * rs + (i - rr * r)] = src[i];
-    }
-    __syncthreads();
-    if (qrow < B) {
-      for (int j0 = 0; j0 < rows; j0 += 32) {
-        const int rr = j0 + lane;
-        const bool valid = rr < rows;
-        const int gid = base + rr;
-        float s = -CUDART_INF_F;
-        if (valid && gid < limit) {
-          const float* tr = ts + rr * rs;
-          float acc = 0.f;  // a +0 start: an all-(-0) product sum stays +0
-          for (int d = 0; d < r; ++d) acc = fmaf(qv[d], tr[d], acc);
-          s = acc;
-        }
-        best.offer(s, gid, valid, lane);
+  const int n_units = (row_end - row_begin + kTileRows - 1) / kTileRows * n_chunks;
+
+  for (int e = tid; e < kQ * rsq; e += kThreads) qs[e] = 0.f;
+  if (tid < kQ) {
+    qcnt[tid] = 0;
+    lcnt[tid] = 0;
+    thv[tid] = -CUDART_INF_F;  // beaten by every row, masked ones included
+    thi[tid] = INT_MAX;
+  }
+  __syncthreads();  // the zeros land before the copies
+  {
+    const int qq = tid % kQ;
+    if (q0 + qq < B) {
+      const float* src = q + static_cast<size_t>(q0 + qq) * r;
+      for (int c = (tid / kQ) * cf; c < r; c += (kThreads / kQ) * cf) {
+        cp_async(qs + qq * rsq + c, src + c, 4 * cf);
       }
     }
   }
-  if (qrow < B) {
-    const size_t off = ((size_t)qrow * n_splits + split) * k;
-#pragma unroll
-    for (int m = 0; m < KW; ++m) {
-      const int p = m * 32 + lane;
-      if (p < k) {
-        cand_v[off + p] = best.v[m];
-        cand_i[off + p] = best.id[m];
+  // copy the next unit (tile next_tile, chunk next_chunk) into buffer buf;
+  // the chunk's zero columns past r are written here too (counters, not
+  // divisions, walk the units)
+  int next_tile = 0, next_chunk = 0;
+  auto stage = [&](int buf) {
+    const int base = row_begin + next_tile * kTileRows;
+    const int c0 = next_chunk * kChunk;
+    const int rows = min(kTileRows, row_end - base);
+    const int width = min(kChunk, r - c0);
+    const int padded = min(kChunk, rp - c0);
+    float* tb = ts + buf * kTileRows * rst;
+    const int j = tid % kTileRows;
+    if (j < rows) {
+      const float* src = t + static_cast<size_t>(base + j) * r + c0;
+      float* dst = tb + j * rst;
+      for (int c = (tid / kTileRows) * cf; c < width;
+           c += (kThreads / kTileRows) * cf) {
+        cp_async(dst + c, src + c, 4 * cf);
       }
+      for (int c = width + tid / kTileRows; c < padded; c += kThreads / kTileRows) {
+        dst[c] = 0.f;
+      }
+    }
+    cp_async_commit();
+    if (++next_chunk == n_chunks) {
+      next_chunk = 0;
+      ++next_tile;
+    }
+  };
+
+  float acc[QI][4];
+  stage(0);  // in one group with the query block
+  int chunk = 0, base = row_begin;  // the unit being scored
+  for (int u = 0; u < n_units; ++u) {
+    if (u + 1 < n_units) {
+      stage((u + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // unit u (and the query block) landed; merges are done
+    const int c0 = chunk * kChunk;
+    const int padded = min(kChunk, rp - c0);
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < QI; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;  // +0: -0 sums stay +0
+      }
+    }
+    const float* qp = qs + qg * rsq + c0;
+    const float* tp = ts + (u & 1) * kTileRows * rst + rg * rst;
+#pragma unroll 2
+    for (int d = 0; d < padded; d += 4) {
+      float a[QI][4], b[4][4];
+#pragma unroll
+      for (int i = 0; i < QI; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(qp + 8 * i * rsq + d);
+        a[i][0] = x.x; a[i][1] = x.y; a[i][2] = x.z; a[i][3] = x.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 y = *reinterpret_cast<const float4*>(tp + 16 * j * rst + d);
+        b[j][0] = y.x; b[j][1] = y.y; b[j][2] = y.z; b[j][3] = y.w;
+      }
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+#pragma unroll
+        for (int i = 0; i < QI; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i][dd], b[j][dd], acc[i][j]);
+        }
+      }
+    }
+    const bool tile_done = chunk == n_chunks - 1;
+    if (tile_done) {
+      const int rows = min(kTileRows, row_end - base);
+#pragma unroll
+      for (int i = 0; i < QI; ++i) {
+        const int qq = qg + 8 * i;
+        if (q0 + qq >= B) continue;
+        const float tv = thv[qq];
+        const int ti = thi[qq];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = rg + 16 * j;
+          const int gid = base + row;
+          const float s = gid < limit ? acc[i][j] : -CUDART_INF_F;
+          if (row < rows && beats(s, gid, tv, ti)) {
+            const int pos = atomicAdd(&qcnt[qq], 1);
+            quv[qq * kQueueCap + pos] = s;
+            qui[qq * kQueueCap + pos] = gid;
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer u & 1 is consumed; the queues are filled
+    if (!tile_done) {
+      ++chunk;
+      continue;
+    }
+    chunk = 0;
+    const bool last = base + kTileRows >= row_end;
+    base += kTileRows;
+    // merge once a queue holds 32 entries, or k up to 64: sooner for a small
+    // k (its threshold tightens sooner), and never past kQueueCap after the
+    // next tile
+    const int merge_at = max(32, min(k, kQueueCap - kTileRows));
+    // the queues due for a merge, one bit per query (one lane each), dealt
+    // out to the warps in turn
+    const int m_lane = lane < kQ ? qcnt[lane] : 0;
+    unsigned due = __ballot_sync(kFull, m_lane >= merge_at || (last && m_lane > 0));
+    // every warp has read the counts before any merge resets one, so all
+    // warps deal out the same set
+    __syncthreads();
+    for (int nth = 0; due != 0; ++nth) {
+      const int qq = __ffs(due) - 1;
+      due &= due - 1;
+      if (nth % kWarps != warp) continue;
+      const int m = __shfl_sync(kFull, m_lane, qq);
+      const int cnt = warp_merge(lv + qq * k, li + qq * k, lcnt[qq],
+                                 quv + qq * kQueueCap, qui + qq * kQueueCap, m,
+                                 sv + warp * kQueueCap, si + warp * kQueueCap,
+                                 k, lane);
+      if (lane == 0) {
+        qcnt[qq] = 0;
+        lcnt[qq] = cnt;
+        if (cnt == k) {
+          thv[qq] = lv[qq * k + k - 1];
+          thi[qq] = li[qq * k + k - 1];
+        }
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int qq = warp; qq < kQ; qq += kWarps) {
+    const int qrow = q0 + qq;
+    if (qrow >= B) break;
+    if (n_splits == 1) {
+      write_best(lv + qq * k, li + qq * k, lcnt[qq], k, lane,
+                 out + static_cast<size_t>(qrow) * k,
+                 out + static_cast<size_t>(B + qrow) * k, nullptr);
+    } else {
+      const size_t off = (static_cast<size_t>(qrow) * n_splits + split) * k;
+      write_best(lv + qq * k, li + qq * k, lcnt[qq], k, lane, cand_v + off,
+                 nullptr, cand_i + off);
     }
   }
 }
 
-// Pass 2: one warp per query merges its n_cand = n_splits * k candidates and
-// writes packed out[0, b, :] (scores) and out[1, b, :] (ids as f32).
-template <int KW>
+
+// Pass 2: one warp per query merges its n_splits slab lists (each sorted,
+// sentinels at its tail) and writes packed out[0, b, :] and out[1, b, :].
+// Where all the lists together fit a warp's registers (n_splits * k <=
+// kMaxK) one sort of their real entries takes the place of the merges.
 __global__ void __launch_bounds__(kMergeWarps * 32)
 fused_topk_merge(const float* __restrict__ cand_v,
-                 const int* __restrict__ cand_i, int B, int n_cand, int k,
+                 const int* __restrict__ cand_i, int B, int n_splits, int k,
                  float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int qrow = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  float* lv = reinterpret_cast<float*>(smem4) + warp * 6 * k;
+  int* li = reinterpret_cast<int*>(lv + k);
+  float* qv = reinterpret_cast<float*>(li + k);
+  int* qi = reinterpret_cast<int*>(qv + k);
+  float* sv = reinterpret_cast<float*>(qi + k);
+  int* si = reinterpret_cast<int*>(sv + k);
+  const int qrow = blockIdx.x * kMergeWarps + warp;
   if (qrow >= B) return;  // whole warp
-  WarpTopK<KW> best;
-  best.init(k);
-  const float* cv = cand_v + (size_t)qrow * n_cand;
-  const int* ci = cand_i + (size_t)qrow * n_cand;
-  for (int j0 = 0; j0 < n_cand; j0 += 32) {
-    const int j = j0 + lane;
-    const bool valid = j < n_cand;
-    best.offer(valid ? cv[j] : -CUDART_INF_F, valid ? ci[j] : kRetiredId,
-               valid, lane);
-  }
-  float* out_v = out + (size_t)qrow * k;
-  float* out_i = out + (size_t)B * k + (size_t)qrow * k;
+  const int total = n_splits * k;
+  if (total <= kMaxK) {
+    const size_t base = static_cast<size_t>(qrow) * total;
+    float v[kPerLane];
+    int id[kPerLane];
 #pragma unroll
-  for (int m = 0; m < KW; ++m) {
-    const int p = m * 32 + lane;
-    if (p < k) {
-      out_v[p] = best.v[m];
-      out_i[p] = (float)best.id[m];
+    for (int u = 0; u < kPerLane; ++u) {
+      const int e = lane + 32 * u;
+      const int i = e < total ? cand_i[base + e] : kRetiredId;
+      const bool real = i < kRetiredId;
+      v[u] = real ? cand_v[base + e] : -CUDART_INF_F;  // the padding loses
+      id[u] = real ? i : INT_MAX;
+    }
+    if (total <= 32) {
+      warp_sort<1>(v, id, lane);
+    } else if (total <= 64) {
+      warp_sort<2>(v, id, lane);
+    } else {
+      warp_sort<kPerLane>(v, id, lane);
+    }
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) {
+      const int p = lane + 32 * u;
+      if (p < k) {
+        const bool real = id[u] != INT_MAX;
+        out[static_cast<size_t>(qrow) * k + p] = real ? v[u] : -CUDART_INF_F;
+        out[static_cast<size_t>(B + qrow) * k + p] =
+            static_cast<float>(real ? id[u] : kRetiredId);
+      }
+    }
+    return;
+  }
+  int cnt = 0;
+  float tv = -CUDART_INF_F;  // the running k-th entry, once there are k
+  int ti = INT_MAX;
+  for (int s = 0; s < n_splits; ++s) {
+    const size_t off = (static_cast<size_t>(qrow) * n_splits + s) * k;
+    // a slab's list is sorted: its real entries that beat the running
+    // k-th entry form a prefix, and only that prefix is merged
+    int m = 0;
+    for (int p0 = 0; p0 < k; p0 += 32) {
+      const int p = p0 + lane;
+      const int id = p < k ? cand_i[off + p] : kRetiredId;
+      const float v = p < k ? cand_v[off + p] : -CUDART_INF_F;
+      const bool keep = id < kRetiredId && beats(v, id, tv, ti);
+      if (keep) {
+        qv[p] = v;
+        qi[p] = id;
+      }
+      m += __popc(__ballot_sync(kFull, keep));
+    }
+    __syncwarp();
+    if (m == 0) continue;
+    cnt = warp_merge(lv, li, cnt, qv, qi, m, sv, si, k, lane);
+    if (cnt == k) {
+      tv = lv[k - 1];
+      ti = li[k - 1];
     }
   }
-}
-
-template <int KW>
-cudaError_t launch(const float* q, const float* t, int B, int N, int r, int k,
-                   int limit, int tile_rows, int rows_per_split, int n_splits,
-                   float* cand_v, int* cand_i, float* out,
-                   cudaStream_t stream) {
-  const dim3 grid1((B + kQueriesPerCta - 1) / kQueriesPerCta, n_splits);
-  const size_t smem =
-      (size_t)(kQueriesPerCta * r + tile_rows * (r | 1)) * sizeof(float);
-  fused_topk_partial<KW><<<grid1, kQueriesPerCta * 32, smem, stream>>>(
-      q, t, B, N, r, k, limit, tile_rows, rows_per_split, n_splits, cand_v,
-      cand_i);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid2((B + kMergeWarps - 1) / kMergeWarps);
-  fused_topk_merge<KW><<<grid2, kMergeWarps * 32, 0, stream>>>(
-      cand_v, cand_i, B, n_splits * k, k, out);
-  return cudaGetLastError();
+  write_best(lv, li, cnt, k, lane, out + static_cast<size_t>(qrow) * k,
+             out + static_cast<size_t>(B + qrow) * k, nullptr);
 }
 
 }  // namespace
 
-// Launch both passes on `stream`; returns the first cudaGetLastError() that is
-// not cudaSuccess, else 0.
-// Scratch cand_v [B, n_splits, k] f32 and cand_i [B, n_splits, k] i32 and the
-// output out [2, B, k] f32 are allocated by the caller; the caller also checks
-// shapes, 1 <= k <= 128, and that the shared memory fits in 48 KB.
+// Pass 1's dynamic shared memory in bytes for rank r, k and a block of
+// qpc queries: the query block (the whole rank) and two table tiles (one
+// rank chunk each), rows padded by query_stride; each query's k-best and
+// queue (value and id); one merge scratch per warp; four words per query.
+static size_t partial_smem(int r, int k, int qpc) {
+  const int rp = (r + 3) / 4 * 4;
+  return sizeof(float) *
+         (static_cast<size_t>(qpc) * query_stride(rp) +
+          2 * kTileRows * tile_stride(rp) + 2 * qpc * k +
+          2 * qpc * kQueueCap + 2 * kWarps * kQueueCap + 4 * qpc);
+}
+
+template <int QI>
+static cudaError_t launch_partial(const float* q, const float* t, int B, int N,
+                                  int r, int k, int limit, int rows_per_split,
+                                  int n_splits, float* cand_v, int* cand_i,
+                                  float* out, cudaStream_t s) {
+  const size_t smem = partial_smem(r, k, 8 * QI);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_topk_partial<QI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + 8 * QI - 1) / (8 * QI), n_splits);
+  fused_topk_partial<QI><<<grid, kThreads, smem, s>>>(
+      q, t, B, N, r, k, limit, rows_per_split, n_splits, cand_v, cand_i, out);
+  return cudaGetLastError();
+}
+
+// The dynamic shared memory of a pass-1 CTA in bytes (what ops/topk.py's
+// kernel_geometry fits onto the card), or -1 for an input pio_fused_topk
+// refuses.
+extern "C" int pio_fused_topk_smem(int r, int k, int qpc) {
+  if (k < 1 || k > kMaxK || r < 1 || (qpc != 8 && qpc != 32)) return -1;
+  const size_t bytes = partial_smem(r, k, qpc);
+  return bytes > INT_MAX ? -1 : static_cast<int>(bytes);
+}
+
+// The card's shared memory: per CTA after opting in, per SM, and reserved
+// by the system per CTA, in bytes; returns a CUDA error code, else 0.
+extern "C" int pio_device_smem(int device, int* limits) {
+  const cudaDeviceAttr attrs[3] = {
+      cudaDevAttrMaxSharedMemoryPerBlockOptin,
+      cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+      cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = cudaDeviceGetAttribute(&limits[i], attrs[i], device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// Launch pass 1 for blocks of qpc queries (8 or 32) and, with more than one
+// split, pass 2 on `stream`; returns the first cudaGetLastError() that is
+// not cudaSuccess, else 0.  Scratch cand_v [B, n_splits, k] f32 and cand_i
+// [B, n_splits, k] i32 (unused with one split) and the output out [2, B, k]
+// f32 are allocated by the caller; the caller also checks shapes and that
+// the shared memory fits (kernel_geometry).
 extern "C" int pio_fused_topk(const float* q, const float* t, int B, int N,
-                              int r, int k, int limit, int tile_rows,
+                              int r, int k, int limit, int qpc,
                               int rows_per_split, int n_splits, float* cand_v,
                               int* cand_i, float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((k + 31) / 32) {
-    case 1:
-      return launch<1>(q, t, B, N, r, k, limit, tile_rows, rows_per_split,
-                       n_splits, cand_v, cand_i, out, s);
-    case 2:
-      return launch<2>(q, t, B, N, r, k, limit, tile_rows, rows_per_split,
-                       n_splits, cand_v, cand_i, out, s);
-    case 3:
-      return launch<3>(q, t, B, N, r, k, limit, tile_rows, rows_per_split,
-                       n_splits, cand_v, cand_i, out, s);
-    case 4:
-      return launch<4>(q, t, B, N, r, k, limit, tile_rows, rows_per_split,
-                       n_splits, cand_v, cand_i, out, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > kMaxK || r < 1 || B < 1 || n_splits < 1 ||
+      rows_per_split < 1 || rows_per_split % kTileRows != 0 ||
+      (qpc != 8 && qpc != 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      qpc == 32 ? launch_partial<4>(q, t, B, N, r, k, limit, rows_per_split,
+                                    n_splits, cand_v, cand_i, out, s)
+                : launch_partial<1>(q, t, B, N, r, k, limit, rows_per_split,
+                                    n_splits, cand_v, cand_i, out, s);
+  if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
+  const dim3 grid2((B + kMergeWarps - 1) / kMergeWarps);
+  fused_topk_merge<<<grid2, kMergeWarps * 32,
+                     kMergeWarps * 6 * k * sizeof(float), s>>>(
+      cand_v, cand_i, B, n_splits, k, out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -19,8 +19,9 @@ either package deploys on the other.
   ``dispatch_batch``; ``pio batchpredict``) gather the user rows on the
   model's device and run ``fused_topk_batch``: the hand-written CUDA kernel
   on a card, its plain version on the CPU.  A wave whose ``num`` is past
-  the fused menu (k > 128) takes ``full_row_topk``: the plain version on
-  the CPU, ``FusedTopKUnsupported`` on a card, where it is not ported yet.
+  the fused menu (k > 128) takes ``full_row_topk`` on the same device: a
+  full score row and a stable sort, on the card as on the CPU, the JAX
+  package's ``_device_score_topk`` route.
 """
 
 from __future__ import annotations
@@ -392,8 +393,9 @@ class ALSAlgorithm(Algorithm):
         top-k WITHOUT blocking; returns the fence that waits for the wave,
         copies it to the host, and hands over (top_s, top_i) — the
         ``PendingWave`` contract of the JAX package's MicroBatcher.  A ``k``
-        off the fused menu takes the full-row top-k (same tie rule),
-        which raises on a CUDA model."""
+        off the fused menu takes the full-row top-k (same tie rule) on the
+        model's device, as the JAX package takes ``_device_score_topk``:
+        the same fence, no host replica."""
         U, V = model.user_factors, model.item_factors
         uidx_dev = torch.from_numpy(uidx.astype(np.int64)).to(U.device)
         q = U.index_select(0, uidx_dev)

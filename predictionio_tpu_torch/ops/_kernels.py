@@ -32,14 +32,19 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: kernel name -> (source file in csrc/, C entry point, argtypes)
+#: entry name -> (source file in csrc/, C entry point, argtypes): the
+#: kernels' launchers, and what the fused top-k's wrapper asks its library
 KERNELS: dict[str, tuple[str, str, list]] = {
-    # q, t, B, N, r, k, limit, tile_rows, rows_per_split, n_splits,
+    # q, t, B, N, r, k, limit, queries per CTA, rows_per_split, n_splits,
     # cand_v, cand_i, out, stream
     "fused_topk": (
         "fused_topk.cu", "pio_fused_topk",
         [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
+    # r, k, queries per CTA -> pass 1's shared-memory bytes
+    "fused_topk_smem": ("fused_topk.cu", "pio_fused_topk_smem", [_I, _I, _I]),
+    # device, int[3] out: shared memory per CTA (opt-in), per SM, reserved
+    "device_smem": ("fused_topk.cu", "pio_device_smem", [_I, _P]),
     # seg, block_map, oth, wrv, factors, n_tiles, k, width, bf16,
     # out, carry, carry_seg, stream
     "als_fused_accum": (
@@ -138,7 +143,8 @@ def build(names=None) -> dict[str, float]:
 
 
 def load(name: str):
-    """The C entry point of kernel ``name``, built first if needed."""
+    """The C entry point ``name`` of :data:`KERNELS`, its library built
+    first if needed."""
     with _lock:
         fn = _loaded.get(name)
         if fn is None:

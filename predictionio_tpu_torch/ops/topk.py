@@ -16,14 +16,17 @@ of the same function.  There is no other path: a CUDA tensor either
 launches the kernel or raises.
 
 Shapes off the fused menu (``k`` past :data:`MAX_FUSED_K`) raise
-:class:`FusedTopKUnsupported`.  :func:`full_row_topk` answers them under the
-same tie rule on CPU tensors, counted with :func:`note_full_row_fallback`;
-on CUDA tensors it raises too: the full-row device top-k is not ported yet.
+:class:`FusedTopKUnsupported` here.  :func:`full_row_topk` answers them
+under the same tie rule, on the CPU or on the card, counted with
+:func:`note_full_row_fallback`, as the JAX package answers them outside
+its Pallas kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import logging
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -48,17 +51,21 @@ MAX_FUSED_K = 128
 #: kRetiredId in csrc/fused_topk.cu
 RETIRED_ID = float(1 << 25)
 
-#: queries per pass-1 CTA of the CUDA kernel (one warp each); must match
-#: kQueriesPerCta in csrc/fused_topk.cu
-QUERIES_PER_CTA = 8
+#: table rows per shared-memory tile of the CUDA kernel (``kTileRows`` in
+#: csrc/fused_topk.cu, which refuses a slab that is not whole tiles)
+TILE_ROWS_CUDA = 64
 
-#: table rows staged in shared memory per tile, at most
-MAX_TILE_ROWS = 256
+#: queries per pass-1 CTA the CUDA kernel is built for (:func:`query_block`
+#: picks one): blocks of 8 for a wave of at most :data:`SMALL_WAVE` queries,
+#: whose few blocks then still fill the card without cutting N into many
+#: short slabs, and for a k past :data:`WIDE_K`, whose merges then spread
+#: over more CTAs; blocks of 32 else
+QUERY_BLOCKS = (8, 32)
+SMALL_WAVE = 1024
+WIDE_K = 64
 
-#: shared memory a CTA may use without opting in (48 KB), in floats
-SMEM_FLOATS = 48 * 1024 // 4
-
-#: pass-1 CTAs aimed for per SM, so small waves still fill the card
+#: pass-1 CTAs aimed for per SM at most (fewer where shared memory binds),
+#: so small waves still fill the card
 CTAS_PER_SM = 4
 
 #: the most recent fused launch per name: its route ("cuda" or "plain"),
@@ -72,7 +79,7 @@ KERNEL_LAUNCHES: dict[str, int] = {"fused_topk": 0}
 #: full-score-row top-k dispatches per ``where`` (off-menu shapes)
 FULL_ROW_FALLBACKS: dict[str, int] = {}
 
-_SM_COUNT: dict[int, int] = {}
+_CARDS: dict[int, "CardLimits"] = {}
 
 
 class FusedTopKUnsupported(ValueError):
@@ -154,40 +161,95 @@ def fused_topk_plain(
     return torch.stack([vals[:, :k], idx[:, :k].to(torch.float32)])
 
 
+@dataclass(frozen=True)
+class CardLimits:
+    """What the card offers a pass-1 CTA: its SMs, the shared memory one CTA
+    may opt into, the shared memory of one SM, and what the system reserves
+    per CTA (bytes)."""
+
+    sm_count: int
+    smem_per_cta: int
+    smem_per_sm: int
+    smem_reserved: int
+
+
+def query_block(batch: int, k: int) -> int:
+    """Queries per pass-1 CTA for a wave of ``batch`` queries keeping ``k``
+    each (``chip_smoke.py``'s kernel_launch_shapes phase times both sizes
+    beside the one picked)."""
+    small = batch <= SMALL_WAVE or k > WIDE_K
+    return QUERY_BLOCKS[0] if small else QUERY_BLOCKS[1]
+
+
 def kernel_geometry(
-    batch: int, n_rows: int, rank: int, sm_count: int
+    batch: int, n_rows: int, qpc: int, smem_bytes: int, card: CardLimits
 ) -> dict[str, int]:
-    """The CUDA kernel's launch shape: table rows per shared-memory tile
-    (the widest score slab that exists), and N cut into ``n_splits`` slabs
-    of ``rows_per_split`` rows so that about ``CTAS_PER_SM`` pass-1 CTAs
-    land on each SM even for small waves."""
-    rs = rank | 1  # the kernel's odd shared-memory row stride
-    tile_rows = min(
-        MAX_TILE_ROWS, (SMEM_FLOATS - QUERIES_PER_CTA * rank) // rs // 32 * 32
-    )
-    if rank < 1 or tile_rows < 32:
+    """The CUDA kernel's launch shape for blocks of ``qpc`` queries whose
+    pass-1 CTA needs ``smem_bytes`` of shared memory (the library's count,
+    :func:`kernel_smem_bytes`): how many such CTAs fit on an SM, and N cut
+    into ``n_splits`` slabs of ``rows_per_split`` rows (whole 64-row tiles)
+    so that the card holds about as many pass-1 CTAs as fit at once, even
+    for small waves.  Refuses a CTA that does not fit the card."""
+    if smem_bytes < 0:
         raise FusedTopKUnsupported(
-            f"fused top-k: rank {rank} does not fit the kernel's 48 KB of "
-            "shared memory per CTA"
+            f"fused top-k: the kernel takes no rank, k or block of {qpc} queries "
+            "like this one"
         )
-    n_qblocks = -(-batch // QUERIES_PER_CTA)
-    n_tiles = -(-n_rows // tile_rows)
-    n_splits = min(n_tiles, max(1, -(-CTAS_PER_SM * sm_count // n_qblocks)))
+    if smem_bytes > card.smem_per_cta:
+        raise FusedTopKUnsupported(
+            f"fused top-k: a pass-1 CTA needs {smem_bytes} bytes of shared "
+            f"memory, past the card's {card.smem_per_cta} per CTA"
+        )
+    ctas_per_sm = max(
+        1, min(CTAS_PER_SM, card.smem_per_sm // (smem_bytes + card.smem_reserved))
+    )
+    n_qblocks = -(-batch // qpc)
+    n_tiles = -(-n_rows // TILE_ROWS_CUDA)
+    n_splits = min(n_tiles, max(1, ctas_per_sm * card.sm_count // n_qblocks))
     tiles_per_split = -(-n_tiles // n_splits)
     return {
-        "tile_rows": tile_rows,
-        "rows_per_split": tiles_per_split * tile_rows,
+        "queries_per_cta": qpc,
+        "tile_rows": TILE_ROWS_CUDA,
+        "rows_per_split": tiles_per_split * TILE_ROWS_CUDA,
         "n_splits": -(-n_tiles // tiles_per_split),
         "n_qblocks": n_qblocks,
         "n_tiles": n_tiles,
+        "smem_bytes": smem_bytes,
+        "ctas_per_sm": ctas_per_sm,
     }
 
 
-def _sm_count(device: torch.device) -> int:
+def kernel_smem_bytes(rank: int, k: int, qpc: int) -> int:
+    """Shared memory of one pass-1 CTA, as csrc/fused_topk.cu lays it out
+    (``pio_fused_topk_smem``; -1 for an input the kernel refuses)."""
+    return int(_kernels.load("fused_topk_smem")(rank, k, qpc))
+
+
+def card_limits(device: torch.device) -> CardLimits:
+    """The SM count (from PyTorch) and the shared-memory limits (from the
+    CUDA runtime, ``pio_device_smem``) of a card, read once per card."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SM_COUNT[idx]
+    if idx not in _CARDS:
+        limits = (ctypes.c_int * 3)()
+        err = _kernels.load("device_smem")(idx, ctypes.addressof(limits))
+        if err != 0:
+            raise RuntimeError(f"pio_device_smem failed: CUDA error {err}")
+        _CARDS[idx] = CardLimits(
+            torch.cuda.get_device_properties(idx).multi_processor_count, *limits
+        )
+    return _CARDS[idx]
+
+
+def cuda_geometry(
+    batch: int, n_rows: int, rank: int, k: int, device: torch.device,
+    qpc: int | None = None,
+) -> dict[str, int]:
+    """:func:`kernel_geometry` on ``device`` for this wave (queries per CTA
+    from :func:`query_block` unless ``qpc`` is given)."""
+    qpc = query_block(batch, k) if qpc is None else qpc
+    return kernel_geometry(
+        batch, n_rows, qpc, kernel_smem_bytes(rank, k, qpc), card_limits(device)
+    )
 
 
 def fused_topk_cuda(
@@ -216,12 +278,14 @@ def fused_topk_cuda(
         )
     fn = _kernels.load("fused_topk")
     splits = geo["n_splits"]
-    cand_v = torch.empty((b, splits, k), dtype=torch.float32, device=q.device)
-    cand_i = torch.empty((b, splits, k), dtype=torch.int32, device=q.device)
+    # the slab lists pass 2 merges; one slab writes the output directly
+    scratch = (b, splits, k) if splits > 1 else (0,)
+    cand_v = torch.empty(scratch, dtype=torch.float32, device=q.device)
+    cand_i = torch.empty(scratch, dtype=torch.int32, device=q.device)
     out = torch.empty((2, b, k), dtype=torch.float32, device=q.device)
     err = fn(
         q.data_ptr(), t.data_ptr(), b, n, rank, k, min(max(limit, 0), n),
-        geo["tile_rows"], geo["rows_per_split"], splits,
+        geo["queries_per_cta"], geo["rows_per_split"], splits,
         cand_v.data_ptr(), cand_i.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -259,12 +323,12 @@ def fused_topk_batch(
         )
     limit = n_rows if limit is None else int(limit)
     if q.device.type == "cuda":
-        geo = kernel_geometry(b, n_rows, rank, _sm_count(q.device))
+        geo = cuda_geometry(b, n_rows, rank, k, q.device)
         LAST_KERNEL_SHAPES[name] = {
             "route": "cuda",
             "rows_tile": min(geo["tile_rows"], n_rows),
             "batch": b,
-            "batch_block": QUERIES_PER_CTA,
+            "batch_block": geo["queries_per_cta"],
             "k": k,
             "n_rows": n_rows,
             "n_tiles": geo["n_tiles"],
@@ -288,26 +352,78 @@ def fused_topk_batch(
     return fused_topk_plain(q, t.to(torch.float32), k, limit)
 
 
+#: the most bytes one slice of an off-menu wave may hold on the card: its
+#: score row, the sorted values and their int64 ids (:func:`full_row_slices`)
+FULL_ROW_SLICE_BYTES = 1 << 30
+
+#: bytes per score of an off-menu slice, with headroom: the f32 score row,
+#: the sorted f32 value, its int64 id and the sort's own scratch peak at
+#: 48.5 per score at the ML-20M shape on an H100 (``chip_smoke.py``'s
+#: off_menu_wave phase reports it as ``peak_bytes_per_score``)
+_FULL_ROW_BYTES_PER_SCORE = 56
+
+
+def full_row_slices(batch: int, n_rows: int) -> int:
+    """Queries per slice of an off-menu wave on the card, so that one
+    slice's score row and its sort stay within
+    :data:`FULL_ROW_SLICE_BYTES` (at least one query)."""
+    per_query = _FULL_ROW_BYTES_PER_SCORE * max(n_rows, 1)
+    return max(1, min(batch, FULL_ROW_SLICE_BYTES // per_query))
+
+
+def full_row_sliced(
+    queries: torch.Tensor, table: torch.Tensor, k: int, rows_per_slice: int
+) -> torch.Tensor:
+    """The off-menu route's body: for ``rows_per_slice`` queries at a time,
+    the whole score row ``q @ t.T`` (in the process's fp32 matmul
+    precision: full fp32 unless the caller opted into TF32; ``+ 0`` makes
+    every ``-0`` a ``+0``, as the fused kernel's sums start from ``+0``), a
+    stable descending sort (equal values keep id order) and its first k,
+    into one packed ``[2, B, k]`` output.  Each query's answer depends on
+    its own row only, so each slice gives the same answer as the whole."""
+    b = queries.shape[0]
+    out = torch.empty((2, b, k), dtype=torch.float32, device=queries.device)
+    for lo in range(0, b, rows_per_slice):
+        hi = min(b, lo + rows_per_slice)
+        scores = queries[lo:hi] @ table.T
+        scores += 0.0  # in place: no second score row
+        vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+        del scores
+        out[0, lo:hi] = vals[:, :k]
+        out[1, lo:hi] = idx[:, :k]
+    return out
+
+
 def full_row_topk(
     queries: torch.Tensor, table: torch.Tensor, k: int, *, where: str
 ) -> torch.Tensor:
     """Top-k over the whole ``[B, N]`` score row for shapes off the fused
     menu (``k`` past :data:`MAX_FUSED_K`): the same packed ``[2, B, k]``
     output and (value desc, id asc) tie rule as :func:`fused_topk_batch`,
-    counted per ``where``.  CPU tensors take :func:`fused_topk_plain`; on
-    CUDA tensors it raises :class:`FusedTopKUnsupported`, since the port
-    has no full-row kernel yet."""
+    counted per ``where`` in :data:`FULL_ROW_FALLBACKS`.
+
+    This is the counterpart of the JAX package's off-menu route
+    (``_device_score_topk``: a jitted matmul and ``lax.top_k`` in XLA,
+    outside any Pallas kernel), not the fused kernel's plain version
+    (:func:`fused_topk_plain`, which it does not call).  It scores with
+    ``torch.matmul`` and a stable descending sort (``torch.topk`` promises
+    no tie order), :func:`full_row_sliced`: on CPU tensors the whole wave
+    at once; on CUDA tensors a slice of queries at a time, so that an
+    off-menu wave never holds more than :data:`FULL_ROW_SLICE_BYTES`.  Any
+    other device raises ``ValueError``."""
     b, n_rows = queries.shape[0], table.shape[0]
-    if queries.device.type != "cpu" or table.device.type != "cpu":
-        raise FusedTopKUnsupported(
-            f"{where}: top-k with k={k} over {n_rows} rows is off the fused "
-            f"menu (k <= {MAX_FUSED_K}) and the full-row device top-k is not "
-            f"ported yet; queries on {queries.device}, table on {table.device}"
+    dev = {queries.device.type, table.device.type}
+    if dev not in ({"cpu"}, {"cuda"}) or queries.device != table.device:
+        raise ValueError(
+            f"{where}: off-menu top-k runs on CPU or CUDA tensors; queries on "
+            f"{queries.device}, table on {table.device}"
         )
     if not 0 < k <= n_rows:
         raise FusedTopKUnsupported(f"{where}: k={k} with {n_rows} rows")
     note_full_row_fallback(b, k, n_rows, where)
-    return fused_topk_plain(queries, table.to(torch.float32), k, n_rows)
+    q, t = queries.to(torch.float32), table.to(torch.float32)
+    rows = b if dev == {"cpu"} else full_row_slices(b, n_rows)
+    return full_row_sliced(q, t, k, rows)
 
 
 def fused_topk_roofline(

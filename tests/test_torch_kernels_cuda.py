@@ -44,7 +44,22 @@ CASES = {
     "k_equals_n": ("exact", 3, 45, 3, 45, (), None),
     "rank_one": ("exact", 9, 500, 1, 64, (), None),
     "normal_ml20m_wave": ("normal", 512, 26_744, 10, 10, (), None),
+    # scores rise along the table: every row beats the running threshold,
+    # so every queue fills and overflows into a merge, tile after tile
+    "rising_k128": ("rising", 70, 5000, 8, 128, (), None),
+    "rising_k1": ("rising", 70, 5000, 8, 1, (), None),
+    "rising_k128_limit": ("rising", 33, 5000, 4, 128, (), 4000),
+    # neither k nor r a multiple of 32 or of 4; a rank past 32
+    "exact_k100_r33": ("exact", 40, 3000, 33, 100, (), None),
+    "exact_k128_r64": ("exact", 64, 4000, 64, 128, ((0, 3999),), None),
+    # a rank staged in three 64-column chunks, the last 2 wide
+    "exact_k64_r130": ("exact", 40, 2000, 130, 64, ((5, 1999),), None),
 }
+
+NEW_CASES = ["rising_k128", "rising_k1", "rising_k128_limit", "exact_k100_r33",
+             "exact_k128_r64", "exact_k64_r130"]
+
+QUERY_BLOCKS = [8, 32]
 
 
 @pytest.fixture()
@@ -63,6 +78,12 @@ def _inputs(kind, b, n, r, dups, seed):
     elif kind == "normal":
         q = rng.standard_normal((b, r))
         t = rng.standard_normal((n, r))
+    elif kind == "rising":
+        # score of row j = q[:, 0] * j: exact, rising with j for every query
+        q = np.zeros((b, r))
+        q[:, 0] = rng.integers(1, 9, b) / 8.0
+        t = np.zeros((n, r))
+        t[:, 0] = np.arange(n)
     else:
         q, t = np.ones((b, r)), np.zeros((n, r))
     t = t.astype(np.float32)
@@ -71,17 +92,10 @@ def _inputs(kind, b, n, r, dups, seed):
     return q.astype(np.float32), t
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_fused_topk_kernel_matches_plain(cuda, case):
-    kind, b, n, r, k, dups, limit = CASES[case]
-    q, t = _inputs(kind, b, n, r, dups, seed=b + n + k)
-    qd, td = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
-    before = topk.KERNEL_LAUNCHES["fused_topk"]
-    got = topk.fused_topk_batch(qd, td, k, limit=limit)
-    torch.cuda.synchronize()
-    assert topk.KERNEL_LAUNCHES["fused_topk"] == before + 1
-    assert topk.LAST_KERNEL_SHAPES["fused_topk"]["route"] == "cuda"
+def _hold_to_plain(got, qd, td, kind, k, limit):
+    """The kernel's packed output against the plain version's on the same
+    card inputs: bitwise on exact inputs, within rtol 1e-5 on normal ones."""
+    n = td.shape[0]
     # one column more than k: the neighbour of the last position
     wider = topk.fused_topk_plain(qd, td, min(k + 1, n), n if limit is None else limit)
     got, wider = got.cpu().numpy(), wider.cpu().numpy()
@@ -101,31 +115,140 @@ def test_fused_topk_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-def test_off_menu_device_wave_raises_on_the_card(cuda):
-    # num past the fused menu on a CUDA model: no host-replica answer and
-    # no plain version on the card; it raises until a full-row kernel exists
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_topk_kernel_matches_plain(cuda, case):
+    kind, b, n, r, k, dups, limit = CASES[case]
+    q, t = _inputs(kind, b, n, r, dups, seed=b + n + k)
+    qd, td = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    before = topk.KERNEL_LAUNCHES["fused_topk"]
+    got = topk.fused_topk_batch(qd, td, k, limit=limit)
+    torch.cuda.synchronize()
+    assert topk.KERNEL_LAUNCHES["fused_topk"] == before + 1
+    assert topk.LAST_KERNEL_SHAPES["fused_topk"]["route"] == "cuda"
+    _hold_to_plain(got, qd, td, kind, k, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpc", QUERY_BLOCKS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_topk_both_query_blocks_match_plain(cuda, case, qpc):
+    # the wrapper picks the query block by wave size; each instantiation
+    # must answer every case
+    kind, b, n, r, k, dups, limit = CASES[case]
+    q, t = _inputs(kind, b, n, r, dups, seed=b + n + k)
+    qd, td = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    geo = topk.cuda_geometry(b, n, r, k, cuda, qpc=qpc)
+    got = topk.fused_topk_cuda(qd, td, k, n if limit is None else limit, geo)
+    _hold_to_plain(got, qd, td, kind, k, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpc", QUERY_BLOCKS)
+@pytest.mark.parametrize("k", [1, 64])
+def test_fused_topk_many_due_queues_repeat_the_same_bits(cuda, k, qpc):
+    # rising scores at B=32: every query's queue is due after every tile,
+    # so all four warps merge at once, tile after tile; the merge step must
+    # deal each due queue out once (every warp reads the counts before any
+    # merge resets one), launch after launch
+    b, n = 32, 6000
+    q, t = _inputs("rising", b, n, 8, (), seed=k)
+    qd, td = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    geo = topk.cuda_geometry(b, n, 8, k, cuda, qpc=qpc)
+    for splits in (1, geo["n_splits"]):
+        tiles = -(-geo["n_tiles"] // splits)
+        one = dict(geo, n_splits=-(-geo["n_tiles"] // tiles),
+                   rows_per_split=tiles * topk.TILE_ROWS_CUDA)
+        first = topk.fused_topk_cuda(qd, td, k, n, one)
+        _hold_to_plain(first, qd, td, "rising", k, None)
+        for _ in range(60):
+            again = topk.fused_topk_cuda(qd, td, k, n, one)
+            assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,splits", [(4, 32), (4, 33), (64, 2), (64, 3), (1, 70)])
+def test_fused_topk_pass_two_sort_and_merges_agree(cuda, k, splits):
+    # pass 2 sorts all slab lists at once where n_splits * k <= 128 (k=4
+    # over 32 slabs, k=64 over 2) and merges them list by list past it;
+    # both must give the plain version's bits, ties across slabs included
+    b, n = 40, splits * 64
+    q, t = _inputs("exact", b, n, 6, ((0, n - 1), (1, n // 2), (2, 65)), seed=k + splits)
+    qd, td = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    for qpc in QUERY_BLOCKS:
+        geo = topk.cuda_geometry(b, n, 6, k, cuda, qpc=qpc)
+        one = dict(geo, n_splits=splits, rows_per_split=topk.TILE_ROWS_CUDA)
+        _hold_to_plain(topk.fused_topk_cuda(qd, td, k, n, one), qd, td, "exact", k, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NEW_CASES)
+def test_fused_topk_kernel_repeats_the_same_bits(cuda, case):
+    # survivors reach a queue in whatever order the shared-memory atomics
+    # give; the k-best is a total order, so a repeat gives the same bits
+    kind, b, n, r, k, dups, limit = CASES[case]
+    q, t = _inputs(kind, b, n, r, dups, seed=b + n + k)
+    qd, td = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    first = topk.fused_topk_batch(qd, td, k, limit=limit)
+    for _ in range(3):
+        again = topk.fused_topk_batch(qd, td, k, limit=limit)
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    # one slab (pass 1 writes the output) and many slabs (pass 2 merges)
+    # give the same bits too
+    lim = n if limit is None else limit
+    for qpc, splits in ((8, 1), (32, 1), (8, "all"), (32, "all")):
+        geo = topk.cuda_geometry(b, n, r, k, cuda, qpc=qpc)
+        splits = geo["n_tiles"] if splits == "all" else splits
+        tiles = -(-geo["n_tiles"] // splits)
+        one = dict(geo, n_splits=-(-geo["n_tiles"] // tiles),
+                   rows_per_split=tiles * topk.TILE_ROWS_CUDA)
+        got = topk.fused_topk_cuda(qd, td, k, lim, one)
+        assert torch.equal(first.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_off_menu_device_wave_answers_on_the_card(cuda, monkeypatch):
+    # num past the fused menu on a CUDA model: answered on the card (full
+    # score row, stable sort), equal to the CPU model's answer (the plain
+    # version) on exact inputs, counted as a full-row dispatch; no host
+    # replica, no kernel launch
     from predictionio_tpu_torch.models.recommendation import engine as rec
 
     rng = np.random.default_rng(5)
-    model = rec.ALSModel.from_jax_params(
-        {
-            "user_factors": rng.standard_normal((40, 4)).astype(np.float32),
-            "item_factors": rng.standard_normal((300, 4)).astype(np.float32),
-            "user_vocab": np.array([f"u{i}" for i in range(40)]),
-            "item_vocab": np.array([f"i{i}" for i in range(300)]),
-        },
-        cuda,
-    )
+    persisted = {
+        "user_factors": (rng.integers(1, 9, (40, 4)) / 8.0).astype(np.float32),
+        "item_factors": (rng.integers(1, 9, (300, 4)) / 8.0).astype(np.float32),
+        "user_vocab": np.array([f"u{i}" for i in range(40)]),
+        "item_vocab": np.array([f"i{i}" for i in range(300)]),
+    }
+    model = rec.ALSModel.from_jax_params(persisted, cuda)
+    cpu_model = rec.ALSModel.from_jax_params(persisted, "cpu")
     algo = rec.ALSAlgorithm()
     queries = list(
         enumerate(rec.Query(user=f"u{i % 40}", num=200) for i in range(520))
     )
+    want = dict(algo.batch_predict(cpu_model, queries))
+
+    def no_host_replica():
+        raise AssertionError("an off-menu device wave read the host replica")
+
+    def no_plain_version(*args):
+        raise AssertionError("an off-menu device wave called the plain version")
+
+    monkeypatch.setattr(model, "host_factors", no_host_replica)
+    monkeypatch.setattr(topk, "fused_topk_plain", no_plain_version)
     before = topk.KERNEL_LAUNCHES["fused_topk"]
-    with pytest.raises(topk.FusedTopKUnsupported, match="not ported"):
-        algo.batch_predict(model, queries)
-    with pytest.raises(topk.FusedTopKUnsupported, match="not ported"):
-        algo.dispatch_batch(model, queries)
+    counted = topk.FULL_ROW_FALLBACKS.get("als.batch_topk", 0)
+    got = dict(algo.batch_predict(model, queries))
+    finalize = algo.dispatch_batch(model, queries)
+    assert finalize is not None
+    dispatched = dict(finalize())
     assert topk.KERNEL_LAUNCHES["fused_topk"] == before
+    assert topk.FULL_ROW_FALLBACKS["als.batch_topk"] == counted + 2
+    for i in range(520):
+        pairs = [(s.item, s.score) for s in want[i].item_scores]
+        assert len(pairs) == 200
+        assert [(s.item, s.score) for s in got[i].item_scores] == pairs, i
+        assert [(s.item, s.score) for s in dispatched[i].item_scores] == pairs, i
     # on the menu, the same wave launches the kernel
     on_menu = [(i, rec.Query(user=q.user, num=10)) for i, q in queries]
     assert len(algo.batch_predict(model, on_menu)) == 520
@@ -133,16 +256,78 @@ def test_off_menu_device_wave_raises_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k", [(700, 26_744, 200), (37, 3000, 129)])
+def test_full_row_topk_on_the_card_equals_the_cpu(cuda, b, n, k, monkeypatch):
+    # the off-menu route on the card (its own body: it never calls the
+    # plain version there) against the plain version on the CPU.  Exact
+    # inputs, whole and in slices of 64 queries: bitwise, ties included.
+    # Random-normal inputs: within 1e-5 (TF32's 10-bit products would miss
+    # by ~1e-3), ids wherever no near tie makes the order ambiguous.
+    qe, te = _inputs("exact", b, n, 8, ((0, n - 1), (3, n // 2)), seed=b + k)
+    qn, tn = _inputs("normal", b, n, 8, (), seed=b + k + 1)
+    want_e, want_n = (
+        topk.fused_topk_plain(torch.from_numpy(x), torch.from_numpy(y), k + 1, n)
+        for x, y in ((qe, te), (qn, tn))
+    )
+    monkeypatch.setattr(topk, "fused_topk_plain", None)
+    qd, td = torch.from_numpy(qe).to(cuda), torch.from_numpy(te).to(cuda)
+    for x in (topk.full_row_sliced(qd, td, k, 64),
+              topk.full_row_topk(qd, td, k, where="test.card")):
+        x = x.cpu()
+        assert torch.equal(x[1], want_e[1, :, :k])
+        assert torch.equal(x[0].view(torch.int32), want_e[0, :, :k].view(torch.int32))
+    qd, td = torch.from_numpy(qn).to(cuda), torch.from_numpy(tn).to(cuda)
+    got = topk.full_row_topk(qd, td, k, where="test.card").cpu().numpy()
+    wider = want_n.numpy()
+    np.testing.assert_allclose(got[0], wider[0, :, :k], rtol=1e-5, atol=1e-6)
+    v = wider[0]
+    tie = np.abs(np.diff(v, axis=1)) <= 1e-5 * np.abs(v[:, 1:])
+    near = np.zeros(v.shape, bool)
+    near[:, 1:] |= tie
+    near[:, :-1] |= tie
+    assert ((got[1] == wider[1, :, :k]) | near[:, :k]).all()
+
+
+@pytest.mark.cuda
 def test_fused_topk_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.ones((4, 3), device=cuda)
     t = torch.ones((50, 3), device=cuda)
-    geo = topk.kernel_geometry(4, 50, 3, topk._sm_count(q.device))
+    geo = topk.cuda_geometry(4, 50, 3, 5, cuda)
     with pytest.raises(TypeError):
         topk.fused_topk_cuda(q.double(), t.double(), 5, 50, geo)
     with pytest.raises(ValueError):
         topk.fused_topk_cuda(q, t.T.contiguous().T, 5, 50, geo)
     with pytest.raises(topk.FusedTopKUnsupported):
         topk.fused_topk_cuda(q, t, topk.MAX_FUSED_K + 1, 50, geo)
+    # the library refuses a query block it is not built for, and a slab
+    # that is not whole tiles
+    for bad in (dict(geo, queries_per_cta=16), dict(geo, rows_per_split=100)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            topk.fused_topk_cuda(q, t, 5, 50, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "r,k,qpc,smem",
+    # counted by hand from csrc/fused_topk.cu's layout (the count in
+    # tests/test_torch_topk.py::_smem_by_hand)
+    [(10, 10, 32, 47_616), (10, 10, 8, 19_584), (32, 128, 32, 93_184),
+     (32, 128, 8, 40_192), (33, 100, 32, 86_016), (130, 64, 8, 55_552),
+     (1, 1, 8, 14_656), (996, 128, 32, 232_448), (997, 128, 32, 233_472)],
+)
+def test_fused_topk_smem_counted_by_the_library(cuda, r, k, qpc, smem):
+    assert topk.kernel_smem_bytes(r, k, qpc) == smem
+    assert topk.kernel_smem_bytes(r, k, 16) == -1
+    assert topk.kernel_smem_bytes(r, topk.MAX_FUSED_K + 1, qpc) == -1
+    card = topk.card_limits(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert card.sm_count == props.multi_processor_count
+    # an H100 lets one CTA opt into 227 KB of the SM's 228 KB; 1 KB each
+    # is the system's
+    if "H100" in props.name:
+        assert (card.smem_per_cta, card.smem_per_sm, card.smem_reserved) == (
+            232_448, 233_472, 1024
+        )
 
 
 # -- the ALS segment accumulators (csrc/als_accum.cu) -----------------------
@@ -221,6 +406,44 @@ def test_als_fused_accum_matches_plain(cuda, kind, rank, implicit, precision):
     # the hot segment spans more than 3 tiles; the last block is empty
     assert (plan.block_map == plan.n_blocks - 1).sum() == 1
     assert not got[-als_accum.S:].any()
+
+
+SMALL_RANK_CASES = [
+    (kind, rank, precision)
+    for kind in ("exact", "normal")
+    for rank in (1, 2, 11)
+    for precision in ("highest", "bf16")
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,rank,precision", SMALL_RANK_CASES,
+    ids=["-".join(map(str, c)) for c in SMALL_RANK_CASES],
+)
+def test_als_fused_accum_at_block_edges(cuda, kind, rank, precision):
+    # ranks where the Gram of u = [v, 1] ends just inside or just past a
+    # 4-wide block (k + 1 = 2, 3, 12): the count's block, the rhs column
+    # and the masked lanes; many row groups, a hot segment over 4 tiles
+    n_seg_pad, n_oth = 640, 250
+    seg, oth, rating, factors = _als_stream(
+        kind, 12_000, n_seg_pad, n_oth, rank, seed=100 + rank, hot=4000
+    )
+    plan, args, oth_d, rat_d, val_d = _staged(seg, oth, rating, n_seg_pad, cuda)
+    f = torch.from_numpy(factors).to(cuda)
+    for implicit in (False, True):
+        def run(fn, fac, rat):
+            wrv = als_accum.make_wrv(rat, val_d, implicit, 1.5)
+            return fn(args, oth_d, wrv, fac, plan.n_blocks, precision)
+
+        got = run(als_accum.segment_stats_fused, f, rat_d)
+        again = run(als_accum.segment_stats_fused, f, rat_d)
+        torch.cuda.synchronize()
+        want = run(als_accum.segment_stats_fused_plain, f, rat_d)
+        scale = run(als_accum.segment_stats_fused_plain, f.abs(), rat_d.abs())
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        _hold(got, want, scale, kind == "exact", f"fused {kind} r{rank}")
+        assert not got[-als_accum.S:].any()
 
 
 @pytest.mark.cuda

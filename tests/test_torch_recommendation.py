@@ -216,14 +216,18 @@ def test_off_menu_device_wave_matches_jax():
 
 
 def test_off_menu_device_wave_raises_off_the_cpu():
-    # a model off the CPU gets no host-replica answer for an off-menu wave
+    # the off-menu wave runs on the model's device, CPU or CUDA (the card's
+    # answer is held to the CPU's in tests/test_torch_kernels_cuda.py); a
+    # model on any other device gets no host-replica answer: it raises
     model = pt_rec.ALSModel.from_jax_params(_exact_persisted(40, 300, 4, 9), "meta")
     algo = pt_rec.ALSAlgorithm()
     queries = [pt_rec.Query(user=f"u{i % 40}", num=200) for i in range(WAVE)]
-    with pytest.raises(pt_topk.FusedTopKUnsupported, match="not ported"):
+    before = pt_topk.FULL_ROW_FALLBACKS.get("als.batch_topk", 0)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         algo.batch_predict(model, list(enumerate(queries)))
-    with pytest.raises(pt_topk.FusedTopKUnsupported, match="not ported"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         algo.dispatch_batch(model, list(enumerate(queries)))
+    assert pt_topk.FULL_ROW_FALLBACKS.get("als.batch_topk", 0) == before
 
 
 def test_host_wave_matches_jax_exactly(trained):

@@ -28,6 +28,27 @@ torch.set_num_threads(2)
 
 RTOL = ATOL = 1e-6
 
+#: an H100's SMs and shared memory (per CTA after opting in, per SM, and
+#: reserved per CTA), as ``pio_device_smem`` reads them from the runtime
+H100 = pt_topk.CardLimits(132, 232_448, 233_472, 1024)
+
+
+def _smem_by_hand(r: int, k: int, qpc: int) -> int:
+    """A pass-1 CTA's shared memory, counted by hand from the layout in
+    csrc/fused_topk.cu: the query block (the rank padded to a multiple of
+    4, then to an odd number of 4-float words) and two 64-row tiles of at
+    most one 64-column chunk; k-best and a 128-slot queue per query (value
+    and id); a 128-slot merge scratch per warp (4 warps); 4 words per
+    query.  ``test_torch_kernels_cuda.py`` holds the library to it."""
+    rp = -(-r // 4) * 4
+
+    def odd(x):
+        return x if (x // 4) % 2 == 1 else x + 4
+
+    rsq, rst = odd(rp), odd(min(rp, 64))
+    return 4 * (qpc * rsq + 2 * 64 * rst + 2 * qpc * k + 2 * qpc * 128
+                + 2 * 4 * 128 + 4 * qpc)
+
 
 def _inputs(kind: str, b: int, n: int, r: int, seed: int, tie_rows=()):
     rng = np.random.default_rng(seed)
@@ -105,7 +126,7 @@ def test_no_full_row_proof_hook():
     shapes = pt_topk.LAST_KERNEL_SHAPES["proof.check"]
     assert shapes["route"] == "plain"
     assert shapes["rows_tile"] == shapes["n_rows"] == 5000
-    geo = pt_topk.kernel_geometry(8, 5000, 4, sm_count=132)
+    geo = pt_topk.kernel_geometry(8, 5000, 8, _smem_by_hand(4, 10, 8), H100)
     assert geo["tile_rows"] < 5000
     assert geo["n_tiles"] == -(-5000 // geo["tile_rows"])
 
@@ -150,14 +171,71 @@ def test_full_row_topk_matches_lax_top_k():
 
 
 def test_full_row_topk_raises_off_the_cpu():
-    # a tensor off the CPU gets no plain-version answer: there is no
-    # full-row kernel yet, so it raises (and is not counted)
+    # off the CPU and off CUDA there is no route: it raises ValueError (not
+    # a silent answer) and is not counted; a CUDA tensor takes the sliced
+    # route, whose answer equals the whole row's (run here on the CPU)
     q = torch.ones((4, 3), device="meta")
     t = torch.ones((300, 3), device="meta")
     before = pt_topk.FULL_ROW_FALLBACKS.get("test.off_cpu", 0)
-    with pytest.raises(pt_topk.FusedTopKUnsupported, match="not ported"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         pt_topk.full_row_topk(q, t, 200, where="test.off_cpu")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        pt_topk.full_row_topk(torch.ones((4, 3)), t, 200, where="test.off_cpu")
     assert pt_topk.FULL_ROW_FALLBACKS.get("test.off_cpu", 0) == before
+    qe, te = _inputs("exact", 9, 300, 4, seed=3, tie_rows=((0, 299), (7, 150)))
+    qe, te = torch.from_numpy(qe), torch.from_numpy(te)
+    got = pt_topk.full_row_sliced(qe, te, 200, rows_per_slice=4)
+    want = pt_topk.full_row_topk(qe, te, 200, where="test.off_cpu")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows_per_slice", [1, 3, 8, 64])
+def test_full_row_sliced_equals_the_whole_row(rows_per_slice):
+    # the card's off-menu route scores a slice of queries at a time; each
+    # slice must give the whole row's answer, bit for bit, ties included
+    q, t = _inputs("exact", 8, 500, 5, seed=rows_per_slice, tie_rows=((1, 499),))
+    q, t = torch.from_numpy(q), torch.from_numpy(t)
+    k = pt_topk.MAX_FUSED_K + 40
+    got = pt_topk.full_row_sliced(q, t, k, rows_per_slice)
+    want = pt_topk.fused_topk_plain(q, t, k, 500)
+    assert got.shape == (2, 8, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_full_row_slices_bound_the_memory():
+    # 56 bytes per score: at the ML-20M shape 1 GiB holds 716 queries
+    per = pt_topk._FULL_ROW_BYTES_PER_SCORE
+    assert per == 56
+    assert pt_topk.full_row_slices(4096, 26_744) == (1 << 30) // (56 * 26_744) == 716
+    assert pt_topk.full_row_slices(10, 26_744) == 10
+    assert pt_topk.full_row_slices(4096, 1 << 26) == 1  # never fewer than one
+    assert pt_topk.full_row_slices(100, 1 << 20) == (1 << 30) // (56 << 20) == 18
+
+
+@pytest.mark.parametrize(
+    "b,n,r,k,rows_per_slice",
+    [(6, 500, 10, 129, 6), (40, 2000, 10, 200, 7), (17, 3000, 32, 300, 1),
+     (9, 129, 3, 129, 4)],
+)
+def test_full_row_route_matches_the_jax_xla_route(b, n, r, k, rows_per_slice):
+    # the off-menu route's counterpart in the JAX package is
+    # _device_score_topk (a jitted matmul and lax.top_k); random-normal
+    # inputs, sliced or whole: ids equal, values within the sgemm's ulps
+    from predictionio_tpu.models.recommendation.engine import _device_score_topk
+
+    rng = np.random.default_rng(b * n + k)
+    U = rng.standard_normal((b + 5, r)).astype(np.float32)
+    V = rng.standard_normal((n, r)).astype(np.float32)
+    uidx = rng.permutation(b + 5)[:b]
+    want_v, want_i = (np.asarray(x) for x in _device_score_topk(U, V, uidx, k))
+    q, t = torch.from_numpy(U[uidx]), torch.from_numpy(V)
+    for got in (
+        pt_topk.full_row_topk(q, t, k, where="test.xla_route").numpy(),
+        pt_topk.full_row_sliced(q, t, k, rows_per_slice).numpy(),
+    ):
+        assert got.shape == (2, b, k)
+        np.testing.assert_array_equal(got[1], want_i)
+        np.testing.assert_allclose(got[0], want_v, rtol=RTOL, atol=ATOL)
 
 
 def test_build_dir_checkout_env_and_user_cache(monkeypatch, tmp_path):
@@ -208,36 +286,114 @@ def test_roofline_matches_jax():
               (300, 3000, 8), (1, 1, 1), (7, 100_000, 300)],
 )
 def test_kernel_geometry_covers_the_table(b, n, r):
-    geo = pt_topk.kernel_geometry(b, n, r, sm_count=132)
-    assert geo["tile_rows"] % 32 == 0 and 32 <= geo["tile_rows"] <= 256
-    # shared memory of one pass-1 CTA fits the 48 KB a launch may use
-    smem = 4 * (pt_topk.QUERIES_PER_CTA * r + geo["tile_rows"] * (r | 1))
-    assert smem <= 48 * 1024
+    qpc = pt_topk.query_block(b, pt_topk.MAX_FUSED_K)
+    smem = _smem_by_hand(r, pt_topk.MAX_FUSED_K, qpc)
+    geo = pt_topk.kernel_geometry(b, n, qpc, smem, H100)
+    assert geo["tile_rows"] == pt_topk.TILE_ROWS_CUDA == 64
+    # shared memory of one pass-1 CTA fits the 227 KB a launch may opt into
+    assert geo["smem_bytes"] == smem <= 227 * 1024
+    assert 1 <= geo["ctas_per_sm"] <= pt_topk.CTAS_PER_SM
     # the slabs cover every row, and none is empty
     assert geo["rows_per_split"] % geo["tile_rows"] == 0
     assert (geo["n_splits"] - 1) * geo["rows_per_split"] < n
     assert geo["n_splits"] * geo["rows_per_split"] >= n
-    assert geo["n_qblocks"] == -(-b // pt_topk.QUERIES_PER_CTA)
+    assert geo["n_qblocks"] == -(-b // qpc)
+    assert geo["queries_per_cta"] == qpc
 
 
 def test_kernel_geometry_rejects_rank_past_shared_memory():
-    with pytest.raises(pt_topk.FusedTopKUnsupported):
-        pt_topk.kernel_geometry(8, 1000, 2000, sm_count=132)
+    # a CTA past the card's 227 KB, and the library's -1 for an input the
+    # kernel refuses
+    for smem in (H100.smem_per_cta + 1, _smem_by_hand(2000, 128, 32), -1):
+        with pytest.raises(pt_topk.FusedTopKUnsupported):
+            pt_topk.kernel_geometry(8, 1000, 32, smem, H100)
+
+
+@pytest.mark.parametrize(
+    "b,k,qpc",
+    [(1, 10, 8), (300, 10, 8), (512, 10, 8), (1024, 10, 8), (1025, 10, 32),
+     (4096, 10, 32), (100_000, 10, 32), (4096, 64, 32), (4096, 65, 8),
+     (4096, 128, 8), (1024, 128, 8)],
+)
+def test_query_block_by_wave_size(b, k, qpc):
+    # up to SMALL_WAVE queries, or past WIDE_K entries per query, a CTA
+    # takes 8 queries; else 32
+    assert (pt_topk.SMALL_WAVE, pt_topk.WIDE_K) == (1024, 64)
+    assert pt_topk.query_block(b, k) == qpc
+    assert qpc in pt_topk.QUERY_BLOCKS == (8, 32)
+
+
+@pytest.mark.parametrize(
+    "r,k,smem,per_sm",
+    [
+        # 4 * (32 rsq + 2 * 64 rst + 64k + 8192 + 1024 + 128): rp = r rounded
+        # up to 4, rsq = rp padded to an odd number of 4-float words, rst
+        # the same for a tile chunk (at most 64 columns: 68 past rank 64)
+        (10, 10, 4 * (32 * 12 + 128 * 12 + 640 + 9344), 4),
+        (32, 128, 4 * (32 * 36 + 128 * 36 + 8192 + 9344), 2),
+        (33, 100, 4 * (32 * 36 + 128 * 36 + 6400 + 9344), 2),
+        (64, 128, 4 * (32 * 68 + 128 * 68 + 8192 + 9344), 2),
+        (1, 1, 4 * (32 * 4 + 128 * 4 + 64 + 9344), 4),
+        (300, 128, 4 * (32 * 300 + 128 * 68 + 8192 + 9344), 1),
+    ],
+)
+def test_kernel_geometry_by_hand(r, k, smem, per_sm):
+    assert _smem_by_hand(r, k, 32) == smem
+    geo = pt_topk.kernel_geometry(4096, 26_744, 32, smem, H100)
+    assert geo["smem_bytes"] == smem
+    assert geo["ctas_per_sm"] == per_sm == min(4, 233_472 // (smem + 1024))
+    # 128 blocks of 32 queries; as many slabs as fill the SMs' CTA slots
+    assert geo["n_qblocks"] == 128
+    assert geo["n_tiles"] == -(-26_744 // 64) == 418
+    assert geo["n_splits"] == per_sm * 132 // 128
+    # a 512-query wave: 64 blocks of 8 queries (a smaller CTA: 4 fit per
+    # SM), more slabs, each of whole tiles
+    smem8 = _smem_by_hand(r, k, 8)
+    assert smem8 < smem
+    small = pt_topk.kernel_geometry(512, 26_744, 8, smem8, H100)
+    per_sm8 = min(4, 233_472 // (smem8 + 1024))
+    assert small["n_qblocks"] == 64 and small["ctas_per_sm"] == per_sm8
+    assert small["n_splits"] * small["rows_per_split"] >= 26_744
+    assert small["n_splits"] == -(-418 // -(-418 // (per_sm8 * 132 // 64)))
+
+
+def test_kernel_geometry_refuses_past_227_kb():
+    # past rank 64 the tiles are staged in 64-column chunks, so only the
+    # query block grows with the rank: 4 * (32 rsq + 8704 + 64k + 9344)
+    # bytes; at k=128 the widest rank that fits is 996 (rsq 996: exactly
+    # 232,448 bytes); 997 pads to 1000, rsq 1004 (233,472 bytes)
+    assert _smem_by_hand(996, 128, 32) == 232_448 == H100.smem_per_cta
+    assert _smem_by_hand(997, 128, 32) == 233_472
+    geo = pt_topk.kernel_geometry(8, 1000, 32, _smem_by_hand(996, 128, 32), H100)
+    assert geo["ctas_per_sm"] == 1
+    with pytest.raises(pt_topk.FusedTopKUnsupported, match="233472"):
+        pt_topk.kernel_geometry(8, 1000, 32, _smem_by_hand(997, 128, 32), H100)
+    # a smaller k, or a block of 8 queries, leaves room for a wider rank
+    assert pt_topk.kernel_geometry(8, 1000, 32, _smem_by_hand(997, 10, 32), H100)
+    assert pt_topk.kernel_geometry(8, 1000, 8, _smem_by_hand(2000, 128, 8), H100)
+    # every rank the earlier kernel took (its 48 KB tile fit up to rank 307)
+    for rank in range(1, 308):
+        for qpc in pt_topk.QUERY_BLOCKS:
+            pt_topk.kernel_geometry(8, 1000, qpc, _smem_by_hand(rank, 128, qpc), H100)
 
 
 def test_constants_match_the_cuda_source():
     src = (_kernels.CSRC / "fused_topk.cu").read_text()
     assert f"kRetiredId = 1 << 25;" in src
-    assert f"kQueriesPerCta = {pt_topk.QUERIES_PER_CTA};" in src
-    assert "extern \"C\" int pio_fused_topk(" in src
+    assert f"kTileRows = {pt_topk.TILE_ROWS_CUDA};" in src
+    assert f"kMaxK = {pt_topk.MAX_FUSED_K};" in src
+    for entry in ("pio_fused_topk(", "pio_fused_topk_smem(", "pio_device_smem("):
+        assert f"extern \"C\" int {entry}" in src
     name, entry, argtypes = _kernels.KERNELS["fused_topk"]
     assert (name, entry) == ("fused_topk.cu", "pio_fused_topk")
     assert len(argtypes) == 14
+    assert _kernels.KERNELS["fused_topk_smem"][:2] == ("fused_topk.cu", "pio_fused_topk_smem")
+    assert _kernels.KERNELS["device_smem"][:2] == ("fused_topk.cu", "pio_device_smem")
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
     # no quiet fallback: the kernel's wrapper computes nothing on the CPU
     q, t = torch.ones((4, 3)), torch.ones((50, 3))
-    geo = pt_topk.kernel_geometry(4, 50, 3, sm_count=1)
+    geo = pt_topk.kernel_geometry(4, 50, 8, _smem_by_hand(3, 5, 8), H100)
     with pytest.raises(ValueError, match="cpu"):
         pt_topk.fused_topk_cuda(q, t, 5, 50, geo)
