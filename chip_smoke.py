@@ -19,9 +19,11 @@ calls:
   of ``predictionio_tpu_torch.tools.cli``), with the card's factors held
   against a CPU train from the same start;
 - ``train_als`` on a stream at the ML-20M shape: 20 iterations fused, then
-  3 forced chunked, each kernel held against its plain version there; then
-  the OOM ladder (``auto`` under a cap of device memory between the two
-  trains' peaks falls back from fused to chunked).
+  3 forced chunked, each kernel held against its plain version there (the
+  chunk kernel timed at widths 128 and 1,152, and a chunked user
+  half-step split by kind of device work); then the OOM
+  ladder (``auto`` under a cap of device memory between the two trains'
+  peaks falls back from fused to chunked).
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -228,6 +230,20 @@ def time_case(b: int, n: int, r: int, k: int, rng) -> dict:
     }
 
 
+def ptxas_by_kernel(name: str) -> dict:
+    """``nvcc -Xptxas -v``'s registers and spills for each kernel (mangled
+    name) of the source that holds kernel ``name``."""
+    from predictionio_tpu_torch.ops import _kernels
+
+    out, entry = {}, None
+    for line in _kernels.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("registers" in line or "spill" in line):
+            out.setdefault(entry, []).append(line.split("info    :")[-1].strip())
+    return out
+
+
 def kernel_phase() -> tuple[list, list]:
     from predictionio_tpu_torch.ops import _kernels
 
@@ -238,13 +254,8 @@ def kernel_phase() -> tuple[list, list]:
             "phase": "build",
             "seconds": time.perf_counter() - t0,
             "per_source_s": built,
-            "ptxas": {
-                name: [
-                    line for line in _kernels.build_log(name).splitlines()
-                    if "registers" in line or "spill" in line
-                ]
-                for name in ("fused_topk", "als_fused_accum")
-            },
+            "ptxas": {name: ptxas_by_kernel(name)
+                      for name in ("fused_topk", "als_fused_accum")},
         }
     )
     rng = np.random.default_rng(SEED)
@@ -708,6 +719,28 @@ def als_stream(kind: str, n: int, n_seg_pad: int, n_oth: int, k: int, rng,
     return seg, oth, rating.astype(np.float32), factors.astype(np.float32)
 
 
+def boundary_stream(kind: str, k: int, rng):
+    """A stream whose runs end at every row of a tile: block 0 holds
+    segment 3 over 3,500 rows (two tiles one run from first row to last);
+    blocks 1-9 each open with a run of 1 + 115 (b - 1) rows and then 127
+    one-row segments; block 10 is empty; block 11 random.  Returns the
+    stream and its padded segment count."""
+    seg = [np.full(3500, 3), rng.integers(0, 128, 300)]
+    for b in range(1, 10):
+        seg += [np.full(1 + 115 * (b - 1), 128 * b), 128 * b + np.arange(1, 128)]
+    seg.append(rng.integers(11 * 128, 12 * 128, 600))
+    seg = rng.permutation(np.concatenate(seg))
+    n, n_oth = len(seg), 300
+    oth = rng.integers(0, n_oth, n).astype(np.int32)
+    if kind == "exact":
+        factors = rng.integers(-8, 9, (n_oth, k)) / 8.0
+        rating = rng.integers(1, 11, n) / 2.0
+    else:
+        factors = rng.standard_normal((n_oth, k))
+        rating = rng.standard_normal(n)
+    return seg, oth, rating.astype(np.float32), factors.astype(np.float32), 12 * 128
+
+
 def hold(got, want, scale, exact: bool, what: str) -> float:
     """Bitwise on exact inputs, else within ALS_RTOL of the absolute sums;
     returns the largest difference."""
@@ -729,13 +762,15 @@ def same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 
 
 def als_kernel_phase() -> list:
-    """Both ALS kernels against their plain versions: ranks 1, 2, 6, 10, 11,
-    17 and 32, explicit and implicit, "highest" and "bf16", on a stream with an
-    all-padding block and a segment over more than 3 tiles (the chunked
-    one cut into 2-tile chunks, so blocks cross chunks); bitwise on exact
-    inputs, within ALS_RTOL on random-normal ones, and a repeat run gives
-    the same bits.  The streams are staged by ``ops.als._stage``, as
-    ``train_als`` stages them."""
+    """Both ALS kernels against their plain versions, "highest" and "bf16",
+    on a stream with an all-padding block and a segment over more than 3
+    tiles: the fused one at ranks 1, 2, 6, 10, 11, 17 and 32, explicit and
+    implicit; the chunked one at ranks 1, 10, 11, 17 and 32 (every width),
+    in 2-tile chunks, and on a stream whose runs end at every row of a tile
+    in 3-tile chunks (blocks cross chunks).  Bitwise on exact inputs, within
+    ALS_RTOL on random-normal ones, and a repeat run gives the same bits.
+    The streams are staged by ``ops.als._stage``, as ``train_als`` stages
+    them."""
     from predictionio_tpu_torch.ops import als, als_accum
 
     cuda = torch.device("cuda")
@@ -766,25 +801,37 @@ def als_kernel_phase() -> list:
                         raise AssertionError(f"{what}: the empty block is not zero")
                     cases.append({"kernel": "als_fused_accum", "case": what,
                                   "max_abs_err": err})
-        seg, oth, rating, factors = als_stream(kind, n, n_seg_pad, n_oth, RANK, rng, hot)
-        st = als._stage(seg, oth, rating, n_seg_pad, "chunked", cuda,
-                        tiles_per_chunk=2)
-        f = torch.from_numpy(factors).cuda()
-        for precision in ("highest", "bf16"):
-            def chunked(fn, fac, rat):
-                return fn(st["plan_args"], st["oth"], rat, st["val"], fac, True,
-                          1.5, st["plan"].n_blocks, precision)
+        # kernel 2 at every width (128, 128, 256, 384, 1,152): the stream
+        # above in 2-tile chunks, and one whose runs end at every row of a
+        # tile (so at every boundary of its 4- and 8-row groups) in 3-tile
+        # chunks; blocks cross chunks in both
+        for k in (1, RANK, 11, 17, 32):
+            for stream, tpc in (("hot", 2), ("boundary", 3)):
+                if stream == "hot":
+                    seg, oth, rating, factors = als_stream(
+                        kind, n, n_seg_pad, n_oth, k, rng, hot)
+                    pad = n_seg_pad
+                else:
+                    seg, oth, rating, factors, pad = boundary_stream(kind, k, rng)
+                st = als._stage(seg, oth, rating, pad, "chunked", cuda,
+                                tiles_per_chunk=tpc)
+                f = torch.from_numpy(factors).cuda()
+                for precision in ("highest", "bf16"):
+                    def chunked(fn, fac, rat):
+                        return fn(st["plan_args"], st["oth"], rat, st["val"], fac,
+                                  True, 1.5, st["plan"].n_blocks, precision)
 
-            got = chunked(als_accum.segment_stats_chunked, f, st["rat"])
-            again = chunked(als_accum.segment_stats_chunked, f, st["rat"])
-            want = chunked(als_accum.segment_stats_chunked_plain, f, st["rat"])
-            scale = chunked(als_accum.segment_stats_chunked_plain, f.abs(),
-                            st["rat"].abs())
-            what = f"chunked {kind} r{RANK} implicit {precision}, {st['plan'].n_chunks} chunks"
-            err = hold(got, want, scale, kind == "exact", what)
-            same_bits(got, again, what)
-            cases.append({"kernel": "als_segment_accum", "case": what,
-                          "max_abs_err": err})
+                    got = chunked(als_accum.segment_stats_chunked, f, st["rat"])
+                    again = chunked(als_accum.segment_stats_chunked, f, st["rat"])
+                    want = chunked(als_accum.segment_stats_chunked_plain, f, st["rat"])
+                    scale = chunked(als_accum.segment_stats_chunked_plain, f.abs(),
+                                    st["rat"].abs())
+                    what = (f"chunked {kind} r{k} {stream} implicit {precision}, "
+                            f"{st['plan'].n_chunks} chunks")
+                    err = hold(got, want, scale, kind == "exact", what)
+                    same_bits(got, again, what)
+                    cases.append({"kernel": "als_segment_accum", "case": what,
+                                  "max_abs_err": err})
     emit({"phase": "als_kernel_vs_plain", "all_passed": True, "cases": cases})
     return cases
 
@@ -1105,23 +1152,29 @@ def fused_timing(staged: dict, other: torch.Tensor, p) -> dict:
 
 
 def chunk_timing(staged: dict, other: torch.Tensor, p) -> dict:
-    """Kernel 2 on the first chunk of the ML-20M half-step: the chunk's
-    rows built as ``segment_stats_chunked`` builds them; checked against
-    its plain version, timed beside it and beside one ``index_add_`` call
-    (padding rows into a spare output row)."""
+    """Kernel 2 on the first chunk of the ML-20M user half-step at the rank
+    of ``other``: ``chunk_tiles`` tiles of the chunked plan (1,024 at rank
+    10, width 128; 113 at rank 32, width 1,152), the rows built as
+    ``segment_stats_chunked`` builds them; checked against its plain
+    version, timed beside it and beside one ``index_add_`` call (padding
+    rows into a spare output row), and timed again last: the spread of one
+    call."""
     from predictionio_tpu_torch.ops import als_accum
     from predictionio_tpu_torch.ops.als import confidence_weights
 
     plan = staged["plan"]
-    # the chunked streams are in host memory: upload the first chunk
-    bm, seg3, oth, rat, val = (
-        x[0].to(other.device)
-        for x in (*staged["plan_args"], staged["oth"], staged["rat"], staged["val"])
+    width = als_accum.row_width(other.shape[1])
+    tiles = min(als_accum.chunk_tiles(width), plan.tiles_per_chunk)
+    # the chunked streams are in host memory: upload the chunk's tiles
+    bm, seg3 = (x[0, :tiles].to(other.device) for x in staged["plan_args"])
+    oth, rat, val = (
+        x[0, :tiles * 1024].to(other.device)
+        for x in (staged["oth"], staged["rat"], staged["val"])
     )
-    width = als_accum.row_width(p.rank)
     n_seg = plan.n_blocks * 128
     w, rhs = confidence_weights(rat, val, False, 1.0)
     rows = als_accum._flat_rows(other[oth.long()], w, rhs, val, width)
+    what = f"chunk at the ML-20M shape, width {width}"
 
     def fresh():
         return torch.zeros((n_seg, width), device=other.device)
@@ -1129,18 +1182,20 @@ def chunk_timing(staged: dict, other: torch.Tensor, p) -> dict:
     got = als_accum.segment_accum(fresh(), bm, seg3, rows, p.pallas_precision)
     want = als_accum.segment_accum_plain(fresh(), bm, seg3, rows, p.pallas_precision)
     scale = als_accum.segment_accum_plain(fresh(), bm, seg3, rows.abs(), p.pallas_precision)
-    err = hold(got, want, scale, False, "chunk at the ML-20M shape")
+    err = hold(got, want, scale, False, what)
+    del want, scale
     g = als_accum._global_seg(bm, seg3)
     g = torch.where(g >= 0, g, n_seg)
     spare = torch.zeros((n_seg + 1, width), device=other.device)
     acc = fresh()
-    valid = int((plan.seg3[0] >= 0).sum())
+    valid = int((plan.seg3[0, :tiles] >= 0).sum())
     # the running output is read and written only for the touched blocks
-    touched = int(np.unique(plan.block_map[0]).size) * 128
+    touched = int(np.unique(plan.block_map[0, :tiles]).size) * 128
     work = als_accum.segment_accum_least_work(rows.shape[0], width, touched, valid)
     bytes_s, ops_s = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / FP32_FLOPS_PER_S
-    return {
+    out = {
         "shape": [rows.shape[0], width, n_seg],
+        "tiles": tiles,
         "valid_rows": valid,
         "segments_touched": touched,
         "max_abs_err": err,
@@ -1152,6 +1207,42 @@ def chunk_timing(staged: dict, other: torch.Tensor, p) -> dict:
         "library_ms": time_ms(lambda: spare.index_add_(0, g, rows)),
         "bound_ms": 1e3 * max(bytes_s, ops_s),
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+    }
+    out["ms_again"] = time_ms(lambda: als_accum.segment_accum(acc, bm, seg3, rows))
+    return out
+
+
+def chunked_breakdown(staged: dict, other: torch.Tensor, p) -> dict:
+    """Where one chunked ML-20M user half-step's time goes
+    (``als.accumulate``, warm, under ``torch.profiler``): device time of the
+    uploads from pinned memory, kernel 2's two passes, the zero fills and
+    the rest (the torch row build: gather, weights, outer products), with
+    the half-step's wall time and the device's idle share."""
+    from predictionio_tpu_torch.ops import als
+
+    als.accumulate(staged, other, p, "chunked")
+    wall, idle, device_ms = profile_idle(
+        lambda: als.accumulate(staged, other, p, "chunked")
+    )
+    groups = {"uploads": 0.0, "row_build": 0.0, "kernel2_pass1": 0.0,
+              "kernel2_pass2": 0.0, "zero_fill": 0.0}
+    for name, ms in device_ms.items():
+        if "HtoD" in name:
+            key = "uploads"
+        elif "reduce_carries" in name:
+            key = "kernel2_pass2"
+        elif "accum_" in name:
+            key = "kernel2_pass1"
+        elif "Memset" in name or "FillFunctor" in name:
+            key = "zero_fill"
+        else:
+            key = "row_build"
+        groups[key] += ms
+    return {
+        "wall_ms": 1e3 * wall,
+        "device_idle_share": idle,
+        "device_ms": groups,
+        "device_ms_by_name": dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:12]),
     }
 
 
@@ -1317,8 +1408,15 @@ def train_ml20m_phase() -> tuple[dict, dict, dict]:
     assert rm["fused_20"] < rm["chunked_3"] < rm["init"], rm
     cu, ci = next(iter(als._STAGE_CACHE.values()))
     out["chunked_half_step_user"] = half_step_ms(cu, Vp, p3, "chunked")
+    out["chunked_half_step_user_breakdown"] = chunked_breakdown(cu, Vp, p3)
     chunk_t = chunk_timing(cu, Vp, p3)
-    del cu, ci
+    # the same user chunk at rank 32 (random factors): width 1,152, 113 tiles
+    wide = torch.from_numpy(
+        np.random.default_rng(SEED + 7).standard_normal((ni_pad, 32))
+        .astype(np.float32)
+    ).cuda()
+    chunk_t["wide"] = chunk_timing(cu, wide, p3)
+    del cu, ci, wide
     out["oom_ladder"] = oom_ladder(u, i, r, p3, out["fused_peak"],
                                    out["chunked_peak"], st3)
     return out, fused_t, chunk_t
@@ -1348,6 +1446,7 @@ def main() -> int:
     emit(ml20m)
     emit({"phase": "als_kernel_timing", "als_fused_accum": fused_t,
           "als_segment_accum": chunk_t})
+    wide_c = chunk_t["wide"]
     main_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 10, 10])
     wide_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 32, 128])
     small_t = next(t for t in timings if t["shape"] == [512, ML20M_ITEMS, 10, 10])
@@ -1411,10 +1510,17 @@ def main() -> int:
                     launches_ml20m=ml20m["fused_launches"]["als_fused_accum"],
                 ),
                 # launches: the ML-20M chunked train (3 iterations); times
-                # on its first user chunk; library_ms: one index_add_
+                # on its first user chunk at rank 10 (width 128) and, wide_*,
+                # rank 32 (width 1,152); library_ms: one index_add_
                 als_row(
                     "als_segment_accum", "predictionio_tpu/ops/als_pallas.py:112",
                     ml20m["chunked_launches"]["als_segment_accum"], chunk_t,
+                    wide_shape=wide_c["shape"],
+                    wide_ms=wide_c["ms"],
+                    wide_plain_ms=wide_c["plain_ms"],
+                    wide_library_ms=wide_c["library_ms"],
+                    wide_bound_ms=wide_c["bound_ms"],
+                    wide_max_abs_err=wide_c["max_abs_err"],
                 ),
             ]
         }

@@ -19,10 +19,11 @@
 // within the block (0..127) or -1 for padding, padding only ends a block, and
 // within a tile each segment's rows form one run, in increasing order.
 //
-// What bounds it on this card: each stream row is read once (its segment id,
+// What bounds them on this card: each stream row is read once (its segment id,
 // opposite index and three weights, 20 bytes, or the built row) and each output
-// row written once; the arithmetic is ~3k^2 fp32 operations per row, below the
-// H100's operations-per-byte balance at every rank <= 32.  So it is bound by
+// row written once; the arithmetic is ~3k^2 fp32 operations per row for the
+// fused kernel and one add per row value for the chunk kernel, below the
+// H100's operations-per-byte balance at every rank <= 32.  So both are bound by
 // bytes; the opposite factor table (at most a few MB) stays in the 50 MB L2.
 // Tensor cores are not used: at k=10 the per-segment Gram is 10 x 10, so a
 // 16 x 8 MMA tile is mostly padding, and "bf16" rounds each formed product,
@@ -62,6 +63,27 @@
 //    16 bytes where the rank allows it; Hopper's TMA has no row gather) are in
 //    flight while the 256 before them are summed.  No per-element division.
 //
+// Pass 1 of the chunk kernel (accum_prefetch) moves 4 bytes per add, so the
+// card's memory rate holds it only with enough bytes in flight: ~18 KB per SM
+// by Little's law (3.35 TB/s over 132 SMs, ~0.7 us loaded latency).  A thread
+// that loads one value per row behind the run check keeps ~one load per warp
+// in flight (a thread-per-column kernel ran at 1.12 TB/s on an H100).  So:
+//  * A unit is one (tile, 128-column slab): 1,024 rows of 512 bytes each, at
+//    row * width * 4 + slab * 512, 16-byte aligned at every width.  A CTA is
+//    one warp and walks one unit; a chunk (chunk_tiles in ops/als_accum.py)
+//    is ~1,024 units at every width, ~8 warps per SM, one wave.
+//  * Each lane owns four columns and issues its eight rows' 16-byte loads
+//    and their segment ids before the run logic: 4 KB per warp, ~32 KB per
+//    SM in flight.
+//  * The lane walks the rows in order, four at a time with one check when
+//    all four continue the current run (the segment is the same in every
+//    lane: no divergence).  Each column's sum is taken in row order from 0,
+//    as the thread-per-column kernel took it, so the two give the same bits.
+//  * Timed on an H100 beside rings filled by Hopper's bulk copy
+//    (cp.async.bulk into shared memory, counted on mbarriers): one-wave
+//    rings were as fast within one call's spread, persistent ones slower
+//    (PERF.md, section 6), so the plain loads stay.
+
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (predictionio_tpu_torch/ops/_kernels.py).
 
@@ -74,7 +96,7 @@ namespace {
 
 constexpr int kTile = 1024;  // rows per tile: T in ops/als_accum.py
 constexpr int kSeg = 128;    // segments per block: S in ops/als_accum.py
-constexpr int kSlab = 128;   // columns per CTA of the chunk kernel, one each
+constexpr int kSlab = 128;   // columns of a chunk-kernel unit and of a pass-2 CTA
 constexpr int kPiece = 256;  // rows staged in shared memory at a time
 constexpr int kMaxRank = 32;
 // the fused kernel: threads per CTA at most, row groups at most
@@ -90,63 +112,114 @@ __device__ __forceinline__ float round_row(float x, int bf16) {
 
 // -- the chunk kernel's pass 1 ----------------------------------------------
 
-// One CTA per (tile, 128-column slab), one thread per column; rows are read
-// from `rows` [n_tiles * 1024, width].
-__global__ void __launch_bounds__(kSlab)
-accum_tiles(const int* __restrict__ seg, const int* __restrict__ block_map,
-            const float* __restrict__ rows, int width, int bf16,
-            float* __restrict__ out, float* __restrict__ carry,
-            int* __restrict__ carry_seg) {
-  __shared__ int sseg[kPiece];
+__device__ __forceinline__ void add4(float4& a, float4 x) {
+  a.x = __fadd_rn(a.x, x.x);
+  a.y = __fadd_rn(a.y, x.y);
+  a.z = __fadd_rn(a.z, x.z);
+  a.w = __fadd_rn(a.w, x.w);
+}
 
-  const int t = blockIdx.x;
-  const int c = blockIdx.y * kSlab + threadIdx.x;
-  const size_t row0 = static_cast<size_t>(t) * kTile;
-  const int blk = block_map[t];
+template <bool kBf16>
+__device__ __forceinline__ float4 round4(float4 x) {
+  const int b = kBf16 ? 1 : 0;
+  return make_float4(round_row(x.x, b), round_row(x.y, b), round_row(x.z, b),
+                     round_row(x.w, b));
+}
 
-  int cur = -1;    // segment of the current run (-1: none, or padding)
-  int start = 0;   // row of the tile where the current run began
-  int first = -1;  // segment of row 0
-  float acc = 0.f;
+// The runs of one unit as one lane walks them: its four columns col..col+3
+// of tile t, whose segments lie in output block blk.
+template <bool kBf16>
+struct Runs {
+  float* out;
+  float* carry;
+  size_t t;
+  int blk, width, col;
+  int cur = -1;   // segment of the current run (-1: none, or padding)
+  int start = 0;  // row of the tile where the current run began
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 
   // a finished run: carried if it began at row 0 or reaches the tile's end,
   // else a whole segment, added to the output
-  auto finish = [&](bool at_end) {
+  __device__ __forceinline__ void finish(bool at_end) {
     if (cur < 0) return;
-    if (start == 0) {
-      carry[(static_cast<size_t>(t) * 2) * width + c] = acc;
-    } else if (at_end) {
-      carry[(static_cast<size_t>(t) * 2 + 1) * width + c] = acc;
+    if (start == 0 || at_end) {
+      float* c = carry + (t * 2 + (start == 0 ? 0 : 1)) * width + col;
+      *reinterpret_cast<float4*>(c) = acc;
     } else {
-      float* o = out + static_cast<size_t>(blk * kSeg + cur) * width + c;
-      *o = __fadd_rn(*o, acc);
+      float4* o = reinterpret_cast<float4*>(
+          out + static_cast<size_t>(blk * kSeg + cur) * width + col);
+      float4 v = *o;
+      add4(v, acc);
+      *o = v;
     }
-  };
+  }
 
-  for (int base = 0; base < kTile; base += kPiece) {
-    __syncthreads();  // the previous piece is consumed
-    for (int i = threadIdx.x; i < kPiece; i += kSlab) {
-      sseg[i] = seg[row0 + base + i];
+  // tile row r, of segment s (-1: padding); s is the same in every lane
+  __device__ __forceinline__ void step(int s, int r, float4 x) {
+    if (s != cur) {
+      finish(false);
+      cur = s;
+      start = r;
+      acc = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
-    if (base == 0) first = sseg[0];
-    for (int r = 0; r < kPiece; ++r) {
-      const int s = sseg[r];  // the same for every thread: no divergence
-      if (s != cur) {
-        finish(false);
-        cur = s;
-        start = base + r;
-        acc = 0.f;
-      }
-      if (s < 0) continue;
-      acc = __fadd_rn(acc, round_row(rows[(row0 + base + r) * width + c], bf16));
+    if (s >= 0) add4(acc, round4<kBf16>(x));
+  }
+
+  // tile rows r..r+3: one check where all four continue the current run
+  __device__ __forceinline__ void step4(int4 s, int r, float4 x0, float4 x1,
+                                        float4 x2, float4 x3) {
+    if (cur >= 0 && s.x == cur && s.y == cur && s.z == cur && s.w == cur) {
+      add4(acc, round4<kBf16>(x0));
+      add4(acc, round4<kBf16>(x1));
+      add4(acc, round4<kBf16>(x2));
+      add4(acc, round4<kBf16>(x3));
+      return;
+    }
+    step(s.x, r, x0);
+    step(s.y, r + 1, x1);
+    step(s.z, r + 2, x2);
+    step(s.w, r + 3, x3);
+  }
+
+  // the unit's end: its last run, and (one lane of slab 0) the tile's
+  // carried segments; first is the segment of row 0
+  __device__ __forceinline__ void end(int first, int* carry_seg, bool writer) {
+    finish(true);
+    if (writer) {
+      carry_seg[2 * t] = first >= 0 ? blk * kSeg + first : -1;
+      carry_seg[2 * t + 1] = (cur >= 0 && start != 0) ? blk * kSeg + cur : -1;
     }
   }
-  finish(true);
-  if (blockIdx.y == 0 && threadIdx.x == 0) {
-    carry_seg[2 * t] = first >= 0 ? blk * kSeg + first : -1;
-    carry_seg[2 * t + 1] = (cur >= 0 && start != 0) ? blk * kSeg + cur : -1;
+};
+
+// Grid (n_tiles * n_slabs), one warp each: CTA u walks unit u = (tile,
+// slab), each lane loading its float4 of 8 rows (and the 8 rows' segment
+// ids) before the run logic.
+template <bool kBf16>
+__global__ void __launch_bounds__(32)
+accum_prefetch(const int* __restrict__ seg, const int* __restrict__ block_map,
+               const float* __restrict__ rows, int width, float* __restrict__ out,
+               float* __restrict__ carry, int* __restrict__ carry_seg) {
+  const int n_slabs = width / kSlab;
+  const int t = blockIdx.x / n_slabs, slab = blockIdx.x - t * n_slabs;
+  const int lane = threadIdx.x;
+  const size_t row0 = static_cast<size_t>(t) * kTile;
+  const float* src = rows + row0 * width + slab * kSlab + 4 * lane;
+  const int* sg = seg + row0;
+  Runs<kBf16> runs{out, carry, static_cast<size_t>(t), block_map[t], width,
+                   slab * kSlab + 4 * lane};
+  for (int r = 0; r < kTile; r += 8) {
+    float4 x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      x[e] = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(r + e) * width));
+    }
+    const int4 sa = __ldg(reinterpret_cast<const int4*>(sg + r));
+    const int4 sb = __ldg(reinterpret_cast<const int4*>(sg + r + 4));
+    runs.step4(sa, r, x[0], x[1], x[2], x[3]);
+    runs.step4(sb, r + 4, x[4], x[5], x[6], x[7]);
   }
+  runs.end(__ldg(sg), carry_seg, slab == 0 && lane == 0);
 }
 
 // -- pass 2, shared by both kernels -----------------------------------------
@@ -573,6 +646,22 @@ int launch_fused(const int* seg, const int* block_map, const int* oth,
   return launch_reduce(carry_seg, carry, n_tiles, width, out, stream);
 }
 
+int launch_chunk(const int* seg, const int* block_map, const float* rows,
+                 int n_tiles, int width, int bf16, float* out, float* carry,
+                 int* carry_seg, cudaStream_t s) {
+  const int n_units = n_tiles * (width / kSlab);
+  if (bf16) {
+    accum_prefetch<true><<<n_units, 32, 0, s>>>(seg, block_map, rows, width, out,
+                                                carry, carry_seg);
+  } else {
+    accum_prefetch<false><<<n_units, 32, 0, s>>>(seg, block_map, rows, width, out,
+                                                 carry, carry_seg);
+  }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch_reduce(carry_seg, carry, n_tiles, width, out, s);
+}
+
 }  // namespace
 
 // Both entry points launch pass 1 and pass 2 on `stream` and return the first
@@ -602,21 +691,18 @@ extern "C" int pio_als_fused_accum(const int* seg, const int* block_map,
                                     k, width, out, carry, carry_seg, s);
 }
 
-// The chunk kernel: seg [n_tiles, 1024] i32, rows [n_tiles * 1024, width] f32;
+// The chunk kernel: seg [n_tiles, 1024] i32, rows [n_tiles * 1024, width]
+// f32 and out, all 16-byte aligned (the kernel moves 16 bytes at a time);
 // adds each segment's sum into out.
 extern "C" int pio_als_segment_accum(const int* seg, const int* block_map,
                                      const float* rows, int n_tiles,
                                      int width, int bf16, float* out,
                                      float* carry, int* carry_seg,
                                      void* stream) {
-  if (n_tiles <= 0 || width <= 0 || width % kSlab != 0) {
-    return n_tiles == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles < 0 || width <= 0 || width % kSlab != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid1(n_tiles, width / kSlab);
-  accum_tiles<<<grid1, kSlab, 0, s>>>(seg, block_map, rows, width, bf16, out,
-                                      carry, carry_seg);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_reduce(carry_seg, carry, n_tiles, width, out, s);
+  if (n_tiles == 0) return 0;
+  return launch_chunk(seg, block_map, rows, n_tiles, width, bf16, out, carry,
+                      carry_seg, static_cast<cudaStream_t>(stream));
 }

@@ -404,6 +404,10 @@ def segment_accum_cuda(
             f"out {tuple(out.shape)}, block_map {tuple(block_map.shape)}, "
             f"seg3 {tuple(seg3.shape)}, rows {tuple(rows.shape)}"
         )
+    if seg3.data_ptr() % 16 or rows.data_ptr() % 16 or out.data_ptr() % 16:
+        # the kernel reads seg3 and rows and reads and writes out 16 bytes
+        # at a time
+        raise ValueError("segment_accum_cuda: seg3, rows and out must be 16-byte aligned")
     carry, carry_seg = _scratch(nt, width, dev)
     _launch(
         "als_segment_accum", _kernels.load("als_segment_accum"),

@@ -174,9 +174,20 @@ def test_make_wrv_equals_the_jax_package():
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("implicit", [False, True])
-def test_chunked_plain_matches_jax_interpret(implicit):
-    n_seg, k = 256, 6
+CHUNKED = [
+    (k, implicit, precision)
+    for k in (6, 17)  # widths 128 and 384 (three 128-column slabs)
+    for implicit in (False, True)
+    for precision in ("highest", "bf16")
+]
+
+
+@pytest.mark.parametrize(
+    "k,implicit,precision", CHUNKED,
+    ids=[f"r{k}-{'imp' if i else 'exp'}-{p}" for k, i, p in CHUNKED],
+)
+def test_chunked_plain_matches_jax_interpret(k, implicit, precision):
+    n_seg = 256
     seg, oth, rat, factors = _stream(3000, n_seg, 64, k, seed=2)
     plan = jax_ap.chunk_plan(
         jax_ap.build_plan(seg.astype(np.int64), n_seg), tiles_per_chunk=2
@@ -189,7 +200,7 @@ def test_chunked_plain_matches_jax_interpret(implicit):
          jnp.asarray(plan.seg3), jnp.asarray(plan.visited)),
         jnp.asarray(oth_p.reshape(shape2)), jnp.asarray(rat_p.reshape(shape2)),
         jnp.asarray(val_p.reshape(shape2)), jnp.asarray(factors), implicit,
-        1.5, plan.tiles_per_chunk, plan.n_blocks, precision="highest",
+        1.5, plan.tiles_per_chunk, plan.n_blocks, precision=precision,
         interpret=True,
     )
     # blocks cross chunk boundaries: the running output carries them
@@ -199,9 +210,15 @@ def test_chunked_plain_matches_jax_interpret(implicit):
         torch.from_numpy(oth_p.reshape(shape2)),
         torch.from_numpy(rat_p.reshape(shape2)),
         torch.from_numpy(val_p.reshape(shape2)), torch.from_numpy(factors),
-        implicit, 1.5, plan.n_blocks, precision="highest",
+        implicit, 1.5, plan.n_blocks, precision=precision,
     )
+    assert got.shape == (n_seg, als_accum.row_width(k))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    # the count column is exact and the columns past it are zero
+    np.testing.assert_array_equal(
+        got[:, k * k + k].numpy(), np.bincount(seg, minlength=n_seg)
+    )
+    assert not got[:, k * k + k + 1:].any()
 
 
 def test_bf16_rounds_each_row_value():
@@ -271,6 +288,15 @@ def test_least_work_at_the_ml20m_shape():
     )
     assert 0.5e9 < chunk["bytes"] < 0.55e9
     assert chunk["flops"] == ((1 << 20) - 33_119) * 128
+    # rank 32: the first chunk of 113 tiles at width 1,152, here with no
+    # padding rows and 7 blocks touched: about as many bytes as at width
+    # 128, so about the same bound
+    rows = als_accum.chunk_tiles(1152) * 1024
+    assert rows == 115_712
+    wide = als_accum.segment_accum_least_work(rows, 1152, 7 * 128)
+    assert wide["bytes"] == 4.0 * (rows + 113 + rows * 1152 + 2 * 7 * 128 * 1152)
+    assert 0.5e9 < wide["bytes"] < 0.55e9
+    assert wide["flops"] == rows * 1152
 
 
 def test_chunk_tiles_bound_the_built_rows():

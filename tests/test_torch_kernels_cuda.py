@@ -480,6 +480,80 @@ def test_als_segment_accum_across_chunks(cuda, kind, precision):
     _hold(got, want, scale, kind == "exact", f"chunked {kind}")
 
 
+def _boundary_stream(kind, k, seed):
+    """A stream whose runs end everywhere kernel 2 can cut a tile (its
+    groups of 4 and 8 rows): block 0 holds segment 3 over 3,500 rows (more
+    than 3 tiles, two of them one run from first row to last); blocks 1-9 each open with one run of
+    1 + 115 (b - 1) rows followed by 127 one-row segments, so between them
+    a run boundary falls at every row of a tile, each group boundary and its
+    neighbours included; block 10 is empty (an all-padding tile); block 11
+    is random."""
+    rng = np.random.default_rng(seed)
+    seg = [np.full(3500, 3), rng.integers(0, 128, 300)]
+    for b in range(1, 10):
+        seg += [np.full(1 + 115 * (b - 1), 128 * b), 128 * b + np.arange(1, 128)]
+    seg.append(rng.integers(11 * 128, 12 * 128, 600))
+    seg = rng.permutation(np.concatenate(seg))
+    n, n_oth = len(seg), 300
+    oth = rng.integers(0, n_oth, n).astype(np.int32)
+    if kind == "exact":
+        factors = rng.integers(-8, 9, (n_oth, k)) / 8.0
+        rating = rng.integers(1, 11, n) / 2.0
+    else:
+        factors = rng.standard_normal((n_oth, k))
+        rating = rng.standard_normal(n)
+    return seg, oth, rating.astype(np.float32), factors.astype(np.float32), 12 * 128
+
+
+WIDTH_CASES = [
+    (kind, rank, precision)
+    for kind in ("exact", "normal")
+    for rank in (1, 10, 11, 17, 32)  # widths 128, 128, 256, 384, 1,152
+    for precision in ("highest", "bf16")
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,rank,precision", WIDTH_CASES,
+    ids=["-".join(map(str, c)) for c in WIDTH_CASES],
+)
+def test_als_segment_accum_at_every_width(cuda, kind, rank, precision):
+    # kernel 2 against its plain version chunk by chunk (3-tile chunks, so
+    # blocks cross chunks), on runs that end at every row of a tile; then a
+    # chunk of filler tiles only, which must leave the output as it was
+    seg, oth, rating, factors, n_seg_pad = _boundary_stream(kind, rank, seed=rank)
+    plan, args, oth_d, rat_d, val_d = _staged(
+        seg, oth, rating, n_seg_pad, cuda, "chunked", tiles_per_chunk=3
+    )
+    assert plan.n_chunks > 3 and plan.tiles_per_chunk == 3
+    f = torch.from_numpy(factors).to(cuda)
+
+    def chunked(fn, fac, rat):
+        return fn(args, oth_d, rat, val_d, fac, True, 1.5, plan.n_blocks, precision)
+
+    before = als_accum.KERNEL_LAUNCHES["als_segment_accum"]
+    got = chunked(als_accum.segment_stats_chunked, f, rat_d)
+    again = chunked(als_accum.segment_stats_chunked, f, rat_d)
+    torch.cuda.synchronize()
+    assert als_accum.KERNEL_LAUNCHES["als_segment_accum"] == before + 2 * plan.n_chunks
+    assert got.shape == (n_seg_pad, als_accum.row_width(rank))
+    want = chunked(als_accum.segment_stats_chunked_plain, f, rat_d)
+    scale = chunked(als_accum.segment_stats_chunked_plain, f.abs(), rat_d.abs())
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _hold(got, want, scale, kind == "exact", f"chunked {kind} r{rank}")
+    assert not got[10 * als_accum.S:11 * als_accum.S].any()  # the empty block
+
+    width = als_accum.row_width(rank)
+    filler = (torch.zeros(3, dtype=torch.int32, device=cuda),
+              torch.full((3, 8, 128), -1, dtype=torch.int32, device=cuda))
+    rows = torch.randn((3 * als_accum.T, width), device=cuda)
+    out = got.clone()
+    als_accum.segment_accum_cuda(out, *filler, rows, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), got.view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_als_train_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(0)
@@ -529,3 +603,36 @@ def test_als_kernels_refuse_what_they_do_not_take(cuda):
         als_accum.segment_accum_cuda(
             out, args[0], args[1], torch.zeros((5, 128), device=cuda)
         )
+    nt = args[0].shape[0]
+    rows = torch.zeros((nt * als_accum.T, 128), device=cuda)
+    # a width that is not whole 128-column slabs
+    with pytest.raises(ValueError, match="shapes"):
+        als_accum.segment_accum_cuda(
+            torch.zeros((256, 100), device=cuda), args[0], args[1],
+            torch.zeros((nt * als_accum.T, 100), device=cuda),
+        )
+    # rows that are not contiguous, and rows off 16-byte alignment
+    with pytest.raises(ValueError, match="contiguous"):
+        als_accum.segment_accum_cuda(
+            out, args[0], args[1],
+            torch.zeros((nt * als_accum.T, 256), device=cuda)[:, ::2],
+        )
+    with pytest.raises(ValueError, match="aligned"):
+        als_accum.segment_accum_cuda(
+            out, args[0], args[1],
+            torch.zeros(nt * als_accum.T * 128 + 1, device=cuda)[1:].view(-1, 128),
+        )
+    # an output off 16-byte alignment (the kernel adds into it 16 bytes at
+    # a time)
+    with pytest.raises(ValueError, match="aligned"):
+        als_accum.segment_accum_cuda(
+            torch.zeros(256 * 128 + 1, device=cuda)[1:].view(256, 128),
+            args[0], args[1], rows,
+        )
+    # an output on another device than the rows
+    with pytest.raises(ValueError, match="cpu"):
+        als_accum.segment_accum_cuda(out.cpu(), args[0], args[1], rows)
+    # every refusal came before a launch; the same call on good inputs runs
+    before = als_accum.KERNEL_LAUNCHES["als_segment_accum"]
+    als_accum.segment_accum_cuda(out, args[0], args[1], rows)
+    assert als_accum.KERNEL_LAUNCHES["als_segment_accum"] == before + 1
