@@ -11,9 +11,17 @@ the card, then drives the port's main path through the entry points a user
 calls:
 
 - serving at the ML-20M shape: ``run_batch_predict`` over 4,096 queries
-  (one fused top-k wave) and a threaded prediction server answering solo
-  ``POST /queries.json`` requests; then a 4,096-query wave with num=200,
-  past the fused menu, answered on the card by the full-row route;
+  (one fused top-k wave), and the default deploy (the asyncio front end and
+  the micro-batcher) and the threaded server answering solo
+  ``POST /queries.json`` requests; then
+  a 4,096-query wave with num=200, past the fused menu, answered on the
+  card by the full-row route;
+- the serving front end at the ML-20M shape: 64 keep-alive clients
+  sending 4,096 queries to the default deploy (``serve_concurrent``), a
+  4,096-query burst through a micro-batcher of 1,024-query device waves
+  with pipelined fences (``pipelined_waves``), and ``POST /reload`` to a
+  second instance under traffic, with the old generation's device memory
+  freed (``reload``);
 - ``pio app new`` -> ``pio import`` -> ``pio train`` -> ``pio batchpredict``
   and solo queries on an event store at the ML-100K shape (the CLI verbs
   of ``predictionio_tpu_torch.tools.cli``), with the card's factors held
@@ -383,7 +391,7 @@ def launch_shape_sweep(rng) -> list:
     return out
 
 
-def write_model(storage, home: Path, exact: bool = False
+def write_model(storage, home: Path, exact: bool = False, seed: int = SEED
                 ) -> tuple[str, np.ndarray, np.ndarray]:
     """A seeded ALS model at the ML-20M shape, persisted as a COMPLETED
     engine instance through the port's storage and save_models (factors as
@@ -398,7 +406,7 @@ def write_model(storage, home: Path, exact: bool = False
         DataSourceParams,
     )
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     U = (np.abs(rng.standard_normal((ML20M_USERS, RANK))) / np.sqrt(RANK)).astype(
         np.float32
     )
@@ -431,6 +439,19 @@ def write_model(storage, home: Path, exact: bool = False
 
 
 def host_answer(U, V, user: int, num: int) -> tuple[list, list]:
+    """The host replica's answer for one user, as it computes a wave of one
+    query (the micro-batched server's solo answer): a one-row product and
+    the batched host top-k."""
+    from predictionio_tpu_torch.ops.topk import host_topk_batch
+
+    s, i = host_topk_batch(U[[user]] @ V.T, num)
+    return [f"i{j}" for j in i[0]], [float(x) for x in s[0]]
+
+
+def host_solo_answer(U, V, user: int, num: int) -> tuple[list, list]:
+    """The host replica's answer for one user as ``ALSAlgorithm.predict``
+    computes it (the threaded server's answer): ``V @ U[user]`` and the
+    one-row host top-k."""
     from predictionio_tpu_torch.ops.topk import host_topk
 
     s, i = host_topk(V @ U[user], num)
@@ -528,32 +549,37 @@ def main_path_phase() -> dict:
         n = run_batch_predict("recommendation", qfile, pfile, storage=storage)
         torch.cuda.synchronize()
         out["batch_predict_s"] = time.perf_counter() - t0
-        server = create_prediction_server(
-            "recommendation", host="127.0.0.1", port=0, storage=storage
-        ).start_background()
         solo_users = [int(u) for u in users[:8]]
-        solo_ms = []
-        try:
-            base = f"http://127.0.0.1:{server.port}"
-            page = urllib.request.urlopen(base + "/", timeout=30).read().decode()
-            assert "Engine is deployed" in page
-            for u in solo_users:
-                req = urllib.request.Request(
-                    base + "/queries.json",
-                    data=json.dumps({"user": f"u{u}", "num": 10}).encode(),
-                )
-                t1 = time.perf_counter()
-                got = json.loads(urllib.request.urlopen(req, timeout=30).read())
-                solo_ms.append(1e3 * (time.perf_counter() - t1))
-                items, scores = host_answer(U, V, u, 10)
-                assert [s["item"] for s in got["itemScores"]] == items, u
-                assert [s["score"] for s in got["itemScores"]] == scores, u
-            stop = urllib.request.Request(base + "/stop", method="POST")
-            urllib.request.urlopen(stop, timeout=30).read()
-            server._thread.join(timeout=30)
-            assert not server._thread.is_alive(), "server did not stop on /stop"
-        finally:
-            server.shutdown()
+        solo_ms: dict = {}
+        # the default deploy answers a solo query as a micro-batched wave of
+        # one; the threaded server through ``ALSAlgorithm.predict``
+        for kind, answer in (("aio", host_answer), ("threaded", host_solo_answer)):
+            server = create_prediction_server(
+                "recommendation", host="127.0.0.1", port=0, storage=storage,
+                server_kind=kind,
+            ).start_background()
+            solo_ms[kind] = []
+            try:
+                base = f"http://127.0.0.1:{server.port}"
+                page = urllib.request.urlopen(base + "/", timeout=30).read().decode()
+                assert "Engine is deployed" in page
+                for u in solo_users:
+                    req = urllib.request.Request(
+                        base + "/queries.json",
+                        data=json.dumps({"user": f"u{u}", "num": 10}).encode(),
+                    )
+                    t1 = time.perf_counter()
+                    got = json.loads(urllib.request.urlopen(req, timeout=30).read())
+                    solo_ms[kind].append(1e3 * (time.perf_counter() - t1))
+                    items, scores = answer(U, V, u, 10)
+                    assert [s["item"] for s in got["itemScores"]] == items, (kind, u)
+                    assert [s["score"] for s in got["itemScores"]] == scores, (kind, u)
+                stop = urllib.request.Request(base + "/stop", method="POST")
+                urllib.request.urlopen(stop, timeout=30).read()
+                server._thread.join(timeout=30)
+                assert not server._thread.is_alive(), f"{kind} server did not stop"
+            finally:
+                server.shutdown()
         launches = read_launches()
         # -- end of the main path --
 
@@ -682,6 +708,409 @@ def off_menu_phase() -> dict:
         raise AssertionError("off-menu route on normal inputs: an id differs without a tie")
     out.update(normal_max_abs_err=float(err.max()), normal_near_tie_id_swaps=int(swaps.sum()))
     return out
+
+
+# -- the serving front end ----------------------------------------------------
+
+#: concurrent clients and queries of the serve_concurrent phase, and the
+#: burst of the pipelined_waves phase
+CLIENTS = 64
+FRONT_QUERIES = 4096
+#: num of the pipelined burst: the top of the fused menu, so that a wave's
+#: fence (its render) costs several times its dispatch and the worker runs
+#: two waves ahead of the finalizer; at num=10 the two halves take about
+#: the same host time and the finalizer keeps up (depth 1)
+PIPELINED_NUM = 128
+
+
+def hold_answers(answers, users, U, V, num: int) -> int:
+    """Each answer (its ``itemScores``) against the host answer of its user:
+    ``num`` entries, scores within RTOL, ids equal except inside a near-tie
+    of the host scores (a wave's product sums in another order than a
+    single row's).  Returns the answers checked."""
+    from predictionio_tpu_torch.ops.topk import host_topk_batch
+
+    users = np.asarray(users)
+    for lo in range(0, len(users), 512):
+        # one more than num: the neighbour of the last position
+        s, idx = host_topk_batch(U[users[lo:lo + 512]] @ V.T, num + 1)
+        for j, got in enumerate(answers[lo:lo + 512]):
+            scores = s[j]
+            assert len(got) == num, (lo + j, got)
+            np.testing.assert_allclose(
+                [x["score"] for x in got], scores[:num], rtol=RTOL, atol=1e-6
+            )
+            for c, gi in enumerate(x["item"] for x in got):
+                if gi != f"i{idx[j, c]}":
+                    nb = [scores[x] for x in (c - 1, c + 1) if 0 <= x <= num]
+                    assert min(abs(scores[c] - x) for x in nb) <= RTOL * abs(
+                        scores[c]
+                    ), (lo + j, c)
+    return len(users)
+
+
+def drive_clients(port: int, bodies: list, clients: int) -> tuple[list, float]:
+    """``clients`` threads, each on one keep-alive ``http.client``
+    connection, POST ``bodies`` to ``/queries.json`` until none is left.
+    Returns (status, client seconds, ``X-Pio-Engine-Instance``, body) per
+    body, in order, and the wall time."""
+    import http.client
+    import threading
+
+    jobs = iter(enumerate(bodies))
+    lock = threading.Lock()
+    results: list = [None] * len(bodies)
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            while True:
+                with lock:
+                    job = next(jobs, None)
+                if job is None:
+                    return
+                i, body = job
+                t1 = time.perf_counter()
+                conn.request("POST", "/queries.json", body=body)
+                resp = conn.getresponse()
+                data = resp.read()
+                results[i] = (resp.status, time.perf_counter() - t1,
+                              resp.getheader("X-Pio-Engine-Instance"), data)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:  # one deadline for all of them
+        t.join(timeout=max(0.0, t0 + 300 - time.perf_counter()))
+    wall = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    missing = [i for i, r in enumerate(results) if r is None]
+    assert not missing, f"{len(missing)} queries got no answer"
+    return results, wall
+
+
+def serve_concurrent_phase(storage, instance_id: str, U, V) -> dict:
+    """The default deploy (aio front end, micro-batcher, max_batch 32,
+    pipeline depth 2) under 64 keep-alive clients sending 4,096 queries:
+    every answer is 200 and held to the host answer; the waves coalesce
+    (some larger than 1) and, all under ``DEVICE_BATCH_MIN``, take the
+    host replica: the fused top-k launches no time."""
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_prediction_server,
+    )
+
+    users = np.random.default_rng(SEED + 30).integers(0, ML20M_USERS, FRONT_QUERIES)
+    bodies = [json.dumps({"user": f"u{u}", "num": 10}).encode() for u in users]
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    server = create_prediction_server(
+        "recommendation", host="127.0.0.1", port=0, storage=storage
+    ).start_background()
+    try:
+        results, wall = drive_clients(server.port, bodies, CLIENTS)
+        waves = server.app.microbatcher.wave_histogram()
+    finally:
+        server.shutdown()
+    launches = read_launches()
+    # -- end --
+    statuses = sorted({r[0] for r in results})
+    assert statuses == [200], statuses
+    assert {r[2] for r in results} == {instance_id}
+    checked = hold_answers(
+        [json.loads(r[3])["itemScores"] for r in results], users, U, V, 10
+    )
+    assert launches["fused_topk"] == 0, launches
+    assert sum(k * n for k, n in waves.items()) == FRONT_QUERIES, waves
+    assert max(waves) > 1, waves
+    lat_ms = np.asarray([1e3 * r[1] for r in results])
+    return {
+        "phase": "serve_concurrent",
+        "queries": FRONT_QUERIES,
+        "clients": CLIENTS,
+        "max_batch": 32,
+        "pipeline_depth": 2,
+        "wall_s": wall,
+        "queries_per_s": FRONT_QUERIES / wall,
+        "client_p50_ms": float(np.percentile(lat_ms, 50)),
+        "client_p99_ms": float(np.percentile(lat_ms, 99)),
+        "client_max_ms": float(lat_ms.max()),
+        "waves": sum(waves.values()),
+        "mean_wave": FRONT_QUERIES / sum(waves.values()),
+        "wave_histogram": {str(k): n for k, n in sorted(waves.items())},
+        "answers_checked_vs_host": checked,
+        "launches": launches,
+        "nvidia_smi": nvidia_smi_line(),
+    }
+
+
+FENCE_REPS = 25
+
+
+def fence_probe(deployed, users) -> dict:
+    """Wave N's fence timed alone on the host clock, with wave N+1 already
+    enqueued behind it on the same stream (4,096-query waves at num=10,
+    one kernel 3 launch each; medians of FENCE_REPS pairs):
+
+    - ``engine``: ``ALSAlgorithm._device_topk``'s fence, which waits for an
+      event recorded after the result's copy into pinned memory;
+    - ``pageable``: the fence the engine had before the front end, the
+      wave's event and then a pageable ``.cpu()`` of the result, which
+      queues on the stream behind wave N+1's kernel (``sync`` is its event
+      wait alone).
+
+    Both are checked to give the same bits.  These launches are not counted
+    on any path."""
+    algo, model = deployed.algorithms[0], deployed.models[0]
+    U, V = model.user_factors, model.item_factors
+    ua = np.asarray(users, np.int64)
+    ub = ua[::-1].copy()
+    ids_a, ids_b = (torch.from_numpy(x).to(U.device) for x in (ua, ub))
+    engine, pageable, sync = [], [], []
+    for _ in range(FENCE_REPS):
+        fence_a = algo._device_topk(model, ua, 10)
+        fence_b = algo._device_topk(model, ub, 10)
+        t0 = time.perf_counter()
+        got = fence_a()
+        engine.append(time.perf_counter() - t0)
+        fence_b()
+        packed = algo._topk_on(U, V, ids_a, 10)
+        done = torch.cuda.Event()
+        done.record()
+        packed_b = algo._topk_on(U, V, ids_b, 10)
+        t0 = time.perf_counter()
+        done.synchronize()
+        t1 = time.perf_counter()
+        old = packed.cpu().numpy()
+        pageable.append(time.perf_counter() - t0)
+        sync.append(t1 - t0)
+        packed_b.cpu()
+        assert np.array_equal(got[0].view(np.int32), old[0].view(np.int32))
+        assert np.array_equal(got[1], old[1].astype(np.int64))
+    return {
+        "wave": len(ua),
+        "reps": FENCE_REPS,
+        "engine_fence_ms": 1e3 * float(np.median(engine)),
+        "pageable_fence_ms": 1e3 * float(np.median(pageable)),
+        "pageable_sync_ms": 1e3 * float(np.median(sync)),
+        "engine_fence_ms_min_max": [1e3 * min(engine), 1e3 * max(engine)],
+        "pageable_fence_ms_min_max": [1e3 * min(pageable), 1e3 * max(pageable)],
+    }
+
+
+def pipelined_waves_phase(storage, instance_id: str, U, V) -> dict:
+    """4,096 queries (num=128) submitted at once to the micro-batcher of an
+    app with max_batch 1,024 and pipeline depth 2: four device waves, each
+    one launch of the fused top-k, dispatched on the worker and fenced on
+    the finalizer while the next dispatches (at least one wave enqueued at
+    depth 2); every answer held to the host answer.  Then, outside the
+    counted run, :func:`fence_probe`."""
+    import asyncio
+
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server.prediction_server import (
+        QueuedQuery,
+        create_prediction_server_app,
+        deploy_engine,
+    )
+
+    deployed = deploy_engine("recommendation", storage=storage)
+    app = create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=1024, pipeline_depth=2,
+        max_queue=FRONT_QUERIES, registry=MetricsRegistry(),
+    )
+    batcher = app.microbatcher
+    users = np.random.default_rng(SEED + 31).integers(0, ML20M_USERS, FRONT_QUERIES)
+    payloads = [{"user": f"u{u}", "num": PIPELINED_NUM} for u in users]
+    metas: list[dict] = [{} for _ in payloads]
+
+    async def burst():
+        # the batcher's condition is held while the whole burst enqueues,
+        # so every query is queued before the worker forms its first wave
+        with batcher._cond:
+            futs = [asyncio.ensure_future(batcher.submit(QueuedQuery(p), m))
+                    for p, m in zip(payloads, metas)]
+            await asyncio.sleep(0)  # every task runs its submit up to the await
+            assert len(batcher._pending) == len(futs), len(batcher._pending)
+        return await asyncio.gather(*futs)
+
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = asyncio.run(burst())
+    finally:
+        wall = time.perf_counter() - t0
+        batcher.close()
+    launches = read_launches()
+    # -- end --
+    assert {(r[0], r[2]) for r in results} == {("ok", instance_id)}
+    waves: dict = {}
+    for m in metas:
+        waves.setdefault(m["wave_seq"], m)
+    device = [m for m in waves.values() if m["wave_size"] >= 512]
+    assert len(device) >= 4, list(waves.values())
+    assert launches["fused_topk"] == len(device), (launches, len(device))
+    assert any(m.get("pipelined") and m.get("inflight_depth") == 2
+               for m in device), list(waves.values())
+    checked = hold_answers(
+        [r[1]["itemScores"] for r in results], users, U, V, PIPELINED_NUM
+    )
+    probe = fence_probe(deployed, users)
+    return {
+        "phase": "pipelined_waves",
+        "fence_probe": probe,
+        "queries": FRONT_QUERIES,
+        "num": PIPELINED_NUM,
+        "max_batch": 1024,
+        "pipeline_depth": 2,
+        "wall_s": wall,
+        "device_waves": len(device),
+        "waves": [
+            {key: m.get(key) for key in ("wave_seq", "wave_size", "pipelined",
+                                         "inflight_depth", "dispatch_s",
+                                         "finalize_s", "device_s")}
+            for _, m in sorted(waves.items())
+        ],
+        "answers_checked_vs_host": checked,
+        "launches": launches,
+        "nvidia_smi": nvidia_smi_line(),
+    }
+
+
+def reload_phase(storage, home: Path, instance_id: str, U, V) -> dict:
+    """``POST /reload`` to a second instance (other factors) while 16
+    keep-alive clients query the default deploy: every answer matches the
+    factors of the instance its ``X-Pio-Engine-Instance`` names, every
+    query sent after the reload returned is answered by the new instance,
+    and once the clients stop, the old generation's device memory is
+    freed: the growth of ``torch.cuda.memory_allocated()`` over the swap
+    stays below one model's factor bytes."""
+    import gc
+    import http.client
+    import threading
+
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_prediction_server,
+    )
+
+    factor_bytes = (ML20M_USERS + ML20M_ITEMS) * RANK * 4
+    users = np.random.default_rng(SEED + 41).integers(0, ML20M_USERS, 4096)
+    server = create_prediction_server(
+        "recommendation", host="127.0.0.1", port=0, storage=storage
+    ).start_background()
+    stop = threading.Event()
+    lock = threading.Lock()
+    records: list = []  # (sent, status, instance header, user, body)
+
+    def client(k: int):
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        n = 0
+        try:
+            while not stop.is_set():
+                u = int(users[(k * 256 + n) % len(users)])
+                n += 1
+                sent = time.perf_counter()
+                conn.request("POST", "/queries.json",
+                             body=json.dumps({"user": f"u{u}", "num": 10}))
+                resp = conn.getresponse()
+                data = resp.read()
+                with lock:
+                    records.append((sent, resp.status,
+                                    resp.getheader("X-Pio-Engine-Instance"), u, data))
+        finally:
+            conn.close()
+
+    def wait_for(pred, what):
+        t0 = time.perf_counter()
+        while not pred():
+            assert time.perf_counter() - t0 < 120, what
+            time.sleep(0.01)
+
+    out: dict = {"phase": "reload", "clients": 16, "factor_bytes": factor_bytes}
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(16)]
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        id_b, U2, V2 = write_model(storage, home, seed=SEED + 40)
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        for t in threads:
+            t.start()
+        wait_for(lambda: len(records) >= 256, "no traffic before the reload")
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/reload", method="POST"
+        )
+        reloaded = json.loads(urllib.request.urlopen(req, timeout=120).read())
+        swapped = time.perf_counter()
+        out["reload_s"] = swapped - t0
+        wait_for(lambda: sum(r[0] > swapped for r in records) >= 256,
+                 "no traffic after the reload")
+        stop.set()
+        t_stop = time.perf_counter()
+        for t in threads:
+            t.join(timeout=max(0.0, t_stop + 60 - time.perf_counter()))
+        assert not any(t.is_alive() for t in threads), "a client hung"
+        launches = read_launches()
+        # -- end --
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        stop.set()
+        server.shutdown()
+    assert reloaded["engineInstanceId"] == id_b, reloaded
+    assert sorted({r[1] for r in records}) == [200], sorted({r[1] for r in records})
+    by = {instance_id: [], id_b: []}
+    for r in records:
+        by[r[2]].append(r)
+    late = [r for r in records if r[0] > swapped]
+    assert {r[2] for r in late} == {id_b}, "the old generation answered after /reload"
+    for iid, (u_f, v_f) in ((instance_id, (U, V)), (id_b, (U2, V2))):
+        hold_answers([json.loads(r[4])["itemScores"] for r in by[iid]],
+                     [r[3] for r in by[iid]], u_f, v_f, 10)
+    assert after - before < factor_bytes, (before, after)
+    out.update({
+        "queries": len(records),
+        "answered_by_old": len(by[instance_id]),
+        "answered_by_new": len(by[id_b]),
+        "sent_after_reload": len(late),
+        "allocated_before_swap": before,
+        "allocated_after_drain": after,
+        "allocated_growth": after - before,
+        "launches": launches,
+        "nvidia_smi": nvidia_smi_line(),
+    })
+    return out
+
+
+def front_end_phases() -> list[dict]:
+    """The serving front end at the ML-20M shape: serve_concurrent,
+    pipelined_waves and reload on one seeded model."""
+    from predictionio_tpu_torch.data.storage.config import (
+        StorageConfig,
+        StorageRuntime,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        home = Path(tmp) / "pio_home"
+        storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(home)}))
+        try:
+            instance_id, U, V = write_model(storage, home)
+            lines = [serve_concurrent_phase(storage, instance_id, U, V)]
+            emit(lines[-1])
+            lines.append(pipelined_waves_phase(storage, instance_id, U, V))
+            emit(lines[-1])
+            lines.append(reload_phase(storage, home, instance_id, U, V))
+            emit(lines[-1])
+        finally:
+            storage.close()
+    return lines
 
 
 # -- the ALS accumulators -----------------------------------------------------
@@ -915,7 +1344,7 @@ def train_cli_phase() -> dict:
     from predictionio_tpu_torch.data.storage.config import StorageConfig, reset_storage
     from predictionio_tpu_torch.models.recommendation import engine as rec
     from predictionio_tpu_torch.ops import als
-    from predictionio_tpu_torch.ops.topk import host_topk
+    from predictionio_tpu_torch.ops.topk import host_topk_batch
     from predictionio_tpu_torch.server.prediction_server import create_prediction_server
     from predictionio_tpu_torch.tools import cli
 
@@ -1011,9 +1440,9 @@ def train_cli_phase() -> dict:
         uvocab = {k: n for n, k in enumerate(blob["user_vocab"])}
         ivocab = list(blob["item_vocab"])
 
-        def host(user):
-            s, idx = host_topk(V @ U[uvocab[str(user)]], 10)
-            return [ivocab[j] for j in idx], [float(x) for x in s]
+        def host(user):  # a wave of one, as the micro-batched server answers
+            s, idx = host_topk_batch(U[[uvocab[str(user)]]] @ V.T, 10)
+            return [ivocab[j] for j in idx[0]], [float(x) for x in s[0]]
 
         for x, got in solo:
             items, scores = host(x)
@@ -1440,6 +1869,7 @@ def main() -> int:
     main_path = main_path_phase()
     emit(main_path)
     emit(off_menu_phase())
+    front_end = front_end_phases()
     cli_train = train_cli_phase()
     emit(cli_train)
     ml20m, fused_t, chunk_t = train_ml20m_phase()
@@ -1479,6 +1909,8 @@ def main() -> int:
                     "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
                     "replaces": "predictionio_tpu/ops/topk.py:147",
                     "launches": main_path["launches"]["fused_topk"],
+                    # one per device wave of the pipelined front end
+                    "launches_pipelined_waves": front_end[1]["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),

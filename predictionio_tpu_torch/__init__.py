@@ -4,11 +4,13 @@ The port grows slice by slice beside the JAX package and mirrors its module
 paths, so every module here has a counterpart of the same name there.  It
 imports ``torch`` and numpy, never ``jax`` and never the JAX package.
 
-This slice serves the ``recommendation`` template (explicit ALS): a
-persisted model is deployed (``server.prediction_server.deploy_engine``),
-solo queries are answered from a host numpy replica, and waves of
-``ALSAlgorithm.DEVICE_BATCH_MIN`` queries or more run the hand-written fused
-score+top-k CUDA kernel (``csrc/fused_topk.cu``).
+It trains and serves the ``recommendation`` template (explicit ALS): ALS
+training with the hand-written accumulator kernels (``csrc/als_accum.cu``),
+and a deploy (``server.prediction_server.create_prediction_server``) whose
+asyncio front end coalesces concurrent queries into micro-batched waves;
+waves below ``ALSAlgorithm.DEVICE_BATCH_MIN`` queries are answered from a
+host numpy replica, larger ones by the hand-written fused score+top-k CUDA
+kernel (``csrc/fused_topk.cu``), fenced while the next wave dispatches.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``
 (``device.resolve_device``).

@@ -12,9 +12,11 @@ either package deploys on the other.
   (the hand-written accumulator kernels on a card).  ``read_eval`` (k-fold
   evaluation) arrives with the eval slice.
 
-- Solo queries (``predict``, every HTTP ``/queries.json``) are answered from
-  the host numpy replica: the same numpy matvec and ``host_topk`` as the
-  JAX package, so the answers are identical.
+- Solo queries (``predict``) and waves below ``DEVICE_BATCH_MIN`` known
+  users (the micro-batched HTTP ``/queries.json`` at its default
+  ``max_batch``) are answered from the host numpy replica: the same numpy
+  arithmetic and ``host_topk`` as the JAX package, so the answers are
+  identical.
 - Waves of ``DEVICE_BATCH_MIN`` queries or more (``batch_predict``,
   ``dispatch_batch``; ``pio batchpredict``) gather the user rows on the
   model's device and run ``fused_topk_batch``: the hand-written CUDA kernel
@@ -390,31 +392,50 @@ class ALSAlgorithm(Algorithm):
 
     def _device_topk(self, model: ALSModel, uidx: np.ndarray, k: int):
         """Gather the user rows on the model's device and launch the fused
-        top-k WITHOUT blocking; returns the fence that waits for the wave,
-        copies it to the host, and hands over (top_s, top_i) — the
-        ``PendingWave`` contract of the JAX package's MicroBatcher.  A ``k``
-        off the fused menu takes the full-row top-k (same tie rule) on the
-        model's device, as the JAX package takes ``_device_score_topk``:
-        the same fence, no host replica."""
+        top-k WITHOUT blocking; returns the fence that waits for the wave
+        and hands over (top_s, top_i) — the ``PendingWave`` contract of the
+        JAX package's MicroBatcher.  A ``k`` off the fused menu takes the
+        full-row top-k (same tie rule) on the model's device, as the JAX
+        package takes ``_device_score_topk``: the same fence, no host
+        replica.
+
+        On a card, everything is enqueued at dispatch on the model's device
+        and its current stream: the ids' upload from pinned memory, the
+        gather, the kernel, and the result's copy into a pinned host buffer
+        (``non_blocking``), then a CUDA event.  The fence waits for that
+        event alone, so a pipelined wave N's fence never waits for wave
+        N+1's work, which the worker enqueues behind it on the same
+        stream (a blocking ``.cpu()`` there would)."""
         U, V = model.user_factors, model.item_factors
-        uidx_dev = torch.from_numpy(uidx.astype(np.int64)).to(U.device)
-        q = U.index_select(0, uidx_dev)
-        if fused_supported(len(uidx), k, V.shape[0]):
-            packed = fused_topk_batch(q, V, k, name="als.fused_topk")
-        else:
-            packed = full_row_topk(q, V, k, where="als.batch_topk")
-        done = None
-        if packed.device.type == "cuda":
+        ids = torch.from_numpy(uidx.astype(np.int64))
+        if U.device.type != "cuda":
+            packed = self._topk_on(U, V, ids.to(U.device), k)
+            return lambda: self._unpack(packed.numpy())
+        with torch.cuda.device(U.device):
+            stream = torch.cuda.current_stream(U.device)
+            ids = ids.pin_memory().to(U.device, non_blocking=True)
+            packed = self._topk_on(U, V, ids, k)
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(packed.device))
+            done.record(stream)
 
         def fence():
-            if done is not None:
-                done.synchronize()
-            arr = packed.cpu().numpy()
-            return arr[0], arr[1].astype(np.int64)
+            done.synchronize()
+            return self._unpack(host.numpy())
 
         return fence
+
+    @staticmethod
+    def _topk_on(U: torch.Tensor, V: torch.Tensor, ids: torch.Tensor, k: int):
+        q = U.index_select(0, ids)
+        if fused_supported(len(ids), k, V.shape[0]):
+            return fused_topk_batch(q, V, k, name="als.fused_topk")
+        return full_row_topk(q, V, k, where="als.batch_topk")
+
+    @staticmethod
+    def _unpack(arr: np.ndarray):
+        return arr[0], arr[1].astype(np.int64)
 
     @staticmethod
     def _uidx(rows) -> np.ndarray:
@@ -433,16 +454,21 @@ class ALSAlgorithm(Algorithm):
             out.extend(self._render_rows(model, rows, top_s, top_i))
         return out
 
-    def dispatch_batch(self, model: ALSModel, indexed_queries):
+    def dispatch_batch(self, model: ALSModel, indexed_queries, force: bool = False):
         """The async half of ``batch_predict`` for device waves: gather and
         dispatch now, return a finalize that fences, reads back and renders.
-        Declines (None) below DEVICE_BATCH_MIN known users."""
+        Declines (None) below DEVICE_BATCH_MIN known users unless ``force``:
+        the bisected halves and solo retries of a failed device wave
+        dispatch on the model's device at any size, never on the host
+        replica."""
         iq = list(indexed_queries)
-        if len(iq) < self.DEVICE_BATCH_MIN:
+        if len(iq) < self.DEVICE_BATCH_MIN and not force:
             return None
         rows, missing = self._split_known(model, iq)
-        if len(rows) < self.DEVICE_BATCH_MIN:
+        if len(rows) < self.DEVICE_BATCH_MIN and not force:
             return None  # mostly-unknown wave fell under the device floor
+        if not rows:
+            return lambda: missing
         k = max(min(q.num, len(model.item_vocab)) for _, _, q in rows)
         fence = self._device_topk(model, self._uidx(rows), k)
 

@@ -1,0 +1,24 @@
+"""Resilience layer of the serving front end: deadlines and load shedding.
+
+The JAX package's ``resilience`` primitives that the serving front end
+needs:
+
+- :mod:`deadline` — per-request time budgets bound to the request
+  contextvars (``X-Pio-Deadline``), enforced at admission, before each
+  MicroBatcher wave and at a pipelined wave's fence;
+- :mod:`admission` — bounded in-flight request cap so overload sheds with
+  ``503 + Retry-After`` instead of collapsing.
+
+Circuit breakers guard the remote storage backend and come with it; retry
+budgets, degraded serving and fault injection are not ported yet.
+"""
+
+
+class LoadShed(Exception):
+    """Request rejected by admission control (bounded queue / in-flight
+    cap).  Maps to ``503`` with a ``Retry-After`` header so well-behaved
+    clients back off instead of hammering a saturated server."""
+
+    def __init__(self, message: str, retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s

@@ -1,22 +1,38 @@
-"""Prediction serving — the ``pio deploy`` server, one live binding.
+"""Prediction serving — the ``pio deploy`` server.
 
 Route parity with the JAX package (workflow/CreateServer.scala:458-706):
 
   GET  /              HTML status page ("Engine is deployed and running")
+  GET  /status.json   engine instance, in-flight generations, batcher state
   POST /queries.json  extract query -> supplement -> predict per algorithm
                       -> serve -> JSON
+  POST /reload        hot-swap to the latest COMPLETED engine instance,
+                      draining the old one (key-gated)
   POST /stop          shut the server down (key-gated when an access key
                       is configured)
 
-Models are materialized once at deploy onto the serving device
-(``load_persistent_model``).  The micro-batcher, ``/reload``, canary,
-tenancy and observability routes arrive with later slices.
+``create_prediction_server`` serves under the asyncio front end with query
+micro-batching by default (``server_kind="aio"``), as the JAX package's
+deploy does: concurrent ``/queries.json`` requests coalesce into waves of
+at most ``max_batch``; waves of ``DEVICE_BATCH_MIN`` known users or more
+dispatch on the card and are fenced on the batcher's finalizer thread
+while the next wave dispatches.  The queue bound, the in-flight cap and
+per-request deadlines answer 503 + Retry-After and 504.  ``"threaded"``
+keeps the thread-per-connection server answering each query solo.
+
+Models are materialized at deploy (and at each ``/reload``) onto the
+serving device (``load_persistent_model``).  Canary and tenant partitioning
+of waves, the generation manifest's checksum gate, and the observability
+routes come with later slices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import logging
+import os
 import threading
 import time
 from datetime import datetime, timezone
@@ -24,7 +40,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from predictionio_tpu_torch.core.base import EngineContext
+from predictionio_tpu_torch.core.base import EngineContext, run_sanity_check
 from predictionio_tpu_torch.core.engine import Engine, resolve_engine_factory
 from predictionio_tpu_torch.core.persistence import load_models
 from predictionio_tpu_torch.data.storage.base import EngineInstance
@@ -33,6 +49,10 @@ from predictionio_tpu_torch.data.storage.config import (
     get_storage,
 )
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+from predictionio_tpu_torch.resilience import LoadShed
+from predictionio_tpu_torch.resilience.admission import AdmissionController
+from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.server.httpd import (
     AppServer,
     HTTPApp,
@@ -41,21 +61,40 @@ from predictionio_tpu_torch.server.httpd import (
     error_response,
     json_response,
     key_matches,
+    shed_response,
 )
 from predictionio_tpu_torch.utils.params import extract_params
+
+log = logging.getLogger("predictionio_tpu_torch.serving")
 
 #: response header naming the generation that answered
 INSTANCE_HEADER = "X-Pio-Engine-Instance"
 
 
 class Binding(NamedTuple):
-    """One engine instance's materialized serving state."""
+    """One generation's immutable serving snapshot.  Every request and
+    every wave captures exactly one Binding, so a concurrent swap can never
+    hand it a torn mix of old algorithms and new models."""
 
     instance: EngineInstance
     params: Any
     algorithms: list
     models: list
     serving: Any
+
+
+class QueuedQuery:
+    """One ``/queries.json`` payload in the micro-batcher.  A wave that
+    dispatches it to the device sets ``on_device``: if that wave fails,
+    its bisection and the batcher's solo retry re-dispatch the query on
+    the device, never on the host replica, so a failing card answers 500
+    and not a host answer."""
+
+    __slots__ = ("payload", "on_device")
+
+    def __init__(self, payload: dict):
+        self.payload = payload
+        self.on_device = False
 
 
 def _render_prediction(p: Any) -> Any:
@@ -101,7 +140,17 @@ def _instance_variant(instance: EngineInstance) -> dict[str, Any]:
 
 
 class DeployedEngine:
-    """Engine + materialized models for one engine instance."""
+    """Engine + materialized models for one engine instance, hot-swappable.
+
+    The live generation's ``instance/params/algorithms/models/serving``
+    attributes are replaced together under one lock; readers snapshot a
+    whole :class:`Binding` once per request or wave, so in-flight work
+    finishes on the generation it started on.  A per-generation in-flight
+    count (one slot from a wave's dispatch to its fence) gives
+    ``wait_drained``, the step after a swap that retires the old
+    generation: once its last slot is released nothing holds its device
+    factors.
+    """
 
     def __init__(
         self,
@@ -113,14 +162,17 @@ class DeployedEngine:
         self.engine = engine
         self.storage = storage
         self.ctx = EngineContext(storage=storage, mode="serving", device=device)
-        (
-            self.instance, self.params, self.algorithms, self.models,
-            self.serving,
-        ) = self.load_binding(instance)
+        self._lock = threading.RLock()
+        self._drain_cond = threading.Condition()
+        self._inflight: dict[str, int] = {}
+        self._install_live(self.load_binding(instance))
+
+    # -- binding construction ------------------------------------------------
 
     def load_binding(self, instance: EngineInstance) -> Binding:
-        """Materialize one generation: parse its params, load its models
-        onto the context's device, instantiate its components."""
+        """Materialize one generation WITHOUT flipping anything: parse its
+        params, load its models onto the context's device, instantiate its
+        components (the slow half of a swap, done outside the lock)."""
         params = self.engine.params_from_json(_instance_variant(instance))
         persisted = load_models(self.storage.models(), instance.id)
         if persisted is None:
@@ -129,29 +181,165 @@ class DeployedEngine:
         _, _, algos, serving = self.engine.instantiate(params)
         return Binding(instance, params, algos, models, serving)
 
+    def _install_live(self, binding: Binding) -> None:
+        with self._lock:
+            (
+                self.instance, self.params, self.algorithms, self.models,
+                self.serving,
+            ) = binding
+
+    def live_binding(self) -> Binding:
+        with self._lock:
+            return Binding(
+                self.instance, self.params, self.algorithms, self.models,
+                self.serving,
+            )
+
+    # -- in-flight tracking (the drain half of a swap) -----------------------
+
+    def acquire_slot(self, binding: Binding) -> None:
+        """Take one in-flight ref on the binding's generation.  Split from
+        :meth:`serving_slot` because a pipelined wave acquires on the
+        dispatch thread and releases on the finalizer thread: the refcount
+        must span the whole dispatch -> fence window, or a swap could
+        retire a generation whose wave is still unfenced."""
+        iid = binding.instance.id
+        with self._drain_cond:
+            self._inflight[iid] = self._inflight.get(iid, 0) + 1
+
+    def release_slot(self, binding: Binding) -> None:
+        iid = binding.instance.id
+        with self._drain_cond:
+            n = self._inflight.get(iid, 1) - 1
+            if n <= 0:
+                self._inflight.pop(iid, None)
+            else:
+                self._inflight[iid] = n
+            self._drain_cond.notify_all()
+
+    @contextlib.contextmanager
+    def serving_slot(self, binding: Binding):
+        self.acquire_slot(binding)
+        try:
+            yield
+        finally:
+            self.release_slot(binding)
+
+    def inflight_snapshot(self) -> dict[str, int]:
+        """Per-generation in-flight counts: zero everywhere means no
+        request would be dropped by stopping or swapping."""
+        with self._drain_cond:
+            return {k: v for k, v in self._inflight.items() if v > 0}
+
+    def wait_drained(self, instance_id: str, timeout: float = 5.0) -> bool:
+        """Block until no in-flight request references the generation."""
+        with self._drain_cond:
+            return self._drain_cond.wait_for(
+                lambda: self._inflight.get(instance_id, 0) == 0, timeout
+            )
+
+    # -- swaps ---------------------------------------------------------------
+
+    def verify_and_swap(self, instance: EngineInstance) -> None:
+        """Load and sanity-check the candidate, THEN flip, then drain the
+        old generation; any failure before the flip leaves the old
+        generation serving untouched.  Raises on refusal."""
+        binding = self.load_binding(instance)
+        for m in binding.models:
+            run_sanity_check(m)
+        old = self.instance
+        self._install_live(binding)
+        if old.id != instance.id:
+            # an idempotent reload of the bound instance must not stall
+            # behind its own steady traffic
+            self.wait_drained(old.id, timeout=5.0)
+
+    def reload_latest(self) -> EngineInstance:
+        """Swap to the latest COMPLETED instance of the bound engine
+        (MasterActor ReloadServer)."""
+        latest = self.storage.engine_instances().get_latest_completed(
+            self.instance.engine_id,
+            self.instance.engine_version,
+            self.instance.engine_variant,
+        )
+        if latest is None:
+            raise RuntimeError("no COMPLETED engine instance to reload")
+        self.verify_and_swap(latest)
+        return latest
+
+    # -- serving -------------------------------------------------------------
+
     def extract_query(self, query_payload: dict) -> Any:
-        return _extract_query(self.algorithms, query_payload)
+        with self._lock:
+            algorithms = self.algorithms
+        return _extract_query(algorithms, query_payload)
 
     def predict(self, query: Any) -> tuple[Any, Any]:
+        return self.predict_bound(self.live_binding(), query)
+
+    def predict_bound(self, binding: Binding, query: Any) -> tuple[Any, Any]:
         """One query: supplement, predict per algorithm, serve."""
-        query = self.serving.supplement(query)
+        query = binding.serving.supplement(query)
         predictions = [
-            a.predict(m, query) for a, m in zip(self.algorithms, self.models)
+            a.predict(m, query) for a, m in zip(binding.algorithms, binding.models)
         ]
-        return query, self.serving.serve(query, predictions)
+        return query, binding.serving.serve(query, predictions)
 
     def predict_batch(self, queries: list[Any]) -> list[tuple[Any, Any]]:
+        return self.predict_batch_bound(self.live_binding(), queries)
+
+    def predict_batch_bound(
+        self, binding: Binding, queries: list[Any]
+    ) -> list[tuple[Any, Any]]:
         """A wave of queries in one vectorized ``batch_predict`` pass per
-        algorithm."""
-        supplemented = [self.serving.supplement(q) for q in queries]
+        algorithm — the MicroBatcher's synchronous target."""
+        serving = binding.serving
+        supplemented = [serving.supplement(q) for q in queries]
         per_algo: list[list[Any]] = []
-        for a, m in zip(self.algorithms, self.models):
+        for a, m in zip(binding.algorithms, binding.models):
             by_idx = dict(a.batch_predict(m, list(enumerate(supplemented))))
             per_algo.append([by_idx[i] for i in range(len(supplemented))])
         return [
-            (q, self.serving.serve(q, [col[i] for col in per_algo]))
+            (q, serving.serve(q, [col[i] for col in per_algo]))
             for i, q in enumerate(supplemented)
         ]
+
+    def dispatch_batch_bound(
+        self, binding: Binding, queries: list[Any], force: bool = False
+    ) -> Callable[[], list[tuple[Any, Any]]] | None:
+        """The ASYNC half of :meth:`predict_batch_bound`: supplement and
+        each algorithm's ``dispatch_batch`` (gather, upload, the kernel
+        launch and the result's copy, NO blocking), returning a finalize
+        that fences, reads back and serves.  None — the caller computes
+        synchronously — when an algorithm lacks ``dispatch_batch`` or
+        declines the wave (below ``DEVICE_BATCH_MIN``).  ``force`` asks
+        each algorithm to dispatch on its device at any size (the retries
+        of a failed device wave)."""
+        dispatches = [
+            getattr(a, "dispatch_batch", None) for a in binding.algorithms
+        ]
+        if any(d is None for d in dispatches):
+            return None
+        serving = binding.serving
+        supplemented = [serving.supplement(q) for q in queries]
+        finalizers: list[Callable[[], list[tuple[int, Any]]]] = []
+        for dispatch, m in zip(dispatches, binding.models):
+            fin = dispatch(m, list(enumerate(supplemented)), force=force)
+            if fin is None:
+                return None
+            finalizers.append(fin)
+
+        def finalize() -> list[tuple[Any, Any]]:
+            per_algo: list[list[Any]] = []
+            for fin in finalizers:
+                by_idx = dict(fin())
+                per_algo.append([by_idx[i] for i in range(len(supplemented))])
+            return [
+                (q, serving.serve(q, [col[i] for col in per_algo]))
+                for i, q in enumerate(supplemented)
+            ]
+
+        return finalize
 
 
 def deploy_engine(
@@ -192,11 +380,64 @@ def create_prediction_server_app(
     deployed: DeployedEngine,
     on_stop: Callable[[], None] | None = None,
     access_key: str | None = None,
+    use_microbatch: bool = False,
+    #: the JAX package's default wave cap
+    max_batch: int = 32,
+    registry: MetricsRegistry | None = None,
+    #: queued queries past which /queries.json sheds 503 + Retry-After
+    #: (PIO_MAX_QUEUE); None = the MicroBatcher's default bound (1024),
+    #: 0 or negative = unbounded
+    max_queue: int | None = None,
+    #: in-flight request cap enforced at admission (PIO_MAX_INFLIGHT);
+    #: None disables the cap
+    max_inflight: int | None = None,
+    #: default per-request time budget in seconds, overridable per request
+    #: by the X-Pio-Deadline header (PIO_DEFAULT_DEADLINE_S)
+    default_deadline_s: float | None = None,
+    #: dispatched-but-unfenced waves the MicroBatcher may run ahead of the
+    #: fence (PIO_PIPELINE_DEPTH, default 2); 0 finalizes inline
+    pipeline_depth: int | None = None,
 ) -> HTTPApp:
-    app = HTTPApp("prediction")
+    app = HTTPApp("predictionserver")
+    if max_queue is None and os.environ.get("PIO_MAX_QUEUE"):
+        max_queue = int(os.environ["PIO_MAX_QUEUE"])
+    if max_inflight is None and os.environ.get("PIO_MAX_INFLIGHT"):
+        max_inflight = int(os.environ["PIO_MAX_INFLIGHT"])
+    if default_deadline_s is None and os.environ.get("PIO_DEFAULT_DEADLINE_S"):
+        default_deadline_s = float(os.environ["PIO_DEFAULT_DEADLINE_S"])
+    if pipeline_depth is None:
+        pipeline_depth = int(os.environ.get("PIO_PIPELINE_DEPTH", "2"))
+    registry = registry or REGISTRY
+    #: the front ends read these: deadline admission + binding, and the
+    #: in-flight shed gate
+    app.default_deadline_s = default_deadline_s
+    if max_inflight is not None:
+        app.admission = AdmissionController(max_inflight, registry=registry)
     started_at = datetime.now(tz=timezone.utc)
     stats = {"request_count": 0, "avg_serving_sec": 0.0, "last_serving_sec": 0.0}
     stats_lock = threading.Lock()
+    m_latency = registry.histogram(
+        "pio_request_latency_seconds",
+        "Serving request latency by route and status",
+        labelnames=("route", "status"),
+    )
+
+    def _observe(status: int, t0: float) -> float:
+        dt = time.perf_counter() - t0
+        m_latency.labels("/queries.json", str(status)).observe(dt)
+        return dt
+
+    def _bump_stats(t0: float) -> None:
+        dt = _observe(200, t0)
+        with stats_lock:
+            n = stats["request_count"]
+            stats["avg_serving_sec"] = (stats["avg_serving_sec"] * n + dt) / (n + 1)
+            stats["last_serving_sec"] = dt
+            stats["request_count"] = n + 1
+
+    def _stamped(resp: Response, instance_id: str) -> Response:
+        resp.headers[INSTANCE_HEADER] = instance_id
+        return resp
 
     @app.route("GET", "/")
     def index(req: Request) -> Response:
@@ -217,33 +458,269 @@ def create_prediction_server_app(
 </body></html>"""
         return Response(200, body)
 
-    @app.route("POST", "/queries\\.json")
-    def queries(req: Request) -> Response:
-        # bad query JSON/shape -> 400; engine faults -> 500 (the reference's
-        # MappingException / Throwable split, CreateServer.scala:607-630)
-        t0 = time.perf_counter()
+    @app.route("GET", "/status\\.json")
+    def status(req: Request) -> Response:
+        batcher = getattr(app, "microbatcher", None)
+        return json_response(
+            200,
+            {
+                "status": "alive",
+                "engineInstanceId": deployed.instance.id,
+                "startTime": started_at.isoformat(),
+                # the drain surface: safe to stop when no generation holds
+                # an in-flight request and the micro-batch queue is idle
+                "inflightGenerations": deployed.inflight_snapshot(),
+                "batcherBusy": bool(batcher is not None and batcher.busy),
+                **stats,
+            },
+        )
+
+    # bad query JSON/shape -> 400; engine faults -> logged 500 (the
+    # reference's MappingException / Throwable split,
+    # CreateServer.scala:607-630)
+    if use_microbatch:
+        from predictionio_tpu_torch.server.microbatch import (
+            MicroBatcher,
+            PendingWave,
+        )
+
+        def _predict_bisect(binding, parsed, idxs, out, on_device, depth=0):
+            """Batched predict with bisection fault isolation: a failing
+            wave splits in half and each half retries batched, so P poison
+            queries cost O(P log B) extra waves instead of B solo predicts.
+            The whole recursion runs against ONE captured binding.  The
+            halves of a device wave (``on_device``) re-dispatch on the
+            device at any size and fence inline: a card that keeps failing
+            fails every query of the wave."""
+            queries = [parsed[i][1] for i in idxs]
+            try:
+                if on_device:
+                    results = deployed.dispatch_batch_bound(
+                        binding, queries, force=True
+                    )()
+                else:
+                    results = deployed.predict_batch_bound(binding, queries)
+            except DeadlineExceeded:
+                # the wave's (tightest member's) budget ran out: not a
+                # poison query; the MicroBatcher's solo-retry pass re-runs
+                # each item under its own deadline
+                raise
+            except Exception as e:
+                if len(idxs) == 1:
+                    out[idxs[0]] = ("err", e)
+                    return
+                if depth == 0:
+                    log.exception("wave predict failed; bisecting to isolate")
+                mid = len(idxs) // 2
+                for half in (idxs[:mid], idxs[mid:]):
+                    _predict_bisect(
+                        binding, parsed, half, out, on_device, depth + 1
+                    )
+                return
+            for i, (q, pred) in zip(idxs, results):
+                out[i] = ("pred", (q, pred))
+
+        def _serve_wave(items):
+            """One wave of :class:`QueuedQuery`, split at the fence.
+
+            The DISPATCH half runs here on the worker thread: extract, then
+            ``dispatch_batch_bound`` against the live binding captured once
+            for the wave (gather, upload, kernel launch, the result's copy
+            into pinned memory; nothing blocks), holding one serving slot.
+            The FINALIZE half — fence, serve, render — rides the returned
+            :class:`PendingWave` onto the finalizer thread, which releases
+            the slot.  A wave the engine computes on the host (below
+            ``DEVICE_BATCH_MIN``) runs inline here instead: the busy worker
+            is what lets queue pressure coalesce the next wave.
+
+            A device wave marks its queries ``on_device``.  When its
+            dispatch or fence fails, its bisection re-dispatches on the
+            device, and so does the batcher's solo retry of any of its
+            queries: no failed device work is answered from the host
+            replica.  A dispatch that raised counts as a device wave, since
+            the card may be what failed.  Each result is ("ok", rendered,
+            instance id) | ("bad", error, id) -> 400 | ("err", error, id)
+            -> 500."""
+            binding = deployed.live_binding()
+            on_device = any(it.on_device for it in items)
+            out: list[tuple] = []
+            for it in items:
+                try:
+                    out.append(("q", deployed.extract_query(it.payload)))
+                except Exception as e:
+                    out.append(("bad", e))
+            parsed = list(out)
+            ok_idx = [i for i, (tag, _) in enumerate(parsed) if tag == "q"]
+            fin = None
+            if ok_idx:
+                deployed.acquire_slot(binding)
+                try:
+                    fin = deployed.dispatch_batch_bound(
+                        binding, [parsed[i][1] for i in ok_idx], force=on_device
+                    )
+                except Exception:
+                    # dispatch failed before the fence: the finalize half
+                    # re-runs the wave with bisection on the device, which
+                    # names the real poison
+                    log.exception(
+                        "device wave dispatch failed; bisecting on the device"
+                    )
+                    on_device = True
+                else:
+                    on_device = fin is not None
+            if on_device:
+                for i in ok_idx:
+                    items[i].on_device = True
+
+            def _finalize():
+                try:
+                    if fin is not None:
+                        try:
+                            results = fin()
+                        except DeadlineExceeded:
+                            raise
+                        except Exception:
+                            log.exception(
+                                "device wave finalize failed; bisecting on "
+                                "the device"
+                            )
+                            _predict_bisect(binding, parsed, ok_idx, out, True)
+                        else:
+                            for i, (q, pred) in zip(ok_idx, results):
+                                out[i] = ("pred", (q, pred))
+                    elif ok_idx:
+                        _predict_bisect(binding, parsed, ok_idx, out, on_device)
+                finally:
+                    if ok_idx:
+                        deployed.release_slot(binding)
+                iid = binding.instance.id
+                done = []
+                for tag, value in out:
+                    if tag == "pred":
+                        try:
+                            tag, value = "ok", _render_prediction(value[1])
+                        except Exception as e:  # only this item fails
+                            tag, value = "err", e
+                    done.append((tag, value, iid))
+                return done
+
+            if fin is None:
+                return _finalize()
+            return PendingWave(_finalize)
+
+        batcher = MicroBatcher(
+            _serve_wave,
+            max_batch=max_batch,
+            registry=registry,
+            max_inflight_waves=pipeline_depth,
+            # None -> the batcher's default bound; 0/negative -> unbounded
+            **(
+                {"max_queue": max_queue if max_queue > 0 else None}
+                if max_queue is not None
+                else {}
+            ),
+        )
+        app.microbatcher = batcher  # exposed for tests and status
+
+        @app.route("POST", "/queries\\.json")
+        async def queries(req: Request) -> Response:
+            t0 = time.perf_counter()
+            try:
+                payload = req.json()
+                if not isinstance(payload, dict):
+                    raise ValueError("query must be a JSON object")
+            except Exception as e:
+                _observe(400, t0)
+                return error_response(400, f"invalid query: {e}")
+            try:
+                status, value, instance_id = await batcher.submit(
+                    QueuedQuery(payload)
+                )
+            except LoadShed as e:
+                # bounded queue: an honest 503 + Retry-After
+                _observe(503, t0)
+                return shed_response(str(e), e.retry_after_s)
+            except DeadlineExceeded as e:
+                _observe(504, t0)
+                return error_response(504, f"deadline exceeded: {e}")
+            except Exception as e:
+                log.exception("query serving failed")
+                _observe(500, t0)
+                return error_response(500, f"{type(e).__name__}: {e}")
+            if status == "bad":
+                _observe(400, t0)
+                return _stamped(
+                    error_response(400, f"invalid query: {value}"), instance_id
+                )
+            if status == "err":
+                log.error("query serving failed: %s", value)
+                _observe(500, t0)
+                return _stamped(
+                    error_response(500, f"{type(value).__name__}: {value}"),
+                    instance_id,
+                )
+            _bump_stats(t0)
+            return _stamped(json_response(200, value), instance_id)
+
+    else:
+
+        @app.route("POST", "/queries\\.json")
+        def queries(req: Request) -> Response:
+            t0 = time.perf_counter()
+            binding = deployed.live_binding()
+            iid = binding.instance.id
+            try:
+                payload = req.json()
+                if not isinstance(payload, dict):
+                    raise ValueError("query must be a JSON object")
+                query = deployed.extract_query(payload)
+            except Exception as e:
+                _observe(400, t0)
+                return _stamped(error_response(400, f"invalid query: {e}"), iid)
+            try:
+                with deployed.serving_slot(binding):
+                    _, prediction = deployed.predict_bound(binding, query)
+            except DeadlineExceeded as e:
+                _observe(504, t0)
+                return _stamped(error_response(504, f"deadline exceeded: {e}"), iid)
+            except Exception as e:
+                log.exception("query serving failed")
+                _observe(500, t0)
+                return _stamped(
+                    error_response(500, f"{type(e).__name__}: {e}"), iid
+                )
+            resp = _stamped(json_response(200, _render_prediction(prediction)), iid)
+            _bump_stats(t0)
+            return resp
+
+    def _authorized(req: Request) -> bool:
+        return access_key is None or key_matches(req, access_key)
+
+    @app.route("POST", "/reload")
+    def reload(req: Request) -> Response:
+        """Hot-swap to the latest COMPLETED instance: the candidate loads
+        and passes ``sanity_check()`` BEFORE the flip; a refusal answers
+        409 with the reason while the old generation keeps serving."""
+        if not _authorized(req):
+            return error_response(401, "Invalid accessKey.")
         try:
-            payload = req.json()
-            if not isinstance(payload, dict):
-                raise ValueError("query must be a JSON object")
-            query = deployed.extract_query(payload)
+            inst = deployed.reload_latest()
         except Exception as e:
-            return error_response(400, f"invalid query: {e}")
-        instance_id = deployed.instance.id
-        _, prediction = deployed.predict(query)
-        resp = json_response(200, _render_prediction(prediction))
-        resp.headers[INSTANCE_HEADER] = instance_id
-        dt = time.perf_counter() - t0
-        with stats_lock:
-            n = stats["request_count"]
-            stats["avg_serving_sec"] = (stats["avg_serving_sec"] * n + dt) / (n + 1)
-            stats["last_serving_sec"] = dt
-            stats["request_count"] = n + 1
-        return resp
+            log.error("reload refused: %s", e)
+            return json_response(
+                409,
+                {
+                    "message": f"reload refused: {e}",
+                    "engineInstanceId": deployed.instance.id,
+                },
+            )
+        return json_response(
+            200, {"message": "Reloaded", "engineInstanceId": inst.id}
+        )
 
     @app.route("POST", "/stop")
     def stop(req: Request) -> Response:
-        if access_key is not None and not key_matches(req, access_key):
+        if not _authorized(req):
             return error_response(401, "Invalid accessKey.")
         if on_stop is not None:
             threading.Thread(target=on_stop, daemon=True).start()
@@ -262,11 +739,20 @@ def create_prediction_server(
     engine_version: str = "default",
     engine_variant: str = "default",
     access_key: str | None = None,
+    server_kind: str = "aio",
+    max_queue: int | None = None,
+    max_inflight: int | None = None,
+    default_deadline_s: float | None = None,
     device: torch.device | str | None = None,
-) -> AppServer:
-    """Deploy the engine and bind the threaded server (not started: call
-    ``start_background()`` or ``serve_forever()``).  ``POST /stop`` shuts
-    it down."""
+):
+    """Deploy the engine and bind the deploy server (not started: call
+    ``start_background()`` or ``serve_forever()``).
+
+    ``server_kind="aio"`` (default) serves under the asyncio front end with
+    query micro-batching — concurrent /queries.json requests coalesce into
+    one vectorized predict per wave.  ``"threaded"`` keeps the
+    thread-per-connection server (no batching).  ``POST /stop`` shuts it
+    down."""
     deployed = deploy_engine(
         engine_factory_name,
         storage=storage,
@@ -276,15 +762,26 @@ def create_prediction_server(
         engine_variant=engine_variant,
         device=device,
     )
-    server_ref: list[AppServer] = []
+    server_ref: list[Any] = []
 
     def on_stop():
         if server_ref:
             server_ref[0].shutdown()
 
     app = create_prediction_server_app(
-        deployed, on_stop=on_stop, access_key=access_key
+        deployed,
+        on_stop=on_stop,
+        access_key=access_key,
+        use_microbatch=server_kind == "aio",
+        max_queue=max_queue,
+        max_inflight=max_inflight,
+        default_deadline_s=default_deadline_s,
     )
-    server = AppServer(app, host, port)
+    if server_kind == "aio":
+        from predictionio_tpu_torch.server.aio import AsyncAppServer
+
+        server = AsyncAppServer(app, host, port)
+    else:
+        server = AppServer(app, host, port)
     server_ref.append(server)
     return server

@@ -90,6 +90,9 @@ def do_deploy(args) -> int:
         storage=get_storage(),
         engine_instance_id=args.engine_instance_id,
         access_key=args.accesskey or None,
+        max_queue=args.max_queue,
+        max_inflight=args.max_inflight,
+        default_deadline_s=args.deadline_s,
         device=args.device,
     )
     print(f"Engine deployed on http://{args.ip}:{server.port} ({args.device})")
@@ -170,6 +173,28 @@ def build_parser() -> argparse.ArgumentParser:
     dp.add_argument("--ip", default="0.0.0.0")
     dp.add_argument("--port", type=int, default=8000)
     dp.add_argument("--accesskey", default="")
+    dp.add_argument(
+        "--deadline-s",
+        type=float,
+        default=None,
+        help="default per-request time budget in seconds (clients override "
+        "per request with the X-Pio-Deadline header); expired work is "
+        "answered 504 instead of computed (PIO_DEFAULT_DEADLINE_S)",
+    )
+    dp.add_argument(
+        "--max-inflight",
+        type=int,
+        default=None,
+        help="in-flight request cap; excess requests shed with 503 + "
+        "Retry-After at admission (PIO_MAX_INFLIGHT)",
+    )
+    dp.add_argument(
+        "--max-queue",
+        type=int,
+        default=None,
+        help="micro-batch queue bound; excess queries shed with 503 + "
+        "Retry-After (PIO_MAX_QUEUE; default 1024, 0 = unbounded)",
+    )
     dp.set_defaults(fn=do_deploy)
 
     bp = sub.add_parser("batchpredict")

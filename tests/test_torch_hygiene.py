@@ -81,6 +81,9 @@ def test_scan_sees_the_whole_package():
         "predictionio_tpu_torch/ops/als.py",
         "predictionio_tpu_torch/ops/als_accum.py",
         "predictionio_tpu_torch/core/workflow.py",
+        "predictionio_tpu_torch/server/aio.py",
+        "predictionio_tpu_torch/server/microbatch.py",
+        "predictionio_tpu_torch/resilience/deadline.py",
     ):
         assert must in rel
     assert _forbidden("jax.numpy") and _forbidden("predictionio_tpu.ops.topk")

@@ -581,6 +581,165 @@ def test_als_train_on_the_card_matches_the_cpu(cuda):
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=2e-3)
 
 
+def _card_deploy(cuda, tmp_path, rng, n_users, n_items, rank):
+    """A seeded ALS model persisted as a COMPLETED instance and deployed on
+    the card: (U, V, storage, deployed)."""
+    from datetime import datetime, timezone
+
+    from predictionio_tpu_torch.core.engine import EngineParams
+    from predictionio_tpu_torch.core.persistence import save_models
+    from predictionio_tpu_torch.data.storage.base import EngineInstance
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.server import prediction_server as ps
+
+    U = rng.standard_normal((n_users, rank)).astype(np.float32)
+    V = rng.standard_normal((n_items, rank)).astype(np.float32)
+    storage = StorageRuntime(
+        StorageConfig.from_env({"PIO_HOME": str(tmp_path / "pio_home")})
+    )
+    params = EngineParams(algorithms=(("als", rec.ALSAlgorithmParams(rank=rank)),))
+    now = datetime.now(tz=timezone.utc)
+    storage.engine_instances().insert(
+        EngineInstance(
+            id="card", status="COMPLETED", start_time=now, end_time=now,
+            engine_id="default", engine_version="default",
+            engine_variant="default", engine_factory="recommendation",
+            **params.to_json_fields(),
+        )
+    )
+    save_models(storage.models(), "card", [{
+        "user_factors": U, "item_factors": V,
+        "user_vocab": np.array([f"u{i}" for i in range(n_users)]),
+        "item_vocab": np.array([f"i{i}" for i in range(n_items)]),
+    }])
+    deployed = ps.deploy_engine("recommendation", storage=storage, device=cuda)
+    return U, V, storage, deployed
+
+
+def _burst(batcher, payloads, metas):
+    """Every payload queued at once (the batcher's condition held while the
+    burst enqueues), then the answers in order."""
+    import asyncio
+
+    from predictionio_tpu_torch.server.prediction_server import QueuedQuery
+
+    async def burst():
+        with batcher._cond:
+            futs = [asyncio.ensure_future(batcher.submit(QueuedQuery(p), m))
+                    for p, m in zip(payloads, metas)]
+            await asyncio.sleep(0)
+        return await asyncio.gather(*futs)
+
+    return asyncio.run(asyncio.wait_for(burst(), timeout=120))
+
+
+@pytest.mark.cuda
+def test_pipelined_batcher_device_waves_on_the_card(cuda, tmp_path):
+    # 1,024 queries queued at once through the deploy's micro-batcher of
+    # 512-query waves: two device waves, each one fused top-k launch,
+    # dispatched on the worker and fenced on the finalizer; the answers
+    # held to the host replica (scores within 1e-5, ids outside near ties)
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server import prediction_server as ps
+
+    rng = np.random.default_rng(11)
+    n_users, num = 700, 10
+    U, V, storage, deployed = _card_deploy(cuda, tmp_path, rng, n_users, 3000, 8)
+    app = ps.create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=512, pipeline_depth=2,
+        max_queue=0, registry=MetricsRegistry(),
+    )
+    batcher = app.microbatcher
+    users = rng.integers(0, n_users, 1024)
+    metas = [{} for _ in users]
+    before = topk.KERNEL_LAUNCHES["fused_topk"]
+    try:
+        results = _burst(
+            batcher, [{"user": f"u{u}", "num": num} for u in users], metas
+        )
+    finally:
+        batcher.close()
+        storage.close()
+    assert topk.KERNEL_LAUNCHES["fused_topk"] == before + 2
+    assert sorted({m["wave_seq"] for m in metas}) == [1, 2]
+    assert all(m["pipelined"] and m["wave_size"] == 512 for m in metas)
+    assert deployed.inflight_snapshot() == {}
+    # one more than num: the neighbour of the last position
+    want_s, want_i = topk.host_topk_batch(U[users] @ V.T, num + 1)
+    for row, (status, body, iid) in enumerate(results):
+        assert (status, iid) == ("ok", "card")
+        got_i = [int(x["item"][1:]) for x in body["itemScores"]]
+        got_s = np.asarray([x["score"] for x in body["itemScores"]])
+        w = want_s[row]
+        np.testing.assert_allclose(got_s, w[:num], rtol=1e-5, atol=1e-6)
+        for j in np.flatnonzero(np.asarray(got_i) != want_i[row, :num]):
+            gap = min(abs(w[j] - w[x]) for x in (j - 1, j + 1) if 0 <= x <= num)
+            assert gap <= 1e-5 * abs(w[j]) + 1e-6, (row, j)
+
+
+@pytest.mark.cuda
+def test_failing_device_wave_answers_500_on_the_card(cuda, tmp_path, monkeypatch):
+    # the fused top-k raising on every call, as under a sticky CUDA error:
+    # a 512-query device wave bisects on the card down to single queries,
+    # each an error, and a single HTTP query (the device floor lowered to
+    # 1) answers 500; neither the host replica nor the plain version is
+    # ever read
+    import http.client
+    import json
+
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server import prediction_server as ps
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+
+    rng = np.random.default_rng(12)
+    _, _, storage, deployed = _card_deploy(cuda, tmp_path, rng, 600, 3000, 8)
+    reads, calls = [], []
+
+    def no_host_replica():
+        reads.append(1)
+        raise AssertionError("a device wave read the host replica")
+
+    def sticky(q, t, k, **kw):
+        assert q.device.type == "cuda" and t.device.type == "cuda"
+        calls.append(q.shape[0])
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(deployed.models[0], "host_factors", no_host_replica)
+    monkeypatch.setattr(topk, "fused_topk_plain", None)
+    monkeypatch.setattr(rec, "fused_topk_batch", sticky)
+    app = ps.create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=512, max_queue=0,
+        registry=MetricsRegistry(),
+    )
+    server = AsyncAppServer(app, "127.0.0.1", 0).start_background()
+    try:
+        results = _burst(
+            app.microbatcher,
+            [{"user": f"u{u}", "num": 10} for u in rng.integers(0, 600, 512)],
+            [None] * 512,
+        )
+        n_burst = len(calls)
+        monkeypatch.setattr(rec.ALSAlgorithm, "DEVICE_BATCH_MIN", 1)
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=10)
+        conn.request("POST", "/queries.json", json.dumps({"user": "u1", "num": 10}))
+        resp = conn.getresponse()
+        status, body = resp.status, json.loads(resp.read())
+        conn.close()
+    finally:
+        server.shutdown()
+        storage.close()
+    assert {r[0] for r in results} == {"err"}
+    assert all("illegal memory access" in str(r[1]) for r in results)
+    # the wave's dispatch, then its bisection on the card: 1,023 dispatches
+    # down to its 512 single queries; then the HTTP query and its retry
+    assert n_burst == 1 + 1023 and calls[:2] == [512, 512]
+    assert calls[:n_burst].count(1) == 512 and calls[n_burst:] == [1, 1]
+    assert status == 500 and "illegal memory access" in body["message"]
+    assert reads == [] and deployed.inflight_snapshot() == {}
+
+
 @pytest.mark.cuda
 def test_als_kernels_refuse_what_they_do_not_take(cuda):
     seg, oth, rating, factors = _als_stream("exact", 500, 256, 50, 4, seed=1)
