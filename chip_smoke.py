@@ -31,7 +31,17 @@ calls:
   chunk kernel timed at widths 128 and 1,152, and a chunked user
   half-step split by kind of device work); then the OOM
   ladder (``auto`` under a cap of device memory between the two trains'
-  peaks falls back from fused to chunked).
+  peaks falls back from fused to chunked);
+- the ALS family: ``ECommAlgorithm.train`` (implicit ALS) on a view/buy
+  stream at the ML-20M shape, kernel 1 held to its plain version on the
+  implicit stream (``als_family_train``); that model through the default
+  deploy, its business rules reading a live event store, solo queries on
+  each route and 16 keep-alive clients, every answer held to a plain CPU
+  answer, and a similarproduct model at the ML-20M item width
+  (``als_family_serving``); ``app new`` -> ``import`` -> ``train`` ->
+  deploy of an ecommerce and a similarproduct (``als`` + ``cooccurrence``)
+  engine at the ML-100K shape, the card's factors held to a CPU train from
+  one start (``als_family_cli``).
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -1196,7 +1206,9 @@ def als_kernel_phase() -> list:
     tiles: the fused one at ranks 1, 2, 6, 10, 11, 17 and 32, explicit and
     implicit; the chunked one at ranks 1, 10, 11, 17 and 32 (every width),
     in 2-tile chunks, and on a stream whose runs end at every row of a tile
-    in 3-tile chunks (blocks cross chunks).  Bitwise on exact inputs, within
+    in 3-tile chunks (blocks cross chunks); and the fused one on a signed
+    implicit stream (ratings +-1 and half stars mixed) at ranks 1, 10 and
+    17.  Bitwise on exact inputs, within
     ALS_RTOL on random-normal ones, and a repeat run gives the same bits.
     The streams are staged by ``ops.als._stage``, as ``train_als`` stages
     them."""
@@ -1261,6 +1273,30 @@ def als_kernel_phase() -> list:
                     same_bits(got, again, what)
                     cases.append({"kernel": "als_segment_accum", "case": what,
                                   "max_abs_err": err})
+        # kernel 1 on a signed implicit stream, as likealgo's +-1 and
+        # ecommerce's rate events give it: ratings +-1 and half stars mixed
+        for k in (1, RANK, 17):
+            seg, oth, _, factors = als_stream(kind, n, n_seg_pad, n_oth, k, rng, hot)
+            rating = np.where(rng.random(n) < 0.5, rng.choice([-1.0, 1.0], n),
+                              rng.integers(1, 11, n) / 2.0).astype(np.float32)
+            st = als._stage(seg, oth, rating, n_seg_pad, "fused", cuda)
+            f = torch.from_numpy(factors).cuda()
+            for precision in ("highest", "bf16"):
+                def signed(fn, fac, rat):
+                    wrv = als_accum.make_wrv(rat, st["val"], True, 1.0)
+                    return fn(st["plan_args"], st["oth"], wrv, fac,
+                              st["plan"].n_blocks, precision)
+
+                got = signed(als_accum.segment_stats_fused, f, st["rat"])
+                again = signed(als_accum.segment_stats_fused, f, st["rat"])
+                want = signed(als_accum.segment_stats_fused_plain, f, st["rat"])
+                scale = signed(als_accum.segment_stats_fused_plain, f.abs(),
+                               st["rat"].abs())
+                what = f"fused {kind} r{k} signed implicit {precision}"
+                err = hold(got, want, scale, kind == "exact", what)
+                same_bits(got, again, what)
+                cases.append({"kernel": "als_fused_accum", "case": what,
+                              "max_abs_err": err})
     emit({"phase": "als_kernel_vs_plain", "all_passed": True, "cases": cases})
     return cases
 
@@ -1766,12 +1802,13 @@ def oom_ladder(u, i, r, p3, fused: dict, chunked: dict, want) -> dict:
     return out
 
 
-def train_ml20m_phase() -> tuple[dict, dict, dict]:
+def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
     """``train_als`` at the ML-20M shape: 20 iterations fused (cold, then
     warm under torch.profiler), then 3 forced chunked, each cold train's
     peak of device memory, then the OOM ladder between them; per half-step
     accumulate and solve times, staging, idle share, RMSE, and each
-    kernel checked and timed at this shape."""
+    kernel checked and timed at this shape.  Also returns the generated
+    ratings, which the ALS family's train reuses."""
     from predictionio_tpu_torch.ops import als
 
     out: dict = {"phase": "train_ml20m",
@@ -1848,7 +1885,611 @@ def train_ml20m_phase() -> tuple[dict, dict, dict]:
     del cu, ci, wide
     out["oom_ladder"] = oom_ladder(u, i, r, p3, out["fused_peak"],
                                    out["chunked_peak"], st3)
-    return out, fused_t, chunk_t
+    return out, fused_t, chunk_t, (u, i, r)
+
+
+# -- the ALS family (similarproduct, recommendeduser, ecommerce) --------------
+
+#: categories of the ALS family's catalogs: 1-3 of 40 per item
+CATEGORIES = 40
+#: the ecommerce event store at the ML-20M shape holds only what live reads
+#: touch: the view/buy events of KNOWN_USERS users of the stream, the
+#: RECENT_VIEWS latest views of COLD_USERS users outside the vocabulary,
+#: NO_EVENT_USERS users with nothing, and an unavailableItems $set
+KNOWN_USERS, COLD_USERS, NO_EVENT_USERS, RECENT_VIEWS = 256, 64, 32, 10
+UNAVAILABLE_ITEMS = 100
+FAMILY_CLIENTS, FAMILY_QUERIES = 16, 1024
+#: the first event time of the generated streams (2015-01-01), epoch ms
+T_BASE_MS = 1_420_070_400_000
+
+
+def item_categories(n_items: int, rng) -> list[tuple[str, ...]]:
+    """1-3 distinct categories of CATEGORIES per item."""
+    picks = np.argsort(rng.random((n_items, CATEGORIES)), axis=1)[:, :3]
+    counts = rng.integers(1, 4, n_items)
+    return [tuple(f"c{c}" for c in row[:k]) for row, k in zip(picks, counts)]
+
+
+def ecomm_stream(u, i, r, seed: int):
+    """An ecommerce event stream from ``movielens_like`` ratings: every
+    rating becomes a ``view``, those of 4.5 stars and more also a ``buy``;
+    event times are distinct, in an order drawn from ``seed``.  Returns
+    (user, item, is_buy, time_ms) columns."""
+    buy = r >= 4.5
+    ev_u = np.concatenate([u, u[buy]])
+    ev_i = np.concatenate([i, i[buy]])
+    is_buy = np.zeros(len(ev_u), bool)
+    is_buy[len(u):] = True
+    rng = np.random.default_rng(seed + 1)
+    times = T_BASE_MS + rng.permutation(len(ev_u)).astype(np.int64) * 1000
+    return ev_u, ev_i, is_buy, times
+
+
+def persist_instance(storage, factory: str, engine_id: str, params, blob) -> str:
+    """``blob`` saved as the model of a new COMPLETED engine instance."""
+    from predictionio_tpu_torch.core.persistence import save_models
+    from predictionio_tpu_torch.data.storage.base import EngineInstance
+
+    now = datetime.now(tz=timezone.utc)
+    instance = EngineInstance(
+        id=uuid.uuid4().hex, status="COMPLETED", start_time=now, end_time=now,
+        engine_id=engine_id, engine_version="default", engine_variant="default",
+        engine_factory=factory, **params.to_json_fields(),
+    )
+    storage.engine_instances().insert(instance)
+    save_models(storage.models(), instance.id, [blob])
+    return instance.id
+
+
+def als_family_train_phase(storage, ratings) -> tuple[dict, dict]:
+    """``ECommAlgorithm.train`` on the card at the ML-20M shape: implicit
+    ALS (alpha 1, rank 10, 20 iterations) over a view/buy stream built in
+    memory, under ``torch.profiler``; stage seconds, kernel 1's launches and
+    the device's idle share; kernel 1 then held to its plain version on the
+    implicit stream's first user half-step and timed there.  The model is
+    persisted as an ``ecommerce`` engine instance.  ``ratings`` are
+    ``train_ml20m``'s (the same generator and seed).  Returns the phase
+    line and what the serving phase needs."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import EngineParams
+    from predictionio_tpu_torch.models.ecommerce import engine as ec
+    from predictionio_tpu_torch.ops import als
+
+    out: dict = {"phase": "als_family_train", "factory": "ecommerce",
+                 "shape": [ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS],
+                 "rank": RANK, "iterations": ITERATIONS, "alpha": 1.0}
+    t_phase = t0 = time.perf_counter()
+    ev_u, ev_i, is_buy, times = ecomm_stream(*ratings, SEED + 30)
+    rng = np.random.default_rng(SEED + 31)
+    cats = item_categories(ML20M_ITEMS, rng)
+    users = [f"u{n}" for n in range(ML20M_USERS)]
+    user_names = np.array(users, dtype=object)
+    item_names = np.array([f"i{n}" for n in range(ML20M_ITEMS)], dtype=object)
+    events = np.full(len(ev_u), "view", dtype=object)
+    events[is_buy] = "buy"
+    td = ec.TrainingData(
+        users=users,
+        items={name: ec.Item(categories=c) for name, c in zip(item_names, cats)},
+        int_users=user_names[ev_u], int_items=item_names[ev_i], int_events=events,
+        int_ratings=np.ones(len(ev_u), np.float32), int_times=times,
+    )
+    out["generate_s"] = time.perf_counter() - t0
+    out["events"] = {"view": int((~is_buy).sum()), "buy": int(is_buy.sum())}
+    params = ec.ECommAlgorithmParams(app_name="ml20m", rank=RANK,
+                                     num_iterations=ITERATIONS)
+    algo = ec.ECommAlgorithm(params)
+    ctx = EngineContext(storage=storage, device="cuda")
+    base = fresh_peak()
+    box: list = []
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    wall, idle, device_ms = profile_idle(lambda: box.append(algo.train(ctx, td)))
+    launches = read_launches()
+    # -- end --
+    (model,) = box
+    stages = dict(ec.LAST_TRAIN_STAGES)
+    assert launches["als_fused_accum"] == 2 * ITERATIONS, launches
+    assert als.LAST_PLAN_INFO["mode"] == "fused", als.LAST_PLAN_INFO
+    uploads = sum(ms for k, ms in device_ms.items() if "HtoD" in k)
+    busy = sum(device_ms.values()) - uploads
+    out.update(
+        train_s=wall, stage_s=stages, launches=launches,
+        nnz=als.LAST_PLAN_INFO["nnz"],
+        device_idle_share=idle,
+        device_idle_share_iterations=1.0 - busy / (1e3 * stages["iterations"]),
+        device_ms_by_kernel=dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]),
+        peak=peak_since(base),
+    )
+    U = model.user_factors.cpu().numpy()
+    V = model.item_factors.cpu().numpy()
+    assert np.isfinite(U).all() and np.isfinite(V).all()
+    assert int(model.popular_counts.sum()) == out["events"]["buy"]
+    # kernel 1 on the implicit stream's first user half-step
+    su, _ = next(iter(als._STAGE_CACHE.values()))
+    p = als.ALSParams(rank=RANK, implicit_prefs=True, alpha=1.0)
+    ni_pad = (ML20M_ITEMS + 127) // 128 * 128
+    kernel = fused_timing(su, pad_rows(model.item_factors, ni_pad), p)
+    out["kernel1_implicit_user_half_step"] = kernel
+    del su
+    t0 = time.perf_counter()
+    blob = algo.make_persistent_model(ctx, model)
+    instance_id = persist_instance(
+        storage, "ecommerce", "ecomm-ml20m",
+        EngineParams(datasource=("", ec.DataSourceParams(app_name="ml20m")),
+                     algorithms=(("ecomm", params),), serving=("", None)),
+        blob)
+    out["persist_s"] = time.perf_counter() - t0
+    out["instance"] = instance_id
+    out["phase_s"] = time.perf_counter() - t_phase
+    served = {"instance": instance_id, "blob": blob, "cats": cats,
+              "stream": (ev_u, ev_i, is_buy, times)}
+    return out, served
+
+
+class EcommPlain:
+    """The plain CPU answer of an ecommerce query from the persisted host
+    factors and the events the store holds: the template's business rules
+    (seen items, unavailable items, lists, categories) as a numpy mask, then
+    the known-user dot product, the cold user's summed cosine over its
+    latest views, or popularity; a stable sort (value desc, id asc) and
+    ``num + 1`` entries, the last one the neighbour a near tie is judged
+    on."""
+
+    def __init__(self, blob, seen, recent, unavailable):
+        self.U, self.V = blob["user_factors"], blob["item_factors"]
+        self.pop = np.asarray(blob["popular_counts"])
+        self.uvocab = {k: n for n, k in enumerate(blob["user_vocab"])}
+        self.inames = list(blob["item_vocab"])
+        self.irow = {k: n for n, k in enumerate(self.inames)}
+        self.by_cat: dict = {}
+        for name, cs in blob["items"].items():
+            for c in cs:
+                self.by_cat.setdefault(c, np.zeros(len(self.inames), bool))[
+                    self.irow[name]] = True
+        self.seen, self.recent, self.unavailable = seen, recent, unavailable
+        self.item_norm = np.maximum(np.linalg.norm(self.V, axis=1), 1e-9)
+
+    def _rows(self, names):
+        return [self.irow[x] for x in names if x in self.irow]
+
+    def route(self, user: str) -> str:
+        if user in self.uvocab:
+            return "dot_topk"
+        return "cosine_topk" if self.recent.get(user) else "popularity"
+
+    def answer(self, q: dict):
+        n = len(self.inames)
+        exclude = np.zeros(n, bool)
+        if q.get("whiteList") is not None:
+            keep = np.zeros(n, bool)
+            keep[self._rows(q["whiteList"])] = True
+            exclude |= ~keep
+        black = set(self.seen.get(q["user"], ())) | self.unavailable
+        black |= set(q.get("blackList") or ())
+        exclude[self._rows(black)] = True
+        if q.get("categories"):
+            anyc = np.zeros(n, bool)
+            for c in q["categories"]:
+                anyc |= self.by_cat.get(c, np.zeros(n, bool))
+            exclude |= ~anyc
+        route = self.route(q["user"])
+        k = min(q.get("num", 10), n) + 1
+        if route == "popularity":
+            pop = np.where(exclude, -1, self.pop)
+            order = np.argsort(-pop, kind="stable")[:k]
+            keep = [j for j in order if pop[j] >= 0]
+            return [self.inames[j] for j in keep], [float(pop[j]) for j in keep]
+        if route == "dot_topk":
+            s = self.V @ self.U[self.uvocab[q["user"]]]
+        else:
+            qf = self.V[self._rows(self.recent[q["user"]])]
+            qn = qf / np.maximum(np.linalg.norm(qf, axis=1, keepdims=True), 1e-9)
+            s = (self.V @ qn.T).sum(axis=1) / self.item_norm
+        s = np.where(exclude, -np.inf, s).astype(np.float32)
+        order = np.argsort(-s, kind="stable")[:k]
+        keep = [j for j in order if np.isfinite(s[j])]
+        return [self.inames[j] for j in keep], [float(s[j]) for j in keep]
+
+
+def hold_scored(got: list, want: tuple[list, list], num: int, what) -> None:
+    """An answer's ``itemScores`` against a plain answer of ``num + 1``
+    entries: as many entries as the plain answer has up to ``num``, scores
+    within RTOL, ids equal except inside a near tie of the plain scores
+    (the (num+1)th included)."""
+    ids, scores = want
+    n = min(num, len(ids))
+    assert len(got) == n, (what, len(got), n)
+    np.testing.assert_allclose([x["score"] for x in got], scores[:n],
+                               rtol=RTOL, atol=1e-6, err_msg=str(what))
+    for c, x in enumerate(got):
+        if x["item"] != ids[c]:
+            nb = [scores[j] for j in (c - 1, c + 1) if 0 <= j < len(scores)]
+            assert min(abs(scores[c] - v) for v in nb) <= RTOL * abs(scores[c]), (what, c)
+
+
+def post_query(port: int, body: dict) -> tuple[int, dict, float]:
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/queries.json",
+                                 data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        data = json.loads(resp.read())
+        return resp.status, data, 1e3 * (time.perf_counter() - t0)
+
+
+def family_queries(rng, users_by_route: dict, item_names, n: int) -> list:
+    """``n`` ecommerce queries: half known users, a quarter cold users, a
+    quarter users with no events; each with no option, categories, a white
+    list or a black list."""
+    out = []
+    routes = rng.choice(["dot_topk", "dot_topk", "cosine_topk", "popularity"], n)
+    for route in routes:
+        q = {"user": str(rng.choice(users_by_route[route])),
+             "num": int(rng.choice([4, 10, 20]))}
+        opt = rng.integers(4)
+        if opt == 1:
+            q["categories"] = [f"c{c}" for c in rng.choice(CATEGORIES, 2, replace=False)]
+        elif opt == 2:
+            q["whiteList"] = [str(x) for x in rng.choice(item_names, 300, replace=False)]
+        elif opt == 3:
+            q["blackList"] = [str(x) for x in rng.choice(item_names, 20, replace=False)]
+        out.append(q)
+    return out
+
+
+def ecomm_store_events(served, rng):
+    """The events the serving phase writes, and the plain answer's view of
+    them: (events, seen items per user, latest views per cold user,
+    unavailable items, the users of each route)."""
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event
+
+    ev_u, ev_i, is_buy, times = served["stream"]
+    known = rng.choice(ML20M_USERS, KNOWN_USERS, replace=False)
+    rows = np.flatnonzero(np.isin(ev_u, known))
+
+    def at(ms):
+        return datetime.fromtimestamp(int(ms) / 1000.0, tz=timezone.utc)
+
+    events, seen = [], {}
+    for j in rows:
+        user, item = f"u{ev_u[j]}", f"i{ev_i[j]}"
+        seen.setdefault(user, set()).add(item)
+        events.append(Event(event="buy" if is_buy[j] else "view", entity_type="user",
+                            entity_id=user, target_entity_type="item",
+                            target_entity_id=item, event_time=at(times[j])))
+    recent = {}
+    t_after = int(times.max()) + 1000
+    for c in range(COLD_USERS):
+        user = f"cold{c}"
+        items = [f"i{x}" for x in rng.integers(0, ML20M_ITEMS, RECENT_VIEWS + 3)]
+        for n, item in enumerate(items):  # the last RECENT_VIEWS are the latest
+            events.append(Event(event="view", entity_type="user", entity_id=user,
+                                target_entity_type="item", target_entity_id=item,
+                                event_time=at(t_after + 1000 * n)))
+        seen[user] = set(items)
+        recent[user] = items[::-1][:RECENT_VIEWS]
+    unavailable = {f"i{x}" for x in rng.choice(ML20M_ITEMS, UNAVAILABLE_ITEMS, replace=False)}
+    events.append(Event(event="$set", entity_type="constraint", entity_id="unavailableItems",
+                        properties=DataMap({"items": sorted(unavailable)}),
+                        event_time=at(t_after)))
+    users_by_route = {
+        "dot_topk": [f"u{x}" for x in known],
+        "cosine_topk": list(recent),
+        "popularity": [f"none{x}" for x in range(NO_EVENT_USERS)],
+    }
+    return events, seen, recent, unavailable, users_by_route
+
+
+def als_family_serving_phase(storage, served) -> dict:
+    """The ML-20M-shape ecommerce model through the default deploy (aio,
+    micro-batched) on the card, its live reads on an event store that holds
+    what they touch: solo queries on each route (known user ``dot_topk``,
+    cold user ``cosine_topk``, no signal: popularity), with and without
+    categories, a white list and a black list; then 16 keep-alive clients
+    sending 1,024 mixed queries.  Every answer is held to the plain CPU
+    answer.  Then a seeded similarproduct model at the ML-20M item width
+    answers cosine queries with category filters, held the same way."""
+    from predictionio_tpu_torch.core.engine import EngineParams
+    from predictionio_tpu_torch.models.similarproduct import engine as sp
+    from predictionio_tpu_torch.parallel import device_cache
+    from predictionio_tpu_torch.server.prediction_server import create_prediction_server
+    from predictionio_tpu_torch.tools import commands as cmd
+
+    out: dict = {"phase": "als_family_serving",
+                 "shape": [ML20M_USERS, ML20M_ITEMS, RANK]}
+    rng = np.random.default_rng(SEED + 32)
+    t_phase = t0 = time.perf_counter()
+    app = cmd.app_new(storage, "ml20m").app
+    events, seen, recent, unavailable, by_route = ecomm_store_events(served, rng)
+    storage.l_events().insert_batch(events, app.id)
+    out["store_events"] = len(events)
+    out["store_s"] = time.perf_counter() - t0
+    plain = EcommPlain(served["blob"], seen, recent, unavailable)
+    item_names = np.array([f"i{n}" for n in range(ML20M_ITEMS)])
+    server = create_prediction_server(
+        "ecommerce", host="127.0.0.1", port=0, storage=storage,
+        engine_instance_id=served["instance"]).start_background()
+    solo: dict = {}
+    try:
+        # solo queries: every route with every option, three times each
+        for route, users in by_route.items():
+            for opt in ({}, {"categories": ["c1", "c7"]},
+                        {"whiteList": [str(x) for x in item_names[::89]]},
+                        {"blackList": [str(x) for x in item_names[:20]]}):
+                for user in users[:3]:
+                    q = {"user": user, "num": 10, **opt}
+                    status, body, ms = post_query(server.port, q)
+                    assert status == 200 and plain.route(user) == route, (status, q)
+                    hold_scored(body["itemScores"], plain.answer(q), 10, q)
+                    solo.setdefault(route, []).append(ms)
+        out["solo_ms"] = {r: v for r, v in solo.items()}
+        out["solo_p50_ms"] = {r: statistics.median(v) for r, v in solo.items()}
+        mixed = family_queries(rng, by_route, item_names, FAMILY_QUERIES)
+        results, wall = drive_clients(
+            server.port, [json.dumps(q).encode() for q in mixed], FAMILY_CLIENTS)
+    finally:
+        server.shutdown()
+    codes = sorted({r[0] for r in results})
+    assert codes == [200], codes
+    for q, (_, _, _, data) in zip(mixed, results):
+        hold_scored(json.loads(data)["itemScores"], plain.answer(q), q["num"], q)
+    lat = np.asarray([1e3 * r[1] for r in results])
+    routes = [plain.route(q["user"]) for q in mixed]
+    out["clients"] = {
+        "clients": FAMILY_CLIENTS, "queries": FAMILY_QUERIES, "wall_s": wall,
+        "queries_per_s": FAMILY_QUERIES / wall,
+        "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+        "max_ms": float(lat.max()), "non_200": 0,
+        "by_route": {r: {"n": int(sum(x == r for x in routes)),
+                         "p50_ms": float(np.percentile(lat[[x == r for x in routes]], 50))}
+                     for r in by_route},
+    }
+    out["answers_held"] = len(mixed) + sum(len(v) for v in solo.values())
+    out["factor_cache"] = device_cache.stats()
+
+    # similarproduct at the ML-20M item width: seeded factors, as write_model
+    srng = np.random.default_rng(SEED + 33)
+    V = (np.abs(srng.standard_normal((ML20M_ITEMS, RANK))) / np.sqrt(RANK)).astype(np.float32)
+    blob = {"item_factors": V, "item_vocab": item_names,
+            "items": {str(k): c for k, c in zip(item_names, served["cats"])}}
+    sim_id = persist_instance(
+        storage, "similarproduct", "sim-ml20m",
+        EngineParams(datasource=("", sp.DataSourceParams(app_name="ml20m")),
+                     algorithms=(("als", sp.ALSAlgorithmParams(rank=RANK)),),
+                     serving=("", None)), blob)
+    by_cat = {f"c{c}": np.zeros(ML20M_ITEMS, bool) for c in range(CATEGORIES)}
+    for n, cs in enumerate(served["cats"]):
+        for c in cs:
+            by_cat[c][n] = True
+    inorm = np.maximum(np.linalg.norm(V, axis=1), 1e-9)
+
+    def sim_plain(q):
+        rows = sorted({int(x[1:]) for x in q["items"]})
+        exclude = np.zeros(ML20M_ITEMS, bool)
+        exclude[rows] = True
+        if q.get("categories"):
+            exclude |= ~np.logical_or.reduce([by_cat[c] for c in q["categories"]])
+        if q.get("categoryBlackList"):
+            exclude |= np.logical_or.reduce([by_cat[c] for c in q["categoryBlackList"]])
+        exclude[[int(x[1:]) for x in q.get("blackList", [])]] = True
+        qf = V[rows]
+        qn = qf / np.maximum(np.linalg.norm(qf, axis=1, keepdims=True), 1e-9)
+        s = np.where(exclude, -np.inf, (V @ qn.T).sum(axis=1) / inorm).astype(np.float32)
+        order = np.argsort(-s, kind="stable")[: q["num"] + 1]
+        keep = [j for j in order if np.isfinite(s[j]) and s[j] > 0]
+        return [f"i{j}" for j in keep], [float(s[j]) for j in keep]
+
+    server = create_prediction_server(
+        "similarproduct", host="127.0.0.1", port=0, storage=storage,
+        engine_instance_id=sim_id).start_background()
+    sim_ms = []
+    try:
+        for n in range(24):
+            q = {"items": [f"i{x}" for x in srng.integers(0, ML20M_ITEMS, 1 + n % 3)],
+                 "num": int(srng.choice([5, 10, 50]))}
+            if n % 4 == 1:
+                q["categories"] = [f"c{c}" for c in srng.choice(CATEGORIES, 2, replace=False)]
+            elif n % 4 == 2:
+                q["categoryBlackList"] = [f"c{c}" for c in srng.choice(CATEGORIES, 5, replace=False)]
+            elif n % 4 == 3:
+                q["blackList"] = [f"i{x}" for x in srng.integers(0, ML20M_ITEMS, 30)]
+            status, body, ms = post_query(server.port, q)
+            assert status == 200, (status, q)
+            hold_scored(body["itemScores"], sim_plain(q), q["num"], q)
+            sim_ms.append(ms)
+    finally:
+        server.shutdown()
+    out["similarproduct"] = {"instance": sim_id, "queries": len(sim_ms),
+                             "p50_ms": statistics.median(sim_ms), "ms": sim_ms}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+@contextlib.contextmanager
+def seeded_train_als(module, iterations: int):
+    """``module.train_als`` started from factors drawn from one seed and run
+    for ``iterations``: the same train on the card and on the CPU."""
+    real = module.train_als
+
+    def seeded(u, i, r, num_users, num_items, params, **kw):
+        rng = np.random.default_rng(SEED + 42)
+        init = tuple(
+            (np.abs(rng.standard_normal((n, params.rank))) / np.sqrt(params.rank))
+            .astype(np.float32) for n in (num_users, num_items)
+        )
+        return real(u, i, r, num_users=num_users, num_items=num_items,
+                    params=dataclasses.replace(params, num_iterations=iterations),
+                    init_factors=init, **kw)
+
+    module.train_als = seeded
+    try:
+        yield
+    finally:
+        module.train_als = real
+
+
+def als_family_cli_phase() -> dict:
+    """The CLI at the ML-100K shape: one app with 943 user and 1,682 item
+    ``$set`` events (with categories), 100,000 ``view`` events, their
+    ``buy`` subset and the unavailableItems constraint; ``app new`` ->
+    ``import`` -> ``train`` (CUDA) of an ecommerce and a similarproduct
+    (``als`` + ``cooccurrence``) engine.json, each deployed for a few solo
+    queries held to a CPU deploy of the same instance; then each
+    algorithm's train on the card and on the CPU from one start."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, reset_storage
+    from predictionio_tpu_torch.models.ecommerce import engine as ec
+    from predictionio_tpu_torch.models.similarproduct import engine as sp
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_prediction_server,
+        deploy_engine,
+    )
+    from predictionio_tpu_torch.tools import cli
+
+    out: dict = {"phase": "als_family_cli",
+                 "shape": [ML100K_USERS, ML100K_ITEMS, ML100K_EVENTS],
+                 "rank": RANK, "iterations": ITERATIONS}
+    engines = {
+        "ecommerce": ("ecomm-cli", [{"name": "ecomm", "params": {
+            "appName": "shop", "rank": RANK, "numIterations": ITERATIONS}}],
+            [{"user": "u1", "num": 10}, {"user": "u5", "num": 10, "categories": ["c3"]},
+             {"user": "nobody", "num": 5}]),
+        "similarproduct": ("sim-cli", [
+            {"name": "als", "params": {"rank": RANK, "numIterations": ITERATIONS}},
+            {"name": "cooccurrence", "params": {"n": 20}}],
+            [{"items": ["i1"], "num": 10}, {"items": ["i2", "i40"], "num": 10,
+                                             "categories": ["c3", "c9"]}]),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        storage = reset_storage(StorageConfig.from_env({"PIO_HOME": str(tmp / "pio_home")}))
+        t_phase = t0 = time.perf_counter()
+        ev_u, ev_i, is_buy, times = ecomm_stream(*movielens_like(
+            ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS, SEED + 40, half_stars=False),
+            SEED + 40)
+        cats = item_categories(ML100K_ITEMS, np.random.default_rng(SEED + 43))
+
+        def stamp(ms):
+            return datetime.fromtimestamp(int(ms) / 1000.0, tz=timezone.utc).strftime(
+                "%Y-%m-%dT%H:%M:%S.000Z")
+
+        t_set = stamp(T_BASE_MS - 1000)
+        with open(tmp / "events.jsonl", "w") as f:
+            for n in range(ML100K_USERS):
+                f.write('{"event":"$set","entityType":"user","entityId":"u%d",'
+                        '"eventTime":"%s"}\n' % (n, t_set))
+            for n, c in enumerate(cats):
+                f.write('{"event":"$set","entityType":"item","entityId":"i%d",'
+                        '"properties":{"categories":%s},"eventTime":"%s"}\n'
+                        % (n, json.dumps(list(c)), t_set))
+            for j in range(len(ev_u)):
+                f.write('{"event":"%s","entityType":"user","entityId":"u%d",'
+                        '"targetEntityType":"item","targetEntityId":"i%d",'
+                        '"eventTime":"%s"}\n' % ("buy" if is_buy[j] else "view",
+                                                 ev_u[j], ev_i[j], stamp(times[j])))
+            f.write('{"event":"$set","entityType":"constraint","entityId":'
+                    '"unavailableItems","properties":{"items":["i0","i3"]},'
+                    '"eventTime":"%s"}\n' % t_set)
+        out["generate_s"] = time.perf_counter() - t0
+        out["events"] = {"view": int((~is_buy).sum()), "buy": int(is_buy.sum())}
+        printed = io.StringIO()
+        out["train_launches"], out["solo"] = {}, {}
+        with contextlib.redirect_stdout(printed):
+            assert cli.main(["app", "new", "shop"]) == 0
+            t0 = time.perf_counter()
+            assert cli.main(["import", "--app", "shop", "--input",
+                             str(tmp / "events.jsonl")]) == 0
+            out["import_s"] = time.perf_counter() - t0
+        for factory, (engine_id, algos, queries) in engines.items():
+            path = tmp / f"{engine_id}.json"
+            path.write_text(json.dumps({
+                "id": engine_id, "engineFactory": factory,
+                "datasource": {"params": {"appName": "shop"}}, "algorithms": algos}))
+            # -- the main path, with every launch count at 0 just before it --
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                assert cli.main(["train", "--engine-json", str(path),
+                                 "--device", "cuda"]) == 0
+            out.setdefault("train_cli_s", {})[factory] = time.perf_counter() - t0
+            out["train_launches"][factory] = read_launches()
+            instance = storage.engine_instances().get_latest_completed(
+                engine_id, "default", "default")
+            server = create_prediction_server(
+                factory, host="127.0.0.1", port=0, storage=storage,
+                engine_instance_id=instance.id).start_background()
+            answers = []
+            try:
+                for q in queries:
+                    status, body, ms = post_query(server.port, q)
+                    assert status == 200, (status, q)
+                    answers.append(body["itemScores"])
+                    out["solo"].setdefault(factory, []).append(ms)
+            finally:
+                server.shutdown()
+            # -- end --
+            assert out["train_launches"][factory]["als_fused_accum"] == 2 * ITERATIONS
+            cpu = deploy_engine(factory, storage=storage,
+                                engine_instance_id=instance.id, device="cpu")
+            for q, got in zip(queries, answers):
+                # one algorithm: its top num + 1 holds the neighbour of the
+                # last position; the summed serve of two is compared as sent
+                extra = 1 if factory == "ecommerce" else 0
+                _, want = cpu.predict(cpu.extract_query({**q, "num": q["num"] + extra}))
+                ids = [s.item for s in want.item_scores]
+                hold_scored(got, (ids, [s.score for s in want.item_scores]),
+                            q["num"], (factory, q))
+                assert got, (factory, q)
+        # each algorithm's train, card and CPU from one start
+        ctx_card = EngineContext(storage=storage, device="cuda")
+        ctx_cpu = EngineContext(storage=storage, device="cpu")
+        diffs = {}
+        for name, mod, ds, algo in (
+            ("ecommerce", ec, ec.ECommDataSource(ec.DataSourceParams(app_name="shop")),
+             ec.ECommAlgorithm(ec.ECommAlgorithmParams(app_name="shop", rank=RANK))),
+            ("similarproduct", sp,
+             sp.SimilarProductDataSource(sp.DataSourceParams(app_name="shop")),
+             sp.ALSAlgorithm(sp.ALSAlgorithmParams(rank=RANK))),
+        ):
+            td = ds.read_training(ctx_card)
+            with seeded_train_als(mod, 5):
+                card = algo.train(ctx_card, td)
+                cpu = algo.train(ctx_cpu, td)
+            diff = float((card.item_factors.cpu() - cpu.item_factors).abs().max())
+            if name == "ecommerce":
+                diff = max(diff, float(
+                    (card.user_factors.cpu() - cpu.user_factors).abs().max()))
+            assert diff <= 2e-3, f"{name}: card vs CPU factors differ by {diff}"
+            diffs[name] = diff
+        out["card_vs_cpu_max_abs_diff"] = diffs
+        storage.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def als_family_phases(ratings) -> list[dict]:
+    """The ALS family on the card: the ecommerce train at the ML-20M shape
+    (on ``train_ml20m``'s ratings), its deploy (and a similarproduct one)
+    under live reads and clients, and the CLI flow at the ML-100K shape."""
+    from predictionio_tpu_torch.data.storage.config import (
+        StorageConfig,
+        StorageRuntime,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        home = Path(tmp) / "pio_home"
+        storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(home)}))
+        try:
+            train, served = als_family_train_phase(storage, ratings)
+            emit(train)
+            lines = [train, als_family_serving_phase(storage, served)]
+            emit(lines[-1])
+            del served
+        finally:
+            storage.close()
+    lines.append(als_family_cli_phase())
+    emit(lines[-1])
+    return lines
 
 
 def main() -> int:
@@ -1872,10 +2513,13 @@ def main() -> int:
     front_end = front_end_phases()
     cli_train = train_cli_phase()
     emit(cli_train)
-    ml20m, fused_t, chunk_t = train_ml20m_phase()
+    ml20m, fused_t, chunk_t, ratings = train_ml20m_phase()
     emit(ml20m)
     emit({"phase": "als_kernel_timing", "als_fused_accum": fused_t,
           "als_segment_accum": chunk_t})
+    family_train, _, family_cli = als_family_phases(ratings)
+    del ratings
+    implicit_t = family_train["kernel1_implicit_user_half_step"]
     wide_c = chunk_t["wide"]
     main_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 10, 10])
     wide_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 32, 128])
@@ -1940,6 +2584,18 @@ def main() -> int:
                     "als_fused_accum", "predictionio_tpu/ops/als_pallas.py:204",
                     cli_train["launches"]["als_fused_accum"], fused_t,
                     launches_ml20m=ml20m["fused_launches"]["als_fused_accum"],
+                    # the ALS family's CLI trains (ecommerce, similarproduct)
+                    # and the ecommerce train at the ML-20M shape, implicit
+                    launches_als_family=sum(
+                        x["als_fused_accum"]
+                        for x in family_cli["train_launches"].values()
+                    ),
+                    launches_ecomm_ml20m=family_train["launches"]["als_fused_accum"],
+                    implicit_shape=implicit_t["shape"],
+                    implicit_ms=implicit_t["ms"],
+                    implicit_plain_ms=implicit_t["plain_ms"],
+                    implicit_bound_ms=implicit_t["bound_ms"],
+                    implicit_max_abs_err=implicit_t["max_abs_err"],
                 ),
                 # launches: the ML-20M chunked train (3 iterations); times
                 # on its first user chunk at rank 10 (width 128) and, wide_*,

@@ -11,6 +11,9 @@ asyncio front end coalesces concurrent queries into micro-batched waves;
 waves below ``ALSAlgorithm.DEVICE_BATCH_MIN`` queries are answered from a
 host numpy replica, larger ones by the hand-written fused score+top-k CUDA
 kernel (``csrc/fused_topk.cu``), fenced while the next wave dispatches.
+The rest of the ALS family trains implicit ALS on the same kernels and
+serves through ``ops.similarity``: ``similarproduct``, ``recommendeduser``
+and ``ecommerce`` (whose business rules read the event store live).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``
 (``device.resolve_device``).

@@ -21,7 +21,7 @@ from typing import Any, Generic, Sequence, TypeVar
 import torch
 
 from predictionio_tpu_torch.data.storage.config import StorageRuntime, get_storage
-from predictionio_tpu_torch.data.store import PEventStore
+from predictionio_tpu_torch.data.store import LEventStore, PEventStore
 from predictionio_tpu_torch.device import resolve_device
 
 TD = TypeVar("TD")  # training data
@@ -66,6 +66,10 @@ class EngineContext:
     @property
     def p_event_store(self) -> PEventStore:
         return PEventStore(self.storage_runtime)
+
+    @property
+    def l_event_store(self) -> LEventStore:
+        return LEventStore(self.storage_runtime)
 
     def generator(self, salt: int = 0) -> torch.Generator:
         """A generator on ``device`` seeded from ``seed`` and ``salt``, with

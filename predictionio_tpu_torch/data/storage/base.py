@@ -3,9 +3,11 @@
 - Metadata: the app, access-key and channel records with their DAOs, and
   the engine-instance record (the deploy handle).
 - Events: :class:`EventFilter`, the row DAO :class:`LEvents` (``init``,
-  ``insert_batch``, ``find``) and the columnar bulk DAO :class:`PEvents`,
-  whose ``find`` returns an :class:`EventFrame`, the subset of the JAX
-  package's frame that the templates read.
+  ``insert_batch``, ``find``, and the serving path's ``find_by_entity``
+  and ``aggregate_properties``) and the columnar bulk DAO
+  :class:`PEvents`, whose ``find`` returns an :class:`EventFrame`, the
+  subset of the JAX package's frame that the templates read, and whose
+  ``aggregate_properties`` folds ``$set``/``$unset``/``$delete``.
 - Models: the blob store with its multipart (manifest + named parts)
   layout, the JAX package's byte for byte (``<id>:manifest`` framed by the
   sorted part-name list, ``<id>:part:<name>`` per part), so either package
@@ -22,6 +24,8 @@ from typing import Any, Iterator, Mapping, Sequence
 
 import numpy as np
 
+from predictionio_tpu_torch.data.aggregator import aggregate_properties
+from predictionio_tpu_torch.data.datamap import DataMap, PropertyMap
 from predictionio_tpu_torch.data.event import Event
 
 
@@ -246,9 +250,22 @@ class EventFilter:
     reversed: bool = False
 
 
+_AGGREGATOR_EVENTS = ("$set", "$unset", "$delete")
+
+
+def _required_only(
+    result: dict[str, PropertyMap], required: Sequence[str] | None
+) -> dict[str, PropertyMap]:
+    if not required:
+        return result
+    req = set(required)
+    return {k: v for k, v in result.items() if req.issubset(v.keyset())}
+
+
 class LEvents(abc.ABC):
     """Row-at-a-time event access per (app_id, channel_id) namespace: the
-    methods the import and train paths call."""
+    methods the import and train paths call, and the per-entity reads of
+    serving-time business rules."""
 
     @abc.abstractmethod
     def init(self, app_id: int, channel_id: int | None = None) -> bool:
@@ -268,6 +285,64 @@ class LEvents(abc.ABC):
         channel_id: int | None = None,
         filter: EventFilter | None = None,
     ) -> Iterator[Event]: ...
+
+    def find_by_entity(
+        self,
+        app_id: int,
+        entity_type: str,
+        entity_id: str,
+        channel_id: int | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None = None,
+        target_entity_id: str | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        limit: int | None = None,
+        reversed: bool = False,
+    ) -> Iterator[Event]:
+        """Per-entity history, the serving-path access pattern (business
+        rules): ``find`` with an entity-pinned filter."""
+        return self.find(
+            app_id,
+            channel_id,
+            EventFilter(
+                start_time=start_time,
+                until_time=until_time,
+                entity_type=entity_type,
+                entity_id=entity_id,
+                event_names=tuple(event_names) if event_names else None,
+                target_entity_type=target_entity_type,
+                target_entity_id=target_entity_id,
+                limit=limit,
+                reversed=reversed,
+            ),
+        )
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        required: Sequence[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        """Fold $set/$unset/$delete into per-entity property maps
+        (LEvents.futureAggregateProperties, LEvents.scala:215); entities
+        lacking any ``required`` key are left out."""
+        if not entity_type:
+            raise ValueError("aggregate_properties requires a non-empty entity_type")
+        events = self.find(
+            app_id,
+            channel_id,
+            EventFilter(
+                start_time=start_time,
+                until_time=until_time,
+                entity_type=entity_type,
+                event_names=_AGGREGATOR_EVENTS,
+            ),
+        )
+        return _required_only(aggregate_properties(events), required)
 
 
 def _coerce_numeric(v) -> float | None:
@@ -353,6 +428,40 @@ class EventFrame:
                 out[i] = v
         return out
 
+    def to_events(self) -> list[Event]:
+        """The rows as :class:`Event` objects, lazy JSON rows decoded."""
+        out = []
+        for i in range(len(self)):
+            kwargs = {}
+            if self.event_id is not None:
+                kwargs["event_id"] = self.event_id[i]
+            if self.tags is not None and self.tags[i]:
+                kwargs["tags"] = tuple(self.tags[i])
+            if self.pr_id is not None:
+                kwargs["pr_id"] = self.pr_id[i]
+            if self.creation_time_ms is not None:
+                kwargs["creation_time"] = datetime.fromtimestamp(
+                    self.creation_time_ms[i] / 1000.0, tz=timezone.utc
+                )
+            props = self.properties[i]
+            if isinstance(props, str):  # lazy raw-JSON row
+                props = json.loads(props) if props else {}
+            out.append(
+                Event(
+                    event=self.event[i],
+                    entity_type=self.entity_type[i],
+                    entity_id=self.entity_id[i],
+                    target_entity_type=self.target_entity_type[i],
+                    target_entity_id=self.target_entity_id[i],
+                    properties=DataMap(props or {}),
+                    event_time=datetime.fromtimestamp(
+                        self.event_time_ms[i] / 1000.0, tz=timezone.utc
+                    ),
+                    **kwargs,
+                )
+            )
+        return out
+
 
 class PEvents(abc.ABC):
     """Bulk columnar event access (PEvents.scala:38)."""
@@ -364,3 +473,27 @@ class PEvents(abc.ABC):
         channel_id: int | None = None,
         filter: EventFilter | None = None,
     ) -> EventFrame: ...
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        required: Sequence[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        """:meth:`LEvents.aggregate_properties` over one bulk scan."""
+        if not entity_type:
+            raise ValueError("aggregate_properties requires a non-empty entity_type")
+        frame = self.find(
+            app_id,
+            channel_id,
+            EventFilter(
+                start_time=start_time,
+                until_time=until_time,
+                entity_type=entity_type,
+                event_names=_AGGREGATOR_EVENTS,
+            ),
+        )
+        return _required_only(aggregate_properties(frame.to_events()), required)

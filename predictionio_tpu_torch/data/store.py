@@ -1,16 +1,20 @@
-"""Event store facade for engine components.
+"""Event store facades for engine components.
 
-The training half of the JAX package's ``data/store.py``
-(store/{PEventStore,Common}.scala): components refer to apps by *name*; the
-facade resolves name -> (appId, channelId) through the metadata store and
-returns columnar EventFrames from the bulk DAO.
+The port of the JAX package's ``data/store.py``
+(store/{PEventStore,LEventStore,Common}.scala): components refer to apps by
+*name*; the facade resolves name -> (appId, channelId) through the metadata
+store and delegates to the DAOs.  ``PEventStore`` is the training-side seam
+and returns columnar EventFrames; ``LEventStore`` is the serving-side row
+access used inside ``predict()`` for business rules.
 """
 
 from __future__ import annotations
 
 from datetime import datetime
-from typing import Sequence
+from typing import Iterator, Sequence
 
+from predictionio_tpu_torch.data.datamap import PropertyMap
+from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import EventFilter, EventFrame
 from predictionio_tpu_torch.data.storage.config import StorageRuntime, get_storage
 
@@ -71,5 +75,78 @@ class PEventStore:
                 event_names=tuple(event_names) if event_names else None,
                 target_entity_type=target_entity_type,
                 target_entity_id=target_entity_id,
+            ),
+        )
+
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: str | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        required: Sequence[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        app_id, channel_id = resolve_app(app_name, channel_name, self.storage)
+        return self.storage.p_events().aggregate_properties(
+            app_id,
+            entity_type,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            required=required,
+        )
+
+
+class LEventStore:
+    """Row-level reads for serving-time business rules (store/LEventStore.scala:76)."""
+
+    def __init__(self, storage: StorageRuntime | None = None):
+        self.storage = storage or get_storage()
+
+    def find_by_entity(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        channel_name: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None = None,
+        target_entity_id: str | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        limit: int | None = None,
+        latest: bool = True,
+    ) -> Iterator[Event]:
+        """One entity's events, newest first unless ``latest=False``."""
+        app_id, channel_id = resolve_app(app_name, channel_name, self.storage)
+        return self.storage.l_events().find_by_entity(
+            app_id,
+            entity_type,
+            entity_id,
+            channel_id=channel_id,
+            event_names=event_names,
+            target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id,
+            start_time=start_time,
+            until_time=until_time,
+            limit=limit,
+            reversed=latest,
+        )
+
+    def find(
+        self,
+        app_name: str,
+        channel_name: str | None = None,
+        **kwargs,
+    ) -> Iterator[Event]:
+        """``LEvents.find`` by app name; ``kwargs`` are EventFilter fields."""
+        app_id, channel_id = resolve_app(app_name, channel_name, self.storage)
+        names = kwargs.pop("event_names", None)
+        return self.storage.l_events().find(
+            app_id,
+            channel_id,
+            EventFilter(
+                event_names=tuple(names) if names else None, **kwargs
             ),
         )

@@ -1,4 +1,9 @@
 """Engine templates of the port.  Importing this package registers every
-bundled engine factory (``recommendation`` in this slice)."""
+bundled engine factory: ``recommendation``, ``similarproduct``,
+``recommendeduser`` and ``ecommerce``."""
 
-from predictionio_tpu_torch.models import recommendation  # noqa: F401
+from predictionio_tpu_torch.models import (  # noqa: F401
+    ecommerce,
+    recommendation,
+    similarproduct,
+)

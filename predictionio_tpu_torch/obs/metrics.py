@@ -4,7 +4,8 @@ The JAX package's ``obs/metrics.py`` families: thread-safe ``Counter`` /
 ``Gauge`` / ``Histogram`` children keyed by label values, collected in a
 ``MetricsRegistry``.  The serving front end records into it under the JAX
 package's names (``pio_microbatch_*``, ``pio_shed_total``,
-``pio_inflight_requests``, ``pio_request_latency_seconds``).  The
+``pio_inflight_requests``, ``pio_request_latency_seconds``,
+``pio_degraded_total``, ``pio_factor_cache_*``).  The
 exposition routes (``/metrics``, ``/metrics.json``), the scrape history and
 lock-wait metering come with the port's observability slice.
 
@@ -62,6 +63,14 @@ class Gauge:
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value -= amount
 
     @property
     def value(self) -> float:

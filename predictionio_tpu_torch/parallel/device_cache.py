@@ -1,0 +1,229 @@
+"""Device-resident factor cache: repeat users skip the per-query gather.
+
+The port of the JAX package's ``parallel/device_cache.py``.  At millions of
+users the serving hot path is dominated by *repeat* entities: the same
+user's factor row gathered again on every request.  This module keeps the
+hot rows resident (host numpy for host-replica paths, ``torch.Tensor``
+rows on the card for device engines like ecommerce's ``dot_topk``, which
+never leave device memory between requests: the 2004.13336
+embedding-cache idea applied to serving) in a bounded per-model LRU keyed
+by entity id.
+
+Staleness is impossible by construction: a cache belongs to ONE model
+object.  A generation swap (``/reload``) materializes NEW model objects
+(``load_binding`` -> ``load_persistent_model``), which get fresh empty
+caches, and ``DeployedEngine`` drops (and counts) the retired binding's
+caches when it installs the new one.  A request mid-flight keeps the
+binding, and so the cache, it started with, so a swap can never serve one
+generation's factors under another's model.
+
+Metrics (process registry): ``pio_factor_cache_{hits,misses,evictions,
+invalidations}_total``, a ``pio_factor_cache_hit_rate`` gauge over the
+process-cumulative counts, and ``pio_factor_cache_entries`` (live entries
+across all caches).  The JAX package also notes hits, misses and fill
+bytes on the wave timeline (``obs.device``); the port has no wave timeline
+yet.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Any, Iterable
+
+from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+
+#: default per-model entry bound (rows, not bytes: a rank-32 f32 row is
+#: 128 B, so the default worst-cases ~8 MB/model) — PIO_FACTOR_CACHE_ROWS
+DEFAULT_CAPACITY = 65536
+
+
+def _capacity_from_env() -> int:
+    try:
+        return max(int(os.environ.get("PIO_FACTOR_CACHE_ROWS", "")), 0)
+    except ValueError:
+        return DEFAULT_CAPACITY
+
+
+class FactorCache:
+    """Bounded LRU of entity id -> factor row (host or device array).
+
+    Thread-safe: the serving front ends consult it from the event loop,
+    the MicroBatcher worker, and the pipeline finalizer concurrently.
+    A ``capacity`` of 0 disables caching (every get misses, puts drop).
+    """
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        registry: MetricsRegistry | None = None,
+        name: str = "factor",
+    ):
+        self.capacity = (
+            _capacity_from_env() if capacity is None else max(capacity, 0)
+        )
+        self.name = name
+        self._lock = threading.Lock()
+        self._rows: OrderedDict[Any, Any] = OrderedDict()
+        reg = registry or REGISTRY
+        self._m_hits = reg.counter(
+            "pio_factor_cache_hits_total",
+            "Factor-cache lookups served without a gather",
+        )
+        self._m_misses = reg.counter(
+            "pio_factor_cache_misses_total",
+            "Factor-cache lookups that fell through to the gather",
+        )
+        self._m_evicted = reg.counter(
+            "pio_factor_cache_evictions_total",
+            "Factor-cache rows evicted by the LRU bound",
+        )
+        self._m_entries = reg.gauge(
+            "pio_factor_cache_entries",
+            "Live factor-cache rows across all model caches",
+        )
+        self._m_rate = reg.gauge(
+            "pio_factor_cache_hit_rate",
+            "Process-cumulative factor-cache hit fraction",
+        )
+
+    def get(self, entity_id: Any) -> Any | None:
+        """The cached row for ``entity_id`` (refreshing recency), or None —
+        a miss the caller resolves with the real gather + :meth:`put`."""
+        with self._lock:
+            row = self._rows.get(entity_id)
+            if row is not None:
+                self._rows.move_to_end(entity_id)
+        if row is None:
+            self._m_misses.inc()
+        else:
+            self._m_hits.inc()
+        self._update_rate()
+        return row
+
+    def put(self, entity_id: Any, row: Any) -> None:
+        if self.capacity <= 0 or row is None:
+            return
+        evicted = 0
+        with self._lock:
+            before = len(self._rows)
+            self._rows[entity_id] = row
+            self._rows.move_to_end(entity_id)
+            while len(self._rows) > self.capacity:
+                self._rows.popitem(last=False)
+                evicted += 1
+            delta = len(self._rows) - before
+        if evicted:
+            self._m_evicted.inc(evicted)
+        # entries gauge is cross-cache cumulative; deltas keep it O(1)
+        if delta > 0:
+            self._m_entries.inc(delta)
+        elif delta < 0:
+            self._m_entries.dec(-delta)
+
+    def _update_rate(self) -> None:
+        hits = self._m_hits.value
+        total = hits + self._m_misses.value
+        if total:
+            self._m_rate.set(hits / total)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._rows)
+
+    def clear(self) -> int:
+        """Drop every row; returns how many were dropped (the invalidation
+        paths count them through :func:`invalidate_model_caches`)."""
+        with self._lock:
+            n = len(self._rows)
+            self._rows.clear()
+        if n:
+            self._m_entries.dec(n)
+        return n
+
+    def stats(self) -> dict[str, float]:
+        return {
+            "entries": float(len(self)),
+            "capacity": float(self.capacity),
+            "hits_total": self._m_hits.value,
+            "misses_total": self._m_misses.value,
+        }
+
+
+# ---------------------------------------------------------------------------
+# per-model cache registry
+
+_caches_lock = threading.Lock()
+_CACHES: dict[int, FactorCache] = {}
+
+
+def _drop_cache(key: int) -> None:
+    with _caches_lock:
+        cache = _CACHES.pop(key, None)
+    if cache is not None:
+        cache.clear()
+
+
+def model_cache(model: Any, capacity: int | None = None) -> FactorCache:
+    """The factor cache bound to ``model``'s lifetime.
+
+    Keyed by object identity with a GC finalizer, so a model that goes away
+    (generation retired and drained) takes its cache with it — id reuse can
+    never resurrect another generation's rows.  Deliberately NOT stored as
+    a model attribute: dataclass pickling (P2L persisted models) must never
+    ship a cache."""
+    key = id(model)
+    with _caches_lock:
+        cache = _CACHES.get(key)
+        if cache is None:
+            cache = FactorCache(capacity=capacity)
+            _CACHES[key] = cache
+            try:
+                weakref.finalize(model, _drop_cache, key)
+            except TypeError:
+                # non-weakreferenceable stand-ins (test doubles): leak-proof
+                # enough — invalidate_model_caches still clears them
+                pass
+    return cache
+
+
+def invalidate_model_caches(models: Iterable[Any], reason: str) -> int:
+    """Drop (and count) the caches of a retired generation's models — the
+    Binding-snapshot hook: ``DeployedEngine`` calls this on swap, /reload,
+    canary stage/flip/clear, and rebind, so a generation's rows die the
+    moment it stops being servable.  Returns rows dropped."""
+    dropped = 0
+    for m in models or ():
+        with _caches_lock:
+            cache = _CACHES.pop(id(m), None)
+        if cache is not None:
+            dropped += cache.clear()
+    REGISTRY.counter(
+        "pio_factor_cache_invalidations_total",
+        "Factor-cache generation invalidations by reason",
+        labelnames=("reason",),
+    ).labels(reason).inc()
+    return dropped
+
+
+def stats() -> dict[str, float]:
+    """Process-cumulative cache counters (bench + tests read deltas)."""
+    hits = REGISTRY.counter(
+        "pio_factor_cache_hits_total",
+        "Factor-cache lookups served without a gather",
+    ).value
+    misses = REGISTRY.counter(
+        "pio_factor_cache_misses_total",
+        "Factor-cache lookups that fell through to the gather",
+    ).value
+    total = hits + misses
+    with _caches_lock:
+        n_caches = len(_CACHES)
+    return {
+        "hits_total": hits,
+        "misses_total": misses,
+        "hit_rate": hits / total if total else 0.0,
+        "caches": float(n_caches),
+    }

@@ -1,4 +1,5 @@
-"""Resilience layer of the serving front end: deadlines and load shedding.
+"""Resilience layer of the serving front end: deadlines, load shedding and
+degraded answers.
 
 The JAX package's ``resilience`` primitives that the serving front end
 needs:
@@ -7,10 +8,12 @@ needs:
   contextvars (``X-Pio-Deadline``), enforced at admission, before each
   MicroBatcher wave and at a pipelined wave's fence;
 - :mod:`admission` — bounded in-flight request cap so overload sheds with
-  ``503 + Retry-After`` instead of collapsing.
+  ``503 + Retry-After`` instead of collapsing;
+- :mod:`degrade` — answers an engine gave from its model alone when a live
+  read failed, counted and stamped ``X-Pio-Degraded``.
 
 Circuit breakers guard the remote storage backend and come with it; retry
-budgets, degraded serving and fault injection are not ported yet.
+budgets and fault injection are not ported yet.
 """
 
 

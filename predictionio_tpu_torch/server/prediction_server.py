@@ -21,9 +21,14 @@ per-request deadlines answer 503 + Retry-After and 504.  ``"threaded"``
 keeps the thread-per-connection server answering each query solo.
 
 Models are materialized at deploy (and at each ``/reload``) onto the
-serving device (``load_persistent_model``).  Canary and tenant partitioning
-of waves, the generation manifest's checksum gate, and the observability
-routes come with later slices.
+serving device (``load_persistent_model``); a swap drops the retired
+generation's factor caches (``parallel.device_cache``).  An answer that an
+engine gave in degraded mode (``resilience.degrade.mark_degraded``: a live
+event-store read failed) is stamped ``X-Pio-Degraded`` with the reasons,
+collected per request on the threaded route and per wave in the
+micro-batcher.  Canary and tenant partitioning of waves, the generation
+manifest's checksum gate, and the observability routes come with later
+slices.
 """
 
 from __future__ import annotations
@@ -50,9 +55,11 @@ from predictionio_tpu_torch.data.storage.config import (
 )
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+from predictionio_tpu_torch.parallel import device_cache
 from predictionio_tpu_torch.resilience import LoadShed
 from predictionio_tpu_torch.resilience.admission import AdmissionController
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
+from predictionio_tpu_torch.resilience.degrade import degraded_scope
 from predictionio_tpu_torch.server.httpd import (
     AppServer,
     HTTPApp,
@@ -69,6 +76,8 @@ log = logging.getLogger("predictionio_tpu_torch.serving")
 
 #: response header naming the generation that answered
 INSTANCE_HEADER = "X-Pio-Engine-Instance"
+#: response header listing the degraded-mode reasons of a 200 answer
+DEGRADED_HEADER = "X-Pio-Degraded"
 
 
 class Binding(NamedTuple):
@@ -88,13 +97,15 @@ class QueuedQuery:
     dispatches it to the device sets ``on_device``: if that wave fails,
     its bisection and the batcher's solo retry re-dispatch the query on
     the device, never on the host replica, so a failing card answers 500
-    and not a host answer."""
+    and not a host answer.  A wave that answers it sets ``degraded`` to the
+    degraded-mode reasons of that wave."""
 
-    __slots__ = ("payload", "on_device")
+    __slots__ = ("payload", "on_device", "degraded")
 
     def __init__(self, payload: dict):
         self.payload = payload
         self.on_device = False
+        self.degraded: tuple[str, ...] = ()
 
 
 def _render_prediction(p: Any) -> Any:
@@ -182,11 +193,16 @@ class DeployedEngine:
         return Binding(instance, params, algos, models, serving)
 
     def _install_live(self, binding: Binding) -> None:
+        old_models = getattr(self, "models", None)
         with self._lock:
             (
                 self.instance, self.params, self.algorithms, self.models,
                 self.serving,
             ) = binding
+        # the retired generation's factor caches die with it: a repeat
+        # entity's next request gathers from the NEW generation's factors
+        if old_models is not None and old_models is not binding.models:
+            device_cache.invalidate_model_caches(old_models, "swap")
 
     def live_binding(self) -> Binding:
         with self._lock:
@@ -397,6 +413,8 @@ def create_prediction_server_app(
     #: dispatched-but-unfenced waves the MicroBatcher may run ahead of the
     #: fence (PIO_PIPELINE_DEPTH, default 2); 0 finalizes inline
     pipeline_depth: int | None = None,
+    #: how long the MicroBatcher's close() waits for in-flight waves
+    drain_timeout_s: float = 5.0,
 ) -> HTTPApp:
     app = HTTPApp("predictionserver")
     if max_queue is None and os.environ.get("PIO_MAX_QUEUE"):
@@ -437,6 +455,15 @@ def create_prediction_server_app(
 
     def _stamped(resp: Response, instance_id: str) -> Response:
         resp.headers[INSTANCE_HEADER] = instance_id
+        return resp
+
+    def _answer(value: Any, instance_id: str, degraded) -> Response:
+        """A 200 answer, stamped with its generation and, when the engine
+        fell back to a degraded answer (metrics carry
+        ``pio_degraded_total``), the reasons."""
+        resp = _stamped(json_response(200, value), instance_id)
+        if degraded:
+            resp.headers[DEGRADED_HEADER] = ",".join(degraded)
         return resp
 
     @app.route("GET", "/")
@@ -540,67 +567,81 @@ def create_prediction_server_app(
             replica.  A dispatch that raised counts as a device wave, since
             the card may be what failed.  Each result is ("ok", rendered,
             instance id) | ("bad", error, id) -> 400 | ("err", error, id)
-            -> 500."""
+            -> 500.  The degraded-mode reasons that either half collected
+            (one scope each, as the JAX package's waves do) go on every
+            query the wave answered (``QueuedQuery.degraded``)."""
             binding = deployed.live_binding()
             on_device = any(it.on_device for it in items)
             out: list[tuple] = []
-            for it in items:
-                try:
-                    out.append(("q", deployed.extract_query(it.payload)))
-                except Exception as e:
-                    out.append(("bad", e))
-            parsed = list(out)
-            ok_idx = [i for i, (tag, _) in enumerate(parsed) if tag == "q"]
             fin = None
-            if ok_idx:
-                deployed.acquire_slot(binding)
-                try:
-                    fin = deployed.dispatch_batch_bound(
-                        binding, [parsed[i][1] for i in ok_idx], force=on_device
-                    )
-                except Exception:
-                    # dispatch failed before the fence: the finalize half
-                    # re-runs the wave with bisection on the device, which
-                    # names the real poison
-                    log.exception(
-                        "device wave dispatch failed; bisecting on the device"
-                    )
-                    on_device = True
-                else:
-                    on_device = fin is not None
+            with degraded_scope() as degraded:
+                for it in items:
+                    try:
+                        out.append(("q", deployed.extract_query(it.payload)))
+                    except Exception as e:
+                        out.append(("bad", e))
+                parsed = list(out)
+                ok_idx = [i for i, (tag, _) in enumerate(parsed) if tag == "q"]
+                if ok_idx:
+                    deployed.acquire_slot(binding)
+                    try:
+                        fin = deployed.dispatch_batch_bound(
+                            binding, [parsed[i][1] for i in ok_idx],
+                            force=on_device,
+                        )
+                    except Exception:
+                        # dispatch failed before the fence: the finalize
+                        # half re-runs the wave with bisection on the
+                        # device, which names the real poison
+                        log.exception(
+                            "device wave dispatch failed; bisecting on the "
+                            "device"
+                        )
+                        on_device = True
+                    else:
+                        on_device = fin is not None
+            degraded_pre = tuple(degraded)
             if on_device:
                 for i in ok_idx:
                     items[i].on_device = True
 
             def _finalize():
-                try:
-                    if fin is not None:
-                        try:
-                            results = fin()
-                        except DeadlineExceeded:
-                            raise
-                        except Exception:
-                            log.exception(
-                                "device wave finalize failed; bisecting on "
-                                "the device"
+                with degraded_scope() as degraded:
+                    try:
+                        if fin is not None:
+                            try:
+                                results = fin()
+                            except DeadlineExceeded:
+                                raise
+                            except Exception:
+                                log.exception(
+                                    "device wave finalize failed; bisecting "
+                                    "on the device"
+                                )
+                                _predict_bisect(binding, parsed, ok_idx, out, True)
+                            else:
+                                for i, (q, pred) in zip(ok_idx, results):
+                                    out[i] = ("pred", (q, pred))
+                        elif ok_idx:
+                            _predict_bisect(
+                                binding, parsed, ok_idx, out, on_device
                             )
-                            _predict_bisect(binding, parsed, ok_idx, out, True)
-                        else:
-                            for i, (q, pred) in zip(ok_idx, results):
-                                out[i] = ("pred", (q, pred))
-                    elif ok_idx:
-                        _predict_bisect(binding, parsed, ok_idx, out, on_device)
-                finally:
-                    if ok_idx:
-                        deployed.release_slot(binding)
+                    finally:
+                        if ok_idx:
+                            deployed.release_slot(binding)
+                deg = degraded_pre + tuple(
+                    d for d in degraded if d not in degraded_pre
+                )
                 iid = binding.instance.id
                 done = []
-                for tag, value in out:
+                for it, (tag, value) in zip(items, out):
                     if tag == "pred":
                         try:
                             tag, value = "ok", _render_prediction(value[1])
                         except Exception as e:  # only this item fails
                             tag, value = "err", e
+                    if tag == "ok":
+                        it.degraded = deg
                     done.append((tag, value, iid))
                 return done
 
@@ -611,6 +652,7 @@ def create_prediction_server_app(
         batcher = MicroBatcher(
             _serve_wave,
             max_batch=max_batch,
+            drain_timeout_s=drain_timeout_s,
             registry=registry,
             max_inflight_waves=pipeline_depth,
             # None -> the batcher's default bound; 0/negative -> unbounded
@@ -632,10 +674,9 @@ def create_prediction_server_app(
             except Exception as e:
                 _observe(400, t0)
                 return error_response(400, f"invalid query: {e}")
+            item = QueuedQuery(payload)
             try:
-                status, value, instance_id = await batcher.submit(
-                    QueuedQuery(payload)
-                )
+                status, value, instance_id = await batcher.submit(item)
             except LoadShed as e:
                 # bounded queue: an honest 503 + Retry-After
                 _observe(503, t0)
@@ -660,7 +701,7 @@ def create_prediction_server_app(
                     instance_id,
                 )
             _bump_stats(t0)
-            return _stamped(json_response(200, value), instance_id)
+            return _answer(value, instance_id, item.degraded)
 
     else:
 
@@ -678,7 +719,7 @@ def create_prediction_server_app(
                 _observe(400, t0)
                 return _stamped(error_response(400, f"invalid query: {e}"), iid)
             try:
-                with deployed.serving_slot(binding):
+                with deployed.serving_slot(binding), degraded_scope() as degraded:
                     _, prediction = deployed.predict_bound(binding, query)
             except DeadlineExceeded as e:
                 _observe(504, t0)
@@ -689,7 +730,7 @@ def create_prediction_server_app(
                 return _stamped(
                     error_response(500, f"{type(e).__name__}: {e}"), iid
                 )
-            resp = _stamped(json_response(200, _render_prediction(prediction)), iid)
+            resp = _answer(_render_prediction(prediction), iid, degraded)
             _bump_stats(t0)
             return resp
 
