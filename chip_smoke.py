@@ -41,7 +41,15 @@ calls:
   (``als_family_serving``); ``app new`` -> ``import`` -> ``train`` ->
   deploy of an ecommerce and a similarproduct (``als`` + ``cooccurrence``)
   engine at the ML-100K shape, the card's factors held to a CPU train from
-  one start (``als_family_cli``).
+  one start (``als_family_cli``);
+- event ingest (``event_ingest``): ``pio eventserver`` as a subprocess fed
+  the ML-100K stream over REST by 8 client threads (batches of 50, then
+  single events and both webhooks), ``pio export`` equal to what was sent,
+  the ingest gate shedding 503s, ``pio train`` on the card over the
+  ingested events held to a train of the same events by ``pio import``,
+  ``pio batchpredict`` of every user in one fused top-k wave, and ``pio
+  deploy --event-port`` of an ecommerce engine whose next answer leaves out
+  an item just viewed through its event port.
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -56,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import http.client
 import io
 import json
 import logging
@@ -63,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 import uuid
@@ -2328,6 +2338,41 @@ def seeded_train_als(module, iterations: int):
         module.train_als = real
 
 
+def iso_ms(ms) -> str:
+    """Epoch milliseconds as the API's UTC time string."""
+    return datetime.fromtimestamp(int(ms) / 1000.0, tz=timezone.utc).strftime(
+        "%Y-%m-%dT%H:%M:%S.000Z")
+
+
+def write_shop_events(path: Path) -> dict:
+    """An ecommerce app's events at the ML-100K shape, as JSON lines: 943
+    user and 1,682 item ``$set`` events (1-3 categories each), the
+    ``view``/``buy`` stream of ``ecomm_stream`` and the unavailableItems
+    constraint.  Returns the count of views and buys."""
+    ev_u, ev_i, is_buy, times = ecomm_stream(*movielens_like(
+        ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS, SEED + 40, half_stars=False),
+        SEED + 40)
+    cats = item_categories(ML100K_ITEMS, np.random.default_rng(SEED + 43))
+    t_set = iso_ms(T_BASE_MS - 1000)
+    with open(path, "w") as f:
+        for n in range(ML100K_USERS):
+            f.write('{"event":"$set","entityType":"user","entityId":"u%d",'
+                    '"eventTime":"%s"}\n' % (n, t_set))
+        for n, c in enumerate(cats):
+            f.write('{"event":"$set","entityType":"item","entityId":"i%d",'
+                    '"properties":{"categories":%s},"eventTime":"%s"}\n'
+                    % (n, json.dumps(list(c)), t_set))
+        for j in range(len(ev_u)):
+            f.write('{"event":"%s","entityType":"user","entityId":"u%d",'
+                    '"targetEntityType":"item","targetEntityId":"i%d",'
+                    '"eventTime":"%s"}\n' % ("buy" if is_buy[j] else "view",
+                                             ev_u[j], ev_i[j], iso_ms(times[j])))
+        f.write('{"event":"$set","entityType":"constraint","entityId":'
+                '"unavailableItems","properties":{"items":["i0","i3"]},'
+                '"eventTime":"%s"}\n' % t_set)
+    return {"view": int((~is_buy).sum()), "buy": int(is_buy.sum())}
+
+
 def als_family_cli_phase() -> dict:
     """The CLI at the ML-100K shape: one app with 943 user and 1,682 item
     ``$set`` events (with categories), 100,000 ``view`` events, their
@@ -2364,34 +2409,8 @@ def als_family_cli_phase() -> dict:
         tmp = Path(tmp)
         storage = reset_storage(StorageConfig.from_env({"PIO_HOME": str(tmp / "pio_home")}))
         t_phase = t0 = time.perf_counter()
-        ev_u, ev_i, is_buy, times = ecomm_stream(*movielens_like(
-            ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS, SEED + 40, half_stars=False),
-            SEED + 40)
-        cats = item_categories(ML100K_ITEMS, np.random.default_rng(SEED + 43))
-
-        def stamp(ms):
-            return datetime.fromtimestamp(int(ms) / 1000.0, tz=timezone.utc).strftime(
-                "%Y-%m-%dT%H:%M:%S.000Z")
-
-        t_set = stamp(T_BASE_MS - 1000)
-        with open(tmp / "events.jsonl", "w") as f:
-            for n in range(ML100K_USERS):
-                f.write('{"event":"$set","entityType":"user","entityId":"u%d",'
-                        '"eventTime":"%s"}\n' % (n, t_set))
-            for n, c in enumerate(cats):
-                f.write('{"event":"$set","entityType":"item","entityId":"i%d",'
-                        '"properties":{"categories":%s},"eventTime":"%s"}\n'
-                        % (n, json.dumps(list(c)), t_set))
-            for j in range(len(ev_u)):
-                f.write('{"event":"%s","entityType":"user","entityId":"u%d",'
-                        '"targetEntityType":"item","targetEntityId":"i%d",'
-                        '"eventTime":"%s"}\n' % ("buy" if is_buy[j] else "view",
-                                                 ev_u[j], ev_i[j], stamp(times[j])))
-            f.write('{"event":"$set","entityType":"constraint","entityId":'
-                    '"unavailableItems","properties":{"items":["i0","i3"]},'
-                    '"eventTime":"%s"}\n' % t_set)
+        out["events"] = write_shop_events(tmp / "events.jsonl")
         out["generate_s"] = time.perf_counter() - t0
-        out["events"] = {"view": int((~is_buy).sum()), "buy": int(is_buy.sum())}
         printed = io.StringIO()
         out["train_launches"], out["solo"] = {}, {}
         with contextlib.redirect_stdout(printed):
@@ -2492,6 +2511,520 @@ def als_family_phases(ratings) -> list[dict]:
     return lines
 
 
+#: the ingest clients: threads of this script, each with its own keep-alive
+#: connection to the event server, a subprocess of its own
+INGEST_CLIENTS, INGEST_BATCH, INGEST_SINGLES = 8, 50, 1_000
+LIVE_USERS = 8  # the live loop's users, one view POSTed for each
+#: the tied slice: the stream's first TIED_EVENTS, TIED_PER_SECOND of them
+#: to one second, each second's events spread over 20 batches
+TIED_EVENTS, TIED_PER_SECOND = 20_000, 1_000
+
+
+def spawn_cli(home: Path, argv: list, lines: int):
+    """``python -m predictionio_tpu_torch.tools.cli argv`` on ``home``, and
+    the ``lines`` lines it prints once its servers are bound.  Its stderr
+    goes to a file beside ``home`` (``cli_stderr``) and its later stdout is
+    drained, so no pipe fills and stalls it."""
+    import os
+
+    log = home.parent / f"{argv[0]}.stderr"
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", *argv],
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            env=dict(os.environ, PIO_HOME=str(home)), cwd=Path(__file__).resolve().parent,
+        )
+    proc.stderr_log = log
+    printed: list = []
+    bound = threading.Event()
+
+    def read():
+        printed.extend(proc.stdout.readline() for _ in range(lines))
+        bound.set()
+        for _ in proc.stdout:
+            pass
+
+    threading.Thread(target=read, daemon=True).start()
+    bound.wait(timeout=180)
+    if len(printed) < lines or not all(printed):
+        stop_cli(proc)
+        raise RuntimeError(f"{argv[0]} did not start: {printed} {cli_stderr(proc)}")
+    return proc, [x.strip() for x in printed]
+
+
+def cli_stderr(proc) -> str:
+    """The end of what a ``spawn_cli`` process wrote to its stderr."""
+    return proc.stderr_log.read_text()[-4000:]
+
+
+def stop_cli(proc) -> int:
+    """Interrupt a CLI server (it shuts down as on Ctrl-C), kill it if it
+    lingers; returns its exit code."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return proc.returncode
+
+
+def bound_port(line: str) -> int:
+    return int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+
+
+def http_call(conn, method: str, path: str, body: bytes | None = None,
+              headers: dict | None = None):
+    """(status, headers, JSON body, ms) of one request on a keep-alive
+    connection."""
+    t0 = time.perf_counter()
+    conn.request(method, path, body=body, headers=headers or {})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    return resp.status, dict(resp.getheaders()), data, 1e3 * (time.perf_counter() - t0)
+
+
+def run_clients(port: int, requests: list, clients: int) -> tuple[list, float]:
+    """``requests`` ((method, path, body, headers) each) spread over
+    ``clients`` threads, each on one connection; (per request (status,
+    item statuses, ms), wall seconds)."""
+    results: list = [None] * len(requests)
+    errors: list = []
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            for n in range(c, len(requests), clients):
+                status, _, data, ms = http_call(conn, *requests[n])
+                items = [x["status"] for x in data] if isinstance(data, list) else []
+                results[n] = (status, items, ms)
+        except Exception as e:  # reported by the caller
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    assert not errors and all(r is not None for r in results), errors[:3]
+    return results, wall
+
+
+def ingest_stats(results: list, wall: float, events: int) -> dict:
+    ms = np.asarray([r[2] for r in results])
+    non_2xx = sum(not 200 <= r[0] < 300 for r in results) + sum(
+        not 200 <= x < 300 for r in results for x in r[1])
+    return {"events": events, "requests": len(results), "wall_s": wall,
+            "events_per_s": events / wall, "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "non_2xx": int(non_2xx)}
+
+
+def ingest_streams(u, i, r) -> tuple[list, list]:
+    """The ML-100K ``rate`` stream as API JSON (one second apart, as
+    train_cli's import file), and the INGEST_SINGLES single POSTs after it:
+    half ``view`` events to /events.json, a quarter segment.com ``track``
+    payloads and a quarter MailChimp ``subscribe`` forms, each event with
+    a time of its own.  Singles are (path, body bytes, headers, event)."""
+    from urllib.parse import urlencode
+
+    from predictionio_tpu_torch.data.webhooks import (
+        form_connectors,
+        json_connectors,
+        to_event,
+    )
+
+    t_base = 874_724_710  # ML-100K's first rating time, epoch seconds
+    rates = [
+        {"event": "rate", "entityType": "user", "entityId": f"u{u[j]}",
+         "targetEntityType": "item", "targetEntityId": f"i{i[j]}",
+         "properties": {"rating": int(r[j])}, "eventTime": iso_ms(1000 * (t_base + j))}
+        for j in range(len(r))
+    ]
+    t_single = 1000 * (t_base + len(r))
+    seg, chimp = json_connectors()["segmentio"], form_connectors()["mailchimp"]
+    singles = []
+    for n in range(INGEST_SINGLES):
+        user = f"u{n % ML100K_USERS}"
+        if n % 2 == 0:
+            ev = {"event": "view", "entityType": "user", "entityId": user,
+                  "targetEntityType": "item", "targetEntityId": f"i{n % ML100K_ITEMS}",
+                  "properties": {}, "eventTime": iso_ms(t_single + 1000 * n)}
+            singles.append(("/events.json", json.dumps(ev).encode(),
+                            {"Content-Type": "application/json"}, ev))
+        elif n % 4 == 1:
+            payload = {"version": "2", "type": "track", "userId": user,
+                       "event": "Opened App", "properties": {"n": n},
+                       "timestamp": iso_ms(t_single + 1000 * n)}
+            singles.append(("/webhooks/segmentio.json", json.dumps(payload).encode(),
+                            {"Content-Type": "application/json"},
+                            to_event(seg, payload).to_api_dict()))
+        else:
+            fired = datetime.fromtimestamp(t_single / 1000 + n, tz=timezone.utc)
+            form = {"type": "subscribe", "fired_at": fired.strftime("%Y-%m-%d %H:%M:%S"),
+                    "data[id]": user, "data[list_id]": "ml100k",
+                    "data[email]": f"{user}@example.com", "data[merges][N]": str(n)}
+            singles.append(("/webhooks/mailchimp.form", urlencode(form).encode(),
+                            {"Content-Type": "application/x-www-form-urlencoded"},
+                            to_event(chimp, form).to_api_dict()))
+    return rates, singles
+
+
+def tied_stream(rates: list) -> list:
+    """The first TIED_EVENTS rate events, each taking the time of the first
+    event of its group of TIED_PER_SECOND, as SDK clients with clocks of
+    one second send them."""
+    return [{**e, "eventTime": rates[j - j % TIED_PER_SECOND]["eventTime"]}
+            for j, e in enumerate(rates[:TIED_EVENTS])]
+
+
+def factor_diff(a: dict, b: dict, users: list, items: list) -> float:
+    """Largest difference between two models' factor rows, matched by
+    entity id."""
+    diff = 0.0
+    for side, keys in (("user", users), ("item", items)):
+        rows = [{k: n for n, k in enumerate(m[f"{side}_vocab"])} for m in (a, b)]
+        fa = a[f"{side}_factors"][[rows[0][k] for k in keys]]
+        fb = b[f"{side}_factors"][[rows[1][k] for k in keys]]
+        assert np.isfinite(fa).all() and np.isfinite(fb).all()
+        diff = max(diff, float(np.abs(fa - fb).max()))
+    return diff
+
+
+def tied_trains(run, storage, tmp: Path, tied: list, engine: dict) -> dict:
+    """App ``tied`` (the tied slice over REST, stored in the clients'
+    order) against the same events by ``import`` into ``tied_file``, both
+    trained on the card.  ``find`` orders by ``eventTime`` alone and the
+    vocabularies follow first appearance, so the cold trains may start
+    from rows drawn in other orders and are only reported.  Trained again
+    from one start (the import-fed cold factors, mapped by entity id,
+    ``run_train(warm_start_from=...)``), they are held within the port's
+    train tolerance, 2e-3: only the order of each entity's sum differs."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import resolve_engine_factory
+    from predictionio_tpu_torch.core.workflow import run_train
+
+    with open(tmp / "tied.jsonl", "w") as f:
+        f.writelines(json.dumps(e) + "\n" for e in tied)
+    run("app", "new", "tied_file")
+    run("import", "--app", "tied_file", "--input", str(tmp / "tied.jsonl"))
+    cold = {}
+    for app in ("tied", "tied_file"):
+        (tmp / f"{app}.json").write_text(json.dumps(
+            {**engine, "id": app, "datasource": {"params": {"appName": app}}}))
+        cold[app] = run("train", "--engine-json", str(tmp / f"{app}.json"),
+                        "--device", "cuda").split("Engine instance: ")[1].split()[0]
+    a, b = (load_factors(storage, cold[x]) for x in ("tied", "tied_file"))
+    users, items = list(b["user_vocab"]), list(b["item_vocab"])
+    assert sorted(a["user_vocab"]) == sorted(users)
+    assert sorted(a["item_vocab"]) == sorted(items)
+    out = {"cold_vocab_order_equal": list(a["user_vocab"]) == users
+           and list(a["item_vocab"]) == items,
+           "cold_max_abs_diff": factor_diff(a, b, users, items)}
+    warm = {}
+    for app in cold:
+        eng = resolve_engine_factory("recommendation")()
+        params = eng.params_from_json({**engine, "datasource": {"params": {"appName": app}}})
+        instance = run_train(eng, params, ctx=EngineContext(storage=storage, device="cuda"),
+                             engine_id=f"{app}-one-start", engine_factory="recommendation",
+                             storage=storage, warm_start_from=cold["tied_file"])
+        warm[app] = load_factors(storage, instance.id)
+    diff = factor_diff(warm["tied"], warm["tied_file"], users, items)
+    assert diff <= 2e-3, f"tied REST-fed and import-fed factors differ by {diff}"
+    out["one_start_max_abs_diff"] = diff
+    return out
+
+
+def canonical(events) -> list[str]:
+    """Events as sorted JSON, without ``eventId`` and ``creationTime``."""
+    out = []
+    for e in events:
+        e = {k: v for k, v in e.items() if k not in ("eventId", "creationTime")}
+        out.append(json.dumps(e, sort_keys=True))
+    return sorted(out)
+
+
+def shed_probe() -> dict:
+    """The ingest gate driven past its bound: an event server with
+    ``max_write_inflight=2`` over HTTP, its store holding every write until
+    released; two writes wait inside, four more answer 503 with
+    ``Retry-After``."""
+    from predictionio_tpu_torch.data.storage.base import AccessKey, App
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server.event_server import create_event_server_app
+    from predictionio_tpu_torch.server.httpd import AppServer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": tmp}))
+        app_id = storage.apps().insert(App(id=0, name="shed"))
+        storage.access_keys().insert(AccessKey(key="SHED", appid=app_id))
+        levents = storage.l_events()
+        real, gate, entered = levents.insert, threading.Event(), threading.Semaphore(0)
+
+        def held_insert(event, app_id, channel_id=None):
+            entered.release()
+            gate.wait(timeout=60)
+            return real(event, app_id, channel_id)
+
+        levents.insert = held_insert
+        registry = MetricsRegistry()
+        server = AppServer(create_event_server_app(
+            storage, registry=registry, max_write_inflight=2), "127.0.0.1", 0)
+        server.start_background()
+        body = json.dumps({"event": "view", "entityType": "user", "entityId": "u1"}).encode()
+        answers: list = []
+
+        def post():
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+            try:
+                status, headers, _, _ = http_call(conn, "POST", "/events.json?accessKey=SHED",
+                                                  body)
+                answers.append((status, headers.get("Retry-After")))
+            finally:
+                conn.close()
+
+        try:
+            held = [threading.Thread(target=post, daemon=True) for _ in range(2)]
+            for th in held:
+                th.start()
+            for _ in held:
+                assert entered.acquire(timeout=60), "a write never reached the store"
+            over = [threading.Thread(target=post, daemon=True) for _ in range(4)]
+            for th in over:
+                th.start()
+            for th in over:
+                th.join(timeout=60)
+            shed = sorted(answers)
+            gate.set()
+            for th in held:
+                th.join(timeout=60)
+        finally:
+            gate.set()
+            server.shutdown()
+            storage.close()
+    assert shed == [(503, "1")] * 4, shed
+    assert sorted(answers) == [(201, None)] * 2 + [(503, "1")] * 4, answers
+    return {"answers": sorted(answers),
+            "shed_total": registry.get("pio_shed_total").labels("eventstore").value}
+
+
+def load_factors(storage, instance_id: str) -> dict:
+    from predictionio_tpu_torch.core.persistence import load_models
+
+    (blob,) = load_models(storage.models(), instance_id)
+    return blob
+
+
+def live_loop(home: Path, instance_id: str, key: str, users: list) -> dict:
+    """``pio deploy --event-port`` of the ecommerce instance on the card: for
+    each user, the top item of an ``unseenOnly`` answer is viewed through
+    the event port, and the next answer must leave it out, undegraded."""
+    proc, printed = spawn_cli(home, [
+        "deploy", "--engine-instance-id", instance_id, "--ip", "127.0.0.1",
+        "--port", "0", "--event-port", "0", "--device", "cuda"], 2)
+    out: dict = {"printed": printed, "latency_ms": [], "answer_ms": []}
+    try:
+        event_port, port = bound_port(printed[0]), bound_port(printed[1])
+        q = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        ev = http.client.HTTPConnection("127.0.0.1", event_port, timeout=60)
+        for user in users:
+            query = json.dumps({"user": user, "num": 10}).encode()
+            status, headers, before, ms = http_call(q, "POST", "/queries.json", query)
+            assert status == 200 and "X-Pio-Degraded" not in headers, (status, headers)
+            out["answer_ms"].append(ms)
+            top = before["itemScores"][0]["item"]
+            t0 = time.perf_counter()
+            status, _, _, _ = http_call(ev, "POST", f"/events.json?accessKey={key}",
+                                        json.dumps({
+                                            "event": "view", "entityType": "user",
+                                            "entityId": user, "targetEntityType": "item",
+                                            "targetEntityId": top}).encode())
+            assert status == 201, status
+            status, headers, after, _ = http_call(q, "POST", "/queries.json", query)
+            out["latency_ms"].append(1e3 * (time.perf_counter() - t0))
+            assert status == 200 and "X-Pio-Degraded" not in headers, (status, headers)
+            items = [x["item"] for x in after["itemScores"]]
+            assert top not in items, (user, top, items)
+            assert items[:9] == [x["item"] for x in before["itemScores"][1:]], user
+        q.close()
+        ev.close()
+    finally:
+        out["deploy_exit"] = stop_cli(proc)
+    assert out["deploy_exit"] == 0, cli_stderr(proc)
+    return out
+
+
+def event_ingest_phase() -> dict:
+    """The Lambda path through the port's entry points on a fresh home:
+    ``app new`` and ``accesskey new``; ``eventserver --stats`` as a
+    subprocess, fed the ML-100K ``rate`` stream by INGEST_CLIENTS threads in
+    batches of 50, then INGEST_SINGLES single POSTs (events and both
+    webhooks); ``export`` equal to what was sent, ``/stats.json`` counting
+    it; the ingest gate shedding; ``train`` on the card over the ingested
+    events (kernel 1) held to a train of the same events by ``import``;
+    the tied slice (``tied_trains``), whose events share their seconds;
+    ``batchpredict`` of every user (kernel 3) held to the host answer; and
+    ``deploy --event-port`` of an ecommerce engine whose next answer
+    reflects a view POSTed to its event port."""
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, reset_storage
+    from predictionio_tpu_torch.ops.topk import host_topk_batch
+    from predictionio_tpu_torch.tools import cli
+
+    out: dict = {"phase": "event_ingest",
+                 "shape": [ML100K_USERS, ML100K_ITEMS, ML100K_EVENTS],
+                 "rank": RANK, "iterations": ITERATIONS, "clients": INGEST_CLIENTS,
+                 "nvidia_smi": nvidia_smi_line()}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        home = tmp / "pio_home"
+        storage = reset_storage(StorageConfig.from_env({"PIO_HOME": str(home)}))
+        u, i, r = movielens_like(ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS,
+                                 SEED + 10, half_stars=False)
+        rates, singles = ingest_streams(u, i, r)
+        printed = io.StringIO()
+
+        def run(*argv) -> str:
+            """One CLI verb in this process; its stdout."""
+            mark = printed.tell()
+            with contextlib.redirect_stdout(printed):
+                assert cli.main(list(argv)) == 0, argv
+            return printed.getvalue()[mark:]
+
+        run("app", "new", "ingest")
+        key = json.loads(run("accesskey", "new", "ingest"))["key"]
+        tied_key = json.loads(run("app", "new", "tied"))["accessKeys"][0]["key"]
+        proc, started = spawn_cli(home, ["eventserver", "--ip", "127.0.0.1", "--port", "0",
+                                         "--stats"], 1)
+        try:
+            port = bound_port(started[0])
+            path = f"/batch/events.json?accessKey={key}"
+            batches = [("POST", path, json.dumps(rates[lo:lo + INGEST_BATCH]).encode(),
+                        {"Content-Type": "application/json"})
+                       for lo in range(0, len(rates), INGEST_BATCH)]
+            res, wall = run_clients(port, batches, INGEST_CLIENTS)
+            out["batches"] = ingest_stats(res, wall, len(rates))
+            res, wall = run_clients(
+                port, [("POST", f"{p}?accessKey={key}", b, h) for p, b, h, _ in singles],
+                INGEST_CLIENTS)
+            out["singles"] = ingest_stats(res, wall, len(singles))
+            out["non_2xx"] = out["batches"]["non_2xx"] + out["singles"]["non_2xx"]
+            assert out["non_2xx"] == 0, out
+            # the store holds exactly what was sent
+            t0 = time.perf_counter()
+            run("export", "--app", "ingest", "--output", str(tmp / "export.jsonl"))
+            out["export_s"] = time.perf_counter() - t0
+            exported = [json.loads(x) for x in (tmp / "export.jsonl").read_text().splitlines()]
+            sent = rates + [e for _, _, _, e in singles]
+            assert len(exported) == len(sent), (len(exported), len(sent))
+            assert canonical(exported) == canonical(sent), "export differs from the stream"
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            status, _, stats, _ = http_call(conn, "GET", f"/stats.json?accessKey={key}")
+            conn.close()
+            hour = stats["currentHour"]
+            counted = sum(x["count"] for x in hour["basic"]) + sum(
+                x["count"] for x in stats.get("previousHour", {}).get("basic", []))
+            assert status == 200 and counted == len(sent), (status, counted)
+            out["stats_counted"] = counted
+            out["shed"] = shed_probe()
+            tied = tied_stream(rates)
+            res, wall = run_clients(port, [
+                ("POST", f"/batch/events.json?accessKey={tied_key}",
+                 json.dumps(tied[lo:lo + INGEST_BATCH]).encode(),
+                 {"Content-Type": "application/json"})
+                for lo in range(0, len(tied), INGEST_BATCH)], INGEST_CLIENTS)
+            out["tied"] = {**ingest_stats(res, wall, len(tied)),
+                           "per_second": TIED_PER_SECOND}
+            assert out["tied"]["non_2xx"] == 0, out["tied"]
+
+            # pio train over the ingested events, the event server still up
+            engine = {"engineFactory": "recommendation", "algorithms": [
+                {"name": "als", "params": {"rank": RANK, "numIterations": ITERATIONS,
+                                           "lambda": 0.01, "seed": 3}}]}
+            for app in ("ingest", "imported"):
+                (tmp / f"{app}.json").write_text(json.dumps(
+                    {**engine, "id": app, "datasource": {"params": {"appName": app}}}))
+            reset_launches()
+            t0 = time.perf_counter()
+            rest_id = run("train", "--engine-json", str(tmp / "ingest.json"),
+                          "--device", "cuda").split("Engine instance: ")[1].split()[0]
+            out["train_s"] = time.perf_counter() - t0
+            out["train_launches"] = read_launches()
+        finally:
+            out["eventserver_exit"] = stop_cli(proc)
+        assert out["eventserver_exit"] == 0, cli_stderr(proc)
+        assert out["train_launches"]["als_fused_accum"] == 2 * ITERATIONS, out
+        # the same events by pio import, trained from the same seeded start
+        with open(tmp / "rates.jsonl", "w") as f:
+            f.writelines(json.dumps(e) + "\n" for e in rates)
+        run("app", "new", "imported")
+        t0 = time.perf_counter()
+        run("import", "--app", "imported", "--input", str(tmp / "rates.jsonl"))
+        out["import_s"] = time.perf_counter() - t0
+        file_id = run("train", "--engine-json", str(tmp / "imported.json"),
+                      "--device", "cuda").split("Engine instance: ")[1].split()[0]
+        a, b = load_factors(storage, rest_id), load_factors(storage, file_id)
+        assert list(a["user_vocab"]) == list(b["user_vocab"])
+        assert list(a["item_vocab"]) == list(b["item_vocab"])
+        U, V = a["user_factors"], a["item_factors"]
+        assert np.isfinite(U).all() and np.isfinite(V).all()
+        diff = max(float(np.abs(U - b["user_factors"]).max()),
+                   float(np.abs(V - b["item_factors"]).max()))
+        assert diff <= 1e-5, f"REST-fed and import-fed factors differ by {diff}"
+        out["rest_vs_import_max_abs_diff"] = diff
+        out["tied"].update(tied_trains(run, storage, tmp, tied, engine))
+
+        # pio batchpredict of every user: one device wave
+        users = list(a["user_vocab"])
+        (tmp / "q.jsonl").write_text("".join(
+            json.dumps({"user": x, "num": 10}) + "\n" for x in users))
+        reset_launches()
+        t0 = time.perf_counter()
+        run("batchpredict", "--engine-instance-id", rest_id, "--input", str(tmp / "q.jsonl"),
+            "--output", str(tmp / "p.jsonl"), "--device", "cuda")
+        torch.cuda.synchronize()
+        out["batchpredict_s"] = time.perf_counter() - t0
+        out["batchpredict_launches"] = read_launches()
+        assert out["batchpredict_launches"]["fused_topk"] == 1, out["batchpredict_launches"]
+        uvocab = {k: n for n, k in enumerate(users)}
+        ivocab = list(a["item_vocab"])
+
+        def host(user):
+            s, idx = host_topk_batch(U[[uvocab[str(user)]]] @ V.T, 11)
+            return [ivocab[j] for j in idx[0]], [float(x) for x in s[0]]
+
+        lines = [json.loads(x) for x in (tmp / "p.jsonl").read_text().splitlines()]
+        assert len(lines) == len(users)
+        for user, line in zip(users, lines):
+            hold_scored(line["prediction"]["itemScores"], host(user), 10, user)
+        out["rows_checked_vs_host"] = len(lines)
+
+        # the live loop: an ecommerce engine served beside its event port
+        shop = json.loads(run("app", "new", "shop"))
+        write_shop_events(tmp / "shop.jsonl")
+        run("import", "--app", "shop", "--input", str(tmp / "shop.jsonl"))
+        (tmp / "shop.json").write_text(json.dumps({
+            "id": "shop", "engineFactory": "ecommerce",
+            "datasource": {"params": {"appName": "shop"}},
+            "algorithms": [{"name": "ecomm", "params": {
+                "appName": "shop", "rank": RANK, "numIterations": ITERATIONS}}]}))
+        shop_id = run("train", "--engine-json", str(tmp / "shop.json"),
+                      "--device", "cuda").split("Engine instance: ")[1].split()[0]
+        storage.close()
+        out["live"] = live_loop(home, shop_id, shop["accessKeys"][0]["key"],
+                                [f"u{n}" for n in range(1, 1 + LIVE_USERS)])
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -2519,6 +3052,8 @@ def main() -> int:
           "als_segment_accum": chunk_t})
     family_train, _, family_cli = als_family_phases(ratings)
     del ratings
+    ingest = event_ingest_phase()
+    emit(ingest)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
     wide_c = chunk_t["wide"]
     main_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 10, 10])
@@ -2555,6 +3090,8 @@ def main() -> int:
                     "launches": main_path["launches"]["fused_topk"],
                     # one per device wave of the pipelined front end
                     "launches_pipelined_waves": front_end[1]["launches"]["fused_topk"],
+                    # pio batchpredict of every user over the REST-fed model
+                    "launches_event_ingest": ingest["batchpredict_launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),
@@ -2591,6 +3128,8 @@ def main() -> int:
                         for x in family_cli["train_launches"].values()
                     ),
                     launches_ecomm_ml20m=family_train["launches"]["als_fused_accum"],
+                    # pio train over the events the event server took in
+                    launches_event_ingest=ingest["train_launches"]["als_fused_accum"],
                     implicit_shape=implicit_t["shape"],
                     implicit_ms=implicit_t["ms"],
                     implicit_plain_ms=implicit_t["plain_ms"],

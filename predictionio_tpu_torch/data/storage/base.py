@@ -3,11 +3,13 @@
 - Metadata: the app, access-key and channel records with their DAOs, and
   the engine-instance record (the deploy handle).
 - Events: :class:`EventFilter`, the row DAO :class:`LEvents` (``init``,
-  ``insert_batch``, ``find``, and the serving path's ``find_by_entity``
-  and ``aggregate_properties``) and the columnar bulk DAO
-  :class:`PEvents`, whose ``find`` returns an :class:`EventFrame`, the
-  subset of the JAX package's frame that the templates read, and whose
-  ``aggregate_properties`` folds ``$set``/``$unset``/``$delete``.
+  ``remove``, ``close``, ``insert``, ``insert_batch``, ``get``,
+  ``delete``, ``find``, and the serving path's ``find_by_entity`` and
+  ``aggregate_properties``) and the columnar bulk DAO :class:`PEvents`,
+  whose ``find`` returns an :class:`EventFrame`, the subset of the JAX
+  package's frame that the templates read, whose ``write``/``delete``
+  take frames and id lists, and whose ``aggregate_properties`` folds
+  ``$set``/``$unset``/``$delete``.
 - Models: the blob store with its multipart (manifest + named parts)
   layout, the JAX package's byte for byte (``<id>:manifest`` framed by the
   sorted part-name list, ``<id>:part:<name>`` per part), so either package
@@ -249,6 +251,27 @@ class EventFilter:
     limit: int | None = None
     reversed: bool = False
 
+    def matches(self, e: Event) -> bool:
+        """The filter applied to one event in memory (limit and order
+        aside)."""
+        if self.start_time is not None and e.event_time < self.start_time:
+            return False
+        if self.until_time is not None and e.event_time >= self.until_time:
+            return False
+        if self.entity_type is not None and e.entity_type != self.entity_type:
+            return False
+        if self.entity_id is not None and e.entity_id != self.entity_id:
+            return False
+        if self.event_names is not None and e.event not in self.event_names:
+            return False
+        if self.target_entity_type is not None:
+            if e.target_entity_type != (self.target_entity_type or None):
+                return False
+        if self.target_entity_id is not None:
+            if e.target_entity_id != (self.target_entity_id or None):
+                return False
+        return True
+
 
 _AGGREGATOR_EVENTS = ("$set", "$unset", "$delete")
 
@@ -263,8 +286,9 @@ def _required_only(
 
 
 class LEvents(abc.ABC):
-    """Row-at-a-time event access per (app_id, channel_id) namespace: the
-    methods the import and train paths call, and the per-entity reads of
+    """Row-at-a-time event CRUD and queries per (app_id, channel_id)
+    namespace (LEvents.scala:90-280): the event server's single-event
+    routes, the import and train paths, and the per-entity reads of
     serving-time business rules."""
 
     @abc.abstractmethod
@@ -272,11 +296,32 @@ class LEvents(abc.ABC):
         """Create the namespace (table) of an app/channel."""
 
     @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: int | None = None) -> bool:
+        """Drop all events of an app/channel."""
+
+    @abc.abstractmethod
+    def close(self) -> None: ...
+
+    @abc.abstractmethod
+    def insert(self, event: Event, app_id: int, channel_id: int | None = None) -> str:
+        """Insert one event, returning its id; an event carrying an existing
+        ``event_id`` replaces that row."""
+
     def insert_batch(
         self, events: Sequence[Event], app_id: int, channel_id: int | None = None
     ) -> list[str]:
-        """Insert events, returning their ids; an event carrying an existing
-        ``event_id`` replaces that row."""
+        """Insert events, returning their ids, as :meth:`insert` does."""
+        return [self.insert(e, app_id, channel_id) for e in events]
+
+    @abc.abstractmethod
+    def get(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> Event | None: ...
+
+    @abc.abstractmethod
+    def delete(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> bool: ...
 
     @abc.abstractmethod
     def find(
@@ -473,6 +518,16 @@ class PEvents(abc.ABC):
         channel_id: int | None = None,
         filter: EventFilter | None = None,
     ) -> EventFrame: ...
+
+    @abc.abstractmethod
+    def write(
+        self, frame: EventFrame, app_id: int, channel_id: int | None = None
+    ) -> None: ...
+
+    @abc.abstractmethod
+    def delete(
+        self, event_ids: Sequence[str], app_id: int, channel_id: int | None = None
+    ) -> None: ...
 
     def aggregate_properties(
         self,

@@ -267,11 +267,30 @@ class SQLiteLEvents(base.LEvents):
         self._known_tables.add(table)
         return True
 
+    def remove(self, app_id: int, channel_id: int | None = None) -> bool:
+        table = event_table_name(app_id, channel_id)
+        self.client.execute(f"DROP TABLE IF EXISTS {table}")
+        self._known_tables.discard(table)
+        return True
+
+    def close(self) -> None:
+        pass  # the client belongs to the storage runtime
+
     def _ensure(self, app_id: int, channel_id: int | None) -> str:
         table = event_table_name(app_id, channel_id)
         if table not in self._known_tables:
             self.init(app_id, channel_id)
         return table
+
+    def insert(self, event: Event, app_id: int, channel_id: int | None = None) -> str:
+        table = self._ensure(app_id, channel_id)
+        eid = event.event_id or uuid.uuid4().hex
+        self.client.execute(
+            f"INSERT OR REPLACE INTO {table} ({_EVENT_COLS}) "
+            "VALUES (?,?,?,?,?,?,?,?,?,?,?)",
+            self._to_row(event, eid),
+        )
+        return eid
 
     def insert_batch(
         self, events: Sequence[Event], app_id: int, channel_id: int | None = None
@@ -317,6 +336,22 @@ class SQLiteLEvents(base.LEvents):
             event_id=eid,
             creation_time=_from_ms(ctime),
         )
+
+    def get(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> Event | None:
+        table = self._ensure(app_id, channel_id)
+        rows = self.client.query(
+            f"SELECT {_EVENT_COLS} FROM {table} WHERE id = ?", (event_id,)
+        )
+        return self._from_row(rows[0]) if rows else None
+
+    def delete(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> bool:
+        table = self._ensure(app_id, channel_id)
+        cur = self.client.execute(f"DELETE FROM {table} WHERE id = ?", (event_id,))
+        return cur.rowcount > 0
 
     @staticmethod
     def _where(f: EventFilter) -> tuple[str, list]:
@@ -431,6 +466,19 @@ class SQLitePEvents(base.PEvents):
             tags=tags,
             pr_id=prids,
             creation_time_ms=ctimes,
+        )
+
+    def write(
+        self, frame: EventFrame, app_id: int, channel_id: int | None = None
+    ) -> None:
+        self.levents.insert_batch(frame.to_events(), app_id, channel_id)
+
+    def delete(
+        self, event_ids: Sequence[str], app_id: int, channel_id: int | None = None
+    ) -> None:
+        table = self.levents._ensure(app_id, channel_id)
+        self.client.executemany(
+            f"DELETE FROM {table} WHERE id = ?", [(i,) for i in event_ids]
         )
 
 

@@ -236,6 +236,11 @@ class AsyncAppServer:
     def serve_forever(self) -> None:
         self._run_loop()
 
+    def join(self) -> None:
+        """Block until a ``start_background`` server stops serving."""
+        while not self._stopped.wait(timeout=0.5):
+            pass
+
     def shutdown(self) -> None:
         loop, server = self._loop, self._server
         if loop is None or server is None:

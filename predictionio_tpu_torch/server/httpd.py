@@ -47,6 +47,11 @@ class Request:
             return None
         return json.loads(self.body.decode("utf-8"))
 
+    def form(self) -> dict[str, str]:
+        """The urlencoded form body, first value of each field."""
+        data = parse_qs(self.body.decode("utf-8"), keep_blank_values=True)
+        return {k: v[0] for k, v in data.items()}
+
 
 @dataclass
 class Response:
@@ -256,6 +261,10 @@ def _make_handler_class(app: HTTPApp):
     class _Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
         server_version = f"predictionio-tpu-torch/{app.name}"
+        # the headers and the body go out as two writes: with Nagle's
+        # algorithm the body waits for the client's delayed ACK of the
+        # headers, ~40 ms per request on a keep-alive connection
+        disable_nagle_algorithm = True
 
         def _dispatch(self, method: str) -> None:
             split = urlsplit(self.path)
@@ -285,6 +294,9 @@ def _make_handler_class(app: HTTPApp):
         def do_POST(self):
             self._dispatch("POST")
 
+        def do_DELETE(self):
+            self._dispatch("DELETE")
+
         def log_message(self, fmt, *args):  # quiet by default
             pass
 
@@ -300,8 +312,11 @@ class AppServer:
         self.httpd = ThreadingHTTPServer((host, port), _make_handler_class(app))
         self.host, self.port = self.httpd.server_address[:2]
         self._thread: threading.Thread | None = None
+        self._serving = False
+        self._closed = False
 
     def start_background(self) -> "AppServer":
+        self._serving = True
         self._thread = threading.Thread(
             target=self.httpd.serve_forever,
             name=f"{self.app.name}-http",
@@ -311,10 +326,18 @@ class AppServer:
         return self
 
     def serve_forever(self) -> None:
+        self._serving = True
         self.httpd.serve_forever()
 
     def shutdown(self) -> None:
-        self.httpd.shutdown()
+        """Stop serving and close the socket; safe to call twice, and on a
+        server that never served (``HTTPServer.shutdown`` alone would wait
+        forever for a loop that never ran)."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._serving:
+            self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)

@@ -1,10 +1,14 @@
-"""``python -m predictionio_tpu_torch.tools.cli app new|import|train|deploy|batchpredict``.
+"""``python -m predictionio_tpu_torch.tools.cli <verb>``.
 
 The verbs of the JAX package's ``pio`` console (``tools/cli.py``) that the
-port runs, from a new app to a deployed engine, with the flags that apply
-to them, plus ``--device`` on the verbs that compute (default ``cuda``;
-``cpu`` runs the plain versions on the host).  Storage is configured by the
-same ``PIO_HOME`` / ``PIO_STORAGE_*`` variables.
+port runs, with the flags that apply to them: ``app``
+(``new|list|show|delete|data-delete|channel-new|channel-delete``),
+``accesskey`` (``new|list|delete``), ``import``, ``export``,
+``eventserver``, ``train``, ``deploy`` (``--event-port`` serves the event
+server beside it, on the same storage) and ``batchpredict``, plus
+``--device`` on the verbs that compute (default ``cuda``; ``cpu`` runs the
+plain versions on the host).  Storage is configured by the same
+``PIO_HOME`` / ``PIO_STORAGE_*`` variables.
 """
 
 from __future__ import annotations
@@ -13,23 +17,89 @@ import argparse
 import json
 import sys
 from pathlib import Path
+from typing import Any
 
 from predictionio_tpu_torch.data.storage.config import get_storage
 from predictionio_tpu_torch.tools import commands as cmd
 
 
-def do_app_new(args) -> int:
-    d = cmd.app_new(
-        get_storage(), args.name, description=args.description or "",
-        access_key=args.access_key,
-    )
-    print(json.dumps(d.to_json_dict(), indent=2))
+def _print(obj: Any) -> None:
+    print(json.dumps(obj, indent=2, default=str))
+
+
+def _key(k) -> dict:
+    return {"key": k.key, "appid": k.appid, "events": list(k.events)}
+
+
+def do_app(args) -> int:
+    storage = get_storage()
+    if args.app_command == "new":
+        d = cmd.app_new(
+            storage, args.name, description=args.description or "",
+            access_key=args.access_key,
+        )
+        _print(d.to_json_dict())
+    elif args.app_command == "list":
+        _print([d.to_json_dict() for d in cmd.app_list(storage)])
+    elif args.app_command == "show":
+        _print(cmd.app_show(storage, args.name).to_json_dict())
+    elif args.app_command == "delete":
+        cmd.app_delete(storage, args.name)
+        print(f"App {args.name} deleted.")
+    elif args.app_command == "data-delete":
+        cmd.app_data_delete(storage, args.name, channel=args.channel)
+        print(f"Data of app {args.name} deleted.")
+    elif args.app_command == "channel-new":
+        ch = cmd.channel_new(storage, args.name, args.channel)
+        _print({"id": ch.id, "name": ch.name, "appid": ch.appid})
+    elif args.app_command == "channel-delete":
+        cmd.channel_delete(storage, args.name, args.channel)
+        print(f"Channel {args.channel} deleted.")
+    return 0
+
+
+def do_accesskey(args) -> int:
+    storage = get_storage()
+    if args.ak_command == "new":
+        _print(_key(cmd.accesskey_new(
+            storage, args.app, key=args.key, events=args.event or []
+        )))
+    elif args.ak_command == "list":
+        _print([_key(k) for k in cmd.accesskey_list(storage, args.app)])
+    elif args.ak_command == "delete":
+        cmd.accesskey_delete(storage, args.key)
+        print(f"Access key {args.key} deleted.")
     return 0
 
 
 def do_import(args) -> int:
     n = cmd.import_events(get_storage(), args.app, args.input, channel=args.channel)
     print(f"Imported {n} events.")
+    return 0
+
+
+def do_export(args) -> int:
+    n = cmd.export_events(
+        get_storage(), args.app, args.output, channel=args.channel,
+        format=args.format,
+    )
+    print(f"Exported {n} events.")
+    return 0
+
+
+def do_eventserver(args) -> int:
+    from predictionio_tpu_torch.server.event_server import create_event_server
+
+    server = create_event_server(
+        host=args.ip, port=args.port, storage=get_storage(), stats=args.stats
+    )
+    print(f"Event server on http://{args.ip}:{server.port}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
     return 0
 
 
@@ -95,11 +165,31 @@ def do_deploy(args) -> int:
         default_deadline_s=args.deadline_s,
         device=args.device,
     )
-    print(f"Engine deployed on http://{args.ip}:{server.port} ({args.device})")
+    event_server = None
+    if args.event_port is not None:
+        # the speed layer in one process: events POSTed here land in the
+        # storage whose live reads (the ecommerce engine's) serve the
+        # next query
+        from predictionio_tpu_torch.server.event_server import create_event_server
+
+        event_server = create_event_server(
+            host=args.ip, port=args.event_port, storage=get_storage()
+        ).start_background()
+        print(f"Event server (embedded) on http://{args.ip}:{event_server.port}",
+              flush=True)
+    # serving from the start: the line names the port bound, also for
+    # --port 0
+    server.start_background()
+    print(f"Engine deployed on http://{args.ip}:{server.port} ({args.device})",
+          flush=True)
     try:
-        server.serve_forever()
+        server.join()  # until POST /stop or an interrupt
     except KeyboardInterrupt:
+        pass
+    finally:
         server.shutdown()
+        if event_server is not None:
+            event_server.shutdown()
     return 0
 
 
@@ -138,13 +228,46 @@ def build_parser() -> argparse.ArgumentParser:
     new.add_argument("name")
     new.add_argument("--description")
     new.add_argument("--access-key")
-    new.set_defaults(fn=do_app_new)
+    asub.add_parser("list")
+    for verb in ("show", "delete"):
+        asub.add_parser(verb).add_argument("name")
+    dd = asub.add_parser("data-delete")
+    dd.add_argument("name")
+    dd.add_argument("--channel")
+    for verb in ("channel-new", "channel-delete"):
+        ch = asub.add_parser(verb)
+        ch.add_argument("name")
+        ch.add_argument("channel")
+    ap.set_defaults(fn=do_app)
+
+    ak = sub.add_parser("accesskey")
+    aksub = ak.add_subparsers(dest="ak_command", required=True)
+    akn = aksub.add_parser("new")
+    akn.add_argument("app")
+    akn.add_argument("--key")
+    akn.add_argument("--event", action="append")
+    aksub.add_parser("list").add_argument("app", nargs="?")
+    aksub.add_parser("delete").add_argument("key")
+    ak.set_defaults(fn=do_accesskey)
 
     imp = sub.add_parser("import")
     imp.add_argument("--app", required=True)
     imp.add_argument("--input", required=True)
     imp.add_argument("--channel")
     imp.set_defaults(fn=do_import)
+
+    exp = sub.add_parser("export")
+    exp.add_argument("--app", required=True)
+    exp.add_argument("--output", required=True)
+    exp.add_argument("--channel")
+    exp.add_argument("--format", choices=["json", "parquet"], default="json")
+    exp.set_defaults(fn=do_export)
+
+    es = sub.add_parser("eventserver")
+    es.add_argument("--ip", default="0.0.0.0")
+    es.add_argument("--port", type=int, default=7070)
+    es.add_argument("--stats", action="store_true")
+    es.set_defaults(fn=do_eventserver)
 
     tr = sub.add_parser("train")
     tr.add_argument("--engine", help="factory name or pkg.module:factory")
@@ -172,6 +295,13 @@ def build_parser() -> argparse.ArgumentParser:
     engine_flags(dp)
     dp.add_argument("--ip", default="0.0.0.0")
     dp.add_argument("--port", type=int, default=8000)
+    dp.add_argument(
+        "--event-port",
+        type=int,
+        default=None,
+        help="also serve the event server on this port, on the same "
+        "storage (0 = a free port)",
+    )
     dp.add_argument("--accesskey", default="")
     dp.add_argument(
         "--deadline-s",
@@ -207,7 +337,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except cmd.CommandError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -140,13 +140,18 @@ def _pairs(result):
 
 
 def _hold_to(got, want, what):
-    """Ids equal except inside a near-tie of ``want``; scores within RTOL."""
+    """Ids equal except inside a near-tie of ``want``; scores within RTOL.
+
+    ``want`` holds one entry more than ``got`` (an answer of num+1): the
+    neighbour of the last position, so that a near tie with the first item
+    outside the list is judged as one, not as a wrong id."""
     gi, gs = [x for x, _ in got], np.asarray([s for _, s in got])
     wi, ws = [x for x, _ in want], np.asarray([s for _, s in want])
-    assert len(gi) == len(wi), what
-    np.testing.assert_allclose(gs, ws, rtol=RTOL, atol=1e-6, err_msg=what)
-    for j in np.flatnonzero(np.asarray(gi) != np.asarray(wi)):
-        gap = min(abs(ws[j] - ws[x]) for x in (j - 1, j + 1) if 0 <= x < len(ws))
+    n = len(gi)
+    assert len(wi) == n + 1 or (n == 0 and not wi), what
+    np.testing.assert_allclose(gs, ws[:n], rtol=RTOL, atol=1e-6, err_msg=what)
+    for j in np.flatnonzero(np.asarray(gi) != np.asarray(wi[:n])):
+        gap = min(abs(ws[j] - ws[x]) for x in (j - 1, j + 1) if 0 <= x <= n)
         assert gap <= RTOL * abs(ws[j]) + 1e-6, (what, j)
 
 
@@ -167,13 +172,16 @@ def test_fixed_host_wave_renders_bit_equal(trained):
 
 def test_device_wave_dispatch_matches_jax(trained):
     jax_d, port_d = trained["jax"], trained["port"]
-    jfin = jax_d.dispatch_batch_bound(jax_d.live_binding(), _queries(jax_rec, WAVE, 2))
+    # the reference's wave asks num+1 of each query: the last position's
+    # neighbour
+    wider = [dataclasses.replace(q, num=q.num + 1) for q in _queries(jax_rec, WAVE, 2)]
+    jfin = jax_d.dispatch_batch_bound(jax_d.live_binding(), wider)
     pfin = port_d.dispatch_batch_bound(port_d.live_binding(), _queries(pt_rec, WAVE, 2))
     assert jfin is not None and pfin is not None
     want, got = jfin(), pfin()
     assert len(got) == len(want) == WAVE + 1
     for i, ((gq, gp), (wq, wp)) in enumerate(zip(got, want)):
-        assert (gq.user, gq.num) == (wq.user, wq.num)
+        assert (gq.user, gq.num + 1) == (wq.user, wq.num)
         _hold_to(_pairs(gp), _pairs(wp), i)
     assert _pairs(got[-1][1]) == []
 
@@ -276,7 +284,7 @@ def test_concurrent_http_answers_equal_solo_answers(trained, monkeypatch):
             for u, (status, headers, body) in zip(users, got):
                 assert status == 200, (name, u, body)
                 assert headers["X-Pio-Engine-Instance"] == trained["instance"].id
-                _, solo = dep.predict(mod.Query(user=u, num=4))
+                _, solo = dep.predict(mod.Query(user=u, num=5))
                 solo = [(s.item, s.score) for s in solo.item_scores]
                 _hold_to([(x["item"], x["score"]) for x in body["itemScores"]],
                          solo, (name, u))
@@ -440,7 +448,7 @@ def test_pipelined_device_waves_release_their_generation(trained):
         assert sorted({m["wave_seq"] for m in metas}) == [1, 2]
         assert all(m["pipelined"] and m["wave_size"] == WAVE for m in metas)
         for u, (_, body, _) in zip(users, results):
-            _, solo = dep.predict(pt_rec.Query(user=u, num=4))
+            _, solo = dep.predict(pt_rec.Query(user=u, num=5))
             _hold_to([(x["item"], x["score"]) for x in body["itemScores"]],
                      _pairs(solo), u)
         assert dep.inflight_snapshot() == {} and not batcher.busy
@@ -525,7 +533,7 @@ def test_solo_retry_of_a_device_wave_stays_on_the_device(trained, monkeypatch):
     from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 
     users = [f"u{i % N_USERS}" for i in range(WAVE)]
-    solo = {u: _pairs(trained["port"].predict(pt_rec.Query(user=u, num=4))[1])
+    solo = {u: _pairs(trained["port"].predict(pt_rec.Query(user=u, num=5))[1])
             for u in set(users)}
     dep = pt_server.deploy_engine(
         "recommendation", storage=trained["port_storage"],
@@ -642,9 +650,18 @@ def test_cli_deploy_passes_the_front_end_flags(monkeypatch, capsys):
     seen = {}
 
     class Bound:
+        """The deploy verb's server: started in the background, joined,
+        shut down."""
+
         port = 0
 
-        def serve_forever(self):
+        def start_background(self):
+            return self
+
+        def join(self):
+            pass
+
+        def shutdown(self):
             pass
 
     def create(engine, **kw):
