@@ -21,7 +21,15 @@ calls:
   4,096-query burst through a micro-batcher of 1,024-query device waves
   with pipelined fences (``pipelined_waves``), and ``POST /reload`` to a
   second instance under traffic, with the old generation's device memory
-  freed (``reload``);
+  freed (``reload``); then the observability layer (``observability``):
+  a deploy with an access key at the engine's device floor, a 64-client
+  HTTP burst (host waves) and a burst queued past the floor (1,024-query
+  device waves through kernel 3), every observability route scraped and
+  held (roofline shares from the launcher's CUDA events, wave splits,
+  transfer tallies, memory gauges, request ids, probes, a
+  ``torch.profiler`` capture against the events), and solo queries on a
+  warmed keep-alive connection to each front end (``solo_cost``), read
+  with serve_concurrent as the serving paths' cost (``layer_cost``);
 - ``pio app new`` -> ``pio import`` -> ``pio train`` -> ``pio batchpredict``
   and solo queries on an event store at the ML-100K shape (the CLI verbs
   of ``predictionio_tpu_torch.tools.cli``), with the card's factors held
@@ -49,7 +57,10 @@ calls:
   ingested events held to a train of the same events by ``pio import``,
   ``pio batchpredict`` of every user in one fused top-k wave, and ``pio
   deploy --event-port`` of an ecommerce engine whose next answer leaves out
-  an item just viewed through its event port.
+  an item just viewed through its event port; the event server's
+  ``/metrics`` counting every accepted event, its ``/readyz``, and no CUDA
+  context in it.  ``train_ml20m`` also reads ``als.pallas_step``'s share
+  on ``/efficiency.json``'s yardstick beside kernel 1's CUDA-event time.
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -68,6 +79,8 @@ import http.client
 import io
 import json
 import logging
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -920,6 +933,25 @@ def fence_probe(deployed, users) -> dict:
     }
 
 
+def queued_burst(batcher, payloads: list, metas: list) -> list:
+    """Submit every payload to ``batcher`` at once, all queued before its
+    worker forms a wave (its condition is held while the burst enqueues),
+    and return the results in order."""
+    import asyncio
+
+    from predictionio_tpu_torch.server.prediction_server import QueuedQuery
+
+    async def burst():
+        with batcher._cond:
+            futs = [asyncio.ensure_future(batcher.submit(QueuedQuery(p), m))
+                    for p, m in zip(payloads, metas)]
+            await asyncio.sleep(0)  # every task runs its submit up to the await
+            assert len(batcher._pending) == len(futs), len(batcher._pending)
+        return await asyncio.gather(*futs)
+
+    return asyncio.run(burst())
+
+
 def pipelined_waves_phase(storage, instance_id: str, U, V) -> dict:
     """4,096 queries (num=128) submitted at once to the micro-batcher of an
     app with max_batch 1,024 and pipeline depth 2: four device waves, each
@@ -927,11 +959,8 @@ def pipelined_waves_phase(storage, instance_id: str, U, V) -> dict:
     the finalizer while the next dispatches (at least one wave enqueued at
     depth 2); every answer held to the host answer.  Then, outside the
     counted run, :func:`fence_probe`."""
-    import asyncio
-
     from predictionio_tpu_torch.obs.metrics import MetricsRegistry
     from predictionio_tpu_torch.server.prediction_server import (
-        QueuedQuery,
         create_prediction_server_app,
         deploy_engine,
     )
@@ -946,21 +975,11 @@ def pipelined_waves_phase(storage, instance_id: str, U, V) -> dict:
     payloads = [{"user": f"u{u}", "num": PIPELINED_NUM} for u in users]
     metas: list[dict] = [{} for _ in payloads]
 
-    async def burst():
-        # the batcher's condition is held while the whole burst enqueues,
-        # so every query is queued before the worker forms its first wave
-        with batcher._cond:
-            futs = [asyncio.ensure_future(batcher.submit(QueuedQuery(p), m))
-                    for p, m in zip(payloads, metas)]
-            await asyncio.sleep(0)  # every task runs its submit up to the await
-            assert len(batcher._pending) == len(futs), len(batcher._pending)
-        return await asyncio.gather(*futs)
-
     # -- the main path, with every launch count at 0 just before it --
     reset_launches()
     t0 = time.perf_counter()
     try:
-        results = asyncio.run(burst())
+        results = queued_burst(batcher, payloads, metas)
     finally:
         wall = time.perf_counter() - t0
         batcher.close()
@@ -1109,9 +1128,384 @@ def reload_phase(storage, home: Path, instance_id: str, U, V) -> dict:
     return out
 
 
+#: the observability phase: the deploy's access key and wave cap.  Its
+#: device floor stays the engine's (DEVICE_BATCH_MIN, 512 known users):
+#: 64 clients never queue that many, so their waves are host waves, and
+#: the device waves come from a burst queued on the batcher past the floor
+OBS_KEY, OBS_MAX_BATCH = "obs-smoke-key", 1024
+OBS_PROFILE_S = 2.0
+#: the CUDA-event time of the kernel per launch against the profiler's
+#: device time per launch of the same waves: within this factor
+OBS_EVENT_VS_PROFILER = 2.0
+#: solo queries per front end timed for the layer's cost, after a warmup
+SOLO_WARMUP, SOLO_REQUESTS = 100, 500
+
+#: one sample line of a Prometheus text body, and one label of it
+PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+PROM_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prometheus(text: str) -> dict:
+    """``{(name, ((label, value), ...)): value}`` of a /metrics body."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = PROM_SAMPLE.match(line)
+        assert m, line
+        labels = tuple(sorted(PROM_LABEL.findall(m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def http_burst(port: int, bodies: list, conns: int) -> tuple[list, float]:
+    """POST ``bodies`` to ``/queries.json`` over ``conns`` keep-alive
+    connections from one asyncio client (each connection one query at a
+    time, all opened before the first query: ``conns`` clients).  Returns (status, client
+    seconds, X-Pio-Request-Id, body, completion perf_counter) per body, in
+    order, and the wall time."""
+    import asyncio
+
+    jobs = list(enumerate(bodies))[::-1]
+    results: list = [None] * len(bodies)
+
+    async def one(reader, writer, go):
+        await go.wait()
+        try:
+            while jobs:
+                i, body = jobs.pop()
+                t1 = time.perf_counter()
+                writer.write(
+                    b"POST /queries.json HTTP/1.1\r\nHost: smoke\r\n"
+                    b"Content-Type: application/json\r\n"
+                    b"Content-Length: %d\r\n\r\n" % len(body) + body
+                )
+                await writer.drain()
+                head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+                lines = head.split("\r\n")
+                headers = {k.strip().lower(): v.strip() for k, _, v in
+                           (x.partition(":") for x in lines[1:] if x)}
+                data = await reader.readexactly(int(headers["content-length"]))
+                done = time.perf_counter()
+                results[i] = (int(lines[0].split()[1]), done - t1,
+                              headers.get("x-pio-request-id"), data, done)
+        finally:
+            writer.close()
+
+    async def run():
+        go = asyncio.Event()
+        opened = []
+        for lo in range(0, conns, 64):  # within the listen backlog
+            opened += await asyncio.gather(*(
+                asyncio.open_connection("127.0.0.1", port)
+                for _ in range(min(64, conns - lo))))
+        tasks = [asyncio.ensure_future(one(r, w, go)) for r, w in opened]
+        go.set()
+        await asyncio.gather(*tasks)
+
+    t0 = time.perf_counter()
+    asyncio.run(asyncio.wait_for(run(), timeout=300))
+    wall = time.perf_counter() - t0
+    missing = [i for i, r in enumerate(results) if r is None]
+    assert not missing, f"{len(missing)} queries got no answer"
+    return results, wall
+
+
+def obs_get(port: int, path: str, key: str | None = OBS_KEY):
+    """(status, body: JSON or text) of one GET, Bearer key when given."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path, headers={"Authorization": f"Bearer {key}"}
+                     if key else {})
+        resp = conn.getresponse()
+        raw = resp.read()
+        try:
+            return resp.status, json.loads(raw)
+        except ValueError:
+            return resp.status, raw.decode()
+    finally:
+        conn.close()
+
+
+def observability_phase(storage, instance_id: str, U, V) -> dict:
+    """The observability layer on the seeded ML-20M model: the default
+    deploy's micro-batcher with an access key, waves of up to 1,024 and the
+    engine's device floor (512 known users).  A 4,096-query num=10 burst
+    from 64 keep-alive clients (host waves: the clients never queue 512),
+    then 4,096 queries queued on the batcher at once (four 1,024-query
+    device waves, each one kernel 3 launch), then every observability route
+    scraped and held:
+
+    - the roofline share of ``als.fused_topk`` (the kernel's CUDA-event
+      time, recorded by its launcher, over the least work) in (0, 1.05] at
+      1,024 rows, every device wave's CUDA-event time at or above the
+      kernel's bound at its batch;
+    - every wave's five-way host split summing to its ``device_s`` within
+      1 %, and over all waves the stage histograms to the device seconds;
+    - the h2d/d2h tallies equal to the bytes the device waves moved (ids
+      up, packed results down);
+    - the memory gauges equal to ``torch.cuda.memory_allocated()`` /
+      ``memory_reserved()`` at the scrape;
+    - every answer's ``X-Pio-Request-Id`` in ``/logs.json``, the last 64
+      answers' items exactly in ``/explain.json``, the slowest requests in
+      ``/debug/flight.json`` with their wave meta;
+    - ``/healthz`` 200 without the key, ``/readyz`` 200 with every check;
+    - ``POST /debug/profile?seconds=2`` during a second queued burst: 202
+      and a capture naming the fused top-k kernel with device time, whose
+      device time per launch is within OBS_EVENT_VS_PROFILER of the
+      launcher's CUDA-event time per launch of the same waves; or the
+      profiler's error printed on its own line."""
+    from predictionio_tpu_torch.obs import device as device_obs
+    from predictionio_tpu_torch.ops.topk import fused_topk_least_work
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_prediction_server_app,
+        deploy_engine,
+    )
+
+    deployed = deploy_engine("recommendation", storage=storage,
+                             engine_instance_id=instance_id)
+    floor = deployed.algorithms[0].DEVICE_BATCH_MIN
+    app = create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=OBS_MAX_BATCH,
+        max_queue=FRONT_QUERIES, access_key=OBS_KEY,
+    )
+    batcher = app.microbatcher
+    waves: list = []
+    observe = batcher._observe_timeline
+
+    def spy(timeline, device_s):
+        """Each wave's split as the batcher computes it, read beside its
+        device time, entry point and transfers."""
+        split = observe(timeline, device_s)
+        waves.append({"split": split, "device_s": device_s,
+                      "kernel_s": timeline.kernel_s, "fn": timeline.fn,
+                      "transfers": dict(timeline.transfers)})
+        return split
+
+    batcher._observe_timeline = spy
+    rng = np.random.default_rng(SEED + 40)
+    users = rng.integers(0, ML20M_USERS, FRONT_QUERIES)
+    bodies = [json.dumps({"user": f"u{u}", "num": 10}).encode() for u in users]
+    queued_users = rng.integers(0, ML20M_USERS, FRONT_QUERIES)
+    payloads = [{"user": f"u{u}", "num": 10} for u in queued_users]
+    out: dict = {"phase": "observability", "queries": FRONT_QUERIES,
+                 "clients": CLIENTS, "queued_queries": FRONT_QUERIES,
+                 "max_batch": OBS_MAX_BATCH, "device_floor": floor,
+                 "nvidia_smi": nvidia_smi_line()}
+    server = AsyncAppServer(app, "127.0.0.1", 0).start_background()
+    try:
+        port = server.port
+        transfers0 = device_obs.transfer_totals()
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        results, wall = http_burst(port, bodies, CLIENTS)
+        http_waves = len(waves)
+        t0 = time.perf_counter()
+        queued = queued_burst(batcher, payloads, [{} for _ in payloads])
+        queued_wall = time.perf_counter() - t0
+        launches = read_launches()
+        # -- end --
+        transfers1 = device_obs.transfer_totals()
+        first_bursts = list(waves)
+        assert sorted({r[0] for r in results}) == [200]
+        assert {(r[0], r[2]) for r in queued} == {("ok", instance_id)}
+        checked = hold_answers([json.loads(r[3])["itemScores"] for r in results],
+                               users, U, V, 10)
+        checked += hold_answers([r[1]["itemScores"] for r in queued],
+                                queued_users, U, V, 10)
+        device = [w for w in first_bursts if w["fn"] == "als.fused_topk"]
+        assert all(w["fn"] is None for w in first_bursts[:http_waves]), (
+            "an HTTP wave of fewer than 512 queries reached the card")
+        assert len(device) == FRONT_QUERIES // OBS_MAX_BATCH, len(device)
+        assert launches["fused_topk"] == len(device), launches
+        peaks = device_obs.device_peaks()
+        lat_ms = np.asarray([1e3 * r[1] for r in results])
+        out.update({
+            "wall_s": wall, "queries_per_s": FRONT_QUERIES / wall,
+            "client_p50_ms": float(np.percentile(lat_ms, 50)),
+            "client_p99_ms": float(np.percentile(lat_ms, 99)),
+            "queued_wall_s": queued_wall,
+            "answers_checked_vs_host": checked, "launches": launches,
+            "http_waves": http_waves, "device_waves": len(device),
+            "mean_http_wave": FRONT_QUERIES / http_waves,
+            "peak_row": peaks.source,
+        })
+
+        # each wave: its host split sums to device_s; a device wave's
+        # CUDA-event time is at or above the kernel's least-work bound
+        worst_split = 0.0
+        below = []
+        want_h2d = want_d2h = 0
+        for w in first_bursts:
+            err = abs(sum(w["split"].values()) - w["device_s"])
+            worst_split = max(worst_split, err / w["device_s"])
+            assert err <= 0.01 * w["device_s"], w
+        for w in device:
+            b = w["transfers"]["h2d"] // 8
+            work = fused_topk_least_work(b, RANK, ML20M_ITEMS, 10)
+            bound_s = max(work["bytes"] / (peaks.hbm_gbps * 1e9),
+                          work["flops"] / (peaks.tflops * 1e12))
+            if w["kernel_s"] < bound_s:
+                below.append((b, w["kernel_s"], bound_s))
+            want_h2d += 8 * b
+            want_d2h += 2 * b * 10 * 4
+            assert w["transfers"]["d2h"] == 2 * b * 10 * 4, w
+        assert not below, below
+        out["wave_split_worst_rel_err"] = worst_split
+        out["device_wave_kernel_ms"] = [1e3 * w["kernel_s"] for w in device]
+        out["device_wave_rows"] = [w["transfers"]["h2d"] // 8 for w in device]
+        out["device_wave_bound_ms"] = 1e3 * bound_s
+        got = {k: transfers1[k] - transfers0[k] for k in ("h2d", "d2h")}
+        assert got == {"h2d": want_h2d, "d2h": want_d2h}, (got, want_h2d, want_d2h)
+        out["transfer_bytes"] = got
+
+        # the roofline: the gauges and /efficiency.json
+        status, text = obs_get(port, "/metrics")
+        assert status == 200
+        prom = parse_prometheus(text)
+        util = {res: prom[("pio_device_utilization_frac",
+                           (("fn", "als.fused_topk"), ("resource", res)))]
+                for res in ("hbm", "mxu")}
+        assert all(0 < v <= 1.05 for v in util.values()), util
+        status, eff = obs_get(port, "/efficiency.json")
+        fn = eff["functions"]["als.fused_topk"]
+        assert status == 200 and fn["source"] == "least_work"
+        assert 0 < fn["utilization_hbm"] <= 1.05, fn
+        out["fused_topk_share"] = {"last_wave": util, "cumulative": {
+            "hbm": fn["utilization_hbm"], "mxu": fn["utilization_mxu"],
+            "achieved_gbps": fn["achieved_gbps"], "calls": fn["calls"]}}
+        out["efficiency_peaks"] = eff["peaks"]
+        out["launch_shapes"] = eff["recompiles"]["functions"].get("als.fused_topk")
+        for d in ("h2d", "d2h"):
+            assert prom[("pio_device_transfer_bytes", (("direction", d),))] == (
+                device_obs.transfer_totals()[d])
+        # the stage histograms over every wave add up to the device seconds
+        stage_sum = sum(v for (n, _), v in prom.items()
+                        if n == "pio_microbatch_stage_seconds_sum")
+        dev_sum = prom[("pio_microbatch_device_seconds_sum", ())]
+        assert abs(stage_sum - dev_sum) <= 0.01 * dev_sum, (stage_sum, dev_sum)
+
+        # the memory gauges against the allocator, at the scrape
+        for _ in range(3):
+            before = (torch.cuda.memory_allocated(0), torch.cuda.memory_reserved(0))
+            _, text = obs_get(port, "/metrics")
+            after = (torch.cuda.memory_allocated(0), torch.cuda.memory_reserved(0))
+            if before == after:
+                break
+        prom = parse_prometheus(text)
+        gauges = (prom[("pio_jax_device_memory_bytes", (("device", "0"),))],
+                  prom[("pio_cuda_memory_reserved_bytes", (("device", "0"),))])
+        assert before == after == tuple(int(g) for g in gauges), (before, after, gauges)
+        out["memory_gauges"] = {"allocated": gauges[0], "reserved": gauges[1],
+                                "peak": prom[("pio_cuda_memory_peak_bytes",
+                                              (("device", "0"),))]}
+
+        # request ids: every answer's in the wave lines of /logs.json
+        status, logs = obs_get(port, "/logs.json?limit=1024")
+        seen = {rid for rec in logs["logs"] for rid in rec.get("request_ids") or ()}
+        ids = [r[2] for r in results]
+        assert len(set(ids)) == len(ids) and None not in ids
+        assert set(ids) <= seen, len(set(ids) - seen)
+        one = obs_get(port, f"/logs.json?request_id={ids[0]}")[1]["logs"]
+        assert one and ids[0] in one[0]["request_ids"]
+        # the last answers' decision records hold exactly their items
+        last = sorted(range(len(results)), key=lambda i: results[i][4])[-64:]
+        for i in last:
+            status, rec = obs_get(port, f"/explain.json?request_id={ids[i]}")
+            assert status == 200, (status, ids[i])
+            answered = json.loads(results[i][3])["itemScores"]
+            assert rec["record"]["items"] == [
+                {"item": x["item"], "score": x["score"]} for x in answered]
+        out["explain_checked"] = len(last)
+        status, flight = obs_get(port, "/debug/flight.json")
+        assert status == 200 and flight["slowest"], flight
+        for e in flight["slowest"]:
+            assert {"device_breakdown", "wave_size", "device_s"} <= set(e), e
+            split_err = abs(sum(e["device_breakdown"].values()) - e["device_s"])
+            assert split_err <= 0.01 * e["device_s"], e
+        out["flight"] = {"slowest": len(flight["slowest"]),
+                         "slowest_s": flight["slowest"][0]["duration_s"]}
+
+        # probes
+        status, health = obs_get(port, "/healthz", key=None)
+        assert status == 200 and health["status"] == "alive", health
+        assert obs_get(port, "/readyz", key=None)[0] == 401
+        status, ready = obs_get(port, "/readyz")
+        assert status == 200 and ready["ready"] and all(ready["checks"].values()), ready
+        out["readyz"] = ready["checks"]
+        status, hot = obs_get(port, "/hotpath.json")
+        assert status == 200
+        out["hotpath_coverage_frac"] = hot["coverage_frac"]
+
+        # the profiler during a second queued burst of device waves
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", f"/debug/profile?seconds={OBS_PROFILE_S}",
+                     headers={"Authorization": f"Bearer {OBS_KEY}"})
+        resp = conn.getresponse()
+        started = (resp.status, json.loads(resp.read()))
+        conn.close()
+        profile: dict = {"status": started[0]}
+        if started[0] == 202:
+            reset_launches()
+            mark = len(waves)
+            second = queued_burst(batcher, payloads, [{} for _ in payloads])
+            profiled = [w for w in waves[mark:] if w["fn"] == "als.fused_topk"]
+            profile["launches_during"] = read_launches()["fused_topk"]
+            assert {r[0] for r in second} == {"ok"}
+            assert profile["launches_during"] == len(profiled) > 0, profile
+            deadline = time.monotonic() + 120
+            while True:
+                status, st = obs_get(port, "/debug/profile")
+                if not st["running"]:
+                    break
+                assert time.monotonic() < deadline, "the capture never finished"
+                time.sleep(0.2)
+            last_cap = st["last"]
+            profile["error"] = last_cap["error"]
+            if last_cap["error"] is None:
+                ops = [o for o in last_cap["device_ops"] if "fused_topk" in o["name"]]
+                assert ops and all(o["device_time_us"] > 0 for o in ops), last_cap
+                profile["fused_topk_ops"] = ops
+                profile["top_device_ops"] = last_cap["device_ops"][:5]
+                # the launcher's events against the profiler, per launch:
+                # each pass's mean over the launches the capture holds
+                prof_ms = sum(o["device_time_us"] / o["count"] for o in ops) / 1e3
+                event_ms = 1e3 * sum(w["kernel_s"] for w in profiled) / len(profiled)
+                ratio = event_ms / prof_ms
+                profile.update({"profiler_ms_per_launch": prof_ms,
+                                "event_ms_per_launch": event_ms,
+                                "event_over_profiler": ratio})
+                assert 1 / OBS_EVENT_VS_PROFILER <= ratio <= OBS_EVENT_VS_PROFILER, profile
+        else:
+            assert started[0] == 501, started
+            profile["error"] = started[1]["message"]
+        if profile.get("error"):
+            print(f"profiler_error: {profile['error']}", flush=True)
+        out["profiler"] = profile
+    finally:
+        server.shutdown()
+        batcher.close()
+    return out
+
+
+def solo_cost_phase(storage) -> dict:
+    """What a solo query costs on each front end of the default deploy:
+    SOLO_REQUESTS sequential num=10 queries on one keep-alive connection
+    after SOLO_WARMUP (``solo_latency.run_kind``), the client's p50/p99 and
+    ``/hotpath.json``'s host stages per request."""
+    import solo_latency
+
+    users = np.random.default_rng(SEED + 41).integers(
+        0, ML20M_USERS, SOLO_WARMUP + SOLO_REQUESTS)
+    return {kind: solo_latency.run_kind(kind, storage, users, "cuda", SOLO_WARMUP)
+            for kind in ("aio", "threaded")}
+
+
 def front_end_phases() -> list[dict]:
     """The serving front end at the ML-20M shape: serve_concurrent,
-    pipelined_waves and reload on one seeded model."""
+    pipelined_waves, reload, observability and solo_cost on one seeded
+    model."""
     from predictionio_tpu_torch.data.storage.config import (
         StorageConfig,
         StorageRuntime,
@@ -1127,6 +1521,11 @@ def front_end_phases() -> list[dict]:
             lines.append(pipelined_waves_phase(storage, instance_id, U, V))
             emit(lines[-1])
             lines.append(reload_phase(storage, home, instance_id, U, V))
+            emit(lines[-1])
+            lines.append(observability_phase(storage, instance_id, U, V))
+            emit(lines[-1])
+            lines.append({"phase": "solo_cost", **solo_cost_phase(storage),
+                          "nvidia_smi": nvidia_smi_line()})
             emit(lines[-1])
         finally:
             storage.close()
@@ -1812,6 +2211,33 @@ def oom_ladder(u, i, r, p3, fused: dict, chunked: dict, want) -> dict:
     return out
 
 
+def pallas_step_share(before: dict, iterations: int) -> dict:
+    """The live roofline of the train just run: ``als.pallas_step``'s
+    least-work cost over its observed wall time per iteration, as
+    ``/efficiency.json`` reads it (the cumulative totals' growth since
+    ``before``), against the card's peak row: its share of the HBM rate
+    and of the fp32 rate, each in (0, 1.05]."""
+    from predictionio_tpu_torch.obs import device as device_obs
+    from predictionio_tpu_torch.obs.metrics import REGISTRY
+
+    after = device_obs.default_efficiency().snapshot()["functions"]["als.pallas_step"]
+    calls = after["calls"] - before.get("calls", 0)
+    secs = after["seconds_total"] - before.get("seconds_total", 0.0)
+    nbytes = after["bytes_total"] - before.get("bytes_total", 0.0)
+    flops = after["flops_total"] - before.get("flops_total", 0.0)
+    peaks = device_obs.device_peaks()
+    share = {"hbm": nbytes / secs / 1e9 / peaks.hbm_gbps,
+             "fp32": flops / secs / 1e12 / peaks.tflops}
+    gauge = REGISTRY.get("pio_device_utilization_frac").labels(
+        "als.pallas_step", "hbm").value
+    assert calls == 1 and after["source"] == "least_work", after
+    assert all(0 < v <= 1.05 for v in share.values()), share
+    assert abs(gauge - share["hbm"]) <= 1e-3 * share["hbm"], (gauge, share)
+    return {"share": share, "per_iteration_s": secs,
+            "iterations_s": secs * iterations, "bytes_per_iteration": nbytes,
+            "flops_per_iteration": flops, "peak_row": peaks.source}
+
+
 def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
     """``train_als`` at the ML-20M shape: 20 iterations fused (cold, then
     warm under torch.profiler), then 3 forced chunked, each cold train's
@@ -1819,6 +2245,7 @@ def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
     accumulate and solve times, staging, idle share, RMSE, and each
     kernel checked and timed at this shape.  Also returns the generated
     ratings, which the ALS family's train reuses."""
+    from predictionio_tpu_torch.obs import device as device_obs
     from predictionio_tpu_torch.ops import als
 
     out: dict = {"phase": "train_ml20m",
@@ -1834,6 +2261,8 @@ def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
     U0, V0 = als._init_factors(p, nu_pad, ni_pad, ML20M_USERS, ML20M_ITEMS, "cuda")
 
     base = fresh_peak()
+    eff0 = device_obs.default_efficiency().snapshot()["functions"].get(
+        "als.pallas_step", {})
     # -- the main path, fused, with every launch count at 0 just before it --
     reset_launches()
     t0 = time.perf_counter()
@@ -1841,6 +2270,7 @@ def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
     out["cold_train_s"] = time.perf_counter() - t0
     out["fused_launches"] = read_launches()
     # -- end --
+    out["pallas_step"] = pallas_step_share(eff0, ITERATIONS)
     out["fused_peak"] = peak_since(base)
     out["stage_s"] = als.LAST_PLAN_INFO["stage_s"]
     out["plan"] = {k: v for k, v in als.LAST_PLAN_INFO.items() if k != "stage_s"}
@@ -1863,17 +2293,28 @@ def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
     out["half_step_user"] = half_step_ms(su, Vp, p, "fused")
     out["half_step_item"] = half_step_ms(si, Up, p, "fused")
     fused_t = fused_timing(su, Vp, p)
+    # the train's roofline (wall time of the iterations) beside kernel 1's
+    # CUDA-event time for the 40 half-steps' accumulations (user half-step
+    # time x 40)
+    out["pallas_step"]["kernel1_user_half_step_ms_x40"] = 40 * fused_t["ms"]
+    print(f"pallas_step: share {out['pallas_step']['share']} at "
+          f"{out['pallas_step']['iterations_s']:.4f} s for {ITERATIONS} iterations; "
+          f"kernel 1 CUDA-event time x 40: "
+          f"{out['pallas_step']['kernel1_user_half_step_ms_x40']:.3f} ms", flush=True)
     del su, si
 
     # -- the main path, chunked, with every launch count at 0 just before it --
     p3 = dataclasses.replace(p, num_iterations=3, pallas_mode="chunked")
     base = fresh_peak()
+    eff0 = device_obs.default_efficiency().snapshot()["functions"]["als.pallas_step"]
     reset_launches()
     t0 = time.perf_counter()
     st3 = als.train_als(u, i, r, ML20M_USERS, ML20M_ITEMS, p3, device="cuda")
     out["chunked_train_s"] = time.perf_counter() - t0
     out["chunked_launches"] = read_launches()
     # -- end --
+    # the chunked rung on the roofline: kernel 2's least work per iteration
+    out["pallas_step_chunked"] = pallas_step_share(eff0, 3)
     out["chunked_peak"] = peak_since(base)
     out["chunked_plan"] = {k: v for k, v in als.LAST_PLAN_INFO.items() if k != "stage_s"}
     chunks = als.LAST_PLAN_INFO["chunks_user"] + als.LAST_PLAN_INFO["chunks_item"]
@@ -2862,6 +3303,42 @@ def live_loop(home: Path, instance_id: str, key: str, users: list) -> dict:
     return out
 
 
+def compute_app_pids() -> list[int]:
+    """PIDs holding a CUDA context, as nvidia-smi lists them."""
+    text = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    return [int(x) for x in text.split() if x.strip().isdigit()]
+
+
+def eventserver_obs(port: int, pid: int, accepted: int) -> dict:
+    """The ``pio eventserver`` subprocess's scrape surface (no operator
+    key): ``/metrics`` counts every accepted event in
+    ``pio_events_ingested_total``, ``/readyz`` answers 200 with both stores
+    up, the debug routes do not exist, and the scrapes made no CUDA
+    context: the subprocess is not among nvidia-smi's compute apps, and
+    their count is what it was before the scrapes."""
+    apps_before = compute_app_pids()
+    status, text = obs_get(port, "/metrics", key=None)
+    assert status == 200
+    prom = parse_prometheus(text)
+    ingested = sum(v for (n, _), v in prom.items() if n == "pio_events_ingested_total")
+    status, ready = obs_get(port, "/readyz", key=None)
+    assert status == 200 and ready == {
+        "ready": True, "checks": {"event_store": True, "metadata_store": True}}, ready
+    assert obs_get(port, "/healthz", key=None)[0] == 200
+    assert obs_get(port, "/debug/flight.json", key=None)[0] == 404
+    assert obs_get(port, "/metrics.json", key=None)[0] == 200
+    apps_after = compute_app_pids()
+    assert ingested == accepted, (ingested, accepted)
+    assert pid not in apps_after, (pid, apps_after)
+    assert len(apps_after) == len(apps_before), (apps_before, apps_after)
+    return {"ingested_total": ingested, "readyz": ready["checks"],
+            "compute_apps": apps_after, "eventserver_pid": pid,
+            "own_pid_listed": os.getpid() in apps_after}
+
+
 def event_ingest_phase() -> dict:
     """The Lambda path through the port's entry points on a fresh home:
     ``app new`` and ``accesskey new``; ``eventserver --stats`` as a
@@ -2934,6 +3411,7 @@ def event_ingest_phase() -> dict:
                 x["count"] for x in stats.get("previousHour", {}).get("basic", []))
             assert status == 200 and counted == len(sent), (status, counted)
             out["stats_counted"] = counted
+            out["eventserver_obs"] = eventserver_obs(port, proc.pid, len(sent))
             out["shed"] = shed_probe()
             tied = tied_stream(rates)
             res, wall = run_clients(port, [
@@ -3044,6 +3522,18 @@ def main() -> int:
     emit(main_path)
     emit(off_menu_phase())
     front_end = front_end_phases()
+    # what the serving paths cost with the observability layer in place:
+    # solo queries on a warmed keep-alive connection, and serve_concurrent
+    solo = front_end[4]
+    emit({
+        "phase": "layer_cost",
+        "solo_requests": {kind: solo[kind]["requests"] for kind in ("aio", "threaded")},
+        "solo_p50_ms": {kind: solo[kind]["p50_ms"] for kind in ("aio", "threaded")},
+        "solo_p99_ms": {kind: solo[kind]["p99_ms"] for kind in ("aio", "threaded")},
+        "serve_concurrent_queries_per_s": front_end[0]["queries_per_s"],
+        "serve_concurrent_p99_ms": front_end[0]["client_p99_ms"],
+        "nvidia_smi": nvidia_smi_line(),
+    })
     cli_train = train_cli_phase()
     emit(cli_train)
     ml20m, fused_t, chunk_t, ratings = train_ml20m_phase()
@@ -3092,6 +3582,8 @@ def main() -> int:
                     "launches_pipelined_waves": front_end[1]["launches"]["fused_topk"],
                     # pio batchpredict of every user over the REST-fed model
                     "launches_event_ingest": ingest["batchpredict_launches"]["fused_topk"],
+                    # the observability phase's device waves (its queued burst)
+                    "launches_observability": front_end[3]["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),

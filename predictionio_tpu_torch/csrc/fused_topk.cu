@@ -585,12 +585,17 @@ template <int QI>
 static cudaError_t launch_partial(const float* q, const float* t, int B, int N,
                                   int r, int k, int limit, int rows_per_split,
                                   int n_splits, float* cand_v, int* cand_i,
-                                  float* out, cudaStream_t s) {
+                                  float* out, cudaStream_t s,
+                                  cudaEvent_t started) {
   const size_t smem = partial_smem(r, k, 8 * QI);
   cudaError_t err = cudaFuncSetAttribute(
       fused_topk_partial<QI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  if (started != nullptr) {
+    err = cudaEventRecord(started, s);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((B + 8 * QI - 1) / (8 * QI), n_splits);
   fused_topk_partial<QI><<<grid, kThreads, smem, s>>>(
       q, t, B, N, r, k, limit, rows_per_split, n_splits, cand_v, cand_i, out);
@@ -621,30 +626,42 @@ extern "C" int pio_device_smem(int device, int* limits) {
 }
 
 // Launch pass 1 for blocks of qpc queries (8 or 32) and, with more than one
-// split, pass 2 on `stream`; returns the first cudaGetLastError() that is
-// not cudaSuccess, else 0.  Scratch cand_v [B, n_splits, k] f32 and cand_i
+// split, pass 2 on `stream`; returns the first CUDA error that is not
+// cudaSuccess, else 0.  Scratch cand_v [B, n_splits, k] f32 and cand_i
 // [B, n_splits, k] i32 (unused with one split) and the output out [2, B, k]
 // f32 are allocated by the caller; the caller also checks shapes and that
-// the shared memory fits (kernel_geometry).
+// the shared memory fits (kernel_geometry).  `started` and `ended`, when not
+// null, are timing events recorded on `stream` just before pass 1 and just
+// after the last pass, with no host work between them but the launches: their
+// elapsed time is the kernel's own.
 extern "C" int pio_fused_topk(const float* q, const float* t, int B, int N,
                               int r, int k, int limit, int qpc,
                               int rows_per_split, int n_splits, float* cand_v,
-                              int* cand_i, float* out, void* stream) {
+                              int* cand_i, float* out, void* stream,
+                              void* started, void* ended) {
   if (k < 1 || k > kMaxK || r < 1 || B < 1 || n_splits < 1 ||
       rows_per_split < 1 || rows_per_split % kTileRows != 0 ||
       (qpc != 8 && qpc != 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaEvent_t ev0 = static_cast<cudaEvent_t>(started);
   cudaError_t err =
       qpc == 32 ? launch_partial<4>(q, t, B, N, r, k, limit, rows_per_split,
-                                    n_splits, cand_v, cand_i, out, s)
+                                    n_splits, cand_v, cand_i, out, s, ev0)
                 : launch_partial<1>(q, t, B, N, r, k, limit, rows_per_split,
-                                    n_splits, cand_v, cand_i, out, s);
-  if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
-  const dim3 grid2((B + kMergeWarps - 1) / kMergeWarps);
-  fused_topk_merge<<<grid2, kMergeWarps * 32,
-                     kMergeWarps * 6 * k * sizeof(float), s>>>(
-      cand_v, cand_i, B, n_splits, k, out);
-  return static_cast<int>(cudaGetLastError());
+                                    n_splits, cand_v, cand_i, out, s, ev0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_splits > 1) {
+    const dim3 grid2((B + kMergeWarps - 1) / kMergeWarps);
+    fused_topk_merge<<<grid2, kMergeWarps * 32,
+                       kMergeWarps * 6 * k * sizeof(float), s>>>(
+        cand_v, cand_i, B, n_splits, k, out);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (ended != nullptr) {
+    err = cudaEventRecord(static_cast<cudaEvent_t>(ended), s);
+  }
+  return static_cast<int>(err);
 }

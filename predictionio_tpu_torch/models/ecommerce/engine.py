@@ -22,9 +22,11 @@ time —
 
 The live reads go to the storage of the context that trained or loaded the
 model (``ECommModel.storage``): a deploy's ``Binding`` instantiates its own
-algorithm objects, so the model, not the algorithm, carries it.  The JAX
-package also records provenance notes and wave-timeline marks on this
-path; the port has neither yet.
+algorithm objects, so the model, not the algorithm, carries it.  Each
+answer's provenance records the filter sizes, the event-history watermark
+it read and the engine path it took; the user-row gather is a
+``host_gather`` mark on the wave timeline, and a factor-cache hit is noted
+there, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.storage.config import StorageRuntime
 from predictionio_tpu_torch.data.store import LEventStore
 from predictionio_tpu_torch.models.filters import exclude_mask
+from predictionio_tpu_torch.obs import device as device_obs
+from predictionio_tpu_torch.obs import provenance
 from predictionio_tpu_torch.models.similarproduct.engine import (
     Item,
     ItemScore,
@@ -346,6 +350,7 @@ class ECommAlgorithm(Algorithm):
         model alone, marked degraded, never errored (the reference
         template's timeout-to-empty-list semantics, made visible)."""
         seen: set[str] = set()
+        watermark = None
         if self.params.unseen_only:
             try:
                 for e in store.find_by_entity(
@@ -357,6 +362,8 @@ class ECommAlgorithm(Algorithm):
                 ):
                     if e.target_entity_id is not None:
                         seen.add(e.target_entity_id)
+                    if watermark is None or e.event_time > watermark:
+                        watermark = e.event_time
             except Exception:
                 mark_degraded("seen_filter")
                 seen = set()  # timeout semantics: empty seen list
@@ -375,6 +382,22 @@ class ECommAlgorithm(Algorithm):
         except Exception:
             mark_degraded("unavailable_items")
             unavailable = set()
+        provenance.note(
+            filters={
+                "seen": len(seen),
+                "unavailable": len(unavailable),
+                "black_list": len(query.black_list or ()),
+            }
+        )
+        if watermark is not None:
+            # newest event-history timestamp the answer depended on: the
+            # freshness watermark a replay cannot honor once later events
+            # land
+            provenance.note(event_watermark=watermark.isoformat())
+        provenance.note_deep(
+            seen_items=provenance.clip(seen),
+            unavailable_items=provenance.clip(unavailable),
+        )
         return seen | unavailable | set(query.black_list or ())
 
     def _recent_items(self, store: LEventStore, query: Query) -> list[str]:
@@ -393,7 +416,15 @@ class ECommAlgorithm(Algorithm):
                     latest=True,
                 )
             )
-            return [e.target_entity_id for e in events if e.target_entity_id]
+            recent = [e.target_entity_id for e in events if e.target_entity_id]
+            provenance.note(filters_recent=len(recent))
+            if events:
+                # latest=True: the first event is the newest consulted
+                provenance.note(
+                    event_watermark=events[0].event_time.isoformat()
+                )
+            provenance.note_deep(recent_items=provenance.clip(recent))
+            return recent
         except Exception:
             mark_degraded("recent_items")
             return []
@@ -418,11 +449,13 @@ class ECommAlgorithm(Algorithm):
         cache = device_cache.model_cache(model)
         row = cache.get(user)
         if row is not None:
+            device_obs.note_cache_hit()
             return row
         uidx = model.user_vocab.get(user)
         if uidx is None:
             return None
-        row = model.user_factors[uidx]
+        with device_obs.wave_stage("host_gather"):
+            row = model.user_factors[uidx]
         cache.put(user, row)
         return row
 
@@ -437,6 +470,7 @@ class ECommAlgorithm(Algorithm):
         F = model.item_factors
         qrow = self._user_row(model, query.user)
         if qrow is not None:
+            provenance.note(engine_path="ecomm.dot_topk")
             scores, idx = dot_topk(qrow, F, mask_on_device(exclude, F), k)
             return self._to_result(model, scores, idx)
         recent = [
@@ -445,11 +479,13 @@ class ECommAlgorithm(Algorithm):
             if (i := model.item_vocab.get(x)) is not None
         ]
         if recent:
+            provenance.note(engine_path="ecomm.cosine_topk")
             scores, idx = cosine_topk(
                 rows_on_device(F, recent), F, mask_on_device(exclude, F), k
             )
             return self._to_result(model, scores, idx)
         # popularity fallback
+        provenance.note(engine_path="ecomm.popularity")
         pop = np.where(exclude, -1, model.popular_counts)
         order = np.argsort(-pop, kind="stable")[:k]
         return PredictedResult(

@@ -24,10 +24,23 @@ either package deploys on the other.
   the fused menu (k > 128) takes ``full_row_topk`` on the same device: a
   full score row and a stable sort, on the card as on the CPU, the JAX
   package's ``_device_score_topk`` route.
+
+Observability, as the JAX package places it: host stage marks on the wave
+timeline (``host_gather`` the vocabulary lookups, ``h2d`` the enqueue of
+the ids' upload, ``compute`` the wait in the fence, ``d2h`` the read of
+the pinned result), the bytes that actually cross (the ids up, the packed
+result down; nothing on the CPU, where no copy happens), the launch shape
+per wave (``default_recompiles().note_signature``), the engine path of each
+route in the answer's provenance, and the wave's device time: the fused
+kernel's CUDA-event time, recorded by its launcher around its two passes
+and read after the wave's own fence, which feeds ``/efficiency.json``
+(``als.fused_topk``; ``als.batch_topk`` off the menu, its library calls
+bracketed from Python) against the least work of the same top-k.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -45,13 +58,17 @@ from predictionio_tpu_torch.core.base import (
 from predictionio_tpu_torch.core.engine import Engine, engine_factory
 from predictionio_tpu_torch.core.warmstart import align_warm_factors, find_warm_start
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.obs import device as device_obs
+from predictionio_tpu_torch.obs import provenance
 from predictionio_tpu_torch.ops.als import ALSParams, train_als
 from predictionio_tpu_torch.ops.topk import (
     full_row_topk,
     fused_supported,
     fused_topk_batch,
+    fused_topk_least_work,
     host_topk,
     host_topk_batch,
+    query_block,
 )
 
 # ---------------------------------------------------------------------------
@@ -336,9 +353,13 @@ class ALSAlgorithm(Algorithm):
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         """Solo-query path: host numpy replica (P2L local-model serving)."""
-        uidx = model.user_vocab.get(query.user)
+        provenance.note(engine_path="als.host_replica")
+        with device_obs.wave_stage("host_gather"):
+            uidx = model.user_vocab.get(query.user)
         if uidx is None:
-            return PredictedResult()  # unknown user (reference returns empty)
+            # unknown user (reference returns empty)
+            provenance.note(unknown_entity=query.user)
+            return PredictedResult()
         Uh, Vh = model.host_factors()
         k = min(query.num, len(model.item_vocab))
         scores, idx = host_topk(Vh @ Uh[uidx], k)
@@ -387,7 +408,8 @@ class ALSAlgorithm(Algorithm):
         """Host-replica wave: one [B, rank] x [rank, n] numpy matmul +
         batched top-k (the JAX package's arithmetic, so the same answers)."""
         Uh, Vh = model.host_factors()
-        qrows = np.stack([Uh[u] for _, u, _ in rows])
+        with device_obs.wave_stage("host_gather"):
+            qrows = np.stack([Uh[u] for _, u, _ in rows])
         return host_topk_batch(qrows @ Vh.T, k)
 
     def _device_topk(self, model: ALSModel, uidx: np.ndarray, k: int):
@@ -401,37 +423,99 @@ class ALSAlgorithm(Algorithm):
 
         On a card, everything is enqueued at dispatch on the model's device
         and its current stream: the ids' upload from pinned memory, the
-        gather, the kernel, and the result's copy into a pinned host buffer
-        (``non_blocking``), then a CUDA event.  The fence waits for that
-        event alone, so a pipelined wave N's fence never waits for wave
-        N+1's work, which the worker enqueues behind it on the same
-        stream (a blocking ``.cpu()`` there would)."""
+        gather, the kernel between its launcher's two timing events, the
+        result's copy into a pinned host buffer (``non_blocking``), then a
+        CUDA event.  The fence waits for that event alone, so a pipelined
+        wave N's fence never waits for wave N+1's work, which the worker
+        enqueues behind it on the same stream (a blocking ``.cpu()`` there
+        would).  After the wait, the timing pair's elapsed time is the
+        kernel's own time on the card: that, never the host's wait or its
+        enqueue gaps, is what the roofline observes."""
         U, V = model.user_factors, model.item_factors
+        n_items, rank = int(V.shape[0]), int(V.shape[1])
+        fn = (
+            "als.fused_topk" if fused_supported(len(uidx), k, n_items)
+            else "als.batch_topk"
+        )
+        shapes = tuple(U.shape) + tuple(V.shape)
+        # the wave's work, which the cost is keyed on: its rows count
+        sig = (len(uidx), k) + shapes
+        # the launch shape: what picks the built variant (k, the fused
+        # kernel's query block) and the factor shapes, never the row count,
+        # which micro-batching changes every wave with no new build
+        block = query_block(len(uidx), k) if fn == "als.fused_topk" else 0
+        device_obs.default_recompiles().note_signature(fn, (k, block) + shapes)
+        # the least work of the top-k of q·tᵀ (both routes compute it)
+        cost = fused_topk_least_work(len(uidx), rank, n_items, k)
+        device_obs.default_efficiency().record_cost(
+            fn, cost["flops"], cost["bytes"], signature=sig,
+            source="least_work",
+        )
         ids = torch.from_numpy(uidx.astype(np.int64))
         if U.device.type != "cuda":
-            packed = self._topk_on(U, V, ids.to(U.device), k)
-            return lambda: self._unpack(packed.numpy())
+            # the CPU computes inline: its device time is the host span
+            t0 = time.perf_counter()
+            with device_obs.wave_stage("compute"):
+                packed = self._topk_on(U, V, ids.to(U.device), k)
+            self._observe_wave(fn, sig, cost, time.perf_counter() - t0, U)
+
+            def fence_cpu():
+                with device_obs.wave_stage("d2h"):
+                    return self._unpack(packed.numpy())
+
+            return fence_cpu
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device)
-            ids = ids.pin_memory().to(U.device, non_blocking=True)
-            packed = self._topk_on(U, V, ids, k)
+            with device_obs.wave_stage("h2d"):
+                ids = ids.pin_memory().to(U.device, non_blocking=True)
+            timing = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            packed = self._topk_on(U, V, ids, k, timing)
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
+        device_obs.note_transfer("h2d", ids.numel() * ids.element_size())
 
         def fence():
-            done.synchronize()
-            return self._unpack(host.numpy())
+            with device_obs.wave_stage("compute"):
+                done.synchronize()
+            # both timing events precede ``done`` on the stream: complete
+            self._observe_wave(
+                fn, sig, cost, timing[0].elapsed_time(timing[1]) / 1e3, U
+            )
+            with device_obs.wave_stage("d2h"):
+                out = self._unpack(host.numpy())
+            device_obs.note_transfer("d2h", host.numel() * host.element_size())
+            return out
 
         return fence
 
     @staticmethod
-    def _topk_on(U: torch.Tensor, V: torch.Tensor, ids: torch.Tensor, k: int):
+    def _observe_wave(fn, sig, cost, kernel_s: float, U: torch.Tensor) -> None:
+        """One wave's device time onto the roofline and the wave timeline
+        (the flight and provenance meta read it from there)."""
+        device_obs.note_wave_device(device_obs.device_label(U))
+        device_obs.note_wave_cost(fn, cost)
+        device_obs.note_wave_kernel(kernel_s)
+        device_obs.default_efficiency().observe(fn, kernel_s, signature=sig)
+
+    @staticmethod
+    def _topk_on(U: torch.Tensor, V: torch.Tensor, ids: torch.Tensor, k: int,
+                 timing: tuple | None = None):
+        """The packed top-k of the ``ids`` rows of U against V on their
+        device.  ``timing``, a pair of timing events, brackets the fused
+        kernel from inside its launcher; off the menu, the full-row route's
+        library calls, recorded around them from here."""
         q = U.index_select(0, ids)
         if fused_supported(len(ids), k, V.shape[0]):
-            return fused_topk_batch(q, V, k, name="als.fused_topk")
-        return full_row_topk(q, V, k, where="als.batch_topk")
+            return fused_topk_batch(q, V, k, name="als.fused_topk", timing=timing)
+        if timing is not None:
+            timing[0].record()
+        out = full_row_topk(q, V, k, where="als.batch_topk")
+        if timing is not None:
+            timing[1].record()
+        return out
 
     @staticmethod
     def _unpack(arr: np.ndarray):
@@ -448,8 +532,10 @@ class ALSAlgorithm(Algorithm):
         if rows:
             k = max(min(q.num, len(model.item_vocab)) for _, _, q in rows)
             if len(rows) >= self.DEVICE_BATCH_MIN:
+                provenance.note(engine_path="als.device_topk")
                 top_s, top_i = self._device_topk(model, self._uidx(rows), k)()
             else:
+                provenance.note(engine_path="als.host_replica")
                 top_s, top_i = self._host_topk_rows(model, rows, k)
             out.extend(self._render_rows(model, rows, top_s, top_i))
         return out
@@ -464,13 +550,16 @@ class ALSAlgorithm(Algorithm):
         iq = list(indexed_queries)
         if len(iq) < self.DEVICE_BATCH_MIN and not force:
             return None
-        rows, missing = self._split_known(model, iq)
+        with device_obs.wave_stage("host_gather"):
+            rows, missing = self._split_known(model, iq)
+            uidx = self._uidx(rows)
         if len(rows) < self.DEVICE_BATCH_MIN and not force:
             return None  # mostly-unknown wave fell under the device floor
         if not rows:
             return lambda: missing
         k = max(min(q.num, len(model.item_vocab)) for _, _, q in rows)
-        fence = self._device_topk(model, self._uidx(rows), k)
+        provenance.note(engine_path="als.device_topk")
+        fence = self._device_topk(model, uidx, k)
 
         def finalize():
             top_s, top_i = fence()

@@ -1,34 +1,82 @@
-"""Dependency-free metrics registry.
+"""Dependency-free metrics registry with Prometheus text exposition.
 
-The JAX package's ``obs/metrics.py`` families: thread-safe ``Counter`` /
-``Gauge`` / ``Histogram`` children keyed by label values, collected in a
-``MetricsRegistry``.  The serving front end records into it under the JAX
-package's names (``pio_microbatch_*``, ``pio_shed_total``,
-``pio_inflight_requests``, ``pio_request_latency_seconds``,
-``pio_degraded_total``, ``pio_factor_cache_*``).  The
-exposition routes (``/metrics``, ``/metrics.json``), the scrape history and
-lock-wait metering come with the port's observability slice.
+The JAX package's ``obs/metrics.py``, stdlib only: thread-safe
+``Counter`` / ``Gauge`` / ``Histogram`` families keyed by label values,
+collected in a ``MetricsRegistry`` and rendered either as Prometheus text
+format (``GET /metrics``) or JSON (``GET /metrics.json``, with p50/p95/p99
+per histogram), with a scrape-cadence history ring (``MetricsHistory``) and
+the window algebra of ``delta_snapshot`` / ``subtract_snapshots``.  The
+serving front end records into it under the JAX package's names, so one
+dashboard reads either package.
 
 Histograms are log-bucketed over FIXED boundaries (``LATENCY_BUCKETS``,
-10 µs – 10 s, four buckets per decade); size-shaped quantities (batch
-sizes, queue depths) use the power-of-two ``SIZE_BUCKETS``.  A family's
-buckets are fixed at creation so every child shares them.
+10 µs – 10 s, four buckets per decade) so two histograms — or the same
+histogram sampled at two moments — merge by elementwise addition with no
+allocation or boundary negotiation.  Size-shaped quantities (batch sizes,
+queue depths) use the power-of-two ``SIZE_BUCKETS``; a family's buckets are
+fixed at creation so every child shares them.
+
+The hot-path cost of ``observe``/``inc`` is one ``bisect`` plus one lock
+acquire (sub-microsecond on CPython).
 """
 
 from __future__ import annotations
 
+import json
+import math
 import threading
 from bisect import bisect_left
-from typing import Any
+from collections import deque
+from typing import Any, Iterable, Mapping
+
+from predictionio_tpu_torch.obs.contention import ContendedLock
 
 #: Fixed log-spaced bucket upper bounds in seconds: 10 µs .. 10 s, four per
-#: decade.  Shared by every latency histogram.
+#: decade.  Shared by every latency histogram so merging is allocation-free.
 LATENCY_BUCKETS: tuple[float, ...] = tuple(
     round(10.0 ** (e + f / 4.0), 12) for e in range(-5, 1) for f in range(4)
 ) + (10.0,)
 
 #: Power-of-two bounds for size-shaped histograms (batch size, queue depth).
 SIZE_BUCKETS: tuple[float, ...] = tuple(float(2**i) for i in range(13))
+
+#: Coarser bounds for second-to-hour-scale stages (kernel builds, long batch
+#: jobs): 1 ms – 10 000 s, two buckets per decade.  The serving-latency set
+#: tops out at 10 s, which would clamp train-stage quantiles.
+STAGE_BUCKETS: tuple[float, ...] = tuple(
+    round(10.0 ** (e + f / 2.0), 9) for e in range(-3, 4) for f in range(2)
+) + (10000.0,)
+
+#: Train/eval span bounds: 100 µs – 600 s.  Bucket bounds are configurable
+#: per histogram family (``buckets=``); this is the set ``pio_span_seconds``
+#: uses, chosen so sub-millisecond eval folds AND 40 s+ train/event-store
+#: stages both keep meaningful quantiles — a range that tops out
+#: at 10 s silently pins a 40 s stage's p99 to 10 s.
+TRAIN_BUCKETS: tuple[float, ...] = tuple(
+    round(10.0 ** (e + f / 2.0), 9) for e in range(-4, 3) for f in range(2)
+) + (600.0,)
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value / ``le`` formatting ('+Inf', trim zeros)."""
+    if v == math.inf:
+        return "+Inf"
+    if float(v).is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _labels_text(names: tuple[str, ...], values: tuple[str, ...]) -> str:
+    if not names:
+        return ""
+    inner = ",".join(
+        f'{n}="{_escape_label(v)}"' for n, v in zip(names, values)
+    )
+    return "{" + inner + "}"
 
 
 class Counter:
@@ -78,8 +126,13 @@ class Gauge:
 
 
 class Histogram:
-    """Cumulative log-bucketed histogram over fixed bounds: ``counts[i]``
-    counts observations ``<= bounds[i]``; the final slot is +Inf."""
+    """Cumulative log-bucketed histogram over fixed bounds.
+
+    ``counts[i]`` counts observations ``<= bounds[i]``; the final slot is
+    the +Inf bucket.  All mutation happens under one lock; ``merge_counts``
+    on two snapshots is plain elementwise addition because bounds are fixed
+    per family.
+    """
 
     __slots__ = ("_lock", "bounds", "_counts", "_sum", "_count")
 
@@ -97,6 +150,25 @@ class Histogram:
             self._sum += value
             self._count += 1
 
+    def observe_many(self, value: float, n: int) -> None:
+        """Record ``n`` identical observations with one bucket update.
+
+        Used by row-weighted observers (e.g. visibility lag weighted by
+        segment row count) where per-row ``observe`` calls would be O(rows).
+        """
+        if n <= 0:
+            return
+        idx = bisect_left(self.bounds, value)
+        with self._lock:
+            self._counts[idx] += n
+            self._sum += value * n
+            self._count += n
+
+    def snapshot(self) -> tuple[list[int], float, int]:
+        """(per-bucket counts, sum, count) — consistent under the lock."""
+        with self._lock:
+            return list(self._counts), self._sum, self._count
+
     @property
     def count(self) -> int:
         return self._count
@@ -105,8 +177,36 @@ class Histogram:
     def sum(self) -> float:
         return self._sum
 
+    def quantile(self, q: float) -> float:
+        """Approximate quantile from bucket counts (upper-bound linear
+        interpolation within the winning bucket; +Inf bucket reports the
+        largest finite bound)."""
+        counts, _, total = self.snapshot()
+        return quantile_from_buckets(self.bounds, counts, total, q)
 
-_KINDS = {"counter": Counter, "gauge": Gauge}
+
+def quantile_from_buckets(
+    bounds: Iterable[float], counts: list[int], total: int, q: float
+) -> float:
+    """Shared bucket→quantile math (also used by benchmark snapshots)."""
+    bounds = list(bounds)
+    if total <= 0:
+        return 0.0
+    rank = q * total
+    seen = 0
+    for i, c in enumerate(counts):
+        if c == 0:
+            continue
+        lo = bounds[i - 1] if 0 < i <= len(bounds) else 0.0
+        hi = bounds[i] if i < len(bounds) else bounds[-1]
+        if seen + c >= rank:
+            frac = (rank - seen) / c
+            return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+        seen += c
+    return bounds[-1]
+
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
 
 
 class MetricFamily:
@@ -134,26 +234,133 @@ class MetricFamily:
             raise ValueError(
                 f"{self.name}: expected labels {self.labelnames}, got {key}"
             )
-        with self._lock:
-            child = self._children.get(key)
-            if child is None:
-                child = (
-                    Histogram(self.buckets)
-                    if self.kind == "histogram"
-                    else _KINDS[self.kind]()
-                )
-                self._children[key] = child
+        child = self._children.get(key)
+        if child is None:
+            with self._lock:
+                child = self._children.get(key)
+                if child is None:
+                    child = (
+                        Histogram(self.buckets)
+                        if self.kind == "histogram"
+                        else _KINDS[self.kind]()
+                    )
+                    self._children[key] = child
         return child
+
+    def series(self) -> list[tuple[tuple[str, ...], Any]]:
+        with self._lock:
+            return sorted(self._children.items())
+
+
+def history_depth_from_env(default: int = 60) -> int:
+    """``PIO_METRICS_HISTORY_DEPTH`` (default 60) — how many scrape-cadence
+    samples each series ring retains.  Deeper rings buy longer sparkline /
+    incident-bundle trends at ``depth × series-cardinality`` floats of
+    memory; a malformed value falls back to the default rather than
+    killing server startup over a typo."""
+    import os
+
+    raw = os.environ.get("PIO_METRICS_HISTORY_DEPTH")
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
+
+
+class MetricsHistory:
+    """Bounded per-series history ring, sampled on scrape.
+
+    One fixed-depth deque per (family name, label values): counters and
+    gauges record their value, histograms their p95 — enough for the
+    dashboard sparklines (model quality, serving latency) without a
+    time-series backend.  ``sample`` is called by the ``/metrics``(.json)
+    scrape handlers and by the dashboard render, so the ring advances at
+    scrape cadence and memory stays ``depth × series-cardinality`` (series
+    cardinality is already bounded upstream by the label guards).  Depth
+    comes from ``PIO_METRICS_HISTORY_DEPTH`` unless passed explicitly; the
+    rings are folded into incident bundles (obs/incident.py) so a
+    post-mortem sees the pre-incident trend, not just the moment of death.
+    """
+
+    def __init__(self, depth: int | None = None):
+        if depth is None:
+            depth = history_depth_from_env()
+        self.depth = max(depth, 2)
+        self._lock = threading.Lock()
+        self._series: dict[tuple[str, tuple[str, ...]], deque[float]] = {}
+
+    def sample(self, registry: "MetricsRegistry") -> None:
+        for fam in registry.families():
+            for lv, child in fam.series():
+                if fam.kind == "histogram":
+                    counts, _, count = child.snapshot()
+                    value = quantile_from_buckets(
+                        fam.buckets, counts, count, 0.95
+                    )
+                else:
+                    value = child.value
+                key = (fam.name, lv)
+                with self._lock:
+                    dq = self._series.get(key)
+                    if dq is None:
+                        dq = self._series[key] = deque(maxlen=self.depth)
+                    dq.append(float(value))
+
+    def series(
+        self, name: str, labels: tuple[str, ...] = ()
+    ) -> list[float]:
+        """Sampled values for one series, oldest first."""
+        with self._lock:
+            dq = self._series.get((name, tuple(labels)))
+            return list(dq) if dq else []
+
+    def items(self, name: str) -> list[tuple[tuple[str, ...], list[float]]]:
+        """Every sampled series of one family: (label values, history)."""
+        with self._lock:
+            return sorted(
+                (lv, list(dq))
+                for (n, lv), dq in self._series.items()
+                if n == name
+            )
+
+    def snapshot(self) -> dict[str, Any]:
+        """Every ring, JSON-shaped — the incident bundle's ``history``
+        section (oldest sample first per series)."""
+        with self._lock:
+            items = sorted(
+                (name, lv, list(dq))
+                for (name, lv), dq in self._series.items()
+            )
+        out: dict[str, Any] = {"depth": self.depth, "series": {}}
+        for name, lv, values in items:
+            out["series"].setdefault(name, []).append(
+                {"labels": list(lv), "values": values}
+            )
+        return out
 
 
 class MetricsRegistry:
-    """Thread-safe name -> :class:`MetricFamily` registry.  Re-declaring a
-    family with the same (kind, labelnames, buckets) returns the existing
-    one, so call sites declare their metrics where they are built."""
+    """Thread-safe name → :class:`MetricFamily` registry.
+
+    Re-declaring a family with the same (kind, labelnames) returns the
+    existing one, so instrumentation points can declare their metrics at
+    call-site construction time without coordinating module import order.
+    Each registry owns a :class:`MetricsHistory` (``.history``) fed on every
+    scrape — the sparkline backing store.
+    """
 
     def __init__(self):
-        self._lock = threading.Lock()
+        # every call-site family lookup (incl. one per finished span)
+        # funnels through this lock, so its blocked acquisitions are
+        # metered; prime() resolves the lock's own metric children while
+        # nothing can hold it yet — lazy resolution inside a contended
+        # acquire would re-enter this registry under its own lock
+        self._lock = ContendedLock("metrics_registry", registry=self)
         self._families: dict[str, MetricFamily] = {}
+        self.history = MetricsHistory()
+        self._lock.prime()
 
     def _family(
         self,
@@ -209,7 +416,205 @@ class MetricsRegistry:
         with self._lock:
             return self._families.get(name)
 
+    def families(self) -> list[MetricFamily]:
+        with self._lock:
+            return [self._families[k] for k in sorted(self._families)]
 
-#: Process-global default registry — what servers and the MicroBatcher
-#: record into unless handed an explicit registry.
+    # -- exposition ----------------------------------------------------------
+    def render_prometheus(self) -> str:
+        """Prometheus text format 0.0.4."""
+        out: list[str] = []
+        for fam in self.families():
+            out.append(f"# HELP {fam.name} {fam.help}")
+            out.append(f"# TYPE {fam.name} {fam.kind}")
+            for lv, child in fam.series():
+                base = _labels_text(fam.labelnames, lv)
+                if fam.kind in ("counter", "gauge"):
+                    out.append(f"{fam.name}{base} {_fmt(child.value)}")
+                    continue
+                counts, total_sum, count = child.snapshot()
+                cum = 0
+                for bound, c in zip(
+                    list(fam.buckets) + [math.inf], counts
+                ):
+                    cum += c
+                    le = _labels_text(
+                        fam.labelnames + ("le",), lv + (_fmt(bound),)
+                    )
+                    out.append(f"{fam.name}_bucket{le} {cum}")
+                out.append(f"{fam.name}_sum{base} {repr(total_sum)}")
+                out.append(f"{fam.name}_count{base} {count}")
+        return "\n".join(out) + "\n" if out else ""
+
+    def render_json(self) -> dict[str, Any]:
+        """JSON exposition: the same data shaped for programs."""
+        out: dict[str, Any] = {}
+        for fam in self.families():
+            series = []
+            for lv, child in fam.series():
+                labels = dict(zip(fam.labelnames, lv))
+                if fam.kind in ("counter", "gauge"):
+                    series.append({"labels": labels, "value": child.value})
+                else:
+                    counts, total_sum, count = child.snapshot()
+                    series.append(
+                        {
+                            "labels": labels,
+                            "count": count,
+                            "sum": total_sum,
+                            "buckets": counts,
+                            "p50": quantile_from_buckets(
+                                fam.buckets, counts, count, 0.50
+                            ),
+                            "p95": quantile_from_buckets(
+                                fam.buckets, counts, count, 0.95
+                            ),
+                            "p99": quantile_from_buckets(
+                                fam.buckets, counts, count, 0.99
+                            ),
+                        }
+                    )
+            out[fam.name] = {
+                "type": fam.kind,
+                "help": fam.help,
+                "series": series,
+            }
+            if fam.kind == "histogram":
+                out[fam.name]["bounds"] = list(fam.buckets)
+        return out
+
+    def delta_snapshot(
+        self, prev: Mapping[str, Any] | None = None
+    ) -> dict[str, Any]:
+        """``render_json()`` minus a previous snapshot of the same registry.
+
+        Counters subtract values; histograms subtract per-bucket counts and
+        sums, then recompute p50/p95/p99 from the *delta* buckets — so a
+        phase window gets true in-window quantiles without registering a
+        second histogram family.  Gauges are point-in-time and pass through
+        unchanged.  ``prev=None`` returns a plain absolute snapshot (the
+        baseline for the next call).  Series absent from ``prev`` (born
+        mid-window) subtract zero; series absent from the current snapshot
+        are dropped.  See :func:`subtract_snapshots` for the pure-data form
+        used on scraped ``/metrics.json`` payloads.
+        """
+        current = self.render_json()
+        if prev is None:
+            return current
+        return subtract_snapshots(current, prev)
+
+    def histogram_quantiles(
+        self, name: str, qs: Iterable[float] = (0.50, 0.95, 0.99)
+    ) -> dict[str, Any]:
+        """Per-series quantiles for one histogram family (benchmark
+        snapshots)."""
+        fam = self.get(name)
+        if fam is None or fam.kind != "histogram":
+            return {}
+        out: dict[str, Any] = {}
+        for lv, child in fam.series():
+            counts, _, count = child.snapshot()
+            key = ",".join(f"{n}={v}" for n, v in zip(fam.labelnames, lv)) or "_"
+            out[key] = {"count": count}
+            for q in qs:
+                out[key][f"p{int(q * 100)}"] = quantile_from_buckets(
+                    fam.buckets, counts, count, q
+                )
+        return out
+
+
+def subtract_snapshots(
+    current: Mapping[str, Any], previous: Mapping[str, Any]
+) -> dict[str, Any]:
+    """Elementwise difference of two ``render_json()``-shaped snapshots.
+
+    The window algebra behind per-phase verdicts: scrape once at each phase
+    boundary, subtract, and the result *is* a valid snapshot of just that
+    window (cumulative buckets over fixed bounds subtract cleanly — the
+    reason ``LATENCY_BUCKETS`` are fixed per family).  Counter values,
+    histogram bucket counts, sums, and counts subtract, clamped at zero so a
+    restarted process (counter reset) degrades to "window starts at
+    restart" instead of going negative; histogram quantiles are recomputed
+    from the delta buckets.  Gauges keep their current value.
+    """
+    out: dict[str, Any] = {}
+    for name, fam in current.items():
+        if not isinstance(fam, Mapping) or "series" not in fam:
+            continue
+        prev_fam = previous.get(name)
+        prev_series: dict[str, Mapping[str, Any]] = {}
+        if isinstance(prev_fam, Mapping) and prev_fam.get("type") == fam.get(
+            "type"
+        ):
+            for s in prev_fam.get("series", ()):
+                prev_series[json.dumps(s.get("labels", {}), sort_keys=True)] = s
+        kind = fam.get("type")
+        bounds = list(fam.get("bounds", []))
+        series_out = []
+        for s in fam.get("series", ()):
+            p = prev_series.get(
+                json.dumps(s.get("labels", {}), sort_keys=True), {}
+            )
+            if kind == "counter":
+                series_out.append(
+                    {
+                        "labels": dict(s.get("labels", {})),
+                        "value": max(
+                            float(s.get("value", 0.0))
+                            - float(p.get("value", 0.0)),
+                            0.0,
+                        ),
+                    }
+                )
+            elif kind == "histogram":
+                cur_b = list(s.get("buckets", []))
+                prev_b = list(p.get("buckets", []))
+                prev_b += [0] * (len(cur_b) - len(prev_b))
+                buckets = [max(c - q, 0) for c, q in zip(cur_b, prev_b)]
+                count = max(int(s.get("count", 0)) - int(p.get("count", 0)), 0)
+                entry: dict[str, Any] = {
+                    "labels": dict(s.get("labels", {})),
+                    "count": count,
+                    "sum": max(
+                        float(s.get("sum", 0.0)) - float(p.get("sum", 0.0)),
+                        0.0,
+                    ),
+                    "buckets": buckets,
+                }
+                for q in (0.50, 0.95, 0.99):
+                    entry[f"p{int(q * 100)}"] = quantile_from_buckets(
+                        bounds, buckets, count, q
+                    )
+                series_out.append(entry)
+            else:  # gauge: point-in-time, no delta semantics
+                series_out.append(
+                    {
+                        "labels": dict(s.get("labels", {})),
+                        "value": s.get("value", 0.0),
+                    }
+                )
+        out[name] = {
+            "type": kind,
+            "help": fam.get("help", ""),
+            "series": series_out,
+        }
+        if kind == "histogram":
+            out[name]["bounds"] = bounds
+    return out
+
+
+#: Process-global default registry — what servers, the MicroBatcher, and the
+#: training workflow record into unless handed an explicit registry.
 REGISTRY = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return REGISTRY
+
+
+def render_json_line(registry: MetricsRegistry, names: Iterable[str]) -> str:
+    """One-line JSON snapshot of selected histogram families (a benchmark's
+    log line)."""
+    return json.dumps(
+        {n: registry.histogram_quantiles(n) for n in names}, sort_keys=True
+    )

@@ -8,7 +8,10 @@ and the flags, into
 :func:`build_dir`: ``$PIO_KERNEL_BUILD_DIR`` when set, else the git-ignored
 ``build/kernels/`` when the package runs from a checkout, else a per-user
 cache.  A failed build raises :class:`KernelBuildError` with the
-compiler's output.
+compiler's output.  A build is a recorded ``kernel.build`` span, and each
+source's ``nvcc`` time lands under the compile metrics
+(``obs.tracing.observe_kernel_build``): the port's counterpart of the JAX
+package's compile listener.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from predictionio_tpu_torch.obs.tracing import observe_kernel_build, trace
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: the checkout the package runs from, when it does (it has the project file)
@@ -36,10 +41,10 @@ _I = ctypes.c_int
 #: kernels' launchers, and what the fused top-k's wrapper asks its library
 KERNELS: dict[str, tuple[str, str, list]] = {
     # q, t, B, N, r, k, limit, queries per CTA, rows_per_split, n_splits,
-    # cand_v, cand_i, out, stream
+    # cand_v, cand_i, out, stream, timing events (started, ended; or null)
     "fused_topk": (
         "fused_topk.cu", "pio_fused_topk",
-        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     ),
     # r, k, queries per CTA -> pass 1's shared-memory bytes
     "fused_topk_smem": ("fused_topk.cu", "pio_fused_topk_smem", [_I, _I, _I]),
@@ -128,15 +133,19 @@ def build(names=None) -> dict[str, float]:
         )
         started[source] = (proc, tmp, out, time.perf_counter())
     seconds, failures = {}, []
-    for name, (proc, tmp, out, t0) in started.items():
-        text, _ = proc.communicate()
-        out.with_suffix(".log").write_text(text)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failures.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        seconds[name] = time.perf_counter() - t0
+    if not started:
+        return seconds
+    with trace("kernel.build"):
+        for name, (proc, tmp, out, t0) in started.items():
+            text, _ = proc.communicate()
+            out.with_suffix(".log").write_text(text)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
+                continue
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+            seconds[name] = time.perf_counter() - t0
+            observe_kernel_build(name, seconds[name])
     if failures:
         raise KernelBuildError("\n".join(failures))
     return seconds

@@ -12,6 +12,13 @@ CUDA kernels on a card, their plain versions on the CPU) and solves the
 batched k x k systems with ``torch.linalg.cholesky_ex`` +
 ``torch.cholesky_solve``.  The same code runs on either device; only the
 accumulator wrappers dispatch.
+
+A train places itself on the live roofline as the JAX package's does
+(``_record_pallas_efficiency``): ``als.pallas_step`` is observed with the
+wall time of the iterations over their count, after the train's closing
+``torch.cuda.synchronize``, against the least work of one iteration — the
+two half-steps' ``als_accum_least_work`` (fused), or the chunks' summed
+``segment_accum_least_work`` (chunked).
 """
 
 from __future__ import annotations
@@ -331,6 +338,7 @@ def _train_mode(user_idx, item_idx, rating, num_users, num_items,
         for s in staged:
             s["wrv"] = als_accum.make_wrv(s["rat"], s["val"],
                                           p.implicit_prefs, p.alpha)
+    t0 = time.perf_counter()
     for _ in range(p.num_iterations):
         U = solve(accumulate(su, V, p, mode), V, p)
         V = solve(accumulate(si, U, p, mode), U, p)
@@ -338,7 +346,68 @@ def _train_mode(user_idx, item_idx, rating, num_users, num_items,
         # the train ends when the card is done (and a fault surfaces here,
         # inside the mode ladder)
         torch.cuda.synchronize(device)
+    _record_pallas_efficiency(time.perf_counter() - t0, p, su, si, mode,
+                              len(user_idx))
     return ALSState(user_factors=U[:num_users], item_factors=V[:num_items])
+
+
+def iteration_least_work(su: dict, si: dict, rank: int, mode: str,
+                         nnz: int) -> dict[str, float]:
+    """The least work of one ALS iteration's accumulations, the yardstick
+    of ``als.pallas_step``: fused, the two half-steps'
+    ``als_accum_least_work`` (each over its padded stream, ``nnz`` rows of
+    it real, its segments against the other side's factor rows); chunked,
+    ``segment_accum_least_work`` summed over every chunk of both
+    directions (the rows a chunk builds, its real rows, and the segments of
+    the blocks it touches)."""
+    up, ip = su["plan"], si["plan"]
+    S, T = als_accum.S, als_accum.T
+    total = {"bytes": 0.0, "flops": 0.0}
+    if mode == "fused":
+        halves = [
+            als_accum.als_accum_least_work(
+                up.padded_len, rank, up.n_blocks * S, ip.n_blocks * S, nnz
+            ),
+            als_accum.als_accum_least_work(
+                ip.padded_len, rank, ip.n_blocks * S, up.n_blocks * S, nnz
+            ),
+        ]
+    else:
+        width = als_accum.row_width(rank)
+        halves = []
+        for plan in (up, ip):
+            rows = plan.tiles_per_chunk * T
+            valid = (~plan.pad_mask).reshape(plan.n_chunks, rows).sum(axis=1)
+            touched = plan.visited.sum(axis=1) * S
+            halves += [
+                als_accum.segment_accum_least_work(
+                    rows, width, int(touched[c]), int(valid[c])
+                )
+                for c in range(plan.n_chunks)
+            ]
+    for work in halves:
+        total["bytes"] += work["bytes"]
+        total["flops"] += work["flops"]
+    return total
+
+
+def _record_pallas_efficiency(wall_s: float, p: ALSParams, su: dict,
+                              si: dict, mode: str, nnz: int) -> None:
+    """Place the train on the live roofline as ``als.pallas_step`` (the JAX
+    package's entry-point name): the least work of one iteration
+    (:func:`iteration_least_work`) over the measured wall time per
+    iteration."""
+    from predictionio_tpu_torch.obs import device as device_obs
+
+    if p.num_iterations <= 0:
+        return
+    cost = iteration_least_work(su, si, p.rank, mode, nnz)
+    sig = (mode, LAST_PLAN_INFO.get("rows_user"),
+           LAST_PLAN_INFO.get("rows_item"), p.rank)
+    eff = device_obs.default_efficiency()
+    eff.record_cost("als.pallas_step", flops=cost["flops"],
+                    nbytes=cost["bytes"], signature=sig, source="least_work")
+    eff.observe("als.pallas_step", wall_s / p.num_iterations, signature=sig)
 
 
 def accumulate(staged: dict, other_factors: torch.Tensor, p: ALSParams,

@@ -253,11 +253,17 @@ def cuda_geometry(
 
 
 def fused_topk_cuda(
-    q: torch.Tensor, t: torch.Tensor, k: int, limit: int, geo: dict[str, int]
+    q: torch.Tensor, t: torch.Tensor, k: int, limit: int, geo: dict[str, int],
+    timing: tuple[torch.cuda.Event, torch.cuda.Event] | None = None,
 ) -> torch.Tensor:
     """Launch ``csrc/fused_topk.cu`` on the current stream (no sync) and
     return the packed ``[2, B, k]`` output; raises on any input the kernel
-    does not take and on a refused launch."""
+    does not take and on a refused launch.
+
+    ``timing``, a pair of ``torch.cuda.Event(enable_timing=True)``, is
+    recorded by the launcher itself, just before the first pass and just
+    after the last, so ``timing[0].elapsed_time(timing[1])`` is the
+    kernel's own time, with no host enqueue gap in it."""
     for name, x in (("queries", q), ("table", t)):
         if x.device.type != "cuda":
             raise ValueError(f"fused_topk_cuda: {name} is on {x.device}")
@@ -283,11 +289,19 @@ def fused_topk_cuda(
     cand_v = torch.empty(scratch, dtype=torch.float32, device=q.device)
     cand_i = torch.empty(scratch, dtype=torch.int32, device=q.device)
     out = torch.empty((2, b, k), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    events = (None, None)
+    if timing is not None:
+        # torch creates an event at its first record; the launcher's own
+        # records replace these
+        for ev in timing:
+            ev.record(stream)
+        events = tuple(ev.cuda_event for ev in timing)
     err = fn(
         q.data_ptr(), t.data_ptr(), b, n, rank, k, min(max(limit, 0), n),
         geo["queries_per_cta"], geo["rows_per_split"], splits,
         cand_v.data_ptr(), cand_i.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        stream.cuda_stream, *events,
     )
     if err != 0:
         raise RuntimeError(f"fused_topk kernel launch failed: CUDA error {err}")
@@ -302,6 +316,7 @@ def fused_topk_batch(
     limit: int | None = None,
     *,
     name: str = "fused_topk",
+    timing: tuple[torch.cuda.Event, torch.cuda.Event] | None = None,
 ) -> torch.Tensor:
     """Fused score+top-k: ``queries [B, r] x table [N, r] -> packed
     [2, B, k]`` f32 (row 0 scores, row 1 global row ids, exact < 2^24).
@@ -310,6 +325,7 @@ def fused_topk_batch(
     past it score ``-inf`` and keep their real ids, so they surface only
     when ``k`` exceeds it.  CUDA tensors launch the kernel (asynchronously,
     on the current stream); CPU tensors take :func:`fused_topk_plain`.
+    ``timing`` is :func:`fused_topk_cuda`'s (unused on the CPU).
 
     Raises :class:`FusedTopKUnsupported` off the menu."""
     q = torch.as_tensor(queries, dtype=torch.float32)
@@ -334,7 +350,7 @@ def fused_topk_batch(
             "n_tiles": geo["n_tiles"],
             "n_splits": geo["n_splits"],
         }
-        return fused_topk_cuda(q, t, k, limit, geo)
+        return fused_topk_cuda(q, t, k, limit, geo, timing)
     if q.device.type != "cpu" or t.device.type != "cpu":
         raise ValueError(
             f"fused_topk_batch: queries on {q.device}, table on {t.device}"

@@ -20,9 +20,10 @@ generation's factors under another's model.
 Metrics (process registry): ``pio_factor_cache_{hits,misses,evictions,
 invalidations}_total``, a ``pio_factor_cache_hit_rate`` gauge over the
 process-cumulative counts, and ``pio_factor_cache_entries`` (live entries
-across all caches).  The JAX package also notes hits, misses and fill
-bytes on the wave timeline (``obs.device``); the port has no wave timeline
-yet.
+across all caches).  Misses and the bytes a miss's fetch fills are noted
+on the wave timeline (``obs.device.note_cache_miss`` / ``note_cache_fill``)
+and so reach the answer's flight and provenance records; the hit twin is
+noted by the engine (``note_cache_hit``), which knows it skipped a gather.
 """
 
 from __future__ import annotations
@@ -33,11 +34,26 @@ import weakref
 from collections import OrderedDict
 from typing import Any, Iterable
 
+from predictionio_tpu_torch.obs import device as device_obs
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 
 #: default per-model entry bound (rows, not bytes: a rank-32 f32 row is
 #: 128 B, so the default worst-cases ~8 MB/model) — PIO_FACTOR_CACHE_ROWS
 DEFAULT_CAPACITY = 65536
+
+
+def _row_nbytes(row: Any) -> float:
+    """Bytes a cached row occupies: arrays and tensors by their element
+    count and size, (index, row) tuples summed over their parts."""
+    if isinstance(row, (tuple, list)):
+        return float(sum(_row_nbytes(part) for part in row))
+    n = getattr(row, "nbytes", None)
+    if isinstance(n, (int, float)):
+        return float(n)
+    numel = getattr(row, "numel", None)
+    if callable(numel):
+        return float(numel() * row.element_size())
+    return 0.0
 
 
 def _capacity_from_env() -> int:
@@ -98,6 +114,9 @@ class FactorCache:
                 self._rows.move_to_end(entity_id)
         if row is None:
             self._m_misses.inc()
+            # a miss pays the real gather: it lands on the wave timeline
+            # (the fetch bytes follow through put())
+            device_obs.note_cache_miss()
         else:
             self._m_hits.inc()
         self._update_rate()
@@ -106,6 +125,9 @@ class FactorCache:
     def put(self, entity_id: Any, row: Any) -> None:
         if self.capacity <= 0 or row is None:
             return
+        # a put is a resolved miss: the fetched row's bytes go to the wave
+        # that paid the gather
+        device_obs.note_cache_fill(_row_nbytes(row))
         evicted = 0
         with self._lock:
             before = len(self._rows)

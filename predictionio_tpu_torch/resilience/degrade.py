@@ -13,8 +13,9 @@ records the reason so the serving layer can stamp the response
 (``X-Pio-Degraded`` header).  Scopes are contextvar based, so they work on
 request threads, inside ``run_in_executor`` handlers (via
 ``copy_context``), and on the MicroBatcher worker (which opens one scope
-per wave).  The JAX package also tags the flight recorder's entry; the
-port has no flight recorder yet.
+per wave).  The reason is also annotated on the request's flight-recorder
+entry (``obs.flight.annotate(degraded=...)``), so a slow or errored
+degraded answer says why.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import contextlib
 import contextvars
 from typing import Iterator
 
+from predictionio_tpu_torch.obs.flight import annotate
 from predictionio_tpu_torch.obs.metrics import REGISTRY
 
 _degraded_var: contextvars.ContextVar[list[str] | None] = (
@@ -39,6 +41,7 @@ _m_degraded = REGISTRY.counter(
 def mark_degraded(reason: str) -> None:
     """Record that the current operation fell back to a degraded answer."""
     _m_degraded.labels(reason).inc()
+    annotate(degraded=reason)
     reasons = _degraded_var.get()
     if reasons is not None and reason not in reasons:
         reasons.append(reason)

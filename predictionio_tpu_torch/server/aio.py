@@ -10,9 +10,12 @@ Stdlib only, HTTP/1.1 with keep-alive.
 
 ``HTTPApp`` routes work unchanged; handlers that are coroutine functions
 (``async def``) are awaited on the loop.  The same app object therefore
-serves under both front ends.  Admission (the in-flight cap) and deadline
-binding are the threaded front end's (``httpd.observe_request``), in async
-form; tracing, SLO and flight recording come with the observability slice.
+serves under both front ends.  Each request runs inside the threaded
+front end's ``httpd.RequestScope`` (request id and trace context, the
+flight-annotation and provenance scopes, admission, the deadline, one
+unrecorded root span, and the SLO / provenance / flight accounting of
+``obs.http.record_request_outcome``), its handler awaited.  Every request
+is timed into ``pio_http_request_seconds{server,method,status}``.
 """
 
 from __future__ import annotations
@@ -22,18 +25,17 @@ import contextvars
 import http
 import inspect
 import threading
+import time
 from urllib.parse import parse_qs, urlsplit
 
-from predictionio_tpu_torch.resilience.deadline import deadline_scope
+from predictionio_tpu_torch.obs.metrics import REGISTRY
 from predictionio_tpu_torch.server.httpd import (
     HTTPApp,
     Request,
+    RequestScope,
     Response,
-    admission_expired_response,
-    admit_request,
     error_response,
     exception_response,
-    request_budget,
     unquote_groups,
 )
 
@@ -41,21 +43,36 @@ _MAX_HEADER_BYTES = 64 * 1024
 _MAX_BODY_BYTES = 64 * 1024 * 1024
 
 
-async def _observe_app_request(app: HTTPApp, req: Request) -> Response:
-    """The request path: admission control, then the request's deadline
-    bound around the handler; a budget already spent answers 504."""
-    adm, shed = admit_request(app)
-    if shed is not None:
-        return shed
-    try:
-        budget = request_budget(app, req)
-        if budget is not None and budget <= 0:
-            return admission_expired_response()
-        with deadline_scope(budget_s=budget):
-            return await _route_app_request(app, req)
-    finally:
-        if adm is not None:
-            adm.release()
+#: whole-server request timing (handler + executor hop), coarse labels only —
+#: per-route latency belongs to the app's own pio_request_latency_seconds
+_m_http = REGISTRY.histogram(
+    "pio_http_request_seconds",
+    "Async front-end request handling time by server/method/status",
+    labelnames=("server", "method", "status"),
+)
+
+#: label-cardinality guard: the method token is client-controlled (any word
+#: parses), so unknown verbs collapse to OTHER instead of minting unbounded
+#: histogram children in the process-global registry
+_KNOWN_METHODS = frozenset(
+    ("GET", "POST", "PUT", "DELETE", "HEAD", "OPTIONS", "PATCH")
+)
+
+
+async def _handle_app_request(app: HTTPApp, req: Request) -> Response:
+    """Route like HTTPApp.handle inside the threaded front end's
+    ``RequestScope``, the handler awaited; every request, observability
+    paths too, is timed into ``pio_http_request_seconds``."""
+    with RequestScope(app, req) as scope:
+        if scope.early is None:
+            with scope.handling():
+                scope.resp = await _route_app_request(app, req)
+        resp = scope.finish()
+    method = req.method if req.method in _KNOWN_METHODS else "OTHER"
+    _m_http.labels(app.name, method, str(resp.status)).observe(
+        time.perf_counter() - scope.t0
+    )
+    return resp
 
 
 async def _route_app_request(app: HTTPApp, req: Request) -> Response:
@@ -73,7 +90,8 @@ async def _route_app_request(app: HTTPApp, req: Request) -> Response:
             return await fn(req)
         loop = asyncio.get_running_loop()
         # copy_context: run_in_executor does not propagate contextvars, and
-        # sync handlers must still see the request's deadline
+        # sync handlers must still see the request's deadline, request id
+        # and annotation scope
         ctx = contextvars.copy_context()
         return await loop.run_in_executor(None, ctx.run, fn, req)
     except Exception as e:
@@ -174,7 +192,7 @@ class AsyncAppServer:
                     return
                 if req is None:
                     return
-                resp = await _observe_app_request(self.app, req)
+                resp = await _handle_app_request(self.app, req)
                 keep = req.headers.get("connection", "keep-alive") != "close"
                 writer.write(_encode_response(resp, keep))
                 await writer.drain()

@@ -28,9 +28,16 @@ Every route that writes the event store passes the ingest gate first: past
 ``ConnectionError`` or ``TimeoutError`` answers 503 + ``Retry-After`` too.
 Accepted events count in ``pio_events_ingested_total{event}``.
 
-Not here yet: the observability routes (``/metrics``, ``/healthz``,
-``/readyz`` ...), the per-app cost ledger, the feedback join of online
-model quality and the ``eventstore.write`` fault seam.
+The observability routes are the JAX package's (``obs.http``): without an
+operator key only the scrape surface (``/metrics``, ``/metrics.json``,
+``/traces.json``, ``/spans.json``) and the health routes (``/healthz``,
+``/readyz`` probing the event and metadata stores, ``/slo.json``) answer,
+unauthenticated; with ``obs_access_key`` (or ``PIO_OBS_ACCESS_KEY``) the
+debug routes exist too and the key gates everything but ``/healthz``.
+The server never touches the card: a scrape creates no CUDA context.
+
+Not here yet: the per-app cost ledger, the feedback join of online model
+quality and the ``eventstore.write`` fault seam.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from predictionio_tpu_torch.data.webhooks import (
     json_connectors,
     to_event,
 )
+from predictionio_tpu_torch.obs.http import add_observability_routes
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 from predictionio_tpu_torch.resilience.admission import AdmissionController
 from predictionio_tpu_torch.server.httpd import (
@@ -129,10 +137,13 @@ def create_event_server_app(
     plugins: PluginContext | None = None,
     registry: MetricsRegistry | None = None,
     max_write_inflight: int | None = None,
+    obs_access_key: str | None = None,
 ) -> HTTPApp:
     """The event server's routes over ``storage`` (default: the process
     storage).  ``max_write_inflight`` bounds the event-store writes in
-    flight (default ``PIO_EVENT_MAX_INFLIGHT`` or 256; 0 = no bound)."""
+    flight (default ``PIO_EVENT_MAX_INFLIGHT`` or 256; 0 = no bound).
+    ``obs_access_key`` (default ``PIO_OBS_ACCESS_KEY``) opens the debug
+    observability routes behind that key."""
     storage = storage or get_storage()
     app = HTTPApp("eventserver")
     hourly = HourlyStats() if stats else None
@@ -432,6 +443,33 @@ def create_event_server_app(
             return _unsupported(req.params["web"])
         return json_response(200, {"message": "Ok"})
 
+    def _event_store_ready() -> bool:
+        # live probe, not a captured handle: run_readiness treats a raise
+        # as not-ready, so a backend that dies after startup flips /readyz
+        return storage.l_events() is not None
+
+    def _metadata_ready() -> bool:
+        storage.access_keys().get("__readyz_probe__")
+        return True
+
+    # Without an operator key, only the scrape surface and health are
+    # exposed, unauthenticated like GET / — scrapers and load balancers
+    # carry no per-app access keys, and the registry holds no event
+    # payloads.  The debug surface (/logs.json, /debug/flight.json,
+    # /debug/profile ...) leaks log lines and error bodies and arms the
+    # profiler, so on this anonymous-facing ingest port it only exists
+    # behind an operator key, which then gates everything but /healthz.
+    obs_access_key = obs_access_key or os.environ.get("PIO_OBS_ACCESS_KEY")
+    add_observability_routes(
+        app,
+        registry,
+        access_key=obs_access_key,
+        debug_routes=obs_access_key is not None,
+        readiness={
+            "event_store": _event_store_ready,
+            "metadata_store": _metadata_ready,
+        },
+    )
     return app
 
 

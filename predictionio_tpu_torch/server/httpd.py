@@ -6,23 +6,55 @@ wiring (``admit_request``, ``request_budget``, ``exception_response``:
 ``LoadShed`` -> 503 + Retry-After, ``DeadlineExceeded`` -> 504) and its
 thread-per-connection front end (``AppServer``).  The asyncio front end
 (``server/aio.py``) routes through the same ``HTTPApp.match`` and
-``auth_error`` so the two cannot drift.  Tracing, SLO accounting and the
-flight recorder come with the observability slice; the circuit breaker's
+``auth_error``, and handles each request inside the same
+``RequestScope``, so the two cannot drift: a request id
+(``X-Pio-Request-Id``, adopted or minted), admission, the deadline, the
+adopted trace context, one unrecorded root span and the
+flight-annotation and provenance scopes; its outcome feeds the SLO
+tracker, the provenance ring and the flight recorder
+(``obs.http.record_request_outcome``).  The circuit breaker's
 ``CircuitOpen`` mapping comes with the remote storage backend it guards.
 Handlers are plain functions, so route logic is testable without sockets.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
 import threading
+import time
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Mapping
 from urllib.parse import parse_qs, unquote, urlsplit
 
+from predictionio_tpu_torch.obs.disttrace import (
+    TRACE_ID_HEADER,
+    adopt_trace_context,
+    bind_fragments,
+    bind_parent_span,
+    reset_fragments,
+    reset_parent_span,
+)
+from predictionio_tpu_torch.obs.flight import begin_annotations, end_annotations
+from predictionio_tpu_torch.obs.http import (
+    is_observability_path,
+    record_request_outcome,
+)
+from predictionio_tpu_torch.obs.logging import (
+    REQUEST_ID_HEADER,
+    new_request_id,
+    reset_request_context,
+    set_request_context,
+)
+from predictionio_tpu_torch.obs.provenance import (
+    begin_capture,
+    end_capture,
+    wants_deep,
+)
+from predictionio_tpu_torch.obs.tracing import trace
 from predictionio_tpu_torch.resilience import LoadShed
 from predictionio_tpu_torch.resilience.deadline import (
     DEADLINE_HEADER,
@@ -61,16 +93,25 @@ class Response:
     headers: dict[str, str] = field(default_factory=dict)
 
     def encoded(self) -> tuple[bytes, str]:
+        # memoized: the observability layer measures response_bytes and the
+        # front end then encodes for the wire — JSON-serializing a large
+        # prediction body twice per request would be measurable
+        cached = getattr(self, "_encoded_cache", None)
+        if cached is not None:
+            return cached
         if isinstance(self.body, bytes):
-            return self.body, self.content_type or "application/octet-stream"
-        if isinstance(self.body, str):
-            return self.body.encode("utf-8"), self.content_type or (
+            out = self.body, self.content_type or "application/octet-stream"
+        elif isinstance(self.body, str):
+            out = self.body.encode("utf-8"), self.content_type or (
                 "text/html; charset=utf-8"
             )
-        return (
-            json.dumps(self.body).encode("utf-8"),
-            self.content_type or "application/json; charset=utf-8",
-        )
+        else:
+            out = (
+                json.dumps(self.body).encode("utf-8"),
+                self.content_type or "application/json; charset=utf-8",
+            )
+        self._encoded_cache = out
+        return out
 
 
 Handler = Callable[[Request], Response]
@@ -130,6 +171,14 @@ def request_budget(app: "HTTPApp", req: Request) -> float | None:
     return budget
 
 
+def _record_slo_failure(app: "HTTPApp") -> None:
+    """Admission rejections (sheds, expired budgets) are user-visible
+    failures: they must burn SLO error budget so overload pages someone."""
+    slo = getattr(app, "slo", None)
+    if slo is not None:
+        slo.record(False, 0.0)
+
+
 def admit_request(app: "HTTPApp"):
     """The server-wide in-flight cap, shared by both front ends.  Returns
     ``(releaser, None)`` when admitted (``releaser`` is what the caller
@@ -138,15 +187,17 @@ def admit_request(app: "HTTPApp"):
     now is cheaper for everyone than queueing into a timeout."""
     adm = getattr(app, "admission", None)
     if adm is not None and not adm.try_acquire():
+        _record_slo_failure(app)
         return None, shed_response(
             "server over capacity; retry later", adm.retry_after_s
         )
     return adm, None
 
 
-def admission_expired_response() -> Response:
+def admission_expired_response(app: "HTTPApp") -> Response:
     """504 for a request whose budget was already gone at admission —
     answering now beats doing work nobody will read."""
+    _record_slo_failure(app)
     return error_response(504, "deadline expired at admission")
 
 
@@ -237,24 +288,124 @@ class HTTPApp:
             return exception_response(e)
 
 
+class RequestScope:
+    """One request's lifecycle, shared by both front ends (``with`` around
+    the handler call; the handler itself, sync or awaited, stays with each
+    front end).  Entering mints or adopts the request id, admits the
+    request, binds its deadline budget, adopts the trace headers, and
+    opens the logging context, the parent span, the flight-annotation and
+    the provenance scopes; ``early`` is then the answer that skips the
+    handler (503 shed, 504 budget already spent) or ``None``.  The handler
+    runs inside :meth:`handling` (the deadline and one unrecorded root
+    span) and hands its response to ``resp``; :meth:`finish` feeds
+    ``record_request_outcome`` and stamps ``X-Pio-Request-Id`` and
+    ``X-Pio-Trace-Id``.  Observability and probe paths skip everything but
+    the request id, so scrapes never pollute the trace ring or the SLO
+    window.
+
+    Cross-process span fragments (``/spans.json``) are kept for requests
+    whose caller sent ``X-Pio-Trace-Id`` (``disttrace.bind_fragments``).
+    A request that opened no trace still answers ``X-Pio-Trace-Id`` (its
+    request id), and its trace id still tags its log records, SLO exemplar
+    and flight entry."""
+
+    __slots__ = (
+        "app", "req", "rid", "t0", "observed", "early", "resp", "span",
+        "tid", "_budget", "_adm", "_tokens",
+    )
+
+    def __init__(self, app: "HTTPApp", req: Request):
+        self.app = app
+        self.req = req
+        self.t0 = time.perf_counter()
+        self.rid = header_get(req.headers, REQUEST_ID_HEADER) or new_request_id()
+        self.observed = not is_observability_path(req.path)
+        self.early: Response | None = None
+        self.resp: Response | None = None
+        self.span = None
+        self.tid: str | None = None
+        self._budget: float | None = None
+        self._adm = None
+        self._tokens: tuple | None = None
+
+    def __enter__(self) -> "RequestScope":
+        if not self.observed:
+            return self
+        self._adm, self.early = admit_request(self.app)
+        if self.early is not None:
+            return self
+        req = self.req
+        self._budget = request_budget(self.app, req)
+        self.tid, parent_span = adopt_trace_context(req.headers, self.rid)
+        joined = bool((header_get(req.headers, TRACE_ID_HEADER) or "").strip())
+        self._tokens = (
+            set_request_context(self.rid, self.tid),
+            bind_parent_span(parent_span),
+            bind_fragments(joined),
+            begin_annotations(),
+            # decision provenance: cheap capture always, deep on X-Pio-Explain
+            begin_capture(deep=wants_deep(req.headers)),
+        )
+        if self._budget is not None and self._budget <= 0:
+            self.early = admission_expired_response(self.app)
+        return self
+
+    @contextlib.contextmanager
+    def handling(self):
+        """The handler's block: the request's deadline and its root span
+        (tagged with the status of ``resp``, which the block sets)."""
+        if not self.observed:
+            yield
+            return
+        with deadline_scope(budget_s=self._budget):
+            with trace(f"http.{self.app.name}", record=False) as span:
+                self.span = span
+                yield
+                span.tags = {
+                    "method": self.req.method,
+                    "path": self.req.path,
+                    "status": self.resp.status,
+                }
+
+    def finish(self) -> Response:
+        """The answer, accounted and stamped (call inside the ``with``)."""
+        resp = self.early or self.resp
+        if self.span is not None:
+            try:
+                record_request_outcome(
+                    self.app, self.req, resp,
+                    time.perf_counter() - self.t0, self.span,
+                )
+            except Exception:  # telemetry must never fail the request
+                pass
+        resp.headers.setdefault(REQUEST_ID_HEADER, self.rid)
+        if self.tid is not None:
+            resp.headers.setdefault(TRACE_ID_HEADER, self.tid)
+        return resp
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self._adm is not None:
+            self._adm.release()
+        if self._tokens is not None:
+            request, parent, fragments, annotations, capture = self._tokens
+            end_capture(capture)
+            end_annotations(annotations)
+            reset_fragments(fragments)
+            reset_parent_span(parent)
+            reset_request_context(request)
+
+
 def observe_request(
     app: HTTPApp, req: Request, call: Callable[[Request], Response]
 ) -> Response:
-    """The threaded front end's request lifecycle (mirrored in async form
-    by ``server/aio.py``): the admission gate, then the request's deadline
-    bound around the handler; a budget already spent answers 504."""
-    adm, shed = admit_request(app)
-    if shed is not None:
-        return shed
-    try:
-        budget = request_budget(app, req)
-        if budget is not None and budget <= 0:
-            return admission_expired_response()
-        with deadline_scope(budget_s=budget):
-            return call(req)
-    finally:
-        if adm is not None:
-            adm.release()
+    """The threaded front end's request: ``call`` inside one
+    :class:`RequestScope` (the asyncio front end awaits its handler inside
+    the same scope)."""
+    with RequestScope(app, req) as scope:
+        if scope.early is None:
+            with scope.handling():
+                scope.resp = call(req)
+        return scope.finish()
 
 
 def _make_handler_class(app: HTTPApp):

@@ -33,17 +33,48 @@ Results resolve in wave order (one FIFO finalizer); deadline, solo-retry
 and ``close()`` semantics are those of the synchronous path, and per-item
 meta carries the ``dispatch_s``/``finalize_s`` split, ``pipelined: True``
 and the ``inflight_depth`` the wave was enqueued at.
+
+**Observability**: every ``batch_fn`` call runs inside a wave timeline
+(``obs.device.wave_timeline``) that collects the engine's stage marks; a
+pipelined wave's dispatch-half timeline rides to the finalizer thread and
+is merged with the finalize half's, so one breakdown covers the wave.  The
+breakdown (``host_gather``/``h2d``/``compute``/``d2h`` + ``other``, host
+time that sums to ``device_s``) lands in ``pio_microbatch_stage_seconds``
+and in each item's meta as ``device_breakdown``, beside the wave's device
+time ``wave_kernel_s`` (CUDA events on a card), its entry point and cost,
+its device, its dispatch wall clock ``wave_t0`` and its request ids.  The
+first member's request and trace context are re-bound around ``batch_fn``,
+each wave's request ids go to the ``/logs.json`` ring, and the condition
+every thread serializes on is a ``ContendedCondition`` (its blocked waits
+land in ``pio_lock_wait_seconds{lock="microbatch"}``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import threading
 import time
 from collections import deque
 from typing import Any, Callable, Sequence
 
+from predictionio_tpu_torch.obs import device as device_obs
+from predictionio_tpu_torch.obs.contention import ContendedCondition
+from predictionio_tpu_torch.obs.disttrace import (
+    bind_fragments,
+    bind_parent_span,
+    current_trace_context,
+    fragments_wanted,
+    reset_fragments,
+    reset_parent_span,
+)
+from predictionio_tpu_torch.obs.logging import (
+    get_request_id,
+    reset_request_context,
+    ring_debug,
+    set_request_context,
+)
 from predictionio_tpu_torch.obs.metrics import (
     REGISTRY,
     SIZE_BUCKETS,
@@ -76,25 +107,29 @@ class PendingWave:
 
 
 class _Entry:
-    """One submitted item: its future, enqueue time, the caller's meta dict
-    and the deadline captured at submit."""
+    """One submitted item: its future, enqueue time, the caller's meta dict,
+    the deadline captured at submit, and the submitter's request id and
+    trace context (trace id + innermost open span; None for a request that
+    records no cross-process fragments)."""
 
-    __slots__ = ("item", "fut", "t_enq", "meta", "deadline")
+    __slots__ = ("item", "fut", "t_enq", "meta", "deadline", "rid", "tctx")
 
-    def __init__(self, item, fut, t_enq, meta, deadline):
+    def __init__(self, item, fut, t_enq, meta, deadline, rid, tctx):
         self.item = item
         self.fut = fut
         self.t_enq = t_enq
         self.meta = meta
         self.deadline = deadline
+        self.rid = rid
+        self.tctx = tctx
 
 
 class _InflightWave:
     """One dispatched wave waiting for its finalize fence."""
 
     __slots__ = (
-        "live", "pending", "wave_seq", "loop", "t_dispatch", "dispatch_s",
-        "wave_deadline", "depth_at_enqueue",
+        "live", "pending", "wave_seq", "loop", "t_dispatch", "wave_t0",
+        "dispatch_s", "timeline", "wave_deadline", "depth_at_enqueue",
     )
 
     def __init__(self, **kw):
@@ -141,8 +176,9 @@ class MicroBatcher:
         self.solo_retry = solo_retry
         self._pending: deque[_Entry] = deque()
         #: every submitter, the worker and the finalizer serialize on this
-        #: condition
-        self._cond = threading.Condition()
+        #: condition; its blocked acquisitions are metered.  Reentrant: a
+        #: caller holding it may submit (a burst enqueued under one hold)
+        self._cond = ContendedCondition("microbatch", registry=registry)
         self._worker: threading.Thread | None = None
         self._in_wave = False
         self._closed = False
@@ -175,6 +211,15 @@ class MicroBatcher:
         self._m_device_time = reg.histogram(
             "pio_microbatch_device_seconds",
             "Per-wave batch_fn (device dispatch) duration",
+        )
+        #: the 4-way split of device_s (host_gather/h2d/compute/d2h, plus
+        #: the unattributed remainder as "other"), labeled by the device
+        #: the engine marked
+        self._m_stage_time = reg.histogram(
+            "pio_microbatch_stage_seconds",
+            "Per-wave duration split by timeline stage and device",
+            labelnames=("stage", "device"),
+            buckets=device_obs.WAVE_STAGE_BUCKETS,
         )
         self._m_drain_timeout = reg.counter(
             "pio_microbatch_drain_timeout_total",
@@ -222,8 +267,10 @@ class MicroBatcher:
     async def submit(self, item: Any, meta: dict | None = None) -> Any:
         """Queue ``item`` for the next wave.  ``meta``, when given, is
         filled by the worker with this item's queue_wait_s / device_s /
-        wave_size / wave_seq (and the pipelined split) before the result
-        future resolves.
+        device_breakdown / wave_kernel_s / wave_size / wave_seq /
+        wave_request_ids (and the pipelined split) before the result future
+        resolves — the per-request latency decomposition for the flight
+        recorder.
 
         Sheds with :class:`LoadShed` when ``max_queue`` items are already
         queued, and captures the caller's deadline (if one is bound) so the
@@ -243,7 +290,14 @@ class MicroBatcher:
                     retry_after_s=1.0,
                 )
             self._pending.append(
-                _Entry(item, fut, time.perf_counter(), meta, get_deadline())
+                _Entry(
+                    item, fut, time.perf_counter(), meta, get_deadline(),
+                    get_request_id(),
+                    # re-bound around batch_fn so a wave's outbound calls
+                    # join the request's cross-process trace (None: the
+                    # request records no fragments)
+                    current_trace_context() if fragments_wanted() else None,
+                )
             )
             self._m_queue_depth.set(len(self._pending))
             if self._worker is None:
@@ -366,31 +420,50 @@ class MicroBatcher:
         if not live:
             return
         items = [e.item for e in live]
+        rids = [e.rid for e in live if e.rid]
         deadlines = [e.deadline for e in live if e.deadline is not None]
         wave_deadline = min(deadlines) if deadlines else None
         self._m_batch_size.observe(len(items))
         for e in live:
             self._m_queue_wait.observe(t_dispatch - e.t_enq)
+        # the correlation line: a wave's log entry names the requests it
+        # coalesced, so one slow query's request id finds its wave mates
+        # (ring_debug reaches /logs.json whatever the logging config)
+        ring_debug(
+            log,
+            "microbatch wave dispatched",
+            wave_size=len(items),
+            wave_seq=wave_seq,
+            request_ids=rids,
+        )
         # every future of a wave comes from submit() on the same server
         # loop; resolve them with ONE loop wakeup
         loop = live[0].fut.get_loop()
+        wave_t0 = time.time()
         try:
-            # re-bind the wave's tightest deadline around batch_fn
-            with deadline_scope(absolute=wave_deadline):
-                results = self.batch_fn(items)
+            # re-bind the wave's tightest deadline around batch_fn; the wave
+            # timeline collects the engine's stage marks, and the first
+            # member's request/trace context is bound for its outbound calls
+            with device_obs.wave_timeline() as timeline:
+                with deadline_scope(absolute=wave_deadline):
+                    with _wave_context(live[0]):
+                        results = self.batch_fn(items)
         except Exception as e:
             self._fail_or_retry(live, e, wave_seq, loop)
             return
         if isinstance(results, PendingWave):
             # pipelined wave: the fence moves to the finalizer thread and
-            # THIS thread is immediately free to dispatch the next wave
+            # THIS thread is immediately free to dispatch the next wave; the
+            # dispatch half's timeline travels with it
             job = _InflightWave(
                 live=live,
                 pending=results,
                 wave_seq=wave_seq,
                 loop=loop,
                 t_dispatch=t_dispatch,
+                wave_t0=wave_t0,
                 dispatch_s=time.perf_counter() - t_dispatch,
+                timeline=timeline,
                 wave_deadline=wave_deadline,
                 depth_at_enqueue=0,
             )
@@ -406,7 +479,11 @@ class MicroBatcher:
             return
         device_s = time.perf_counter() - t_dispatch
         self._m_device_time.observe(device_s)
-        self._fill_meta(live, t_dispatch, device_s, wave_seq)
+        breakdown = self._observe_timeline(timeline, device_s)
+        self._fill_meta(
+            live, t_dispatch, device_s, wave_seq, breakdown, timeline,
+            wave_t0, rids,
+        )
         self._note_wave(len(items))
         self._post(loop, [e.fut for e in live], results, None)
 
@@ -416,19 +493,70 @@ class MicroBatcher:
         t_dispatch: float,
         device_s: float,
         wave_seq: int,
+        breakdown: dict[str, float],
+        timeline: "device_obs.WaveTimeline",
+        wave_t0: float,
+        rids: list[str],
         extra: dict | None = None,
     ) -> None:
         """Fill per-item timing meta BEFORE resolving the futures:
         call_soon_threadsafe orders these writes before the submitter's
         read on the loop thread."""
         for e in live:
-            if e.meta is not None:
-                e.meta["queue_wait_s"] = round(t_dispatch - e.t_enq, 6)
-                e.meta["device_s"] = round(device_s, 6)
-                e.meta["wave_size"] = len(live)
-                e.meta["wave_seq"] = wave_seq
-                if extra:
-                    e.meta.update(extra)
+            meta = e.meta
+            if meta is None:
+                continue
+            meta["queue_wait_s"] = round(t_dispatch - e.t_enq, 6)
+            meta["device_s"] = round(device_s, 6)
+            #: host time: where the host waited, summing to device_s
+            meta["device_breakdown"] = breakdown
+            meta["wave_device"] = timeline.device
+            #: wall-clock dispatch time — the distributed timeline's anchor
+            #: for the wave's device-track events
+            meta["wave_t0"] = round(wave_t0, 6)
+            if timeline.kernel_s:
+                #: the card's own time for the wave (CUDA events)
+                meta["wave_kernel_s"] = round(timeline.kernel_s, 9)
+            if timeline.fn:
+                meta["wave_fn"] = timeline.fn
+                meta["wave_flops"] = timeline.flops
+                meta["wave_bytes"] = timeline.bytes
+            if timeline.transfers:
+                meta["wave_transfers"] = dict(timeline.transfers)
+            if timeline.cache_hits:
+                # factor-cache hits in this wave: a repeat entity whose
+                # gather was skipped (flight entries prove gather ~ 0)
+                meta["cache_hits"] = timeline.cache_hits
+            if timeline.cache_misses:
+                meta["cache_misses"] = timeline.cache_misses
+                if timeline.cache_miss_bytes:
+                    meta["cache_miss_bytes"] = round(
+                        timeline.cache_miss_bytes, 1
+                    )
+            meta["wave_size"] = len(live)
+            meta["wave_seq"] = wave_seq
+            #: process-unique wave handle (dispatch wall-ms + seq):
+            #: provenance records cite it
+            meta["wave_id"] = f"{int(wave_t0 * 1000):x}-{wave_seq}"
+            meta["wave_request_ids"] = rids
+            if extra:
+                meta.update(extra)
+
+    def _observe_timeline(
+        self, timeline: "device_obs.WaveTimeline", device_s: float
+    ) -> dict[str, float]:
+        """Turn the engine's stage marks into the 4-way (+other) breakdown
+        that sums to ``device_s`` and record the per-stage histograms,
+        labeled by the device the engine marked.  (The roofline gauges are
+        the engine's: it observes its kernel's CUDA-event time into the
+        efficiency tracker after the wave's fence.)"""
+        breakdown = device_obs.split_breakdown(timeline, device_s)
+        for stage, seconds in breakdown.items():
+            if seconds > 0.0 or stage == "other":
+                self._m_stage_time.labels(stage, timeline.device).observe(
+                    seconds
+                )
+        return breakdown
 
     # -- pipelined finalize ---------------------------------------------------
 
@@ -499,8 +627,12 @@ class MicroBatcher:
                 expired.add(j)
         t_fin = time.perf_counter()
         try:
-            with deadline_scope(absolute=job.wave_deadline):
-                results = self._validated(job.pending.finalize(), items)
+            with device_obs.wave_timeline() as ftl:
+                with deadline_scope(absolute=job.wave_deadline):
+                    with _wave_context(live[0]):
+                        results = self._validated(
+                            job.pending.finalize(), items
+                        )
         except Exception as e:
             self._fail_or_retry(live, e, job.wave_seq, job.loop)
             return
@@ -520,8 +652,13 @@ class MicroBatcher:
         finalize_s = time.perf_counter() - t_fin
         device_s = job.dispatch_s + finalize_s
         self._m_device_time.observe(device_s)
+        # one breakdown covering both halves: host_gather/h2d from the
+        # dispatch, compute/d2h from the fence
+        ftl.merge(job.timeline)
+        breakdown = self._observe_timeline(ftl, device_s)
         self._fill_meta(
-            live, job.t_dispatch, device_s, job.wave_seq,
+            live, job.t_dispatch, device_s, job.wave_seq, breakdown, ftl,
+            job.wave_t0, [e.rid for e in job.live if e.rid],
             extra={
                 "pipelined": True,
                 "dispatch_s": round(job.dispatch_s, 6),
@@ -574,20 +711,23 @@ class MicroBatcher:
                 )
                 continue
             t0 = time.perf_counter()
+            t0_wall = time.time()
             try:
-                with deadline_scope(absolute=e.deadline):
-                    # dispatch + finalize inline: a retried item never
-                    # re-enters the pipeline
-                    result = self._run_batch_sync([e.item])[0]
+                with device_obs.wave_timeline() as timeline:
+                    with deadline_scope(absolute=e.deadline):
+                        with _wave_context(e):
+                            # dispatch + finalize inline: a retried item
+                            # never re-enters the pipeline
+                            result = self._run_batch_sync([e.item])[0]
             except Exception as err:
                 _post_one(e.fut, error=err)
                 continue
-            if e.meta is not None:
-                e.meta["queue_wait_s"] = round(t0 - e.t_enq, 6)
-                e.meta["device_s"] = round(time.perf_counter() - t0, 6)
-                e.meta["wave_size"] = 1
-                e.meta["wave_seq"] = wave_seq
-                e.meta["solo_retry"] = True
+            solo_s = time.perf_counter() - t0
+            breakdown = self._observe_timeline(timeline, solo_s)
+            self._fill_meta(
+                [e], t0, solo_s, wave_seq, breakdown, timeline, t0_wall,
+                [e.rid] if e.rid else [], extra={"solo_retry": True},
+            )
             self._note_wave(1)
             _post_one(e.fut, result=result)
             now = _deadline_now()
@@ -598,6 +738,27 @@ class MicroBatcher:
             loop.call_soon_threadsafe(_resolve_wave, futures, results, error)
         except RuntimeError:
             pass  # loop already closed during shutdown
+
+
+@contextlib.contextmanager
+def _wave_context(entry: _Entry):
+    """Re-bind one wave member's request + trace context around a dispatch
+    on the worker (or finalizer) thread, so log records and outbound calls
+    inside ``batch_fn`` carry that request's ids.  No-op for submitters
+    that carried no context."""
+    tid, sid = entry.tctx or (None, None)
+    if not entry.rid and not tid:
+        yield
+        return
+    tokens = set_request_context(entry.rid, tid)
+    ptoken = bind_parent_span(sid)
+    ftoken = bind_fragments(entry.tctx is not None)
+    try:
+        yield
+    finally:
+        reset_fragments(ftoken)
+        reset_parent_span(ptoken)
+        reset_request_context(tokens)
 
 
 def _post_one(fut: asyncio.Future, result=None, error=None) -> None:

@@ -26,9 +26,17 @@ generation's factor caches (``parallel.device_cache``).  An answer that an
 engine gave in degraded mode (``resilience.degrade.mark_degraded``: a live
 event-store read failed) is stamped ``X-Pio-Degraded`` with the reasons,
 collected per request on the threaded route and per wave in the
-micro-batcher.  Canary and tenant partitioning of waves, the generation
-manifest's checksum gate, and the observability routes come with later
-slices.
+micro-batcher.
+
+The observability routes are the JAX package's (``obs.http``:
+``/metrics``, ``/healthz``, ``/readyz`` with the model, batcher and
+event-store checks, ``/efficiency.json``, ``/explain.json``,
+``/debug/flight.json``, ``/debug/profile`` ...), gated by the deploy's
+access key except ``/healthz``.  Every answered query leaves a provenance
+record (binding, engine path, wave, items and scores), its wave meta in
+the flight recorder, and, on the solo paths, its host stages in
+``/hotpath.json``.  Canary and tenant partitioning of waves and the
+generation manifest's checksum gate come with later slices.
 """
 
 from __future__ import annotations
@@ -54,7 +62,18 @@ from predictionio_tpu_torch.data.storage.config import (
     get_storage,
 )
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import device as device_obs
+from predictionio_tpu_torch.obs import provenance
+from predictionio_tpu_torch.obs.disttrace import note_wave_events
+from predictionio_tpu_torch.obs.flight import annotate
+from predictionio_tpu_torch.obs.hotpath import (
+    WAVE_STAGE_MAP,
+    HotPathTracker,
+    StageClock,
+)
+from predictionio_tpu_torch.obs.http import add_observability_routes
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+from predictionio_tpu_torch.obs.tracing import trace
 from predictionio_tpu_torch.parallel import device_cache
 from predictionio_tpu_torch.resilience import LoadShed
 from predictionio_tpu_torch.resilience.admission import AdmissionController
@@ -98,14 +117,17 @@ class QueuedQuery:
     its bisection and the batcher's solo retry re-dispatch the query on
     the device, never on the host replica, so a failing card answers 500
     and not a host answer.  A wave that answers it sets ``degraded`` to the
-    degraded-mode reasons of that wave."""
+    degraded-mode reasons of that wave, and ``prov`` to the provenance the
+    wave collected for it (binding identity and the engine's notes; deep
+    fields under ``_deep``)."""
 
-    __slots__ = ("payload", "on_device", "degraded")
+    __slots__ = ("payload", "on_device", "degraded", "prov")
 
     def __init__(self, payload: dict):
         self.payload = payload
         self.on_device = False
         self.degraded: tuple[str, ...] = ()
+        self.prov: dict[str, Any] = {}
 
 
 def _render_prediction(p: Any) -> Any:
@@ -466,6 +488,41 @@ def create_prediction_server_app(
             resp.headers[DEGRADED_HEADER] = ",".join(degraded)
         return resp
 
+    # solo-path host-stage attribution (obs/hotpath.py): every fully served
+    # request decomposes into named host stages at /hotpath.json
+    hotpath = HotPathTracker(registry)
+
+    def _note_wave_provenance(item, payload, meta, instance_id) -> None:
+        """The decision record of one micro-batched answer: the wave's
+        binding identity and engine notes, the payload, the wave's
+        coordinates and cache split, the wave mates (deep) and any
+        degraded-mode reasons."""
+        prov = dict(item.prov)
+        deep = prov.pop("_deep", None)
+        provenance.note(**prov)
+        if deep:
+            provenance.note_deep(**deep)
+        provenance.note(payload=payload)
+        wave_info = {
+            key[len("wave_"):]: meta[key]
+            for key in ("wave_id", "wave_size", "wave_seq")
+            if meta.get(key) is not None
+        }
+        if wave_info:
+            provenance.note(wave=wave_info)
+        if meta.get("cache_hits") or meta.get("cache_misses"):
+            provenance.note(
+                cache={
+                    "hits": meta.get("cache_hits", 0),
+                    "misses": meta.get("cache_misses", 0),
+                    "generation": instance_id,
+                }
+            )
+        if meta.get("wave_request_ids"):
+            provenance.note_deep(wave_request_ids=meta["wave_request_ids"])
+        if item.degraded:
+            provenance.note(degraded=list(item.degraded))
+
     @app.route("GET", "/")
     def index(req: Request) -> Response:
         inst = deployed.instance
@@ -574,6 +631,20 @@ def create_prediction_server_app(
             on_device = any(it.on_device for it in items)
             out: list[tuple] = []
             fin = None
+            # the decision record's identity half, once per wave; the
+            # engine's notes collect in a wave-scoped provenance collector
+            # per half (the request scopes are invisible on the batcher's
+            # threads) and reach each query through ``QueuedQuery.prov``
+            base_prov = provenance.binding_fields(deployed, binding)
+            wave_notes: dict[str, Any] = {}
+
+            def _merge_notes(wtoken) -> None:
+                collected = provenance.end_wave(wtoken)
+                deep = collected.pop("_deep", None)
+                wave_notes.update(collected)
+                if deep:
+                    wave_notes.setdefault("_deep", {}).update(deep)
+
             with degraded_scope() as degraded:
                 for it in items:
                     try:
@@ -584,6 +655,7 @@ def create_prediction_server_app(
                 ok_idx = [i for i, (tag, _) in enumerate(parsed) if tag == "q"]
                 if ok_idx:
                     deployed.acquire_slot(binding)
+                    wtoken = provenance.begin_wave()
                     try:
                         fin = deployed.dispatch_batch_bound(
                             binding, [parsed[i][1] for i in ok_idx],
@@ -600,6 +672,8 @@ def create_prediction_server_app(
                         on_device = True
                     else:
                         on_device = fin is not None
+                    finally:
+                        _merge_notes(wtoken)
             degraded_pre = tuple(degraded)
             if on_device:
                 for i in ok_idx:
@@ -607,6 +681,7 @@ def create_prediction_server_app(
 
             def _finalize():
                 with degraded_scope() as degraded:
+                    wtoken = provenance.begin_wave()
                     try:
                         if fin is not None:
                             try:
@@ -627,6 +702,7 @@ def create_prediction_server_app(
                                 binding, parsed, ok_idx, out, on_device
                             )
                     finally:
+                        _merge_notes(wtoken)
                         if ok_idx:
                             deployed.release_slot(binding)
                 deg = degraded_pre + tuple(
@@ -635,6 +711,7 @@ def create_prediction_server_app(
                 iid = binding.instance.id
                 done = []
                 for it, (tag, value) in zip(items, out):
+                    it.prov = {**base_prov, **wave_notes}
                     if tag == "pred":
                         try:
                             tag, value = "ok", _render_prediction(value[1])
@@ -667,6 +744,7 @@ def create_prediction_server_app(
         @app.route("POST", "/queries\\.json")
         async def queries(req: Request) -> Response:
             t0 = time.perf_counter()
+            clock = StageClock()
             try:
                 payload = req.json()
                 if not isinstance(payload, dict):
@@ -674,9 +752,30 @@ def create_prediction_server_app(
             except Exception as e:
                 _observe(400, t0)
                 return error_response(400, f"invalid query: {e}")
+            clock.lap("parse")
             item = QueuedQuery(payload)
+            # the worker fills meta with this query's queue-wait/device
+            # split + wave mates; annotate() hands it to the flight recorder
+            meta: dict[str, Any] = {}
             try:
-                status, value, instance_id = await batcher.submit(item)
+                with trace("serve.microbatch", record=False) as mb_span:
+                    clock.lap("route")
+                    status, value, instance_id = await batcher.submit(
+                        item, meta
+                    )
+                    # decompose the await window: queued wait + the wave's
+                    # host-stage split, leftover = loop wakeup + future
+                    # resolution (the "block until ready" tail)
+                    parts = {"queue_wait": meta.get("queue_wait_s") or 0.0}
+                    for key, seconds in (
+                        meta.get("device_breakdown") or {}
+                    ).items():
+                        stage = WAVE_STAGE_MAP.get(key, key)
+                        parts[stage] = parts.get(stage, 0.0) + seconds
+                    clock.split(parts, remainder="block_until_ready")
+                    # the wave's stages become device-track fragments of
+                    # THIS request's trace, under the serve span
+                    note_wave_events(meta, parent=mb_span)
             except LoadShed as e:
                 # bounded queue: an honest 503 + Retry-After
                 _observe(503, t0)
@@ -688,6 +787,14 @@ def create_prediction_server_app(
                 log.exception("query serving failed")
                 _observe(500, t0)
                 return error_response(500, f"{type(e).__name__}: {e}")
+            finally:
+                if meta:
+                    annotate(**meta)
+            _note_wave_provenance(item, payload, meta, instance_id)
+            annotate(
+                instance_id=instance_id,
+                variant=item.prov.get("variant", "default"),
+            )
             if status == "bad":
                 _observe(400, t0)
                 return _stamped(
@@ -701,13 +808,23 @@ def create_prediction_server_app(
                     instance_id,
                 )
             _bump_stats(t0)
-            return _answer(value, instance_id, item.degraded)
+            # the decision record keeps what was returned: item ids with
+            # raw scores
+            provenance.note_answer(value)
+            resp = _answer(value, instance_id, item.degraded)
+            # encode NOW (memoized: the front end reuses it) so the JSON
+            # serialization lands in the serialize stage
+            resp.encoded()
+            clock.lap("serialize")
+            hotpath.observe_clock(clock)
+            return resp
 
     else:
 
         @app.route("POST", "/queries\\.json")
         def queries(req: Request) -> Response:
             t0 = time.perf_counter()
+            clock = StageClock()
             binding = deployed.live_binding()
             iid = binding.instance.id
             try:
@@ -718,9 +835,26 @@ def create_prediction_server_app(
             except Exception as e:
                 _observe(400, t0)
                 return _stamped(error_response(400, f"invalid query: {e}"), iid)
+            clock.lap("parse")
+            # the decision record's identity half: payload + generation
+            fields = provenance.binding_fields(deployed, binding)
+            provenance.note(payload=payload, **fields)
+            annotate(instance_id=iid, variant=fields["variant"])
+            clock.lap("route")
             try:
                 with deployed.serving_slot(binding), degraded_scope() as degraded:
-                    _, prediction = deployed.predict_bound(binding, query)
+                    # the wave timeline collects the engine's stage marks so
+                    # the predict window splits into named stages; the
+                    # unattributed interior is "dispatch"
+                    with device_obs.wave_timeline() as timeline:
+                        _, prediction = deployed.predict_bound(binding, query)
+                    provenance.note(
+                        cache={
+                            "hits": timeline.cache_hits,
+                            "misses": timeline.cache_misses,
+                            "generation": iid,
+                        }
+                    )
             except DeadlineExceeded as e:
                 _observe(504, t0)
                 return _stamped(error_response(504, f"deadline exceeded: {e}"), iid)
@@ -730,8 +864,19 @@ def create_prediction_server_app(
                 return _stamped(
                     error_response(500, f"{type(e).__name__}: {e}"), iid
                 )
-            resp = _answer(_render_prediction(prediction), iid, degraded)
+            clock.split(
+                {WAVE_STAGE_MAP.get(k, k): v for k, v in timeline.stages.items()},
+                remainder="dispatch",
+            )
+            if degraded:
+                provenance.note(degraded=list(degraded))
+            rendered = _render_prediction(prediction)
+            provenance.note_answer(rendered)
+            resp = _answer(rendered, iid, degraded)
             _bump_stats(t0)
+            resp.encoded()
+            clock.lap("serialize")
+            hotpath.observe_clock(clock)
             return resp
 
     def _authorized(req: Request) -> bool:
@@ -767,6 +912,34 @@ def create_prediction_server_app(
             threading.Thread(target=on_stop, daemon=True).start()
         return json_response(200, {"message": "Shutting down."})
 
+    # /readyz: a load balancer should only route here when the model is
+    # bound, the micro-batcher accepts work, and the event store answers
+    def _model_loaded() -> bool:
+        return getattr(deployed, "models", None) is not None
+
+    def _batcher_ready() -> bool:
+        batcher = getattr(app, "microbatcher", None)
+        return batcher is None or not batcher.draining
+
+    def _event_store_ready() -> bool:
+        storage = getattr(deployed, "storage", None)
+        if storage is None:
+            return True
+        return storage.l_events() is not None
+
+    # /debug/profile traces the card when the model lives there
+    app.profile_cuda = deployed.ctx.device.type == "cuda"
+    add_observability_routes(
+        app,
+        registry,
+        access_key=access_key,
+        readiness={
+            "model_loaded": _model_loaded,
+            "microbatcher": _batcher_ready,
+            "event_store": _event_store_ready,
+        },
+        hotpath=hotpath,
+    )
     return app
 
 

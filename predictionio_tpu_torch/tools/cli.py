@@ -336,6 +336,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
+    # as the JAX package's CLI: JSON lines (request-id correlated) to
+    # stderr, PIO_LOG_FORMAT=text for humans, PIO_LOG_LEVEL for verbosity,
+    # and the package logger open to the /logs.json ring
+    from predictionio_tpu_torch.obs.logging import configure_logging
+
+    configure_logging()
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)

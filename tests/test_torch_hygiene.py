@@ -1,7 +1,8 @@
 """Ground rules of the PyTorch + CUDA port (predictionio_tpu_torch).
 
-1. The port stands alone: no module of it, and not ``chip_smoke.py``,
-   imports ``jax`` or anything of the JAX package ``predictionio_tpu``.
+1. The port stands alone: no module of it, nor ``chip_smoke.py`` or
+   ``solo_latency.py``, imports ``jax`` or anything of the JAX package
+   ``predictionio_tpu``.
 2. Its entry points run on CUDA unless the caller asks for the CPU: without
    a card, ``deploy_engine``, ``create_prediction_server``,
    ``run_batch_predict``, the CLI and ``EngineContext`` raise unless given
@@ -64,7 +65,7 @@ def _forbidden(module: str) -> bool:
 
 @pytest.mark.parametrize(
     "path",
-    PORT_FILES + [REPO / "chip_smoke.py"],
+    PORT_FILES + [REPO / "chip_smoke.py", REPO / "solo_latency.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import(path):

@@ -19,6 +19,7 @@ with atomics, in another order).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -676,6 +677,99 @@ def test_pipelined_batcher_device_waves_on_the_card(cuda, tmp_path):
         for j in np.flatnonzero(np.asarray(got_i) != want_i[row, :num]):
             gap = min(abs(w[j] - w[x]) for x in (j - 1, j + 1) if 0 <= x <= num)
             assert gap <= 1e-5 * abs(w[j]) + 1e-6, (row, j)
+
+
+@pytest.mark.cuda
+def test_pipelined_wave_kernel_time_is_the_cards_own(cuda, tmp_path):
+    # four 512-query device waves through the deploy's pipelined batcher:
+    # each wave's CUDA-event time (the kernel's, from the events its
+    # launcher records) is at or above the
+    # kernel's least-work bound at the card's peak row, its five-way host
+    # split sums to its device_s, the pipeline still overlaps (a wave
+    # enqueued behind another), and the roofline share read from those
+    # times stays in (0, 1.05]
+    from predictionio_tpu_torch.obs import device as device_obs
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server import prediction_server as ps
+    from predictionio_tpu_torch.server.microbatch import PendingWave
+
+    rng = np.random.default_rng(13)
+    n_users, n_items, rank, num = 3000, 20_000, 10, 10
+    _, _, storage, deployed = _card_deploy(cuda, tmp_path, rng, n_users, n_items, rank)
+    app = ps.create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=512, pipeline_depth=2,
+        max_queue=0, registry=MetricsRegistry(),
+    )
+    batcher = app.microbatcher
+    dispatch = batcher.batch_fn
+
+    def paused_fence(items):
+        # each fence starts after a pause, so the worker's next waves are
+        # enqueued behind an unfenced one: the overlap is certain, not a
+        # race between the two host threads
+        out = dispatch(items)
+        if not isinstance(out, PendingWave):
+            return out
+        fence = out.finalize
+
+        def finalize():
+            time.sleep(0.05)
+            return fence()
+
+        return PendingWave(finalize)
+
+    batcher.batch_fn = paused_fence
+    users = rng.integers(0, n_users, 2048)
+    metas = [{} for _ in users]
+    try:
+        results = _burst(
+            batcher, [{"user": f"u{u}", "num": num} for u in users], metas
+        )
+    finally:
+        app.microbatcher.close()
+        storage.close()
+    assert {r[0] for r in results} == {"ok"}
+    waves = {m["wave_seq"]: m for m in metas}
+    assert len(waves) == 4
+    peaks = device_obs.device_peaks()
+    work = topk.fused_topk_least_work(512, rank, n_items, num)
+    bound_s = max(work["bytes"] / (peaks.hbm_gbps * 1e9),
+                  work["flops"] / (peaks.tflops * 1e12))
+    for m in waves.values():
+        assert m["wave_fn"] == "als.fused_topk" and m["wave_device"] == "cuda:0"
+        assert m["wave_kernel_s"] >= bound_s, (m["wave_kernel_s"], bound_s)
+        split = m["device_breakdown"]
+        assert abs(sum(split.values()) - m["device_s"]) <= 0.01 * m["device_s"]
+        assert m["wave_transfers"] == {"h2d": 512 * 8, "d2h": 2 * 512 * num * 4}
+    assert any(m["pipelined"] and m["inflight_depth"] == 2 for m in waves.values())
+    util = device_obs.default_efficiency().snapshot()["functions"]["als.fused_topk"]
+    assert 0 < util["utilization_hbm"] <= 1.05
+    assert 0 < util["utilization_mxu"] <= 1.05
+
+
+@pytest.mark.cuda
+def test_launcher_timing_events_leave_out_host_gaps(cuda):
+    # the timing pair the launcher records brackets its passes alone: a
+    # host pause before the launch shows in a pair recorded from Python
+    # around it, and not in the launcher's
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(rng.standard_normal((512, 10)).astype(np.float32)).cuda()
+    t = torch.from_numpy(rng.standard_normal((20_000, 10)).astype(np.float32)).cuda()
+    geo = topk.cuda_geometry(512, 20_000, 10, 10, q.device)
+    topk.fused_topk_cuda(q, t, 10, 20_000, geo)  # built and warm
+    torch.cuda.synchronize()
+    outer = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    inner = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    outer[0].record()
+    time.sleep(0.05)
+    got = topk.fused_topk_cuda(q, t, 10, 20_000, geo, timing=inner)
+    outer[1].record()
+    torch.cuda.synchronize()
+    kernel_ms = inner[0].elapsed_time(inner[1])
+    span_ms = outer[0].elapsed_time(outer[1])
+    assert 0 < kernel_ms < 10, kernel_ms
+    assert span_ms >= 45 and span_ms - kernel_ms >= 40, (span_ms, kernel_ms)
+    _hold_to_plain(got, q, t, "normal", 10, None)
 
 
 @pytest.mark.cuda

@@ -386,7 +386,9 @@ def test_constants_match_the_cuda_source():
         assert f"extern \"C\" int {entry}" in src
     name, entry, argtypes = _kernels.KERNELS["fused_topk"]
     assert (name, entry) == ("fused_topk.cu", "pio_fused_topk")
-    assert len(argtypes) == 14
+    # ... stream, then the two timing events the launcher records
+    assert len(argtypes) == 16
+    assert "void* stream,\n                              void* started, void* ended)" in src
     assert _kernels.KERNELS["fused_topk_smem"][:2] == ("fused_topk.cu", "pio_fused_topk_smem")
     assert _kernels.KERNELS["device_smem"][:2] == ("fused_topk.cu", "pio_device_smem")
 
