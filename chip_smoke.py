@@ -60,7 +60,22 @@ calls:
   an item just viewed through its event port; the event server's
   ``/metrics`` counting every accepted event, its ``/readyz``, and no CUDA
   context in it.  ``train_ml20m`` also reads ``als.pallas_step``'s share
-  on ``/efficiency.json``'s yardstick beside kernel 1's CUDA-event time.
+  on ``/efficiency.json``'s yardstick beside kernel 1's CUDA-event time;
+- ``pio eval`` (``eval``, on ``train_cli``'s ML-100K store): an evaluation
+  module written into the phase's directory sweeps the recommendation
+  template (ranks 8 and 10, regs 0.01 and 0.1, 5 folds; Precision@10 and
+  PositiveCount) through the CLI, plainly and through ``FastEvalEngine``,
+  with the same result and an EVALCOMPLETED instance each; kernel 1 trains
+  every fold, kernel 3 answers every fold wave of 512+ known test users;
+- the NCF template at the ML-20M shape (``ncf_train``): the defaults
+  (bpr, MLP (64, 32, 16), 5 epochs) with each epoch's seconds and loss, the
+  step time and idle share of a steady window, one step held to the CPU's;
+  then the pretraining recipe (implicit ALS at rank 32 through kernel 1, 40
+  launches, then one full_softmax epoch), kernel 1 held and timed on that
+  stream; that first model through the default deploy (``ncf_serving``):
+  solo queries per front end (the threaded server's host replica held to
+  the numpy answer exactly), a 4,096-query burst in device waves of 32 and
+  a 4,096-query ``run_batch_predict``, held to the host answer.
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -756,12 +771,16 @@ FRONT_QUERIES = 4096
 PIPELINED_NUM = 128
 
 
-def hold_answers(answers, users, U, V, num: int) -> int:
+def hold_answers(answers, users, U, V, num: int, item_name=None) -> int:
     """Each answer (its ``itemScores``) against the host answer of its user:
     ``num`` entries, scores within RTOL, ids equal except inside a near-tie
     of the host scores (a wave's product sums in another order than a
-    single row's).  Returns the answers checked."""
+    single row's).  ``item_name`` maps a row of V to its item (default
+    ``i<row>``).  Returns the answers checked."""
     from predictionio_tpu_torch.ops.topk import host_topk_batch
+
+    if item_name is None:
+        item_name = "i{}".format
 
     users = np.asarray(users)
     for lo in range(0, len(users), 512):
@@ -774,7 +793,7 @@ def hold_answers(answers, users, U, V, num: int) -> int:
                 [x["score"] for x in got], scores[:num], rtol=RTOL, atol=1e-6
             )
             for c, gi in enumerate(x["item"] for x in got):
-                if gi != f"i{idx[j, c]}":
+                if gi != item_name(int(idx[j, c])):
                     nb = [scores[x] for x in (c - 1, c + 1) if 0 <= x <= num]
                     assert min(abs(scores[c] - x) for x in nb) <= RTOL * abs(
                         scores[c]
@@ -1612,7 +1631,7 @@ def same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 def als_kernel_phase() -> list:
     """Both ALS kernels against their plain versions, "highest" and "bf16",
     on a stream with an all-padding block and a segment over more than 3
-    tiles: the fused one at ranks 1, 2, 6, 10, 11, 17 and 32, explicit and
+    tiles: the fused one at ranks 1, 2, 6, 8, 10, 11, 17 and 32, explicit and
     implicit; the chunked one at ranks 1, 10, 11, 17 and 32 (every width),
     in 2-tile chunks, and on a stream whose runs end at every row of a tile
     in 3-tile chunks (blocks cross chunks); and the fused one on a signed
@@ -1628,7 +1647,7 @@ def als_kernel_phase() -> list:
     n_seg_pad, n_oth, n, hot = 512, 300, 9000, 3500
     cases = []
     for kind in ("exact", "normal"):
-        for k in (1, 2, 6, 10, 11, 17, 32):
+        for k in (1, 2, 6, 8, 10, 11, 17, 32):
             seg, oth, rating, factors = als_stream(kind, n, n_seg_pad, n_oth, k, rng, hot)
             st = als._stage(seg, oth, rating, n_seg_pad, "fused", cuda)
             f = torch.from_numpy(factors).cuda()
@@ -1925,6 +1944,8 @@ def train_cli_phase() -> dict:
             torch.from_numpy(U).cuda(), torch.from_numpy(V).cuda(),
             pd.user_idx, pd.item_idx, pd.ratings,
         )
+        # pio eval on the same store (its own main-path read)
+        out["eval"] = eval_phase(tmp, storage)
         storage.close()
     st = stages.stages
     out.update(
@@ -1974,10 +1995,10 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
-def fused_timing(staged: dict, other: torch.Tensor, p) -> dict:
-    """Kernel 1 at the ML-20M half-step: checked against its plain version
-    on the same inputs, then timed beside it and held against its bound.
-    No single PyTorch call computes it, so library_ms is null."""
+def fused_hold(staged: dict, other: torch.Tensor, p, what: str) -> float:
+    """Kernel 1 on a train's staged stream (``ops.als._STAGE_CACHE``, its
+    weights made for the train's feedback kind) against its plain version,
+    within ALS_RTOL of the absolute sums; returns the largest difference."""
     from predictionio_tpu_torch.ops import als_accum
 
     plan = staged["plan"]
@@ -1988,7 +2009,18 @@ def fused_timing(staged: dict, other: torch.Tensor, p) -> dict:
         staged["plan_args"], staged["oth"], staged["wrv"].abs(), other.abs(),
         plan.n_blocks, p.pallas_precision,
     )
-    err = hold(got, want, scale, False, "fused at the ML-20M shape")
+    return hold(got, want, scale, False, what)
+
+
+def fused_timing(staged: dict, other: torch.Tensor, p) -> dict:
+    """Kernel 1 at the ML-20M half-step: checked against its plain version
+    on the same inputs, then timed beside it and held against its bound.
+    No single PyTorch call computes it, so library_ms is null."""
+    from predictionio_tpu_torch.ops import als_accum
+
+    plan = staged["plan"]
+    args = (staged["plan_args"], staged["oth"], staged["wrv"], other, plan.n_blocks)
+    err = fused_hold(staged, other, p, f"fused at the ML-20M shape, rank {p.rank}")
     valid = int((staged["plan"].seg3 >= 0).sum())
     work = als_accum.als_accum_least_work(
         plan.padded_len, p.rank, plan.n_blocks * 128, other.shape[0], valid
@@ -3503,6 +3535,541 @@ def event_ingest_phase() -> dict:
     return out
 
 
+# -- the NCF template at the ML-20M shape, and pio eval at ML-100K ------------
+
+#: the pretraining recipe (the JAX package's bench flagship at rank 32): the
+#: pure-GMF tables from implicit ALS, then one epoch of low-rate
+#: full_softmax with decoupled decay
+NCF_PRETRAIN = dict(embed_dim=32, mlp_layers=(), loss="full_softmax",
+                    learning_rate=1e-4, weight_decay=1e-4, num_epochs=1,
+                    pretrain="als")
+#: steps of the steady window profiled for the device's idle share
+NCF_PROFILE_STEPS = 40
+#: solo queries per front end, and the queued burst / batch job's queries
+NCF_SOLO, NCF_BURST = 64, 4096
+#: answers of the burst and of the batch job held to the numpy host answer
+#: (each host answer runs the MLP tower over the whole catalog on the CPU)
+NCF_HELD = 256
+#: one step on the card against the CPU's: the loss within NCF_STEP_RTOL,
+#: each gradient entry within NCF_GRAD_RTOL of its leaf's largest (sums of
+#: 8,192 float32 terms in another order: about sqrt(8192) * 2^-24 = 5e-6 of
+#: the terms' absolute sum, which exceeds the largest entry of a leaf whose
+#: terms cancel, such as a bias under ReLU masks); then the
+#: card's parameters after the step against the CPU's Adam replayed from
+#: the same start with the card's gradient, within NCF_STEP_ATOL +
+#: NCF_STEP_ATOL * |parameter| (a few float32 ulps: Adam's update is rounded
+#: in another order).  Comparing the update to a CPU step from the CPU's own
+#: gradient instead would hold the rounding of entries with |g| below Adam's
+#: eps (1e-8), where the step is lr * g / eps: 1e5 times the gradient's
+#: rounding.
+NCF_STEP_RTOL, NCF_GRAD_RTOL, NCF_STEP_ATOL = 1e-5, 1e-4, 1e-6
+
+
+def ml20m_prepared(ratings):
+    """``train_ml20m``'s ratings as the ncf template's PreparedData (users
+    ``u<n>``, items ``i<n>``, vocabulary order = index)."""
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+
+    u, i, r = ratings
+    return rec.PreparedData(
+        user_vocab=BiMap.from_keys([f"u{n}" for n in range(ML20M_USERS)]),
+        item_vocab=BiMap.from_keys([f"i{n}" for n in range(ML20M_ITEMS)]),
+        user_idx=u, item_idx=i, ratings=r,
+    )
+
+
+def ncf_step_hold(params: dict, p, n_items: int, u, pos, rng) -> dict:
+    """One ``train_step`` on the card against the same step on the CPU, from
+    the same parameters, batch and negatives (see NCF_STEP_*)."""
+    from predictionio_tpu_torch.ops import ncf
+
+    def fresh(dev):
+        leaves = ncf.tree_map(
+            lambda x: x.detach().to(dev).clone().requires_grad_(True), params)
+        return leaves, ncf.make_optimizer(leaves, p)
+
+    b = len(u)
+    batch = (torch.from_numpy(u.astype(np.int64)), torch.from_numpy(pos.astype(np.int64)),
+             torch.from_numpy(rng.integers(0, n_items, (b, 1))), torch.ones(b),
+             torch.zeros(b))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        leaves, opt = fresh(dev)
+        loss = ncf.train_step(leaves, opt, *(x.to(dev) for x in batch), p, n_items)
+        runs[dev] = (float(loss), ncf.host_params(leaves),
+                     ncf.tree_map(lambda x: x.grad.cpu().numpy(), leaves))
+    (l_cpu, _, g_cpu), (l_gpu, p_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    assert abs(l_gpu - l_cpu) <= NCF_STEP_RTOL * abs(l_cpu), (l_gpu, l_cpu)
+    # the card's update, replayed on the CPU from the card's gradient
+    leaves, opt = fresh("cpu")
+    for leaf, g in zip(ncf.tree_leaves(leaves), ncf.tree_leaves(g_gpu)):
+        leaf.grad = torch.from_numpy(g)
+    opt.step()
+    replay = ncf.host_params(leaves)
+    out = {"loss_cpu": l_cpu, "loss_card": l_gpu, "grad_max_rel_err": 0.0,
+           "param_max_abs_err": 0.0, "entries": 0}
+    for gc, gg, pr, pg in zip(*(ncf.tree_leaves(t) for t in (g_cpu, g_gpu, replay, p_gpu))):
+        top = float(np.abs(gc).max()) or 1.0
+        rel = float(np.abs(gg - gc).max()) / top
+        assert rel <= NCF_GRAD_RTOL, (gc.shape, rel)
+        diff = np.abs(pg - pr)
+        assert (diff <= NCF_STEP_ATOL * (1.0 + np.abs(pr))).all(), (
+            gc.shape, float(diff.max()))
+        out["grad_max_rel_err"] = max(out["grad_max_rel_err"], rel)
+        out["param_max_abs_err"] = max(out["param_max_abs_err"], float(diff.max()))
+        out["entries"] += int(gc.size)
+    return out
+
+
+def ncf_train_phase(storage, ratings) -> tuple[dict, dict]:
+    """The ncf template's ``NCFAlgorithm.train`` on the card at the ML-20M
+    shape (positives: ratings >= 4.0): (a) the defaults (embed 32, MLP
+    (64, 32, 16), bpr, one negative, batch 8,192, 5 epochs), each epoch's
+    seconds and loss, the step time and the device's idle share over a
+    steady window, one step held to the CPU's; (b) the pretraining recipe
+    (NCF_PRETRAIN): implicit ALS at rank 32 through kernel 1 (40 launches),
+    kernel 1 then held to its plain version on that stream and timed
+    there.  (a)'s model is persisted for the serving phase."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import EngineParams
+    from predictionio_tpu_torch.models.ncf import engine as ncf_engine
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.ops import als, ncf
+
+    out: dict = {"phase": "ncf_train",
+                 "shape": [ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS]}
+    t_phase = time.perf_counter()
+    pd = ml20m_prepared(ratings)
+    positives = pd.ratings >= 4.0
+    pos_u, pos_i = pd.user_idx[positives], pd.item_idx[positives]
+    out["positives"] = int(positives.sum())
+    ctx = EngineContext(storage=storage, device="cuda")
+
+    # (a) the template's defaults
+    params = ncf_engine.NCFAlgorithmParams()
+    algo = ncf_engine.NCFAlgorithm(params)
+    base = fresh_peak()
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    t0 = time.perf_counter()
+    model = algo.train(ctx, pd)
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    # -- end --
+    st = model.state
+    p = st.config
+    n_steps = -(-out["positives"] // p.batch_size)
+    losses = st.epoch_losses
+    assert len(losses) == p.num_epochs and np.isfinite(losses).all(), losses
+    assert losses[-1] < losses[0], losses
+    model.sanity_check()
+    # a steady window of the same epoch loop under torch.profiler
+    stream = ncf.stage_stream(pos_u, pos_i, p, torch.device("cuda"))
+    window = dataclasses.replace(
+        stream, n_steps=NCF_PROFILE_STEPS,
+        **{k: getattr(stream, k)[: NCF_PROFILE_STEPS * stream.batch]
+           for k in ("u", "i", "valid", "w")})
+    leaves = ncf.tree_map(lambda x: x.clone().requires_grad_(True), st.params)
+    opt = ncf.make_optimizer(leaves, p)
+    gen = torch.Generator(device="cuda").manual_seed(p.seed)
+    cdf = torch.from_numpy(ncf.negative_sampling_cdf(pos_i, ML20M_ITEMS, 0.0)).cuda()
+    ncf.train_epoch(leaves, opt, window, p, ML20M_ITEMS, gen, cdf)  # warm
+    wall, idle, device_ms = profile_idle(
+        lambda: ncf.train_epoch(leaves, opt, window, p, ML20M_ITEMS, gen, cdf))
+    rng = np.random.default_rng(SEED + 40)
+    pick = rng.choice(len(pos_u), p.batch_size, replace=False)
+    out["defaults"] = {
+        "params": dataclasses.asdict(params),
+        "train_s": train_s,
+        "epoch_s": st.epoch_seconds,
+        "epoch_loss": losses,
+        "steps_per_epoch": n_steps,
+        "step_ms": 1e3 * float(np.mean(st.epoch_seconds)) / n_steps,
+        "window_step_ms": 1e3 * wall / NCF_PROFILE_STEPS,
+        "window_device_idle_share": idle,
+        "window_device_ms_by_kernel": dict(
+            sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]),
+        "peak": peak_since(base),
+        "launches": launches,
+        "step_vs_cpu": ncf_step_hold(st.params, p, ML20M_ITEMS, pos_u[pick],
+                                     pos_i[pick], rng),
+    }
+    del leaves, opt, stream, window
+    blob = algo.make_persistent_model(ctx, model)
+    instance_id = persist_instance(
+        storage, "ncf", "ncf-ml20m",
+        EngineParams(datasource=("", rec.DataSourceParams(app_name="ml20m")),
+                     algorithms=(("ncf", params),), serving=("", None)),
+        blob)
+    served = {"instance": instance_id, "host": blob["params"]}
+    del model, st
+
+    # (b) the pretraining recipe: kernel 1 at rank 32
+    pre = ncf_engine.NCFAlgorithmParams(**NCF_PRETRAIN)
+    base = fresh_peak()
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    t0 = time.perf_counter()
+    model_b = ncf_engine.NCFAlgorithm(pre).train(ctx, pd)
+    pre_s = time.perf_counter() - t0
+    pre_launches = read_launches()
+    # -- end --
+    assert pre_launches["als_fused_accum"] == 2 * ITERATIONS, pre_launches
+    assert als.LAST_PLAN_INFO["rank"] == 32 and als.LAST_PLAN_INFO["mode"] == "fused"
+    model_b.sanity_check()
+    assert np.isfinite(model_b.state.epoch_losses).all()
+    su, _ = next(iter(als._STAGE_CACHE.values()))
+    ni_pad = (ML20M_ITEMS + 127) // 128 * 128
+    p32 = als.ALSParams(rank=32, implicit_prefs=True, alpha=pre.alpha)
+    kernel = fused_timing(su, pad_rows(model_b.state.params["item_emb"], ni_pad), p32)
+    out["pretrain"] = {
+        "params": dataclasses.asdict(pre),
+        "train_s": pre_s,
+        "als_stage_s": als.LAST_PLAN_INFO["stage_s"],
+        "als_plan": {k: v for k, v in als.LAST_PLAN_INFO.items() if k != "stage_s"},
+        "epoch_s": model_b.state.epoch_seconds,
+        "epoch_loss": model_b.state.epoch_losses,
+        "peak": peak_since(base),
+        "launches": pre_launches,
+        "kernel1_rank32_implicit_user_half_step": kernel,
+    }
+    del su, model_b
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["nvidia_smi"] = nvidia_smi_line()
+    return out, served
+
+
+def ncf_host_answer(hp: dict, uidx: int, num: int) -> tuple[list, list]:
+    """The numpy host replica's num + 1 best (``_host_score_topk``)."""
+    from predictionio_tpu_torch.models.ncf.engine import _host_score_topk
+
+    s, idx = _host_score_topk(hp, uidx, ML20M_ITEMS, num + 1)
+    return [f"i{j}" for j in idx], [float(x) for x in s]
+
+
+def ncf_serving_phase(storage, served) -> dict:
+    """(a)'s model through the default deploy on the card: solo queries on
+    one keep-alive connection to the asyncio front end (device waves of one)
+    and to the threaded server (the host replica, held to the numpy answer
+    exactly); a 4,096-query burst queued on the micro-batcher (device waves
+    of 32); one ``run_batch_predict`` of 4,096 queries (128 waves of 32).
+    Waves are held to the host answer under the num+1 near-tie rule."""
+    import http.client
+
+    from predictionio_tpu_torch.core.batch_predict import run_batch_predict
+    from predictionio_tpu_torch.obs import device as device_obs
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_prediction_server,
+        create_prediction_server_app,
+        deploy_engine,
+    )
+
+    iid, hp = served["instance"], served["host"]
+    rng = np.random.default_rng(SEED + 41)
+    out: dict = {"phase": "ncf_serving", "instance": iid}
+    t_phase = time.perf_counter()
+    solo_users = rng.integers(0, ML20M_USERS, NCF_SOLO)
+    burst_users = rng.integers(0, ML20M_USERS, NCF_BURST)
+
+    def solo(port: int) -> tuple[list, list]:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        answers, ms = [], []
+        try:
+            for u in solo_users:
+                t1 = time.perf_counter()
+                conn.request("POST", "/queries.json",
+                             body=json.dumps({"user": f"u{u}", "num": 10}))
+                resp = conn.getresponse()
+                body = resp.read()
+                ms.append(1e3 * (time.perf_counter() - t1))
+                assert resp.status == 200, body
+                answers.append(json.loads(body)["itemScores"])
+        finally:
+            conn.close()
+        return answers, ms
+
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    results = {}
+    for kind in ("aio", "threaded"):
+        server = create_prediction_server(
+            "ncf", host="127.0.0.1", port=0, storage=storage,
+            engine_instance_id=iid, server_kind=kind, device="cuda",
+        ).start_background()
+        try:
+            results[kind] = solo(server.port)
+        finally:
+            server.shutdown()
+    deployed = deploy_engine("ncf", storage=storage, engine_instance_id=iid,
+                             device="cuda")
+    app = create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=32, max_queue=NCF_BURST,
+        registry=MetricsRegistry(),
+    )
+    payloads = [{"user": f"u{u}", "num": 10} for u in burst_users]
+    metas: list[dict] = [{} for _ in payloads]
+    t0 = time.perf_counter()
+    try:
+        burst = queued_burst(app.microbatcher, payloads, metas)
+    finally:
+        burst_s = time.perf_counter() - t0
+        app.microbatcher.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        qfile, pfile = Path(tmp) / "q.jsonl", Path(tmp) / "p.jsonl"
+        qfile.write_text("".join(json.dumps({"user": f"u{u}", "num": 10}) + "\n"
+                                 for u in burst_users))
+        t0 = time.perf_counter()
+        assert run_batch_predict("ncf", qfile, pfile, storage=storage,
+                                 engine_instance_id=iid, device="cuda") == NCF_BURST
+        batch_s = time.perf_counter() - t0
+        lines = [json.loads(x) for x in pfile.read_text().splitlines()]
+    launches = read_launches()
+    # -- end --
+    swaps = {"aio": 0}
+    for u, got in zip(solo_users, results["threaded"][0]):
+        ids, scores = ncf_host_answer(hp, int(u), 10)
+        # the host replica: the same numpy arithmetic, exactly
+        assert [x["item"] for x in got] == ids[:10], u
+        assert [x["score"] for x in got] == scores[:10], u
+    for u, got in zip(solo_users, results["aio"][0]):
+        want = ncf_host_answer(hp, int(u), 10)
+        hold_scored(got, want, 10, ("aio solo", u))
+        swaps["aio"] += sum(a["item"] != b for a, b in zip(got, want[0]))
+    assert {(r[0], r[2]) for r in burst} == {("ok", iid)}
+    held = rng.choice(NCF_BURST, NCF_HELD, replace=False)
+    for j in held:
+        want = ncf_host_answer(hp, int(burst_users[j]), 10)
+        hold_scored(burst[j][1]["itemScores"], want, 10, ("burst", j))
+        hold_scored(lines[j]["prediction"]["itemScores"], want, 10, ("batch", j))
+    waves: dict = {}
+    for m in metas:
+        waves.setdefault(m["wave_seq"], m)
+    assert all(m["wave_size"] <= 32 for m in waves.values())
+    kernel_s = [m["wave_kernel_s"] for m in waves.values() if "wave_kernel_s" in m]
+    assert len(kernel_s) == len(waves), "a wave without its CUDA-event time"
+    eff = device_obs.default_efficiency().snapshot()["functions"]["ncf.batch_predict"]
+    out.update(
+        solo_p50_ms={k: statistics.median(v[1]) for k, v in results.items()},
+        solo_p99_ms={k: float(np.percentile(v[1], 99)) for k, v in results.items()},
+        solo_near_tie_id_swaps=swaps["aio"],
+        burst_queries_per_s=NCF_BURST / burst_s,
+        burst_s=burst_s,
+        burst_waves=len(waves),
+        wave_device_ms_p50=1e3 * statistics.median(kernel_s),
+        wave_device_ms_max=1e3 * max(kernel_s),
+        wave_host_s_p50=statistics.median(m["device_s"] for m in waves.values()),
+        batch_predict_s=batch_s,
+        batch_predict_queries_per_s=NCF_BURST / batch_s,
+        answers_held={"threaded_exact": NCF_SOLO, "aio": NCF_SOLO,
+                      "burst": NCF_HELD, "batch": NCF_HELD},
+        efficiency=eff,
+        launches=launches,
+        phase_s=time.perf_counter() - t_phase,
+        nvidia_smi=nvidia_smi_line(),
+    )
+    return out
+
+
+def ncf_phases(ratings) -> tuple[dict, dict]:
+    """The ncf template on the card: ``ncf_train`` then ``ncf_serving``."""
+    from predictionio_tpu_torch.data.storage.config import (
+        StorageConfig,
+        StorageRuntime,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        storage = StorageRuntime(
+            StorageConfig.from_env({"PIO_HOME": str(Path(tmp) / "pio_home")}))
+        try:
+            train, served = ncf_train_phase(storage, ratings)
+            emit(train)
+            serving = ncf_serving_phase(storage, served)
+            emit(serving)
+        finally:
+            storage.close()
+    return train, serving
+
+
+#: the evaluation a user writes for ``pio eval``: the recommendation
+#: template's sweep (ranks 8 and 10, regs 0.01 and 0.1, 10 iterations,
+#: 5 folds) scored by Precision@10 and PositiveCount, plainly and through
+#: FastEvalEngine
+EVAL_MODULE = """\
+from predictionio_tpu_torch.eval import FastEvalEngine
+from predictionio_tpu_torch.eval.evaluation import Evaluation
+from predictionio_tpu_torch.models.recommendation.engine import (
+    EvalParams, recommendation_engine)
+from predictionio_tpu_torch.models.recommendation.evaluation import (
+    PositiveCount, PrecisionAtK, engine_params_list)
+
+
+def _evaluation(factory, app_name):
+    return Evaluation(
+        engine_factory=factory,
+        engine_params_list=engine_params_list(
+            app_name, ranks=(8, 10), regs=(0.01, 0.1),
+            eval_params=EvalParams(k_fold=5)),
+        metric=PrecisionAtK(10), other_metrics=(PositiveCount(),))
+
+
+def evaluation(app_name):
+    return _evaluation(recommendation_engine, app_name)
+
+
+def fast_evaluation(app_name):
+    return _evaluation(
+        lambda: FastEvalEngine.from_engine(recommendation_engine()), app_name)
+"""
+EVAL_FOLDS, EVAL_PARAM_SETS, EVAL_ITERATIONS = 5, 4, 10
+
+
+def eval_fold_hold(storage, fold) -> dict:
+    """Kernels 1 and 3 at ``pio eval``'s own shapes, each held to its plain
+    version, outside the counted sweeps: one fold's train at the sweep's
+    rank 8 (reg 0.01) on the card and on the CPU from one start, factors
+    within 2e-3 after 5 iterations (``train_cli``'s hold at rank 10);
+    both of kernel 1's rank-8 half-steps on the card train's staged
+    streams against ``segment_stats_fused_plain``; and the fold's query
+    wave (512 or more known users) through kernel 3 in ``batch_predict``,
+    each answer held to the host top-k under the num + 1 near-tie rule."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.ops import als
+
+    td, _, qa = fold
+    pd = rec.RatingsPreparator().prepare(
+        EngineContext(storage=storage, device="cuda"), td)
+    nu, ni = len(pd.user_vocab), len(pd.item_vocab)
+    start = np.random.default_rng(SEED + 14)
+    init = tuple(
+        (np.abs(start.standard_normal((n, 8))) / np.sqrt(8)).astype(np.float32)
+        for n in (nu, ni)
+    )
+    algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(rank=8, reg=0.01,
+                                                   num_iterations=5))
+    p8 = algo._als_params()
+    reset_launches()
+    card = als.train_als(pd.user_idx, pd.item_idx, pd.ratings, nu, ni, p8,
+                         device="cuda", init_factors=init)
+    assert read_launches()["als_fused_accum"] == 2 * p8.num_iterations
+    assert als.LAST_PLAN_INFO["rank"] == 8 and als.LAST_PLAN_INFO["mode"] == "fused"
+    su, si = next(iter(als._STAGE_CACHE.values()))
+    pad = (lambda n: (n + 127) // 128 * 128)
+    half_step_err = {
+        "user": fused_hold(su, pad_rows(card.item_factors, pad(ni)), p8,
+                           "fused, pio eval fold, user half-step, rank 8"),
+        "item": fused_hold(si, pad_rows(card.user_factors, pad(nu)), p8,
+                           "fused, pio eval fold, item half-step, rank 8"),
+    }
+    del su, si
+    cpu = als.train_als(pd.user_idx, pd.item_idx, pd.ratings, nu, ni, p8,
+                        device="cpu", init_factors=init)
+    diff = max(
+        float((card.user_factors.cpu() - cpu.user_factors).abs().max()),
+        float((card.item_factors.cpu() - cpu.item_factors).abs().max()),
+    )
+    assert diff <= 2e-3, f"fold train, card vs CPU factors differ by {diff}"
+    # the fold's query wave on the card's factors
+    model = rec.ALSModel(user_factors=card.user_factors,
+                         item_factors=card.item_factors,
+                         user_vocab=pd.user_vocab, item_vocab=pd.item_vocab)
+    queries = [(j, q) for j, (q, _) in enumerate(qa)]
+    reset_launches()
+    answers = dict(algo.batch_predict(model, queries))
+    assert read_launches()["fused_topk"] == 1, read_launches()
+    known = [(j, pd.user_vocab.get(q.user)) for j, q in queries]
+    assert all(answers[j].item_scores == () for j, u in known if u is None)
+    known = [(j, u) for j, u in known if u is not None]
+    assert len(known) >= 512, len(known)
+    U, V = model.host_factors()
+    num = qa[0][0].num
+    held = hold_answers(
+        [[{"item": x.item, "score": x.score} for x in answers[j].item_scores]
+         for j, _ in known],
+        [u for _, u in known], U, V, num, item_name=pd.item_vocab.inverse)
+    return {"rank": 8, "card_vs_cpu_max_abs_diff": diff,
+            "kernel1_half_step_max_abs_err": half_step_err,
+            "kernel3_wave": [len(known), ni, 8, num],
+            "kernel3_answers_held": held}
+
+
+def eval_phase(tmp: Path, storage) -> dict:
+    """``pio eval`` through the CLI on ``train_cli``'s ML-100K store: the
+    user's evaluation module in the phase's directory, swept plainly and
+    through FastEvalEngine on the card; both give the same result, each
+    leaves an EVALCOMPLETED instance with the evaluator's JSON; kernel 1
+    runs every fold's train (20 launches each) and kernel 3 every fold wave
+    of 512 or more known test users; both kernels are then held to their
+    plain versions on a fold of the sweep (``eval_fold_hold``)."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.tools import cli
+
+    (tmp / "ml100k_eval.py").write_text(EVAL_MODULE)
+    sys.path.insert(0, str(tmp))
+    out: dict = {"phase": "eval", "shape": [ML100K_USERS, ML100K_ITEMS, ML100K_EVENTS],
+                 "folds": EVAL_FOLDS, "param_sets": EVAL_PARAM_SETS}
+    # the fold waves that reach kernel 3: 512 or more test users known to
+    # the fold's train
+    ds = rec.RatingsDataSource(rec.DataSourceParams(
+        app_name="ml100k", eval_params=rec.EvalParams(k_fold=EVAL_FOLDS)))
+    folds = ds.read_eval(EngineContext(storage=storage, device="cuda"))
+    known = []
+    for td, _, qa in folds:
+        users = set(td.users)
+        known.append(sum(q.user in users for q, _ in qa))
+    out["known_test_users"] = known
+    device_waves = EVAL_PARAM_SETS * sum(n >= 512 for n in known)
+    try:
+        sweeps = {}
+        for name in ("evaluation", "fast_evaluation"):
+            printed = io.StringIO()
+            # -- the main path, with every launch count at 0 just before it --
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                assert cli.main(["eval", f"ml100k_eval:{name}", "--params",
+                                 json.dumps({"app_name": "ml100k"})]) == 0
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            # -- end --
+            lines = printed.getvalue().splitlines()
+            assert lines[0].startswith("[Precision@10] best score: "), lines
+            assert lines[1].startswith("Best score: "), lines
+            assert launches["als_fused_accum"] == (
+                EVAL_PARAM_SETS * EVAL_FOLDS * 2 * EVAL_ITERATIONS), launches
+            assert launches["fused_topk"] == device_waves, (launches, known)
+            sweeps[name] = {"sweep_s": wall, "one_liner": lines[0],
+                            "launches": launches}
+    finally:
+        sys.path.remove(str(tmp))
+        sys.modules.pop("ml100k_eval", None)
+    done = {i.evaluation_class.split(":")[1]: i
+            for i in storage.evaluation_instances().get_completed()}
+    assert sorted(done) == ["evaluation", "fast_evaluation"], sorted(done)
+    results = {k: json.loads(v.evaluator_results_json) for k, v in done.items()}
+    for name, r in results.items():
+        assert len(r["records"]) == EVAL_PARAM_SETS and 0 < r["bestScore"] <= 1
+        assert done[name].evaluator_results == sweeps[name]["one_liner"]
+        sweeps[name]["scores"] = [x["score"] for x in r["records"]]
+        sweeps[name]["positive_count"] = [x["otherScores"]["PositiveCount"]
+                                          for x in r["records"]]
+    # the same trains on the same folds: the same result, plain or fast
+    assert results["evaluation"] == results["fast_evaluation"], results
+    out.update(sweeps=sweeps, best_idx=results["evaluation"]["bestIdx"],
+               best_score=results["evaluation"]["bestScore"],
+               launches={k: sweeps["evaluation"]["launches"][k]
+                         + sweeps["fast_evaluation"]["launches"][k]
+                         for k in sweeps["evaluation"]["launches"]})
+    # the kernels at the sweep's shapes, against their plain versions
+    out["fold_hold"] = eval_fold_hold(
+        storage, next(f for f, n in zip(folds, known) if n >= 512))
+    out["nvidia_smi"] = nvidia_smi_line()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -3535,16 +4102,21 @@ def main() -> int:
         "nvidia_smi": nvidia_smi_line(),
     })
     cli_train = train_cli_phase()
+    evaluation = cli_train.pop("eval")
     emit(cli_train)
+    emit(evaluation)
     ml20m, fused_t, chunk_t, ratings = train_ml20m_phase()
     emit(ml20m)
     emit({"phase": "als_kernel_timing", "als_fused_accum": fused_t,
           "als_segment_accum": chunk_t})
     family_train, _, family_cli = als_family_phases(ratings)
+    ncf_train, _ = ncf_phases(ratings)
     del ratings
     ingest = event_ingest_phase()
     emit(ingest)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
+    pretrain = ncf_train["pretrain"]
+    rank32_t = pretrain["kernel1_rank32_implicit_user_half_step"]
     wide_c = chunk_t["wide"]
     main_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 10, 10])
     wide_t = next(t for t in timings if t["shape"] == [WAVE, ML20M_ITEMS, 32, 128])
@@ -3584,6 +4156,8 @@ def main() -> int:
                     "launches_event_ingest": ingest["batchpredict_launches"]["fused_topk"],
                     # the observability phase's device waves (its queued burst)
                     "launches_observability": front_end[3]["launches"]["fused_topk"],
+                    # pio eval's fold waves of 512+ known users, both sweeps
+                    "launches_eval": evaluation["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),
@@ -3622,6 +4196,17 @@ def main() -> int:
                     launches_ecomm_ml20m=family_train["launches"]["als_fused_accum"],
                     # pio train over the events the event server took in
                     launches_event_ingest=ingest["train_launches"]["als_fused_accum"],
+                    # the ncf template's ALS pretrain (implicit, rank 32)
+                    launches_ncf_pretrain=pretrain["launches"]["als_fused_accum"],
+                    # every fold train of both pio eval sweeps
+                    launches_eval=evaluation["launches"]["als_fused_accum"],
+                    # rank 32, implicit, on the pretrain's ML-20M user half-step
+                    rank32_shape=rank32_t["shape"],
+                    rank32_ms=rank32_t["ms"],
+                    rank32_plain_ms=rank32_t["plain_ms"],
+                    rank32_bound_ms=rank32_t["bound_ms"],
+                    rank32_bound_by=rank32_t["bound_by"],
+                    rank32_max_abs_err=rank32_t["max_abs_err"],
                     implicit_shape=implicit_t["shape"],
                     implicit_ms=implicit_t["ms"],
                     implicit_plain_ms=implicit_t["plain_ms"],

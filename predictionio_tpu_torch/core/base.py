@@ -92,6 +92,15 @@ class DataSource(abc.ABC, Generic[TD, EI, Q, A]):
     @abc.abstractmethod
     def read_training(self, ctx: EngineContext) -> TD: ...
 
+    def read_eval(
+        self, ctx: EngineContext
+    ) -> list[tuple[TD, EI, list[tuple[Q, A]]]]:
+        """Per-fold (trainingData, evalInfo, [(query, actual)]) sets."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement read_eval; "
+            "evaluation is unavailable for this engine"
+        )
+
 
 class Preparator(abc.ABC, Generic[TD, PD]):
     """Transforms training data for the algorithms (core/BasePreparator.scala:33)."""

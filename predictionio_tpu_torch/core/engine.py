@@ -1,9 +1,11 @@
-"""Engine: binds named DASE component classes, trains, loads for deploy.
+"""Engine: binds named DASE component classes, trains, evaluates, loads
+for deploy.
 
 Mirrors controller/Engine.scala:82 (class maps + params), the train
 pipeline (Engine.train:623: read -> sanity -> prepare -> sanity -> train per
-algorithm -> sanity) and prepareDeploy:198, as the JAX package's
-``core/engine.py`` does.  The eval pipeline arrives with a later slice.
+algorithm -> sanity), the eval pipeline (Engine.eval:728: per eval set
+prepare and train, batch predict per algorithm, union by query index,
+serve) and prepareDeploy:198, as the JAX package's ``core/engine.py`` does.
 """
 
 from __future__ import annotations
@@ -30,6 +32,25 @@ from predictionio_tpu_torch.utils.registry import (
 
 #: Engine factories registered by name (the EngineFactory registry).
 engine_registry: Registry[Callable[[], "Engine"]] = Registry("engine factory")
+
+
+def serve_eval_fold(algos, models, serving, qa_pairs):
+    """One eval fold's predict-union-serve (Engine.eval:771-816).
+
+    Batch-predicts every algorithm over the supplemented queries, groups
+    predictions per query preserving algorithm order, and serves each.
+    Shared by Engine.eval and FastEvalEngine."""
+    indexed_queries = [
+        (i, serving.supplement(q)) for i, (q, _) in enumerate(qa_pairs)
+    ]
+    per_query: dict[int, list[Any]] = {i: [] for i, _ in indexed_queries}
+    for algo, model in zip(algos, models):
+        for i, p in algo.batch_predict(model, indexed_queries):
+            per_query[i].append(p)
+    return [
+        (q, serving.serve(indexed_queries[i][1], per_query[i]), actual)
+        for i, (q, actual) in enumerate(qa_pairs)
+    ]
 
 
 @dataclass(frozen=True)
@@ -218,6 +239,27 @@ class Engine:
         return [
             a.load_persistent_model(ctx, m) for a, m in zip(algos, persisted)
         ]
+
+    def eval(
+        self, ctx: EngineContext, params: EngineParams
+    ) -> list[tuple[Any, list[tuple[Any, Any, Any]]]]:
+        """Evaluate one EngineParams: per fold, train then batch-predict all
+        algorithms, group per query, and serve.  Returns
+        [(eval_info, [(query, served_prediction, actual)])]."""
+        from predictionio_tpu_torch.obs.tracing import trace
+
+        ds, prep, algos, serving = self.instantiate(params)
+        with trace("eval.datasource.read_eval"):
+            eval_sets = ds.read_eval(ctx)
+        results = []
+        for td, eval_info, qa_pairs in eval_sets:
+            with trace("eval.fold"):
+                pd = prep.prepare(ctx, td)
+                models = [a.train(ctx, pd) for a in algos]
+                results.append(
+                    (eval_info, serve_eval_fold(algos, models, serving, qa_pairs))
+                )
+        return results
 
 
 def engine_factory(name: str):

@@ -2,7 +2,10 @@
 
 Every torch tensor is copied to host numpy before pickling, so a checkpoint
 never depends on the device it was made on and the JAX package can read it
-(and this module reads the JAX package's checkpoints byte for byte).
+(and this module reads the JAX package's checkpoints byte for byte).  A
+class of the JAX package in a checkpoint (``predictionio_tpu.<module>``,
+such as the NCF template's ``NCFParams``) loads as the port's class of the
+same module and name, so loading never imports the JAX package.
 ``serialize_models_sharded`` spills every numpy leaf of ``PART_THRESHOLD``
 bytes or more into its own named part (raw ``.npy`` bytes) via the pickle
 ``persistent_id`` hook, leaving a small manifest that references them;
@@ -73,7 +76,20 @@ class _ShardingPickler(pickle.Pickler):
         return None
 
 
-class _ShardingUnpickler(pickle.Unpickler):
+#: the JAX package's top-level module, whose classes map onto the port's
+JAX_PACKAGE = "predictionio_tpu"
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Resolves the JAX package's classes to the port's."""
+
+    def find_class(self, module: str, name: str):
+        if module == JAX_PACKAGE or module.startswith(JAX_PACKAGE + "."):
+            module = "predictionio_tpu_torch" + module[len(JAX_PACKAGE):]
+        return super().find_class(module, name)
+
+
+class _ShardingUnpickler(_PortUnpickler):
     def __init__(self, buf: io.BytesIO, get_part: Callable[[str], bytes | None]):
         super().__init__(buf)
         self.get_part = get_part
@@ -132,4 +148,31 @@ def load_models(models_store, instance_id: str) -> list[Any] | None:
     blob = models_store.get(instance_id)
     if blob is None:
         return None
+    return _PortUnpickler(io.BytesIO(blob)).load()
+
+
+def _tensor_from_spill(array: np.ndarray, device: str) -> torch.Tensor:
+    return torch.from_numpy(array).to(device)
+
+
+class _SpillPickler(pickle.Pickler):
+    """Pickles each tensor as its numpy copy and its device."""
+
+    def reducer_override(self, obj: Any):
+        if isinstance(obj, torch.Tensor):
+            return _tensor_from_spill, (obj.detach().cpu().numpy(), str(obj.device))
+        return NotImplemented
+
+
+def serialize_spill(models: list[Any]) -> bytes:
+    """Models pickled for a spill that this process reads back
+    (``deserialize_spill``): unlike a checkpoint, every tensor comes back
+    as a tensor on the device it left."""
+    buf = io.BytesIO()
+    _SpillPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(models)
+    return buf.getvalue()
+
+
+def deserialize_spill(blob: bytes) -> list[Any]:
+    """Inverse of :func:`serialize_spill`."""
     return pickle.loads(blob)

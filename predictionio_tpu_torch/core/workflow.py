@@ -1,10 +1,16 @@
-"""The train workflow (workflow/CoreWorkflow.scala runTrain:45).
+"""The train and evaluation workflows (workflow/CoreWorkflow.scala
+runTrain:45, runEvaluation:101).
 
 The JAX package's ``run_train``: run the engine's train pipeline, persist
 the models into the MODELDATA store, and record an EngineInstance row whose
 status goes INIT -> COMPLETED, or FAILED when a stage raises.  The seconds
 of each DASE stage and of the persist step, on the host clock, are logged
 as one JSON breakdown (the record's ``stages`` attribute).
+
+The JAX package's ``run_evaluation``: sweep the engine-params list with a
+``MetricEvaluator`` and record an EvaluationInstance row whose status goes
+EVALUATING -> EVALCOMPLETED (with the evaluator's one-liner, HTML and
+JSON), or FAILED; the registered cleanup hooks run either way.
 """
 
 from __future__ import annotations
@@ -16,11 +22,15 @@ import time
 import uuid
 from dataclasses import dataclass
 from datetime import datetime, timezone
+from typing import Any, Sequence
 
 from predictionio_tpu_torch.core.base import EngineContext
 from predictionio_tpu_torch.core.engine import Engine, EngineParams
 from predictionio_tpu_torch.core.persistence import load_models, save_models
-from predictionio_tpu_torch.data.storage.base import EngineInstance
+from predictionio_tpu_torch.data.storage.base import (
+    EngineInstance,
+    EvaluationInstance,
+)
 from predictionio_tpu_torch.data.storage.config import StorageRuntime, get_storage
 
 log = logging.getLogger("predictionio_tpu_torch.workflow")
@@ -132,3 +142,58 @@ def run_train(
         extra={"engine_instance": instance.id, "stages": stages},
     )
     return done
+
+
+def run_evaluation(
+    engine: Engine,
+    engine_params_list: Sequence[EngineParams],
+    evaluator: Any,
+    ctx: EngineContext | None = None,
+    evaluation_class: str = "",
+    engine_params_generator_class: str = "",
+    batch: str = "",
+    storage: StorageRuntime | None = None,
+):
+    """Sweep engine-params, score each, pick the best (the MetricEvaluator
+    role); returns the ``EvaluationResult``.  ``ctx=None`` builds an eval
+    context on CUDA (which raises without a card)."""
+    from predictionio_tpu_torch.core.cleanup import run as run_cleanups
+    from predictionio_tpu_torch.eval.evaluator import MetricEvaluator
+    from predictionio_tpu_torch.obs.tracing import trace
+
+    storage = storage or (ctx.storage if ctx is not None else None) or get_storage()
+    ctx = ctx or EngineContext(storage=storage, mode="eval")
+    instances = storage.evaluation_instances()
+    instance = EvaluationInstance(
+        id=uuid.uuid4().hex,
+        status="EVALUATING",
+        start_time=_now(),
+        end_time=_now(),
+        evaluation_class=evaluation_class,
+        engine_params_generator_class=engine_params_generator_class,
+        batch=batch,
+    )
+    instances.insert(instance)
+    try:
+        if not isinstance(evaluator, MetricEvaluator):
+            evaluator = MetricEvaluator(evaluator)
+        with trace("workflow.run_evaluation"):
+            result = evaluator.evaluate(ctx, engine, engine_params_list)
+        instances.update(
+            dataclasses.replace(
+                instance,
+                status="EVALCOMPLETED",
+                end_time=_now(),
+                evaluator_results=result.one_liner(),
+                evaluator_results_html=result.to_html(),
+                evaluator_results_json=result.to_json(),
+            )
+        )
+        return result
+    except Exception:
+        instances.update(
+            dataclasses.replace(instance, status="FAILED", end_time=_now())
+        )
+        raise
+    finally:
+        run_cleanups()

@@ -96,6 +96,23 @@ class EngineInstance:
         )
 
 
+@dataclass(frozen=True)
+class EvaluationInstance:
+    """Record of one evaluation run (EvaluationInstances.scala:42)."""
+
+    id: str
+    status: str  # INIT | EVALUATING | EVALCOMPLETED | FAILED
+    start_time: datetime
+    end_time: datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""  # one-liner
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
 class Apps(abc.ABC):
     @abc.abstractmethod
     def insert(self, app: App) -> int | None: ...
@@ -164,6 +181,26 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, i: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+class EvaluationInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, i: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> EvaluationInstance | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, i: EvaluationInstance) -> bool: ...
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...

@@ -26,6 +26,7 @@ from predictionio_tpu_torch.data.storage.sqlite_backend import (
     SQLiteChannels,
     SQLiteClient,
     SQLiteEngineInstances,
+    SQLiteEvaluationInstances,
     SQLiteLEvents,
     SQLiteModels,
     SQLitePEvents,
@@ -132,6 +133,9 @@ class StorageRuntime:
 
     def engine_instances(self) -> base.EngineInstances:
         return SQLiteEngineInstances(self._meta_client())
+
+    def evaluation_instances(self) -> base.EvaluationInstances:
+        return SQLiteEvaluationInstances(self._meta_client())
 
     def l_events(self) -> base.LEvents:
         with self._lock:

@@ -1,5 +1,5 @@
 """SQLite events, metadata and model blobs: the subset of the JAX package's
-sqlite backend that the train and deploy paths use.
+sqlite backend that the train, eval and deploy paths use.
 
 Same tables, same columns, same encodings (one event table per app and
 channel, ``pio_event_<appId>[_<channelId>]``; times in epoch milliseconds;
@@ -29,6 +29,7 @@ from predictionio_tpu_torch.data.storage.base import (
     App,
     Channel,
     EngineInstance,
+    EvaluationInstance,
     EventFilter,
     EventFrame,
 )
@@ -105,6 +106,14 @@ def create_tables(client: SQLiteClient) -> None:
            engineVariant TEXT, engineFactory TEXT, batch TEXT,
            env TEXT, meshConf TEXT, dataSourceParams TEXT,
            preparatorParams TEXT, algorithmsParams TEXT, servingParams TEXT)"""
+    )
+    client.execute(
+        """CREATE TABLE IF NOT EXISTS pio_evaluation_instances (
+           id TEXT PRIMARY KEY, status TEXT, startTime INTEGER,
+           endTime INTEGER, evaluationClass TEXT,
+           engineParamsGeneratorClass TEXT, batch TEXT, env TEXT,
+           evaluatorResults TEXT, evaluatorResultsHTML TEXT,
+           evaluatorResultsJSON TEXT)"""
     )
     client.execute(
         """CREATE TABLE IF NOT EXISTS pio_models (
@@ -199,6 +208,89 @@ class SQLiteEngineInstances(base.EngineInstances):
     def delete(self, instance_id: str) -> bool:
         cur = self.client.execute(
             "DELETE FROM pio_engine_instances WHERE id = ?", (instance_id,)
+        )
+        return cur.rowcount > 0
+
+
+class SQLiteEvaluationInstances(base.EvaluationInstances):
+    _COLS = (
+        "id, status, startTime, endTime, evaluationClass, "
+        "engineParamsGeneratorClass, batch, env, evaluatorResults, "
+        "evaluatorResultsHTML, evaluatorResultsJSON"
+    )
+
+    def __init__(self, client: SQLiteClient):
+        self.client = client
+
+    def insert(self, i: EvaluationInstance) -> str:
+        iid = i.id or uuid.uuid4().hex
+        self.client.execute(
+            f"INSERT OR REPLACE INTO pio_evaluation_instances ({self._COLS}) "
+            "VALUES (?,?,?,?,?,?,?,?,?,?,?)",
+            (
+                iid,
+                i.status,
+                _ms(i.start_time),
+                _ms(i.end_time),
+                i.evaluation_class,
+                i.engine_params_generator_class,
+                i.batch,
+                json.dumps(i.env),
+                i.evaluator_results,
+                i.evaluator_results_html,
+                i.evaluator_results_json,
+            ),
+        )
+        return iid
+
+    @staticmethod
+    def _row(r: tuple) -> EvaluationInstance:
+        return EvaluationInstance(
+            id=r[0],
+            status=r[1],
+            start_time=_from_ms(r[2]),
+            end_time=_from_ms(r[3]),
+            evaluation_class=r[4] or "",
+            engine_params_generator_class=r[5] or "",
+            batch=r[6] or "",
+            env=json.loads(r[7]) if r[7] else {},
+            evaluator_results=r[8] or "",
+            evaluator_results_html=r[9] or "",
+            evaluator_results_json=r[10] or "",
+        )
+
+    def get(self, instance_id: str) -> EvaluationInstance | None:
+        rows = self.client.query(
+            f"SELECT {self._COLS} FROM pio_evaluation_instances WHERE id = ?",
+            (instance_id,),
+        )
+        return self._row(rows[0]) if rows else None
+
+    def get_all(self) -> list[EvaluationInstance]:
+        return [
+            self._row(r)
+            for r in self.client.query(
+                f"SELECT {self._COLS} FROM pio_evaluation_instances "
+                "ORDER BY startTime DESC"
+            )
+        ]
+
+    def get_completed(self) -> list[EvaluationInstance]:
+        return [
+            self._row(r)
+            for r in self.client.query(
+                f"SELECT {self._COLS} FROM pio_evaluation_instances "
+                "WHERE status = 'EVALCOMPLETED' ORDER BY startTime DESC"
+            )
+        ]
+
+    def update(self, i: EvaluationInstance) -> bool:
+        self.insert(i)
+        return True
+
+    def delete(self, instance_id: str) -> bool:
+        cur = self.client.execute(
+            "DELETE FROM pio_evaluation_instances WHERE id = ?", (instance_id,)
         )
         return cur.rowcount > 0
 

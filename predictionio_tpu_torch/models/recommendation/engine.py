@@ -9,8 +9,8 @@ either package deploys on the other.
   event store (``buy`` = implicit rating ``buy_rating``),
   ``RatingsPreparator`` builds the BiMap vocabularies and COO arrays, and
   ``ALSAlgorithm.train`` runs ``ops.als.train_als`` on the context's device
-  (the hand-written accumulator kernels on a card).  ``read_eval`` (k-fold
-  evaluation) arrives with the eval slice.
+  (the hand-written accumulator kernels on a card).  ``read_eval`` splits
+  the same events into k folds for ``pio eval``.
 
 - Solo queries (``predict``) and waves below ``DEVICE_BATCH_MIN`` known
   users (the micro-batched HTTP ``/queries.json`` at its default
@@ -40,7 +40,6 @@ bracketed from Python) against the least work of the same top-k.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -55,6 +54,7 @@ from predictionio_tpu_torch.core.base import (
     Preparator,
     SanityCheckError,
 )
+from predictionio_tpu_torch.core.device_wave import dispatch_wave
 from predictionio_tpu_torch.core.engine import Engine, engine_factory
 from predictionio_tpu_torch.core.warmstart import align_warm_factors, find_warm_start
 from predictionio_tpu_torch.data.bimap import BiMap
@@ -181,6 +181,39 @@ class RatingsDataSource(DataSource):
 
     def read_training(self, ctx: EngineContext) -> TrainingData:
         return self._read(ctx)
+
+    def read_eval(self, ctx: EngineContext):
+        """k folds by row position (``arange(n) % k_fold``, the reference's
+        zipWithUniqueId % kFold): fold f trains on the other rows and
+        queries each test user with ratings at or above the threshold, in
+        sorted user order, against that user's set of relevant items."""
+        ep = self.params.eval_params
+        if ep is None:
+            raise ValueError(
+                "DataSourceParams.eval_params must be set for evaluation"
+            )
+        td = self._read(ctx)
+        fold_of = np.arange(len(td.ratings)) % ep.k_fold
+        out = []
+        for f in range(ep.k_fold):
+            train_mask = fold_of != f
+            test_mask = ~train_mask
+            train = TrainingData(
+                users=td.users[train_mask],
+                items=td.items[train_mask],
+                ratings=td.ratings[train_mask],
+            )
+            relevant: dict[str, set] = {}
+            for u, i, r in zip(td.users[test_mask], td.items[test_mask],
+                               td.ratings[test_mask]):
+                if r >= ep.rating_threshold:
+                    relevant.setdefault(u, set()).add(i)
+            qa = [
+                (Query(user=u, num=ep.query_num), frozenset(items))
+                for u, items in sorted(relevant.items())
+            ]
+            out.append((train, {"fold": f}, qa))
+        return out
 
 
 class RatingsPreparator(Preparator):
@@ -416,21 +449,11 @@ class ALSAlgorithm(Algorithm):
         """Gather the user rows on the model's device and launch the fused
         top-k WITHOUT blocking; returns the fence that waits for the wave
         and hands over (top_s, top_i) — the ``PendingWave`` contract of the
-        JAX package's MicroBatcher.  A ``k`` off the fused menu takes the
-        full-row top-k (same tie rule) on the model's device, as the JAX
-        package takes ``_device_score_topk``: the same fence, no host
-        replica.
-
-        On a card, everything is enqueued at dispatch on the model's device
-        and its current stream: the ids' upload from pinned memory, the
-        gather, the kernel between its launcher's two timing events, the
-        result's copy into a pinned host buffer (``non_blocking``), then a
-        CUDA event.  The fence waits for that event alone, so a pipelined
-        wave N's fence never waits for wave N+1's work, which the worker
-        enqueues behind it on the same stream (a blocking ``.cpu()`` there
-        would).  After the wait, the timing pair's elapsed time is the
-        kernel's own time on the card: that, never the host's wait or its
-        enqueue gaps, is what the roofline observes."""
+        JAX package's MicroBatcher (``core.device_wave.dispatch_wave``: one
+        event per wave, the kernel's own time from its launcher's timing
+        events).  A ``k`` off the fused menu takes the full-row top-k (same
+        tie rule) on the model's device, as the JAX package takes
+        ``_device_score_topk``: the same fence, no host replica."""
         U, V = model.user_factors, model.item_factors
         n_items, rank = int(V.shape[0]), int(V.shape[1])
         fn = (
@@ -451,45 +474,12 @@ class ALSAlgorithm(Algorithm):
             fn, cost["flops"], cost["bytes"], signature=sig,
             source="least_work",
         )
-        ids = torch.from_numpy(uidx.astype(np.int64))
-        if U.device.type != "cuda":
-            # the CPU computes inline: its device time is the host span
-            t0 = time.perf_counter()
-            with device_obs.wave_stage("compute"):
-                packed = self._topk_on(U, V, ids.to(U.device), k)
-            self._observe_wave(fn, sig, cost, time.perf_counter() - t0, U)
-
-            def fence_cpu():
-                with device_obs.wave_stage("d2h"):
-                    return self._unpack(packed.numpy())
-
-            return fence_cpu
-        with torch.cuda.device(U.device):
-            stream = torch.cuda.current_stream(U.device)
-            with device_obs.wave_stage("h2d"):
-                ids = ids.pin_memory().to(U.device, non_blocking=True)
-            timing = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            packed = self._topk_on(U, V, ids, k, timing)
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        device_obs.note_transfer("h2d", ids.numel() * ids.element_size())
-
-        def fence():
-            with device_obs.wave_stage("compute"):
-                done.synchronize()
-            # both timing events precede ``done`` on the stream: complete
-            self._observe_wave(
-                fn, sig, cost, timing[0].elapsed_time(timing[1]) / 1e3, U
-            )
-            with device_obs.wave_stage("d2h"):
-                out = self._unpack(host.numpy())
-            device_obs.note_transfer("d2h", host.numel() * host.element_size())
-            return out
-
-        return fence
+        fence = dispatch_wave(
+            uidx, U.device,
+            lambda ids, timing: self._topk_on(U, V, ids, k, timing),
+            lambda kernel_s: self._observe_wave(fn, sig, cost, kernel_s, U),
+        )
+        return lambda: self._unpack(fence())
 
     @staticmethod
     def _observe_wave(fn, sig, cost, kernel_s: float, U: torch.Tensor) -> None:

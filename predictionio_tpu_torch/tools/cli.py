@@ -4,9 +4,10 @@ The verbs of the JAX package's ``pio`` console (``tools/cli.py``) that the
 port runs, with the flags that apply to them: ``app``
 (``new|list|show|delete|data-delete|channel-new|channel-delete``),
 ``accesskey`` (``new|list|delete``), ``import``, ``export``,
-``eventserver``, ``train``, ``deploy`` (``--event-port`` serves the event
-server beside it, on the same storage) and ``batchpredict``, plus
-``--device`` on the verbs that compute (default ``cuda``; ``cpu`` runs the
+``eventserver``, ``train``, ``eval`` (an ``Evaluation`` by import path,
+``--params`` for a factory's keyword arguments), ``deploy``
+(``--event-port`` serves the event server beside it, on the same storage)
+and ``batchpredict``, plus ``--device`` on the verbs that compute (default ``cuda``; ``cpu`` runs the
 plain versions on the host).  Storage is configured by the same
 ``PIO_HOME`` / ``PIO_STORAGE_*`` variables.
 """
@@ -148,6 +149,31 @@ def do_train(args) -> int:
     return 0
 
 
+def do_eval(args) -> int:
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.workflow import run_evaluation
+    from predictionio_tpu_torch.eval.evaluation import resolve_evaluation
+    from predictionio_tpu_torch.eval.evaluator import MetricEvaluator
+
+    import predictionio_tpu_torch.models  # noqa: F401  (bundled factories)
+
+    evaluation = resolve_evaluation(
+        args.evaluation, json.loads(args.params) if args.params else None
+    )
+    storage = get_storage()
+    result = run_evaluation(
+        evaluation.engine_factory(),
+        evaluation.params_list(),
+        MetricEvaluator(evaluation.metric, evaluation.other_metrics),
+        ctx=EngineContext(storage=storage, mode="eval", device=args.device),
+        evaluation_class=args.evaluation,
+        storage=storage,
+    )
+    print(result.one_liner())
+    print(f"Best score: {result.best.score}")
+    return 0
+
+
 def do_deploy(args) -> int:
     from predictionio_tpu_torch.server.prediction_server import (
         create_prediction_server,
@@ -278,6 +304,14 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--stop-after-prepare", action="store_true")
     device_flag(tr)
     tr.set_defaults(fn=do_train)
+
+    ev = sub.add_parser("eval")
+    ev.add_argument("evaluation", help="import path pkg.module:evaluation")
+    ev.add_argument(
+        "--params", default=None, help="JSON kwargs for a callable evaluation"
+    )
+    device_flag(ev)
+    ev.set_defaults(fn=do_eval)
 
     def engine_flags(sp):
         sp.add_argument(

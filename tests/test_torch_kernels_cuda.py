@@ -372,7 +372,8 @@ def _hold(got, want, scale, exact, what):
 ALS_CASES = [
     (kind, rank, implicit, precision)
     for kind in ("exact", "normal")
-    for rank in (6, 10, 17, 32)
+    # 8: the pio eval sweep's smaller rank
+    for rank in (6, 8, 10, 17, 32)
     for implicit in (False, True)
     for precision in ("highest", "bf16")
 ]
@@ -889,3 +890,115 @@ def test_als_kernels_refuse_what_they_do_not_take(cuda):
     before = als_accum.KERNEL_LAUNCHES["als_segment_accum"]
     als_accum.segment_accum_cuda(out, args[0], args[1], rows)
     assert als_accum.KERNEL_LAUNCHES["als_segment_accum"] == before + 1
+
+
+# -- kernel 1 at rank 32 on an implicit stream, and NCF on the card ---------
+
+
+@pytest.mark.cuda
+def test_als_fused_accum_rank32_implicit_train_matches_the_cpu(cuda):
+    """Kernel 1 at rank 32 on an implicit stream shaped like NCF's ALS
+    pretrain (all ones, Zipf items, a heavy user spanning many tiles): each
+    half-step held to the plain version, then 5 iterations on the card
+    within 2e-3 of the same train on the CPU."""
+    rng = np.random.default_rng(32)
+    nu, ni, n = 2000, 900, 120_000
+    item_cdf = np.cumsum((np.arange(ni) + 10.0) ** -0.8)
+    ii = np.minimum(np.searchsorted(item_cdf / item_cdf[-1], rng.random(n)),
+                    ni - 1).astype(np.int32)
+    ui = rng.integers(0, nu, n).astype(np.int32)
+    ui[:9000] = 7
+    ones = np.ones(n, np.float32)
+    p = als.ALSParams(rank=32, num_iterations=5, reg=0.01, implicit_prefs=True,
+                      alpha=2.0, pallas_mode="fused")
+    nu_pad = (nu + 127) // 128 * 128
+    plan, args, oth_d, rat_d, val_d = _staged(ui, ii, ones, nu_pad, cuda)
+    f = torch.from_numpy(rng.standard_normal((ni, 32)).astype(np.float32)).to(cuda)
+    wrv = als_accum.make_wrv(rat_d, val_d, True, 2.0)
+    before = als_accum.KERNEL_LAUNCHES["als_fused_accum"]
+    got = als_accum.segment_stats_fused(args, oth_d, wrv, f, plan.n_blocks, "hilo")
+    assert als_accum.KERNEL_LAUNCHES["als_fused_accum"] == before + 1
+    want = als_accum.segment_stats_fused_plain(args, oth_d, wrv, f, plan.n_blocks, "hilo")
+    scale = als_accum.segment_stats_fused_plain(
+        args, oth_d, wrv.abs(), f.abs(), plan.n_blocks, "hilo")
+    _hold(got, want, scale, False, "fused implicit r32")
+    gpu = als.train_als(ui, ii, ones, nu, ni, p, device=cuda)
+    cpu = als.train_als(ui, ii, ones, nu, ni, p, device="cpu")
+    for a, b in ((gpu.user_factors, cpu.user_factors),
+                 (gpu.item_factors, cpu.item_factors)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,mlp", [("bpr", (64, 32, 16)), ("full_softmax", ())])
+def test_ncf_step_on_the_card_matches_the_cpu(cuda, loss, mlp):
+    """One NCF step (forward, loss, autograd, Adam/AdamW) on the card from
+    the CPU's parameters, batch and negatives: the loss within 1e-5, each
+    gradient entry within 1e-4 of its leaf's largest (1,024 float32 terms
+    summed in another order, which cancel in a bias under ReLU masks), and
+    the parameters
+    equal to the CPU's optimizer replayed from the card's gradient within
+    1e-6 * (1 + |p|) (replayed: below Adam's eps the step is lr * g / eps,
+    1e5 times the gradient's rounding)."""
+    from predictionio_tpu_torch.ops import ncf
+
+    p = ncf.NCFParams(embed_dim=32, mlp_layers=mlp, loss=loss,
+                      weight_decay=1e-4 if loss == "full_softmax" else 0.0)
+    rng = np.random.default_rng(1)
+    nu, ni, b = 3000, 1500, 1024
+    base = ncf.init_ncf(torch.Generator().manual_seed(0), nu, ni, p)
+    u = torch.from_numpy(rng.integers(0, nu, b))
+    pos = torch.from_numpy(rng.integers(0, ni, b))
+    neg = torch.from_numpy(rng.integers(0, ni, (b, 1)))
+    valid, w = torch.ones(b), torch.zeros(b)
+
+    def fresh(dev):
+        params = ncf.tree_map(lambda x: x.clone().to(dev).requires_grad_(True), base)
+        return params, ncf.make_optimizer(params, p)
+
+    out = {}
+    for dev in ("cpu", cuda):
+        params, opt = fresh(dev)
+        loss_v = ncf.train_step(params, opt, u.to(dev), pos.to(dev), neg.to(dev),
+                                valid.to(dev), w.to(dev), p, ni)
+        out[str(dev)] = (float(loss_v), ncf.host_params(params),
+                         ncf.tree_map(lambda x: x.grad.cpu().numpy(), params))
+    (l_cpu, _, g_cpu), (l_gpu, p_gpu, g_gpu) = out["cpu"], out[str(cuda)]
+    assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
+    replay, opt = fresh("cpu")
+    for leaf, g in zip(ncf.tree_leaves(replay), ncf.tree_leaves(g_gpu)):
+        leaf.grad = torch.from_numpy(g)
+    opt.step()
+    replay = ncf.host_params(replay)
+    for gc, gg, pr, pg in zip(*(ncf.tree_leaves(t) for t in (g_cpu, g_gpu, replay, p_gpu))):
+        assert np.abs(gg - gc).max() <= 1e-4 * (np.abs(gc).max() or 1.0)
+        assert (np.abs(pg - pr) <= 1e-6 * (1.0 + np.abs(pr))).all()
+
+
+@pytest.mark.cuda
+def test_ncf_device_wave_on_the_card_matches_the_host_replica(cuda):
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.models.ncf import engine as ncf_engine
+    from predictionio_tpu_torch.models.recommendation.engine import Query
+    from predictionio_tpu_torch.ops import ncf
+
+    p = ncf.NCFParams(embed_dim=32)
+    nu, ni = 500, 3000
+    params = ncf.init_ncf(torch.Generator().manual_seed(2), nu, ni, p)
+    params["item_bias"] = torch.randn(ni, generator=torch.Generator().manual_seed(3))
+    blob = {"params": ncf.host_params(params), "n_users": nu, "n_items": ni,
+            "config": dataclasses.asdict(p),
+            "user_vocab": BiMap.from_keys(np.array([f"u{i}" for i in range(nu)])).to_state(),
+            "item_vocab": BiMap.from_keys(np.array([f"i{i}" for i in range(ni)])).to_state()}
+    algo = ncf_engine.NCFAlgorithm()
+    model = algo.load_persistent_model(EngineContext(device=cuda), blob)
+    queries = [(j, Query(user=f"u{j * 7 % nu}", num=10)) for j in range(32)]
+    got = dict(algo.dispatch_batch(model, queries)())
+    for j, q in queries:
+        host = algo.predict(model, q)
+        np.testing.assert_allclose([s.score for s in got[j].item_scores],
+                                   [s.score for s in host.item_scores], rtol=1e-5)
+        hs = [s.score for s in host.item_scores]
+        for a, b, s in zip(got[j].item_scores, host.item_scores, hs):
+            assert a.item == b.item or min(abs(s - x) for x in hs if x != s) <= 1e-5 * abs(s)
