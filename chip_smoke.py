@@ -75,7 +75,23 @@ calls:
   stream; that first model through the default deploy (``ncf_serving``):
   solo queries per front end (the threaded server's host replica held to
   the numpy answer exactly), a 4,096-query burst in device waves of 32 and
-  a 4,096-query ``run_batch_predict``, held to the host answer.
+  a 4,096-query ``run_batch_predict``, held to the host answer;
+- the classification template (``classification``): ``ops/classifiers.py``
+  at the UCI Covertype shape (581,012 x 54, 7 classes, a seeded generator)
+  on the card, Naive Bayes and 200 logistic-regression steps each trained
+  twice to the same bits and held to the CPU; then ``app new`` ->
+  ``import`` of 100,000 users' ``$set`` events -> ``train`` -> the default
+  deploy answering 1,000 queries from 8 clients, each held to a host numpy
+  Naive Bayes over the persisted blob, and ``pio eval`` of the template's
+  lambda sweep, plainly and through ``FastEvalEngine``, with the same JSON;
+- the generation store (``generations``) on ``write_model``'s ML-20M
+  models: a checksum-verified ``/reload`` under 16 clients (the retired
+  generation's device memory freed) and a 1,024-query device wave through
+  kernel 3 from the new generation; a corrupt candidate refused with 409
+  while the old one serves; restarts binding the manifest's live
+  generation, then walking back past a corrupt one; and a CLI deploy
+  SIGKILLed while stalled at the ``lifecycle.swap`` fault seam, restarting
+  on the committed generation with the same answers.
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -2993,11 +3009,12 @@ LIVE_USERS = 8  # the live loop's users, one view POSTed for each
 TIED_EVENTS, TIED_PER_SECOND = 20_000, 1_000
 
 
-def spawn_cli(home: Path, argv: list, lines: int):
-    """``python -m predictionio_tpu_torch.tools.cli argv`` on ``home``, and
-    the ``lines`` lines it prints once its servers are bound.  Its stderr
-    goes to a file beside ``home`` (``cli_stderr``) and its later stdout is
-    drained, so no pipe fills and stalls it."""
+def spawn_cli(home: Path, argv: list, lines: int, env: dict | None = None):
+    """``python -m predictionio_tpu_torch.tools.cli argv`` on ``home`` (with
+    ``env`` added to its environment), and the ``lines`` lines it prints
+    once its servers are bound.  Its stderr goes to a file beside ``home``
+    (``cli_stderr``) and its later stdout is drained, so no pipe fills and
+    stalls it."""
     import os
 
     log = home.parent / f"{argv[0]}.stderr"
@@ -3005,7 +3022,8 @@ def spawn_cli(home: Path, argv: list, lines: int):
         proc = subprocess.Popen(
             [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", *argv],
             stdout=subprocess.PIPE, stderr=err, text=True,
-            env=dict(os.environ, PIO_HOME=str(home)), cwd=Path(__file__).resolve().parent,
+            env=dict(os.environ, PIO_HOME=str(home), **(env or {})),
+            cwd=Path(__file__).resolve().parent,
         )
     proc.stderr_log = log
     printed: list = []
@@ -4070,6 +4088,774 @@ def eval_phase(tmp: Path, storage) -> dict:
     return out
 
 
+# -- the classification template and the generation store --------------------
+
+#: the UCI Covertype shape (Blackard & Dean; its shape only, the data is a
+#: seeded generator): rows, integer-valued features, classes
+COVTYPE = (581_012, 54, 7)
+LOGREG_ITERATIONS, LOGREG_LR = 200, 0.1
+#: logistic regression's weights, card against CPU, of each tensor's largest
+LOGREG_RTOL = 1e-4
+#: rows whose card and CPU predictions are compared
+CLS_PRED_ROWS = 4096
+#: the classification template's CLI store: users with $set attr0-2/plan,
+#: the queries sent to its deploy and the clients sending them
+CLS_USERS, CLS_QUERIES, CLS_CLIENTS = 100_000, 1_000, 8
+#: the template's planted rule: plan p draws attr0-2 from Poisson(rates[p])
+CLS_RATES = ((6.0, 2.0, 1.0), (1.0, 5.0, 2.0), (2.0, 1.0, 5.0))
+#: a near tie: the top two scores within this share of the top one
+CLS_TIE_RTOL = 1e-5
+
+CLS_FAST_MODULE = """\
+from predictionio_tpu_torch.eval import FastEvalEngine
+from predictionio_tpu_torch.eval.evaluation import Evaluation
+from predictionio_tpu_torch.models.classification import (
+    Accuracy, classification_engine, engine_params_list)
+
+
+def fast_evaluation(app_name):
+    return Evaluation(
+        engine_factory=lambda: FastEvalEngine.from_engine(classification_engine()),
+        engine_params_list=lambda: engine_params_list(app_name),
+        metric=Accuracy())
+"""
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def covtype_like(rows: int, features: int, classes: int, seed: int):
+    """Binary features (as Covertype's 44 wilderness and soil columns) whose
+    per-class probabilities plant the classes, as multinomial Naive Bayes
+    needs: one base probability per feature, each class's within ~30% of
+    it, so the classes overlap.  A class's feature sums stay below 2^24,
+    so they are exact in fp32 whatever the order.  Unscaled counts are
+    held too (``logreg_poisson_hold``)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, rows).astype(np.int32)
+    base = rng.uniform(0.05, 0.4, features)
+    p = np.clip(base * np.exp(0.3 * rng.standard_normal((classes, features))),
+                0.01, 0.9)
+    x = (rng.random((rows, features)) < p[y]).astype(np.float32)
+    return x, y
+
+
+#: the second generator: Poisson counts of rates 0.5-3 at the Covertype
+#: shape, and the step counts at which its loss is read
+POISSON_RATES = (0.5, 3.0)
+LOSS_STEPS = (25, 50, 75, 100, 125, 150, 175, 200)
+
+
+def poisson_like(rows: int, features: int, classes: int, seed: int):
+    """Unscaled counts: each class's features Poisson of its own rates in
+    ``POISSON_RATES``."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, rows).astype(np.int32)
+    rates = rng.uniform(*POISSON_RATES, (classes, features))
+    return rng.poisson(rates[y]).astype(np.float32), y
+
+
+def logreg_loss(x: torch.Tensor, y: torch.Tensor, w, b) -> float:
+    """The unregularised training loss ``-mean(log_softmax(x@w + b)[y])``."""
+    logp = torch.log_softmax(x @ w + b, dim=1)
+    return float(-logp.gather(1, y[:, None]).mean())
+
+
+def logreg_poisson_hold(device) -> dict:
+    """Logistic regression on unscaled Poisson counts at the Covertype
+    shape, where ``lr x`` the top eigenvalue of ``x.T x / n`` lies far past
+    2: the loss of 25-200 steps at lr 0.1 must fall at every reading, and
+    the card's weights after 200 steps are held to the CPU's within
+    LOGREG_RTOL of each tensor's largest value."""
+    from predictionio_tpu_torch.ops import classifiers as cls
+
+    rows, features, classes = COVTYPE
+    x, y = poisson_like(rows, features, classes, SEED + 94)
+    x64 = torch.from_numpy(x).double()
+    lam_max = float(torch.linalg.eigvalsh(x64.T @ x64 / rows)[-1])
+    xd = torch.from_numpy(x).to(device)
+    yd = torch.from_numpy(y).to(device=device, dtype=torch.int64)
+
+    def train(xs, ys, dev, steps=LOGREG_ITERATIONS):
+        return cls.train_logistic_regression(
+            xs, ys, classes, learning_rate=LOGREG_LR, num_iterations=steps,
+            device=dev)
+
+    loss = [logreg_loss(xd, yd, *train(xd, yd, device, k)) for k in LOSS_STEPS]
+    assert all(a > b for a, b in zip(loss, loss[1:])), loss
+    w, b = (t.cpu() for t in train(xd, yd, device))
+    w_c, b_c = train(x, y, "cpu")
+    err = {"w_rel": float((w - w_c).abs().max() / w_c.abs().max()),
+           "b_rel": float((b - b_c).abs().max() / b_c.abs().max())}
+    assert max(err.values()) <= LOGREG_RTOL, err
+    return {
+        "generator": f"poisson rates {POISSON_RATES}",
+        "lr_times_lambda_max": LOGREG_LR * lam_max,
+        "loss_at_steps": dict(zip(LOSS_STEPS, loss)),
+        "card_vs_cpu": err,
+    }
+
+
+def first_max_or_near_tie(got: np.ndarray, scores: np.ndarray) -> int:
+    """Rows whose label ``got`` is not the first maximum of ``scores``
+    (the reference's ``np.argmax``), outside a near tie of the top two;
+    returns the count of near-tie rows (where either of the two passes)."""
+    want = np.argmax(scores, 1)
+    top2 = np.sort(scores, 1)[:, -2:]
+    tie = np.abs(top2[:, 1] - top2[:, 0]) <= CLS_TIE_RTOL * np.abs(top2[:, 1])
+    second = np.argsort(-scores, 1, kind="stable")[:, 1]
+    bad = (got != want) & ~(tie & (got == second))
+    assert not bad.any(), (np.flatnonzero(bad)[:5], got[bad][:5], want[bad][:5])
+    return int(tie.sum())
+
+
+def classification_ops(device="cuda") -> dict:
+    """``ops/classifiers.py`` at the Covertype shape on ``device``: Naive
+    Bayes and 200 steps of logistic regression (lr 0.1), each trained twice
+    (the same bits), held to the same functions on the CPU (pi and theta
+    within 1e-5; w and b within 1e-4 of each tensor's largest value; the
+    labels of 4,096 rows equal outside near ties), timed, the logreg window
+    profiled for the device's idle share."""
+    from predictionio_tpu_torch.ops import classifiers as cls
+
+    rows, features, classes = COVTYPE
+    iterations = LOGREG_ITERATIONS
+    out: dict = {"shape": list(COVTYPE), "logreg_iterations": iterations,
+                 "logreg_lr": LOGREG_LR}
+    t0 = time.perf_counter()
+    x, y = covtype_like(rows, features, classes, SEED + 90)
+    out["generate_s"] = time.perf_counter() - t0
+    on_card = torch.device(device).type == "cuda"
+    xd = torch.from_numpy(x).to(device)
+    yd = torch.from_numpy(y).to(device=device, dtype=torch.int64)
+
+    def nb():
+        return cls.train_naive_bayes(xd, yd, classes, device=device)
+
+    def logreg():
+        return cls.train_logistic_regression(
+            xd, yd, classes, learning_rate=LOGREG_LR, num_iterations=iterations,
+            device=device)
+
+    nb()  # the first call sets up the BLAS handle
+    _sync(device)
+    nb_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pi, theta = nb()
+        _sync(device)
+        nb_ms.append(1e3 * (time.perf_counter() - t0))
+    same_bits(pi, nb()[0], "naive bayes pi, two trains")
+    same_bits(theta, nb()[1], "naive bayes theta, two trains")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    w, b = logreg()
+    _sync(device)
+    logreg_s = time.perf_counter() - t0
+    if on_card:
+        out["logreg_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        out["data_bytes"] = xd.numel() * 4 + yd.numel() * 8
+    w2, b2 = logreg()
+    same_bits(w, w2, "logreg w, two trains")
+    same_bits(b, b2, "logreg b, two trains")
+    if on_card:
+        wall, idle, device_ms = profile_idle(logreg)
+        out["logreg_profiled_s"] = wall
+        out["logreg_idle_share"] = idle
+        out["logreg_device_ms_top"] = dict(
+            sorted(device_ms.items(), key=lambda kv: -kv[1])[:6])
+    # the same functions on the CPU
+    t0 = time.perf_counter()
+    pi_c, theta_c = cls.train_naive_bayes(x, y, classes, device="cpu")
+    w_c, b_c = cls.train_logistic_regression(
+        x, y, classes, learning_rate=LOGREG_LR, num_iterations=iterations,
+        device="cpu")
+    out["cpu_reference_s"] = time.perf_counter() - t0
+    err = {
+        "pi": float((pi.cpu() - pi_c).abs().max()),
+        "theta": float((theta.cpu() - theta_c).abs().max()),
+        "w_rel": float((w.cpu() - w_c).abs().max() / w_c.abs().max()),
+        "b_rel": float((b.cpu() - b_c).abs().max() / b_c.abs().max()),
+    }
+    assert err["pi"] <= 1e-5 and err["theta"] <= 1e-5, err
+    assert err["w_rel"] <= LOGREG_RTOL and err["b_rel"] <= LOGREG_RTOL, err
+    q = x[:CLS_PRED_ROWS]
+    ties = {}
+    for name, card_s, cpu_s in (
+        ("naive", cls.naive_bayes_scores(pi, theta, xd[:CLS_PRED_ROWS]),
+         cls.naive_bayes_scores(pi_c, theta_c, torch.from_numpy(q))),
+        ("logreg", cls.logreg_scores(w, b, xd[:CLS_PRED_ROWS]),
+         cls.logreg_scores(w_c, b_c, torch.from_numpy(q))),
+    ):
+        got = torch.argmax(card_s, 1).cpu().numpy()
+        ties[name] = first_max_or_near_tie(got, cpu_s.numpy())
+        out[f"{name}_train_accuracy_4096"] = float((got == y[:CLS_PRED_ROWS]).mean())
+    out.update(
+        naive_bayes_ms=nb_ms, naive_bayes_ms_min=min(nb_ms),
+        logreg_s=logreg_s, logreg_ms_per_iteration=1e3 * logreg_s / iterations,
+        card_vs_cpu=err, near_tie_rows=ties, same_bits_twice=True,
+    )
+    return out
+
+
+def write_classification_events(path: Path, users: int, seed: int) -> np.ndarray:
+    """``users`` ``$set`` events (attr0-2 and plan from the planted rule)
+    as JSON lines; returns the plans."""
+    rng = np.random.default_rng(seed)
+    plan = rng.integers(0, len(CLS_RATES), users)
+    attrs = rng.poisson(np.asarray(CLS_RATES)[plan])
+    t_set = iso_ms(T_BASE_MS)
+    with open(path, "w") as f:
+        for n in range(users):
+            f.write('{"event":"$set","entityType":"user","entityId":"u%d",'
+                    '"properties":{"plan":%d,"attr0":%d,"attr1":%d,"attr2":%d},'
+                    '"eventTime":"%s"}\n'
+                    % (n, plan[n], attrs[n, 0], attrs[n, 1], attrs[n, 2], t_set))
+    return plan
+
+
+def classification_cli(device="cuda") -> dict:
+    """The template through the port's CLI: app new -> import of ``users``
+    $set events -> train (naive, lambda 1.0) on the card; the default aio
+    deploy answering ``queries`` from 8 clients, each answer the label of a
+    host numpy Naive Bayes over the persisted pi and theta; then ``pio
+    eval`` of ``models.classification.evaluation:evaluation`` (5 folds,
+    lambdas 10/100/1000), plainly and through FastEvalEngine, with the
+    same JSON."""
+    from predictionio_tpu_torch.core.persistence import load_models
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, reset_storage
+    from predictionio_tpu_torch.server.prediction_server import create_prediction_server
+    from predictionio_tpu_torch.tools import cli
+
+    users, queries = CLS_USERS, CLS_QUERIES
+    out: dict = {"users": users}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        storage = reset_storage(
+            StorageConfig.from_env({"PIO_HOME": str(tmp / "pio_home")}))
+        write_classification_events(tmp / "users.jsonl", users, SEED + 91)
+        (tmp / "engine.json").write_text(json.dumps({
+            "id": "default", "engineFactory": "classification",
+            "datasource": {"params": {"appName": "cls"}},
+            "algorithms": [{"name": "naive", "params": {"lambda": 1.0}}]}))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            assert cli.main(["app", "new", "cls"]) == 0
+            t0 = time.perf_counter()
+            assert cli.main(["import", "--app", "cls", "--input",
+                             str(tmp / "users.jsonl")]) == 0
+            out["import_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            assert cli.main(["train", "--engine-json", str(tmp / "engine.json"),
+                             "--device", device]) == 0
+            out["train_cli_s"] = time.perf_counter() - t0
+        instance_id = printed.getvalue().split("Engine instance: ")[1].split()[0]
+        [blob] = load_models(storage.models(), instance_id)
+        assert sorted(blob) == ["labels", "pi", "theta"], sorted(blob)
+        assert blob["labels"].tolist() == [0.0, 1.0, 2.0]
+        rng = np.random.default_rng(SEED + 92)
+        q = rng.poisson(np.asarray(CLS_RATES)[rng.integers(0, 3, queries)]).astype(
+            np.float32)
+        bodies = [json.dumps({"attr0": float(a), "attr1": float(b2),
+                              "attr2": float(c)}).encode() for a, b2, c in q]
+        server = create_prediction_server(
+            "classification", host="127.0.0.1", port=0, storage=storage,
+            device=device).start_background()
+        try:
+            results, wall = drive_clients(server.port, bodies, CLS_CLIENTS)
+            waves = server.app.microbatcher.wave_histogram()
+        finally:
+            server.shutdown()
+        assert sorted({r[0] for r in results}) == [200], sorted({r[0] for r in results})
+        got = np.asarray([json.loads(r[3])["label"] for r in results])
+        host = blob["pi"][None, :] + q @ blob["theta"].T
+        out["deploy"] = {
+            "queries": queries, "clients": CLS_CLIENTS, "wall_s": wall,
+            "queries_per_s": queries / wall,
+            "p50_ms": 1e3 * float(np.percentile([r[1] for r in results], 50)),
+            "p99_ms": 1e3 * float(np.percentile([r[1] for r in results], 99)),
+            "waves": waves,
+            "near_tie_answers": first_max_or_near_tie(got.astype(np.int64), host),
+        }
+        (tmp / "cls_fast_eval.py").write_text(CLS_FAST_MODULE)
+        sys.path.insert(0, str(tmp))
+        sweeps = {}
+        try:
+            for name, path in (
+                ("evaluation",
+                 "predictionio_tpu_torch.models.classification.evaluation:evaluation"),
+                ("fast_evaluation", "cls_fast_eval:fast_evaluation"),
+            ):
+                printed = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    assert cli.main(["eval", path, "--params",
+                                     json.dumps({"app_name": "cls"}),
+                                     "--device", device]) == 0
+                lines = printed.getvalue().splitlines()
+                assert lines[0].startswith("[Accuracy] best score: "), lines
+                sweeps[name] = {"sweep_s": time.perf_counter() - t0,
+                                "one_liner": lines[0]}
+        finally:
+            sys.path.remove(str(tmp))
+            sys.modules.pop("cls_fast_eval", None)
+        done = {i.evaluation_class.split(":")[1]: i
+                for i in storage.evaluation_instances().get_completed()}
+        assert sorted(done) == ["evaluation", "fast_evaluation"], sorted(done)
+        plain, fast = (done[k].evaluator_results_json
+                       for k in ("evaluation", "fast_evaluation"))
+        assert plain == fast, (plain, fast)
+        assert sweeps["evaluation"]["one_liner"] == sweeps["fast_evaluation"]["one_liner"]
+        r = json.loads(plain)
+        assert len(r["records"]) == 3 and 0.5 < r["bestScore"] <= 1, r
+        out["eval"] = {
+            "folds": 5, "sweeps": sweeps, "best_idx": r["bestIdx"],
+            "accuracy": [x["score"] for x in r["records"]],
+            "lambdas": [x["engineParams"]["algorithms"][0]["naive"]["lam"]
+                        for x in r["records"]],
+            "json_identical": True,
+        }
+        out["logreg"] = template_logreg_hold(cli, storage, tmp, device)
+        storage.close()
+    return out
+
+
+def template_logreg_hold(cli, storage, tmp: Path, device) -> dict:
+    """The template's ``logreg`` at its own defaults on the imported $set
+    data, trained through the CLI on ``device`` and on the CPU: ``w`` and
+    ``b`` within LOGREG_RTOL of each tensor's largest value."""
+    from predictionio_tpu_torch.core.persistence import load_models
+    from predictionio_tpu_torch.models.classification.engine import (
+        LogisticRegressionParams,
+    )
+
+    (tmp / "logreg.json").write_text(json.dumps({
+        "id": "default", "engineFactory": "classification",
+        "datasource": {"params": {"appName": "cls"}},
+        "algorithms": [{"name": "logreg", "params": {}}]}))
+    blobs, train_s = [], []
+    for dev in (device, "cpu"):
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            assert cli.main(["train", "--engine-json", str(tmp / "logreg.json"),
+                             "--device", dev]) == 0
+        train_s.append(time.perf_counter() - t0)
+        instance_id = printed.getvalue().split("Engine instance: ")[1].split()[0]
+        [blob] = load_models(storage.models(), instance_id)
+        blobs.append(blob)
+    (card, host) = blobs
+    err = {k: float(np.abs(card[k] - host[k]).max() / np.abs(host[k]).max())
+           for k in ("w", "b")}
+    assert max(err.values()) <= LOGREG_RTOL, err
+    assert card["labels"].tolist() == host["labels"].tolist() == [0.0, 1.0, 2.0]
+    p = LogisticRegressionParams()
+    return {"learning_rate": p.learning_rate, "num_iterations": p.num_iterations,
+            "train_cli_s": train_s[0], "cpu_train_cli_s": train_s[1],
+            "card_vs_cpu": err}
+
+
+def classification_phase(device="cuda") -> dict:
+    """``classification``: the ops at the Covertype shape, then the template
+    through the CLI, then logistic regression on Poisson counts held to
+    the CPU.  No hand kernel is on this path (the JAX package computes
+    these outside Pallas): the counts of all three stay 0."""
+    t_phase = time.perf_counter()
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    out = {"phase": "classification", "ops": classification_ops(device),
+           "template": classification_cli(device)}
+    out["launches"] = read_launches()
+    # -- end --
+    assert not any(out["launches"].values()), out["launches"]
+    out["logreg_poisson"] = logreg_poisson_hold(device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["nvidia_smi"] = nvidia_smi_line() if device == "cuda" else None
+    return out
+
+
+#: the generations phase: clients during each swap, queries of the device
+#: wave, solo queries compared across the SIGKILL restart, the stall at
+#: the swap seam, and how long after the candidate is staged the kill comes
+GEN_CLIENTS, GEN_WAVE, GEN_SOLO = 16, 1024, 8
+GEN_STALL_S, GEN_KILL_AFTER_S = 120, 4.0
+
+
+def flip_stored_byte(models_store, instance_id: str) -> str:
+    """Flip one byte in the middle of an instance's first stored part (the
+    manifest when it has none); returns the key."""
+    from predictionio_tpu_torch.data.storage.base import _manifest_part_names
+
+    raw = models_store.get(f"{instance_id}:manifest")
+    parts = sorted(_manifest_part_names(raw)) if raw is not None else []
+    key = f"{instance_id}:part:{parts[0]}" if parts else f"{instance_id}:manifest"
+    blob = bytearray(models_store.get(key))
+    blob[len(blob) // 2] ^= 0x01
+    models_store.insert(key, bytes(blob))
+    return key
+
+
+def clients_around(port: int, users, clients: int, action):
+    """``clients`` keep-alive clients query ``port`` while ``action()`` runs
+    (after 128 answers, and until 128 more were sent after it returned).
+    Returns (action's result, its seconds, records (sent, status, instance
+    header, user, body), the time it returned)."""
+    stop = threading.Event()
+    lock = threading.Lock()
+    records: list = []
+
+    def client(k: int):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        n = 0
+        try:
+            while not stop.is_set():
+                u = int(users[(k * 257 + n) % len(users)])
+                n += 1
+                sent = time.perf_counter()
+                conn.request("POST", "/queries.json",
+                             body=json.dumps({"user": f"u{u}", "num": 10}))
+                resp = conn.getresponse()
+                data = resp.read()
+                with lock:
+                    records.append((sent, resp.status,
+                                    resp.getheader("X-Pio-Engine-Instance"), u, data))
+        finally:
+            conn.close()
+
+    def wait_for(pred, what):
+        t0 = time.perf_counter()
+        while not pred():
+            assert time.perf_counter() - t0 < 120, what
+            time.sleep(0.01)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    try:
+        for t in threads:
+            t.start()
+        wait_for(lambda: len(records) >= 128, "no traffic before the action")
+        t0 = time.perf_counter()
+        result = action()
+        done = time.perf_counter()
+        wait_for(lambda: sum(r[0] > done for r in records) >= 128,
+                 "no traffic after the action")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    return result, done - t0, list(records), done
+
+
+def post_json(port: int, path: str, body: dict | None = None, timeout=120):
+    """(status, JSON body) of one POST."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body or {}).encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def generations_phase(device="cuda") -> dict:
+    """``generations``: the deploy and ``/reload`` through the generation
+    store on ``write_model``'s seeded ML-20M models.
+
+    A and B written, A deployed (max_batch 1,024) and recorded live; under
+    16 clients ``/reload`` verifies B's checksum, then flips (zero
+    non-200), the retired A's device memory freed; a 1,024-query device
+    wave (kernel 3) answers from B, held to B's host answers.  C, staged
+    in the manifest with its checksum, then one stored byte flipped:
+    ``/reload`` answers 409 and B serves on (zero non-200).  A restart
+    binds the live B, not the latest COMPLETED C; B's byte flipped, a
+    restart walks back to A and ``pio_lifecycle_corrupt_blobs_total``
+    reads 1.  Then a CLI deploy stalled at the ``lifecycle.swap`` seam
+    (``PIO_FAULT_PLAN``) is SIGKILLed mid-swap; its restart serves the
+    committed generation with the same bytes as before.  Last, the gate's
+    limit, measured and held to nothing: E's byte flipped before any
+    record, then ``/reload`` (whose first record checksums the flipped
+    bytes)."""
+    import gc
+    import signal
+
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.lifecycle import GenerationStore, compute_checksums
+    from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_prediction_server_app,
+        deploy_engine,
+    )
+
+    on_card = torch.device(device).type == "cuda"
+
+    def allocated() -> int:
+        if not on_card:
+            return 0
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    factor_bytes = (ML20M_USERS + ML20M_ITEMS) * RANK * 4
+    users = np.random.default_rng(SEED + 93).integers(0, ML20M_USERS, 4096)
+    out: dict = {"phase": "generations", "shape": [ML20M_USERS, ML20M_ITEMS, RANK],
+                 "clients": GEN_CLIENTS, "factor_bytes": factor_bytes}
+    t_phase = time.perf_counter()
+    corrupt = REGISTRY.counter("pio_lifecycle_corrupt_blobs_total",
+                               "Model blobs refused by checksum verification")
+    corrupt_before = corrupt.value
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    home = tmp / "pio_home"
+    storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(home)}))
+    server = None
+    try:
+        models = storage.models()
+        store = GenerationStore(models)
+        gens = {}
+        for name, salt in (("A", 50), ("B", 51)):
+            time.sleep(0.01)  # start times a millisecond apart at least
+            gens[name] = write_model(storage, home, seed=SEED + salt)
+        ids = {name: g[0] for name, g in gens.items()}
+        name_of = {v: k for k, v in ids.items()}
+
+        def serve(instance_id=None):
+            deployed = deploy_engine("recommendation", storage=storage,
+                                     engine_instance_id=instance_id, device=device)
+            app = create_prediction_server_app(
+                deployed, use_microbatch=True, max_batch=GEN_WAVE,
+                max_queue=4 * GEN_WAVE, registry=MetricsRegistry())
+            return deployed, app, AsyncAppServer(app, "127.0.0.1", 0).start_background()
+
+        def held(records, expect: set):
+            """Every record 200 and answered by a generation in ``expect``,
+            each held to that generation's factors."""
+            statuses = sorted({r[1] for r in records})
+            assert statuses == [200], statuses
+            by: dict = {}
+            for r in records:
+                by.setdefault(name_of[r[2]], []).append(r)
+            assert set(by) <= expect, (sorted(by), expect)
+            for name, rs in by.items():
+                _, U, V = gens[name]
+                hold_answers([json.loads(r[4])["itemScores"] for r in rs],
+                             [r[3] for r in rs], U, V, 10)
+            return {k: len(v) for k, v in by.items()}
+
+        mem: dict = {"before_deploy": allocated()}
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        deployed, app, server = serve(ids["A"])
+        assert deployed.instance.id == ids["A"]
+        assert store.live().instance_id == ids["A"]
+        mem["a_bound"] = allocated()
+        verify_ms = {}
+        t0 = time.perf_counter()
+        store.verify(ids["A"])
+        verify_ms["A"] = 1e3 * (time.perf_counter() - t0)
+
+        # 1. a good reload under 16 clients
+        (status, body), reload_s, records, done = clients_around(
+            server.port, users, GEN_CLIENTS,
+            lambda: post_json(server.port, "/reload"))
+        assert status == 200 and body["engineInstanceId"] == ids["B"], body
+        late = [r for r in records if r[0] > done]
+        assert {r[2] for r in late} == {ids["B"]}, "A answered after the reload"
+        out["good_reload"] = {"status": status, "reload_s": reload_s,
+                              "answered_by": held(records, {"A", "B"}),
+                              "sent_after": len(late)}
+        assert store.live().instance_id == ids["B"]
+        assert store.get(ids["A"]).status == "retired"
+        mem["b_bound_a_drained"] = allocated()
+        assert mem["b_bound_a_drained"] - mem["a_bound"] < factor_bytes, mem
+        t0 = time.perf_counter()
+        store.verify(ids["B"])
+        verify_ms["B"] = 1e3 * (time.perf_counter() - t0)
+
+        # 2. a device wave from B
+        before = read_launches()["fused_topk"]
+        wave_users = users[:GEN_WAVE]
+        burst = queued_burst(
+            app.microbatcher,
+            [{"user": f"u{u}", "num": 10} for u in wave_users],
+            [{} for _ in wave_users])
+        assert all(r[0] == "ok" and r[2] == ids["B"] for r in burst), {
+            (r[0], r[2]) for r in burst}
+        _, Ub, Vb = gens["B"]
+        hold_answers([r[1]["itemScores"] for r in burst], wave_users, Ub, Vb, 10)
+        out["device_wave"] = {"queries": GEN_WAVE,
+                              "fused_topk": read_launches()["fused_topk"] - before}
+        assert not on_card or out["device_wave"]["fused_topk"] >= 1, out
+
+        # 3. a corrupt candidate: staged with its checksum, then one byte
+        time.sleep(0.01)
+        gens["C"] = write_model(storage, home, seed=SEED + 52)
+        ids["C"] = gens["C"][0]
+        name_of[ids["C"]] = "C"
+        store.record(ids["C"], status="staged")
+        out["flipped"] = {"C": flip_stored_byte(models, ids["C"]).split(":", 1)[1]}
+        t0 = time.perf_counter()
+        try:
+            store.verify(ids["C"])
+            raise AssertionError("C's flipped byte passed verification")
+        except Exception as e:
+            assert type(e).__name__ == "CorruptModelError", e
+        verify_ms["C"] = 1e3 * (time.perf_counter() - t0)
+        (status, body), refused_s, records, _ = clients_around(
+            server.port, users, GEN_CLIENTS,
+            lambda: post_json(server.port, "/reload"))
+        assert status == 409 and body["engineInstanceId"] == ids["B"], body
+        assert "do not match" in body["message"], body
+        out["refused_reload"] = {"status": status, "reload_s": refused_s,
+                                 "message": body["message"][:160],
+                                 "answered_by": held(records, {"B"})}
+        assert deployed.instance.id == ids["B"]
+        assert store.live().instance_id == ids["B"]
+        assert store.get(ids["C"]).status == "staged"
+        launches = read_launches()
+        # -- end --
+
+        # 4. restarts
+        def restart():
+            nonlocal deployed, app, server
+            server.shutdown()
+            deployed = app = server = None
+            mem.setdefault("down", []).append(allocated())
+            deployed, app, server = serve()
+            status, body = post_json(server.port, "/queries.json",
+                                     {"user": f"u{int(users[0])}", "num": 10})
+            assert status == 200, body
+            return deployed.instance.id
+
+        bound = restart()
+        assert bound == ids["B"], (name_of.get(bound), "should be B")
+        latest = storage.engine_instances().get_latest_completed(
+            "default", "default", "default")
+        assert latest.id == ids["C"]
+        out["flipped"]["B"] = flip_stored_byte(models, ids["B"]).split(":", 1)[1]
+        bound_after = restart()
+        assert bound_after == ids["A"], (name_of.get(bound_after), "should be A")
+        assert store.get(ids["B"]).status == "rolled_back"
+        assert store.live().instance_id == ids["A"]
+        corrupt_blobs = corrupt.value - corrupt_before
+        assert corrupt_blobs == 1, corrupt_blobs
+        out["restarts"] = {"bound": ["B", "A"], "latest_completed": "C",
+                           "corrupt_blobs_total": corrupt.value}
+        server.shutdown()
+        server = deployed = app = None
+        mem["after_restarts"] = allocated()
+
+        # 5. SIGKILL mid-swap
+        time.sleep(0.01)
+        gens["D"] = write_model(storage, home, seed=SEED + 53)
+        ids["D"] = gens["D"][0]
+        name_of[ids["D"]] = "D"
+        plan = json.dumps([{"seam": "lifecycle.swap", "kind": "latency",
+                            "latency_s": GEN_STALL_S, "match": "reload"}])
+        argv = ["deploy", "--ip", "127.0.0.1", "--port", "0", "--device", device]
+        proc, printed = spawn_cli(home, argv, 1, env={"PIO_FAULT_PLAN": plan})
+        solo = [{"user": f"u{int(u)}", "num": 10} for u in users[-GEN_SOLO:]]
+        try:
+            port = bound_port(printed[0])
+            baseline = [post_json(port, "/queries.json", q) for q in solo]
+            assert all(s == 200 for s, _ in baseline), baseline
+            reload_result: list = []
+            t = threading.Thread(
+                target=lambda: reload_result.append(
+                    _swallow(lambda: post_json(port, "/reload", timeout=300))),
+                daemon=True)
+            t.start()
+            t0 = time.perf_counter()
+            while store.get(ids["D"]) is None:
+                assert time.perf_counter() - t0 < 60, "the reload never staged D"
+                assert proc.poll() is None, cli_stderr(proc)
+                time.sleep(0.05)
+            time.sleep(GEN_KILL_AFTER_S)  # verify, load and sanity-check D
+            assert proc.poll() is None, cli_stderr(proc)
+            assert store.live().instance_id == ids["A"]
+            proc.send_signal(signal.SIGKILL)
+            killed_rc = proc.wait(timeout=30)
+            t.join(timeout=30)
+            # the reload never answered: it died in the stall
+            assert reload_result in ([], [None]), reload_result
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        assert store.live().instance_id == ids["A"], "the commit happened"
+        assert store.get(ids["D"]).status == "staged"
+        proc, printed = spawn_cli(home, argv, 1)
+        try:
+            port = bound_port(printed[0])
+            lc = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/lifecycle.json", timeout=30).read())
+            after = [post_json(port, "/queries.json", q) for q in solo]
+        finally:
+            stop_cli(proc)
+        assert after == baseline, "the restart answered other bytes"
+        assert lc["engineInstanceId"] == lc["manifest"]["live"] == ids["A"], lc
+        out["sigkill_mid_swap"] = {
+            "killed_returncode": killed_rc, "staged": "D",
+            "restart_bound": "A", "solo_answers_equal": len(after),
+        }
+
+        # 6. the gate's limit: E's byte flipped BEFORE anything recorded it
+        time.sleep(0.01)
+        gens["E"] = write_model(storage, home, seed=SEED + 54)
+        ids["E"] = gens["E"][0]
+        name_of[ids["E"]] = "E"
+        assert store.get(ids["E"]) is None
+        out["flipped"]["E"] = flip_stored_byte(models, ids["E"]).split(":", 1)[1]
+        deployed, app, server = serve()
+        status, body = post_json(server.port, "/reload")
+        gen_e = store.get(ids["E"])
+        probe = users[:GEN_SOLO]
+        answers = [post_json(server.port, "/queries.json",
+                             {"user": f"u{int(u)}", "num": 10}) for u in probe]
+        _, Ue, Ve = gens["E"]
+        try:
+            hold_answers([b["itemScores"] for _, b in answers], probe, Ue, Ve, 10)
+            held_to_e = True
+        except AssertionError:
+            held_to_e = False
+        out["never_recorded_flip"] = {
+            "reload_status": status, "bound": name_of.get(deployed.instance.id),
+            "manifest_status": gen_e.status if gen_e else None,
+            "recorded_checksum_is_the_flipped_bytes": bool(
+                gen_e and gen_e.checksum == compute_checksums(models, ids["E"])[0]),
+            "answers_held_to_e": held_to_e,
+        }
+        server.shutdown()
+        server = deployed = app = None
+        out.update(
+            verify_ms=verify_ms, device_memory=mem, launches=launches,
+            manifest=[(name_of.get(g.instance_id, g.instance_id), g.status)
+                      for g in store.generations()],
+        )
+    finally:
+        if server is not None:
+            server.shutdown()
+        storage.close()
+        tmp_dir.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["nvidia_smi"] = nvidia_smi_line() if on_card else None
+    return out
+
+
+def _swallow(fn):
+    """``fn()``, or None when it raised (a request to a process killed
+    under it)."""
+    try:
+        return fn()
+    except Exception:
+        return None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -4114,6 +4900,9 @@ def main() -> int:
     del ratings
     ingest = event_ingest_phase()
     emit(ingest)
+    emit(classification_phase())
+    generations = generations_phase()
+    emit(generations)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
     pretrain = ncf_train["pretrain"]
     rank32_t = pretrain["kernel1_rank32_implicit_user_half_step"]
@@ -4158,6 +4947,8 @@ def main() -> int:
                     "launches_observability": front_end[3]["launches"]["fused_topk"],
                     # pio eval's fold waves of 512+ known users, both sweeps
                     "launches_eval": evaluation["launches"]["fused_topk"],
+                    # the device wave across the generation store's swaps
+                    "launches_generations": generations["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),

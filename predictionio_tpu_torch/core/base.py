@@ -109,6 +109,16 @@ class Preparator(abc.ABC, Generic[TD, PD]):
     def prepare(self, ctx: EngineContext, td: TD) -> PD: ...
 
 
+class IdentityPreparator(Preparator):
+    """Pass-through (controller/IdentityPreparator.scala:32)."""
+
+    def __init__(self, params: Any = None):
+        pass
+
+    def prepare(self, ctx: EngineContext, td):
+        return td
+
+
 class Algorithm(abc.ABC, Generic[PD, M, Q, PR]):
     """Train a model and answer queries (core/BaseAlgorithm.scala:58)."""
 

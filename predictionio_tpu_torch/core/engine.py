@@ -233,12 +233,30 @@ class Engine:
         ctx: EngineContext,
         params: EngineParams,
         persisted: Sequence[Any],
+        instance_id: str | None = None,
     ) -> list[Any]:
-        """Re-materialize models for serving (Engine.prepareDeploy:198)."""
+        """Re-materialize models for serving (Engine.prepareDeploy:198).
+
+        A stored PersistentModelManifest resolves through its named loader
+        class (prepareDeploy:241-250) before the algorithm's own hook runs.
+        """
+        from predictionio_tpu_torch.core.persistent_model import (
+            PersistentModelManifest,
+            load_from_manifest,
+        )
+
         _, _, algos, _ = self.instantiate(params)
-        return [
-            a.load_persistent_model(ctx, m) for a, m in zip(algos, persisted)
-        ]
+        out = []
+        for a, m in zip(algos, persisted):
+            if isinstance(m, PersistentModelManifest):
+                if instance_id is None:
+                    raise ValueError(
+                        "persistent-model manifest requires the engine "
+                        "instance id to load"
+                    )
+                m = load_from_manifest(m, instance_id, getattr(a, "params", None))
+            out.append(a.load_persistent_model(ctx, m))
+        return out
 
     def eval(
         self, ctx: EngineContext, params: EngineParams

@@ -9,7 +9,9 @@ same module and name, so loading never imports the JAX package.
 ``serialize_models_sharded`` spills every numpy leaf of ``PART_THRESHOLD``
 bytes or more into its own named part (raw ``.npy`` bytes) via the pickle
 ``persistent_id`` hook, leaving a small manifest that references them;
-``Models.insert_parts`` stores each part as its own keyed blob.
+``Models.insert_parts`` stores each part as its own keyed blob.  A
+persistent-model manifest is written under the JAX package's class name
+(``_JaxNamingPickler``), so the JAX package reads the port's manifests too.
 """
 
 from __future__ import annotations
@@ -50,8 +52,9 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
-class _ShardingPickler(pickle.Pickler):
-    """Pickler that spills big ndarray leaves into a side table of parts."""
+class _SpillingParts:
+    """Spills big ndarray leaves into a side table of parts (mixed into a
+    pickler)."""
 
     def __init__(self, buf: io.BytesIO, threshold: int):
         super().__init__(buf, protocol=pickle.HIGHEST_PROTOCOL)
@@ -76,8 +79,47 @@ class _ShardingPickler(pickle.Pickler):
         return None
 
 
+class _ShardingPickler(_SpillingParts, pickle.Pickler):
+    """Pickler that spills big ndarray leaves into a side table of parts."""
+
+
 #: the JAX package's top-level module, whose classes map onto the port's
 JAX_PACKAGE = "predictionio_tpu"
+
+
+def _jax_named_classes() -> dict[type, tuple[str, str]]:
+    """The port's classes that a checkpoint names by the JAX package's
+    module, so the JAX package unpickles its own class: the persistent
+    model manifest (its loader checks ``isinstance`` against its class)."""
+    from predictionio_tpu_torch.core.persistent_model import (
+        PersistentModelManifest,
+    )
+
+    return {
+        PersistentModelManifest: (
+            JAX_PACKAGE + ".core.persistent_model", "PersistentModelManifest"
+        )
+    }
+
+
+class _JaxNamingPickler(_SpillingParts, pickle._Pickler):
+    """The pure-Python pickler, writing each class of
+    :func:`_jax_named_classes` under the JAX package's module name without
+    importing that module (the C pickler resolves every global it writes).
+    Used only for model lists that hold such an object."""
+
+    def __init__(self, buf: io.BytesIO, threshold: int):
+        super().__init__(buf, threshold)
+        self._jax_names = _jax_named_classes()
+
+    def save_global(self, obj, name=None):
+        alias = self._jax_names.get(obj) if isinstance(obj, type) else None
+        if alias is None:
+            return super().save_global(obj, name)
+        self.save(alias[0])
+        self.save(alias[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
 
 
 class _PortUnpickler(pickle.Unpickler):
@@ -113,7 +155,12 @@ def serialize_models_sharded(
 ) -> tuple[bytes, dict[str, bytes]]:
     """Return (manifest blob, {part name: raw .npy bytes})."""
     buf = io.BytesIO()
-    p = _ShardingPickler(buf, threshold)
+    named = tuple(_jax_named_classes())
+    pickler = (
+        _JaxNamingPickler if any(isinstance(m, named) for m in models)
+        else _ShardingPickler
+    )
+    p = pickler(buf, threshold)
     p.dump([_to_host(m) for m in models])
     return buf.getvalue(), p.parts
 

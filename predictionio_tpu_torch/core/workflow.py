@@ -27,6 +27,10 @@ from typing import Any, Sequence
 from predictionio_tpu_torch.core.base import EngineContext
 from predictionio_tpu_torch.core.engine import Engine, EngineParams
 from predictionio_tpu_torch.core.persistence import load_models, save_models
+from predictionio_tpu_torch.core.persistent_model import (
+    PersistentModel,
+    PersistentModelManifest,
+)
 from predictionio_tpu_torch.data.storage.base import (
     EngineInstance,
     EvaluationInstance,
@@ -124,7 +128,18 @@ def run_train(
         persistable = engine.make_persistent_models(
             ctx, engine_params, models, algos=algos
         )
-        save_models(storage.models(), instance.id, persistable)
+        # PersistentModel flavors save themselves; only a manifest is
+        # stored (Engine.makeSerializableModels:284 +
+        # PersistentModelManifest)
+        stored = []
+        for a, m in zip(algos, persistable):
+            if isinstance(m, PersistentModel) and m.save(
+                instance.id, getattr(a, "params", None)
+            ):
+                stored.append(PersistentModelManifest(type(m).class_path()))
+            else:
+                stored.append(m)
+        save_models(storage.models(), instance.id, stored)
         stages["persist.save_models"] = time.perf_counter() - t0
         done = instance.completed()
         instances.update(done)

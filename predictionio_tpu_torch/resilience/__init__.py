@@ -12,8 +12,12 @@ needs:
 - :mod:`degrade` — answers an engine gave from its model alone when a live
   read failed, counted and stamped ``X-Pio-Degraded``.
 
-Circuit breakers guard the remote storage backend and come with it; retry
-budgets and fault injection are not ported yet.
+- :mod:`faults` — the seeded, plan-driven fault injector
+  (``PIO_FAULT_PLAN``) at the micro-batcher, generation-store, swap and
+  event-store seams.
+
+Circuit breakers and retry budgets guard the remote storage backend and
+come with it.
 """
 
 

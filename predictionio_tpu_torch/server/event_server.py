@@ -36,8 +36,9 @@ unauthenticated; with ``obs_access_key`` (or ``PIO_OBS_ACCESS_KEY``) the
 debug routes exist too and the key gates everything but ``/healthz``.
 The server never touches the card: a scrape creates no CUDA context.
 
-Not here yet: the per-app cost ledger, the feedback join of online model
-quality and the ``eventstore.write`` fault seam.
+Each insert passes the ``eventstore.write`` fault seam first
+(``resilience.faults``).  Not here yet: the per-app cost ledger and the
+feedback join of online model quality.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from predictionio_tpu_torch.data.webhooks import (
 )
 from predictionio_tpu_torch.obs.http import add_observability_routes
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+from predictionio_tpu_torch.resilience import faults
 from predictionio_tpu_torch.resilience.admission import AdmissionController
 from predictionio_tpu_torch.server.httpd import (
     AppServer,
@@ -221,6 +223,14 @@ def create_event_server_app(
                 event.event,
             )
 
+    def _store_seam(app_id: int) -> None:
+        """The ``eventstore.write`` fault seam, checked before each insert
+        with the write's ingest-gate slot held: a latency rule stalls
+        exactly like a slow store; raising kinds surface as the store
+        being down (``ConnectionError``/``TimeoutError`` -> 503)."""
+        if faults.ACTIVE is not None:
+            faults.ACTIVE.check("eventstore.write", str(app_id))
+
     def insert(auth: AuthData, event: Event) -> Response:
         """Plugins, then the store, then the books: the single-event
         routes' shared tail."""
@@ -229,6 +239,7 @@ def create_event_server_app(
         except Exception as e:  # an input blocker rejected the event
             return error_response(403, f"rejected by plugin: {e}")
         try:
+            _store_seam(auth.app_id)
             event_id = levents.insert(event, auth.app_id, auth.channel_id)
         except _STORE_UNAVAILABLE as e:
             return _unavailable_response(e)
@@ -348,6 +359,7 @@ def create_event_server_app(
                 )
                 continue
             try:
+                _store_seam(auth.app_id)
                 event_id = levents.insert(event, auth.app_id, auth.channel_id)
             except _STORE_UNAVAILABLE as e:
                 # per-item 503: one status per event, and a store that is

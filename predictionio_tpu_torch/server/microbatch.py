@@ -80,7 +80,7 @@ from predictionio_tpu_torch.obs.metrics import (
     SIZE_BUCKETS,
     MetricsRegistry,
 )
-from predictionio_tpu_torch.resilience import LoadShed
+from predictionio_tpu_torch.resilience import LoadShed, faults
 from predictionio_tpu_torch.resilience.admission import shed_counter
 from predictionio_tpu_torch.resilience.deadline import (
     DeadlineExceeded,
@@ -161,6 +161,10 @@ class MicroBatcher:
         max_inflight_waves: int = 2,
     ):
         self.batch_fn = batch_fn
+        #: label for the batch_fn fault-injection seam
+        self._fault_label = getattr(
+            batch_fn, "__qualname__", getattr(batch_fn, "__name__", "batch_fn")
+        )
         self.max_batch = max_batch
         #: pipelined waves allowed between dispatch and the finalize fence;
         #: 0 finalizes inline on the worker (pipelining off)
@@ -381,9 +385,17 @@ class MicroBatcher:
             )
         return results
 
+    def _call_batch_fn(self, items: list[Any]):
+        """The batch_fn fault-injection seam (``resilience.faults``); one
+        attribute check when no plan is installed.  May return either the
+        results or a :class:`PendingWave` (pipelined dispatch)."""
+        if faults.ACTIVE is not None:
+            faults.ACTIVE.check("batch_fn", self._fault_label)
+        return self.batch_fn(items)
+
     def _run_batch_sync(self, items: list[Any]) -> Sequence[Any]:
         """Dispatch + finalize inline — the solo-retry path."""
-        results = self.batch_fn(items)
+        results = self._call_batch_fn(items)
         if isinstance(results, PendingWave):
             results = results.finalize()
         return self._validated(results, items)
@@ -447,7 +459,7 @@ class MicroBatcher:
             with device_obs.wave_timeline() as timeline:
                 with deadline_scope(absolute=wave_deadline):
                     with _wave_context(live[0]):
-                        results = self.batch_fn(items)
+                        results = self._call_batch_fn(items)
         except Exception as e:
             self._fail_or_retry(live, e, wave_seq, loop)
             return

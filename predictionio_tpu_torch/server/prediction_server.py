@@ -6,8 +6,10 @@ Route parity with the JAX package (workflow/CreateServer.scala:458-706):
   GET  /status.json   engine instance, in-flight generations, batcher state
   POST /queries.json  extract query -> supplement -> predict per algorithm
                       -> serve -> JSON
-  POST /reload        hot-swap to the latest COMPLETED engine instance,
-                      draining the old one (key-gated)
+  POST /reload        hot-swap to the latest COMPLETED engine instance
+                      through the generation manifest's checksum gate,
+                      draining the old one (key-gated; 409 on refusal)
+  GET  /lifecycle.json  the generation manifest (key-gated)
   POST /stop          shut the server down (key-gated when an access key
                       is configured)
 
@@ -35,8 +37,15 @@ event-store checks, ``/efficiency.json``, ``/explain.json``,
 access key except ``/healthz``.  Every answered query leaves a provenance
 record (binding, engine path, wave, items and scores), its wave meta in
 the flight recorder, and, on the solo paths, its host stages in
-``/hotpath.json``.  Canary and tenant partitioning of waves and the
-generation manifest's checksum gate come with later slices.
+``/hotpath.json``.
+
+Every bind goes through the generation manifest (``lifecycle.generations``,
+the JAX package's layout and key): ``deploy_engine`` binds the manifest's
+live generation, checksum-verified, walking back to the last good one when
+its bytes are corrupt, and records what it bound as live; ``/reload``
+verifies the candidate's checksum, loads and sanity-checks it, passes the
+``lifecycle.swap`` fault seam, commits the manifest and only then flips.
+Canary and tenant partitioning of waves come with a later slice.
 """
 
 from __future__ import annotations
@@ -62,6 +71,10 @@ from predictionio_tpu_torch.data.storage.config import (
     get_storage,
 )
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.lifecycle.generations import (
+    CorruptModelError,
+    GenerationStore,
+)
 from predictionio_tpu_torch.obs import device as device_obs
 from predictionio_tpu_torch.obs import provenance
 from predictionio_tpu_torch.obs.disttrace import note_wave_events
@@ -75,7 +88,7 @@ from predictionio_tpu_torch.obs.http import add_observability_routes
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 from predictionio_tpu_torch.obs.tracing import trace
 from predictionio_tpu_torch.parallel import device_cache
-from predictionio_tpu_torch.resilience import LoadShed
+from predictionio_tpu_torch.resilience import LoadShed, faults
 from predictionio_tpu_torch.resilience.admission import AdmissionController
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.resilience.degrade import degraded_scope
@@ -190,11 +203,14 @@ class DeployedEngine:
         engine: Engine,
         instance: EngineInstance,
         storage: StorageRuntime,
+        generation_store: GenerationStore,
         device: torch.device | str | None = None,
     ):
         self.engine = engine
         self.storage = storage
         self.ctx = EngineContext(storage=storage, mode="serving", device=device)
+        #: the manifest every swap is verified against and commits through
+        self.generation_store = generation_store
         self._lock = threading.RLock()
         self._drain_cond = threading.Condition()
         self._inflight: dict[str, int] = {}
@@ -210,7 +226,9 @@ class DeployedEngine:
         persisted = load_models(self.storage.models(), instance.id)
         if persisted is None:
             raise RuntimeError(f"no model blob for engine instance {instance.id}")
-        models = self.engine.prepare_deploy(self.ctx, params, persisted)
+        models = self.engine.prepare_deploy(
+            self.ctx, params, persisted, instance_id=instance.id
+        )
         _, _, algos, serving = self.engine.instantiate(params)
         return Binding(instance, params, algos, models, serving)
 
@@ -279,13 +297,26 @@ class DeployedEngine:
     # -- swaps ---------------------------------------------------------------
 
     def verify_and_swap(self, instance: EngineInstance) -> None:
-        """Load and sanity-check the candidate, THEN flip, then drain the
-        old generation; any failure before the flip leaves the old
-        generation serving untouched.  Raises on refusal."""
+        """The gated /reload path: checksum-verify the candidate's stored
+        bytes, load and sanity-check it, THEN commit the manifest, THEN
+        flip, then drain the old generation.  Any failure before the
+        commit leaves the old generation serving untouched.  Raises on
+        refusal (``CorruptModelError`` for a checksum mismatch)."""
+        store = self.generation_store
+        gen = store.get(instance.id)
+        if gen is None:
+            gen = store.record(instance.id, status="staged")
+        store.verify(gen)
         binding = self.load_binding(instance)
         for m in binding.models:
             run_sanity_check(m)
+        if faults.ACTIVE is not None:
+            # the crash-mid-swap seam: a chaos plan stalls or kills here,
+            # BETWEEN verification and the manifest commit; a restart
+            # comes back on the still-committed generation
+            faults.ACTIVE.check("lifecycle.swap", f"reload {instance.id}")
         old = self.instance
+        store.promote(instance.id, note="reload")
         self._install_live(binding)
         if old.id != instance.id:
             # an idempotent reload of the bound instance must not stall
@@ -293,8 +324,9 @@ class DeployedEngine:
             self.wait_drained(old.id, timeout=5.0)
 
     def reload_latest(self) -> EngineInstance:
-        """Swap to the latest COMPLETED instance of the bound engine
-        (MasterActor ReloadServer)."""
+        """Verify and swap to the latest COMPLETED instance of the bound
+        engine (MasterActor ReloadServer), through the same gate as every
+        swap."""
         latest = self.storage.engine_instances().get_latest_completed(
             self.instance.engine_id,
             self.instance.engine_version,
@@ -389,17 +421,34 @@ def deploy_engine(
     engine_variant: str = "default",
     device: torch.device | str | None = None,
 ) -> DeployedEngine:
-    """Resolve factory + engine instance (the given id, else the latest
-    COMPLETED one) and materialize its models on ``device`` (default CUDA;
-    raises without a card unless ``device="cpu"``)."""
+    """Resolve factory + engine instance and materialize its models on
+    ``device`` (default CUDA; raises without a card unless
+    ``device="cpu"``).
+
+    The instance is, in this order (CreateServer.scala:193, the JAX
+    package's ``deploy_engine``): the given id; else the generation
+    manifest's live generation, checksum-verified, with a walk back to the
+    newest previously-live generation when the head's bytes are corrupt;
+    else the latest COMPLETED instance, unless the gate just refused it.
+    Binding the manifest's live generation, not merely the latest
+    COMPLETED one, is what makes a kill mid-swap safe: a restart comes back
+    on whichever whole generation the manifest's atomic commit last
+    published.  What it binds is recorded as live."""
     device = resolve_device(device)
     storage = storage or get_storage()
     instances = storage.engine_instances()
+    gen_store = GenerationStore(
+        storage.models(), engine_id, engine_version, engine_variant
+    )
+    instance = None
+    refused: set[str] = set()
     if engine_instance_id is not None:
         instance = instances.get(engine_instance_id)
         if instance is None:
             raise RuntimeError(f"engine instance {engine_instance_id} not found")
-    else:
+    elif gen_store.exists():
+        instance = _bind_from_manifest(gen_store, instances, refused)
+    if instance is None:
         instance = instances.get_latest_completed(
             engine_id, engine_version, engine_variant
         )
@@ -408,10 +457,61 @@ def deploy_engine(
                 f"no COMPLETED engine instance for engine {engine_id!r}; "
                 "run train first"
             )
+        if instance.id in refused:
+            # every manifest generation failed its checksum and the latest
+            # COMPLETED instance is one of them: recording it live would
+            # bless the corruption the gate just caught
+            raise RuntimeError(
+                f"every generation of engine {engine_id!r} failed checksum "
+                f"verification (latest COMPLETED {instance.id} included); "
+                "re-train or restore the model store before deploying"
+            )
+    # record what is bound as the live generation (creates the manifest on
+    # the first deploy); bookkeeping only, the bind-time checks above are
+    # the strict part
+    try:
+        live = gen_store.live()
+        if live is None or live.instance_id != instance.id:
+            gen_store.record(instance.id, status="live")
+    except Exception as e:
+        log.warning("could not record live generation in manifest: %s", e)
     factory = resolve_engine_factory(
         engine_factory_name or instance.engine_factory
     )
-    return DeployedEngine(factory(), instance, storage, device=device)
+    return DeployedEngine(
+        factory(), instance, storage, gen_store, device=device
+    )
+
+
+def _bind_from_manifest(
+    gen_store: GenerationStore, instances, refused: set[str] | None = None
+) -> EngineInstance | None:
+    """The startup bind: the manifest's live generation, checksum-verified;
+    corrupt bytes fall back to the most recent previously-live generation
+    instead of crashing (or serving garbage).  Refused instance ids are
+    collected so the caller's latest-COMPLETED fallback never re-blesses
+    a generation the gate just rejected."""
+    for gen in gen_store.bind_candidates():
+        inst = instances.get(gen.instance_id)
+        if inst is None:
+            continue
+        try:
+            gen_store.verify(gen)
+        except CorruptModelError as e:
+            if refused is not None:
+                refused.add(gen.instance_id)
+            REGISTRY.counter(
+                "pio_lifecycle_corrupt_blobs_total",
+                "Model blobs refused by checksum verification",
+            ).inc()
+            log.error(
+                "generation %s refused at bind (%s); falling back to "
+                "last-good", gen.instance_id, e,
+            )
+            gen_store.mark_corrupt(gen.instance_id, str(e))
+            continue
+        return inst
+    return None
 
 
 def create_prediction_server_app(
@@ -884,9 +984,10 @@ def create_prediction_server_app(
 
     @app.route("POST", "/reload")
     def reload(req: Request) -> Response:
-        """Hot-swap to the latest COMPLETED instance: the candidate loads
-        and passes ``sanity_check()`` BEFORE the flip; a refusal answers
-        409 with the reason while the old generation keeps serving."""
+        """Hot-swap to the latest COMPLETED instance, gated behind the
+        generation manifest: the candidate's checksum and its
+        ``sanity_check()`` pass BEFORE the flip; a refusal answers 409 with
+        the reason while the old generation keeps serving."""
         if not _authorized(req):
             return error_response(401, "Invalid accessKey.")
         try:
@@ -902,6 +1003,23 @@ def create_prediction_server_app(
             )
         return json_response(
             200, {"message": "Reloaded", "engineInstanceId": inst.id}
+        )
+
+    @app.route("GET", "/lifecycle\\.json")
+    def lifecycle_json(req: Request) -> Response:
+        """The generation manifest, gated like the other debug routes.
+        The canary and the lifecycle controller are not ported yet."""
+        if not _authorized(req):
+            return error_response(401, "Invalid accessKey.")
+        return json_response(
+            200,
+            {
+                "engineInstanceId": deployed.instance.id,
+                "variant": deployed.instance.engine_variant or "default",
+                "manifest": deployed.generation_store.snapshot(),
+                "controller": {"enabled": False},
+                "canary_in_progress": False,
+            },
         )
 
     @app.route("POST", "/stop")

@@ -6,10 +6,13 @@ port runs, with the flags that apply to them: ``app``
 ``accesskey`` (``new|list|delete``), ``import``, ``export``,
 ``eventserver``, ``train``, ``eval`` (an ``Evaluation`` by import path,
 ``--params`` for a factory's keyword arguments), ``deploy``
-(``--event-port`` serves the event server beside it, on the same storage)
-and ``batchpredict``, plus ``--device`` on the verbs that compute (default ``cuda``; ``cpu`` runs the
-plain versions on the host).  Storage is configured by the same
-``PIO_HOME`` / ``PIO_STORAGE_*`` variables.
+(``--event-port`` serves the event server beside it, on the same storage),
+``batchpredict``, ``template`` (``list|get``: the bundled engines, and a
+starter ``engine.json``) and ``lifecycle`` (the generation manifest, from
+a running deploy's ``/lifecycle.json`` with ``--url`` or from the model
+store), plus ``--device`` on the verbs that compute (default ``cuda``;
+``cpu`` runs the plain versions on the host).  Storage is configured by
+the same ``PIO_HOME`` / ``PIO_STORAGE_*`` variables.
 """
 
 from __future__ import annotations
@@ -234,6 +237,182 @@ def do_batchpredict(args) -> int:
     return 0
 
 
+#: starter engine.json written by `template get <name> <dir>` (the JAX
+#: package's ``_TEMPLATE_VARIANTS``)
+_TEMPLATE_VARIANTS = {
+    "recommendation": {
+        "engineFactory": "recommendation",
+        "datasource": {"params": {"appName": "MyApp"}},
+        "algorithms": [
+            {
+                "name": "als",
+                "params": {"rank": 10, "numIterations": 20, "lambda": 0.01,
+                           "seed": 3},
+            }
+        ],
+    },
+    "similarproduct": {
+        "engineFactory": "similarproduct",
+        "datasource": {"params": {"appName": "MyApp", "eventNames": ["view"]}},
+        "algorithms": [
+            {"name": "als",
+             "params": {"rank": 10, "numIterations": 20, "lambda": 0.01}}
+        ],
+    },
+    "recommendeduser": {
+        "engineFactory": "recommendeduser",
+        "datasource": {"params": {"appName": "MyApp", "eventNames": ["view"],
+                                  "targetEntityType": "user"}},
+        "algorithms": [
+            {"name": "als",
+             "params": {"rank": 10, "numIterations": 20, "lambda": 0.01}}
+        ],
+    },
+    "classification": {
+        "engineFactory": "classification",
+        "datasource": {"params": {"appName": "MyApp"}},
+        "algorithms": [{"name": "naive", "params": {"lambda": 1.0}}],
+    },
+    "ecommerce": {
+        "engineFactory": "ecommerce",
+        "datasource": {"params": {"appName": "MyApp"}},
+        "algorithms": [
+            {"name": "ecomm",
+             "params": {"appName": "MyApp", "rank": 10, "numIterations": 20}}
+        ],
+    },
+    "ncf": {
+        "engineFactory": "ncf",
+        "datasource": {"params": {"appName": "MyApp"}},
+        "algorithms": [
+            {"name": "ncf",
+             "params": {"embedDim": 32, "mlpLayers": [64, 32, 16],
+                        "numEpochs": 5}}
+        ],
+    },
+}
+
+
+def do_template(args) -> int:
+    """`template list|get` (Template.scala:35): list the bundled engines or
+    write a starter engine.json for one; never overwrites."""
+    from predictionio_tpu_torch.core.engine import engine_registry
+
+    import predictionio_tpu_torch.models  # noqa: F401  (bundled factories)
+
+    if args.template_command == "get":
+        if not args.name or args.name not in _TEMPLATE_VARIANTS:
+            raise cmd.CommandError(
+                f"unknown template {args.name!r}; have "
+                f"{sorted(_TEMPLATE_VARIANTS)}"
+            )
+        target = Path(args.directory or args.name)
+        out_file = target / "engine.json"
+        if out_file.exists():
+            raise cmd.CommandError(
+                f"{out_file} already exists — refusing to overwrite"
+            )
+        target.mkdir(parents=True, exist_ok=True)
+        out_file.write_text(
+            json.dumps(_TEMPLATE_VARIANTS[args.name], indent=2) + "\n"
+        )
+        print(f"Wrote {out_file}")
+        return 0
+    _print(
+        {
+            "bundled": engine_registry.names(),
+            "note": "use --engine <name> with train/deploy, or an import "
+            "path 'pkg.module:factory' for custom engines",
+        }
+    )
+    return 0
+
+
+def _fetch_url(url: str, access_key: str | None = None) -> str:
+    import urllib.request
+
+    headers = (
+        {"Authorization": f"Bearer {access_key}"} if access_key else {}
+    )
+    req = urllib.request.Request(url, headers=headers)
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return r.read().decode("utf-8")
+
+
+def _render_lifecycle_text(body: dict) -> str:
+    """Human one-screen rendering of a /lifecycle.json body (the JAX
+    package's text, line for line)."""
+    manifest = body.get("manifest") or {}
+    lines = [
+        f"engine: {manifest.get('engine', body.get('variant', '?'))}",
+        f"live generation: {manifest.get('live') or body.get('engineInstanceId', '-')}",
+    ]
+    if body.get("canary_in_progress"):
+        lines.append(
+            f"canary: {body.get('canary_instance')} "
+            f"({body.get('canary_fraction', 0):.0%} of traffic)"
+        )
+    else:
+        lines.append("canary: none")
+    controller = body.get("controller") or {}
+    lines.append(f"controller: {'enabled' if controller.get('enabled') else 'disabled'}")
+    last = controller.get("last_event")
+    if last:
+        lines.append(
+            f"last event: {last.get('event')} "
+            + " ".join(
+                f"{k}={v}" for k, v in sorted(last.items())
+                if k not in ("event", "at")
+            )
+        )
+    gens = manifest.get("generations") or []
+    if gens:
+        lines.append("generations (oldest first):")
+        for g in gens:
+            mark = {"live": "*", "canary": "~"}.get(g.get("status"), " ")
+            lines.append(
+                f" {mark} {g.get('instance_id')} {g.get('status'):<11} "
+                f"checksum {str(g.get('checksum'))[:12]}…"
+            )
+    return "\n".join(lines)
+
+
+def do_lifecycle(args) -> int:
+    """`lifecycle`: the generation manifest.  With ``--url``, a running
+    deploy's ``/lifecycle.json``; without it, the manifest straight from
+    the configured model store for the given engine coordinates.  Either
+    way it reads JSON and computes nothing on a device.  A failed scrape
+    prints the error and exits 1."""
+    try:
+        if args.url:
+            body = json.loads(
+                _fetch_url(
+                    args.url.rstrip("/") + "/lifecycle.json", args.access_key
+                )
+            )
+        else:
+            from predictionio_tpu_torch.lifecycle.generations import (
+                GenerationStore,
+            )
+
+            store = GenerationStore(
+                get_storage().models(),
+                args.engine_id,
+                args.engine_version,
+                args.variant,
+            )
+            body = {
+                "manifest": store.snapshot(),
+                "controller": {"enabled": False},
+                "canary_in_progress": store.canary() is not None,
+            }
+    except Exception as e:
+        print(f"scrape failed: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(body, indent=2) if args.json else _render_lifecycle_text(body))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.tools.cli",
@@ -366,6 +545,37 @@ def build_parser() -> argparse.ArgumentParser:
     bp.add_argument("--input", required=True)
     bp.add_argument("--output", required=True)
     bp.set_defaults(fn=do_batchpredict)
+
+    tp = sub.add_parser("template")
+    tp.add_argument(
+        "template_command", choices=["list", "get"], nargs="?", default="list"
+    )
+    tp.add_argument("name", nargs="?")
+    tp.add_argument("directory", nargs="?")
+    tp.set_defaults(fn=do_template)
+
+    lcp = sub.add_parser(
+        "lifecycle",
+        description="The generation manifest (staged/live/retired/"
+        "rolled_back with blob checksums), from a running deploy's "
+        "/lifecycle.json or the model store.",
+    )
+    lcp.add_argument(
+        "--url", help="read a running deploy (e.g. http://127.0.0.1:8000)"
+    )
+    lcp.add_argument("--engine-id", default="default")
+    lcp.add_argument("--engine-version", default="default")
+    lcp.add_argument("--variant", default="default")
+    lcp.add_argument(
+        "--json", action="store_true",
+        help="raw /lifecycle.json instead of the text summary",
+    )
+    lcp.add_argument(
+        "--access-key",
+        default=None,
+        help="access key for key-gated deploys (sent as a Bearer header)",
+    )
+    lcp.set_defaults(fn=do_lifecycle)
     return parser
 
 

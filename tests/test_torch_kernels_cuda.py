@@ -1002,3 +1002,75 @@ def test_ncf_device_wave_on_the_card_matches_the_host_replica(cuda):
         hs = [s.score for s in host.item_scores]
         for a, b, s in zip(got[j].item_scores, host.item_scores, hs):
             assert a.item == b.item or min(abs(s - x) for x in hs if x != s) <= 1e-5 * abs(s)
+
+
+def _covtype_like(n, f=54, c=7, seed=0):
+    """Binary features whose per-class probabilities plant the classes."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, c, n).astype(np.int32)
+    p = np.clip(rng.uniform(0.05, 0.4, f) * np.exp(
+        0.3 * rng.standard_normal((c, f))), 0.01, 0.9)
+    return (rng.random((n, f)) < p[y]).astype(np.float32), y, c
+
+
+@pytest.mark.cuda
+def test_classifiers_train_the_same_bits_twice_on_the_card(cuda):
+    """Two trains of the same data on the card give the same bits (no
+    float atomics in the statistics or the gradient), and agree with the
+    CPU: NB exactly before the log (integer sums below 2^24), logreg
+    within 1e-4 of each tensor's largest value."""
+    from predictionio_tpu_torch.ops import classifiers as cls
+
+    x, y, c = _covtype_like(60_000)
+    xd = torch.from_numpy(x).to(cuda)
+    runs = [
+        cls.train_naive_bayes(xd, y, c) + cls.train_logistic_regression(
+            xd, y, c, learning_rate=0.1, num_iterations=50)
+        for _ in range(2)
+    ]
+    for a, b in zip(*runs):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    host = cls.train_naive_bayes(
+        x, y, c, device="cpu"
+    ) + cls.train_logistic_regression(
+        x, y, c, learning_rate=0.1, num_iterations=50, device="cpu")
+    pi, theta, w, b = (t.cpu() for t in runs[0])
+    assert (pi - host[0]).abs().max() <= 1e-5
+    assert (theta - host[1]).abs().max() <= 1e-5
+    assert (w - host[2]).abs().max() <= 1e-4 * host[2].abs().max()
+    assert (b - host[3]).abs().max() <= 1e-4 * host[3].abs().max()
+
+
+@pytest.mark.cuda
+def test_logreg_on_poisson_counts_holds_to_the_cpu_on_the_card(cuda):
+    """Unscaled counts (Poisson of per-class rates 0.5-3): 200 steps at lr
+    0.1 on the card end within 1e-4 of the CPU's weights, each tensor
+    against its largest value."""
+    from predictionio_tpu_torch.ops import classifiers as cls
+
+    rng = np.random.default_rng(1)
+    n, f, c = 60_000, 54, 7
+    y = rng.integers(0, c, n).astype(np.int32)
+    x = rng.poisson(rng.uniform(0.5, 3.0, (c, f))[y]).astype(np.float32)
+    args = dict(learning_rate=0.1, num_iterations=200)
+    w, b = (t.cpu() for t in cls.train_logistic_regression(
+        torch.from_numpy(x).to(cuda), y, c, device=cuda, **args))
+    w_c, b_c = cls.train_logistic_regression(x, y, c, device="cpu", **args)
+    assert (w - w_c).abs().max() <= 1e-4 * w_c.abs().max()
+    assert (b - b_c).abs().max() <= 1e-4 * b_c.abs().max()
+
+
+@pytest.mark.cuda
+def test_markov_chain_predicts_the_same_bits_on_the_card(cuda):
+    from predictionio_tpu_torch.e2 import MarkovChain
+
+    rng = np.random.default_rng(1)
+    n = 2000
+    rows, cols = rng.integers(0, n, 40_000), rng.integers(0, n, 40_000)
+    counts = rng.integers(1, 9, 40_000).astype(np.float64)
+    dev = MarkovChain.train(rows, cols, counts, n_states=n, top_n=8, device=cuda)
+    host = MarkovChain.train(rows, cols, counts, n_states=n, top_n=8, device="cpu")
+    cur = rng.random(n).tolist()
+    a, b = dev.predict(cur), dev.predict(cur)
+    assert a == b
+    np.testing.assert_allclose(a, host.predict(cur), rtol=1e-5, atol=1e-7)
