@@ -91,7 +91,17 @@ calls:
   while the old one serves; restarts binding the manifest's live
   generation, then walking back past a corrupt one; and a CLI deploy
   SIGKILLed while stalled at the ``lifecycle.swap`` fault seam, restarting
-  on the committed generation with the same answers.
+  on the committed generation with the same answers;
+- the operator's CLI and the serve tail (``operator``): ``version``,
+  ``build``, ``status``, ``upgrade`` and ``run`` as CLI processes; an ML-20M
+  model written under engine coordinates (``op``, ``2``, ``tls``) before
+  an ML-100K ``train --engine-json`` under ``op100k`` (kernel 1); ``deploy
+  --engine-json --feedback`` with an output plugin from ``PIO_PLUGINS``
+  binding the ML-20M model, ``status --url``, ``metrics --url``, a second
+  deploy stopping the first and ``undeploy``; a TLS deploy answering a
+  1,024-query device wave (kernel 3) through the plugin and feedback,
+  with feedback and without, and 32 keep-alive clients over HTTPS and then
+  plain HTTP; ``batchpredict --engine-json`` of 4,096 users (kernel 3).
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -455,13 +465,14 @@ def launch_shape_sweep(rng) -> list:
     return out
 
 
-def write_model(storage, home: Path, exact: bool = False, seed: int = SEED
+def write_model(storage, home: Path, exact: bool = False, seed: int = SEED,
+                coords: tuple[str, str, str] = ("default", "default", "default"),
                 ) -> tuple[str, np.ndarray, np.ndarray]:
     """A seeded ALS model at the ML-20M shape, persisted as a COMPLETED
-    engine instance through the port's storage and save_models (factors as
-    ops/als.py initializes them: abs(normal) / sqrt(rank); or, ``exact``,
-    integers in [1, 8] over 8, whose scores are exact in fp32 and tie
-    often)."""
+    engine instance through the port's storage and save_models under the
+    engine ``coords`` (id, version, variant), with factors as ops/als.py
+    initializes them: abs(normal) / sqrt(rank); or, ``exact``, integers in
+    [1, 8] over 8, whose scores are exact in fp32 and tie often."""
     from predictionio_tpu_torch.core.engine import EngineParams
     from predictionio_tpu_torch.core.persistence import save_models
     from predictionio_tpu_torch.data.storage.base import EngineInstance
@@ -492,10 +503,12 @@ def write_model(storage, home: Path, exact: bool = False, seed: int = SEED
         serving=("", None),
     )
     now = datetime.now(tz=timezone.utc)
+    engine_id, engine_version, engine_variant = coords
     instance = EngineInstance(
         id=uuid.uuid4().hex, status="COMPLETED", start_time=now, end_time=now,
-        engine_id="default", engine_version="default", engine_variant="default",
-        engine_factory="recommendation", **params.to_json_fields(),
+        engine_id=engine_id, engine_version=engine_version,
+        engine_variant=engine_variant, engine_factory="recommendation",
+        **params.to_json_fields(),
     )
     storage.engine_instances().insert(instance)
     save_models(storage.models(), instance.id, [blob])
@@ -817,11 +830,13 @@ def hold_answers(answers, users, U, V, num: int, item_name=None) -> int:
     return len(users)
 
 
-def drive_clients(port: int, bodies: list, clients: int) -> tuple[list, float]:
+def drive_clients(port: int, bodies: list, clients: int, tls=None
+                  ) -> tuple[list, float]:
     """``clients`` threads, each on one keep-alive ``http.client``
-    connection, POST ``bodies`` to ``/queries.json`` until none is left.
-    Returns (status, client seconds, ``X-Pio-Engine-Instance``, body) per
-    body, in order, and the wall time."""
+    connection (HTTPS with the client context ``tls``), POST ``bodies`` to
+    ``/queries.json`` until none is left.  Returns (status, client seconds,
+    ``X-Pio-Engine-Instance``, body) per body, in order, and the wall
+    time."""
     import http.client
     import threading
 
@@ -830,7 +845,11 @@ def drive_clients(port: int, bodies: list, clients: int) -> tuple[list, float]:
     results: list = [None] * len(bodies)
 
     def client():
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        if tls is None:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        else:
+            conn = http.client.HTTPSConnection("127.0.0.1", port, timeout=60,
+                                               context=tls)
         try:
             while True:
                 with lock:
@@ -1813,6 +1832,25 @@ def check_wave_lines(lines, users, host, rows) -> int:
     return len(rows)
 
 
+def write_ml100k(path: Path):
+    """``movielens_like`` at the ML-100K shape as rate events, one a second
+    from ML-100K's first rating time, in JSON lines for ``pio import``;
+    returns the (user, item, rating) columns."""
+    u, i, r = movielens_like(ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS,
+                             SEED + 10, half_stars=False)
+    t_base = 874_724_710  # ML-100K's first rating time, epoch seconds
+    with open(path, "w") as f:
+        for j in range(ML100K_EVENTS):
+            ts = datetime.fromtimestamp(t_base + j, tz=timezone.utc)
+            f.write(
+                '{"event":"rate","entityType":"user","entityId":"u%d",'
+                '"targetEntityType":"item","targetEntityId":"i%d",'
+                '"properties":{"rating":%d},"eventTime":"%s"}\n'
+                % (u[j], i[j], r[j], ts.strftime("%Y-%m-%dT%H:%M:%S.000Z"))
+            )
+    return u, i, r
+
+
 def train_cli_phase() -> dict:
     """The template's own flow through the port's CLI on an ML-100K-shaped
     event store: app new -> import -> train (rank 10, 20 iterations, CUDA)
@@ -1837,18 +1875,7 @@ def train_cli_phase() -> dict:
             StorageConfig.from_env({"PIO_HOME": str(tmp / "pio_home")})
         )
         t0 = time.perf_counter()
-        u, i, r = movielens_like(ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS,
-                                 SEED + 10, half_stars=False)
-        t_base = 874_724_710  # ML-100K's first rating time, epoch seconds
-        with open(tmp / "ratings.jsonl", "w") as f:
-            for j in range(ML100K_EVENTS):
-                ts = datetime.fromtimestamp(t_base + j, tz=timezone.utc)
-                f.write(
-                    '{"event":"rate","entityType":"user","entityId":"u%d",'
-                    '"targetEntityType":"item","targetEntityId":"i%d",'
-                    '"properties":{"rating":%d},"eventTime":"%s"}\n'
-                    % (u[j], i[j], r[j], ts.strftime("%Y-%m-%dT%H:%M:%S.000Z"))
-                )
+        u, i, r = write_ml100k(tmp / "ratings.jsonl")
         out["generate_s"] = time.perf_counter() - t0
         (tmp / "engine.json").write_text(json.dumps({
             "id": "default", "engineFactory": "recommendation",
@@ -4847,6 +4874,457 @@ def generations_phase(device="cuda") -> dict:
     return out
 
 
+#: the operator phase: a 1,024-query device wave through the serve tail,
+#: 32 keep-alive clients over HTTPS and then plain HTTP, 16 solo queries to
+#: the CLI deploy, a 4,096-user batch job
+OP_WAVE, OP_CLIENTS, OP_CLIENT_QUERIES, OP_SOLO = 1024, 32, 512, 16
+OP_KEY, OP_WAVE_KEY = "OPK", "OPW"  # the access keys of two feedback apps
+OP_PLUGIN_MODULE = '''\
+from predictionio_tpu_torch.server.plugins import OUTPUT_BLOCKER, EngineServerPlugin
+
+
+class Mark(EngineServerPlugin):
+    """Marks each answer with the user it answers."""
+
+    plugin_name = "mark"
+    plugin_type = OUTPUT_BLOCKER
+
+    def process(self, engine_instance_id, query, prediction):
+        return {**prediction, "markUser": query["user"]}
+
+
+mark = Mark()
+'''
+
+
+@contextlib.contextmanager
+def scoped_env(**values):
+    """``os.environ`` with ``values`` set, restored on exit."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cli_once(home: Path, argvs: list, env: dict | None = None) -> list:
+    """Each ``argv`` of ``argvs`` as its own ``python -m
+    predictionio_tpu_torch.tools.cli`` process on ``home``, all started
+    together; (exit code, stdout, stderr) of each, in order."""
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PIO_HOME=str(home), **(env or {})),
+            cwd=Path(__file__).resolve().parent,
+        )
+        for argv in argvs
+    ]
+    out = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate(timeout=30)
+        out.append((proc.returncode, stdout, stderr))
+    return out
+
+
+def predict_events(storage, app_id: int) -> list:
+    from predictionio_tpu_torch.data.storage.base import EventFilter
+
+    return list(storage.l_events().find(
+        app_id, None, EventFilter(event_names=("predict",))))
+
+
+def held_feedback(events, bodies: list, users) -> int:
+    """One ``predict`` event per answer, each holding its query's user and
+    exactly the (plugin-marked) answer that query got."""
+    got: dict = {}
+    for e in events:
+        assert e.entity_type == "pio_pr" and len(e.entity_id) == 64, e
+        got.setdefault(e.properties.get("query")["user"], []).append(
+            e.properties.get("prediction"))
+    assert sum(map(len, got.values())) == len(bodies), (
+        sum(map(len, got.values())), len(bodies))
+    for u, body in zip(users, bodies):
+        assert body["markUser"] == f"u{u}", body
+        got[f"u{u}"].remove(body)  # raises when no event holds this answer
+    return len(bodies)
+
+
+def store_commit_probe(storage, app_id: int, n: int = 256) -> dict:
+    """What the feedback tail's store costs here: ``n`` predict events
+    inserted one commit each (as the tail writes them), then ``n`` in one
+    ``insert_batch`` commit, into ``app_id``; and the mount the store's
+    file lies on."""
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event
+
+    def events():
+        return [Event(event="predict", entity_type="pio_pr",
+                      entity_id=uuid.uuid4().hex * 2,
+                      properties=DataMap({"n": j})) for j in range(n)]
+
+    levents = storage.l_events()
+    one = events()
+    t0 = time.perf_counter()
+    for e in one:
+        levents.insert(e, app_id)
+    single_s = time.perf_counter() - t0
+    batch = events()
+    t0 = time.perf_counter()
+    levents.insert_batch(batch, app_id)
+    batch_s = time.perf_counter() - t0
+    path = str(Path(storage.config.home).resolve())
+    mounts = [line.split()[:3] for line in Path("/proc/mounts").read_text().splitlines()]
+    mount = max((m for m in mounts if path.startswith(m[1])),
+                key=lambda m: len(m[1]), default=None)
+    return {"events": n, "single_commit_ms": 1e3 * single_s / n,
+            "batch_ms_per_event": 1e3 * batch_s / n,
+            "store_mount": mount and {"fs": mount[2], "at": mount[1]}}
+
+
+def answers_plain_http(port: int) -> bool:
+    """Whether a plain-HTTP query to ``port`` gets any HTTP answer."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("POST", "/queries.json", body=b'{"user": "u0"}')
+        conn.getresponse().read()
+        return True
+    except (OSError, http.client.HTTPException):
+        return False
+    finally:
+        conn.close()
+
+
+def client_stats(results: list, wall: float) -> dict:
+    lat_ms = np.asarray([1e3 * r[1] for r in results])
+    return {
+        "queries": len(results),
+        "non_200": sum(r[0] != 200 for r in results),
+        "wall_s": wall,
+        "queries_per_s": len(results) / wall,
+        "client_p50_ms": float(np.percentile(lat_ms, 50)),
+        "client_p99_ms": float(np.percentile(lat_ms, 99)),
+    }
+
+
+def operator_phase(device="cuda") -> dict:
+    """``operator``: the operator's CLI and the serve tail.
+
+    (a) ``version``, ``build`` of a good and a bad engine.json, ``status``
+    (the storage checks, the card, backend ``cuda``), ``upgrade`` and ``run``
+    of a script naming the card, each a CLI process.  (b) A seeded ML-20M
+    model written under engine ``op``, version ``2``, variant ``tls``; then
+    ``app new`` -> ``import`` -> ``train --engine-json`` of the ML-100K
+    stream under ``op100k`` (kernel 1, 40 launches), so the latest
+    COMPLETED instance is the wrong one and ``default`` names none.  (c)
+    ``deploy --engine-json op.json --feedback --accesskey`` with an output
+    plugin named by ``PIO_PLUGINS`` binds the ML-20M instance: 16 solo
+    answers held, marked and fed back; ``status --url`` and ``metrics
+    --url``; a second deploy on the port stops the first; ``undeploy``
+    stops the second.  (d) The TLS deploy of that model (max_batch 1,024,
+    feedback, the plugin): 1,024 users queued at once, one kernel 3 wave,
+    every answer held, marked and fed back.  (e) ``batchpredict
+    --engine-json op.json`` of 4,096 users, one kernel 3 launch, every line
+    held.  The launch counts cover (a)-(e).  Then, outside them: the same
+    wave with feedback off, and 32 keep-alive clients sending 512 queries
+    over HTTPS, then plain HTTP, to deploys of the same model."""
+    import socket
+    import ssl
+
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, reset_storage
+    from predictionio_tpu_torch.server.plugins import PluginContext
+    from predictionio_tpu_torch.server.prediction_server import (
+        FeedbackConfig,
+        create_prediction_server,
+    )
+    from predictionio_tpu_torch.tools import cli
+    from predictionio_tpu_torch.tools import commands as cmd
+
+    on_card = torch.device(device).type == "cuda"
+    out: dict = {"phase": "operator", "shape": [ML20M_USERS, ML20M_ITEMS, RANK]}
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    home = tmp / "pio_home"
+    storage = reset_storage(StorageConfig.from_env({"PIO_HOME": str(home)}))
+    (tmp / "op_plugin.py").write_text(OP_PLUGIN_MODULE)
+    plugin_env = {"PIO_PLUGINS": "op_plugin:mark",
+                  "PYTHONPATH": os.pathsep.join(
+                      filter(None, [str(tmp), os.environ.get("PYTHONPATH")]))}
+    op_json = tmp / "op.json"
+    op_json.write_text(json.dumps({
+        "id": "op", "version": "2", "variant": "tls",
+        "engineFactory": "recommendation",
+        "datasource": {"params": {"appName": "ml20m"}},
+        "algorithms": [{"name": "als", "params": {"rank": RANK}}],
+    }))
+    (tmp / "op100k.json").write_text(json.dumps({
+        "id": "op100k", "engineFactory": "recommendation",
+        "datasource": {"params": {"appName": "ml100k"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": RANK, "numIterations": ITERATIONS, "lambda": 0.01, "seed": 3}}],
+    }))
+    (tmp / "bad.json").write_text(json.dumps({
+        "engineFactory": "recommendation",
+        "algorithms": [{"name": "als", "params": {"nope": 1}}],
+    }))
+    (tmp / "job.py").write_text(
+        "import torch\nimport predictionio_tpu_torch\n"
+        "print(torch.cuda.get_device_name() if torch.cuda.is_available() "
+        "else 'cpu')\n")
+    rng = np.random.default_rng(SEED + 110)
+    wave_users = rng.choice(ML20M_USERS, OP_WAVE, replace=False)
+    batch_users = rng.integers(0, ML20M_USERS, WAVE)
+    solo_users = rng.integers(0, ML20M_USERS, OP_SOLO)
+    client_users = rng.integers(0, ML20M_USERS, OP_CLIENT_QUERIES)
+    servers: list = []
+    procs: list = []
+    try:
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        # (a) the basic verbs, one process each
+        t0 = time.perf_counter()
+        verbs = dict(zip(
+            ("version", "build", "build_bad", "status", "upgrade", "run"),
+            cli_once(home, [
+                ["version"],
+                ["build", "--engine-json", str(op_json)],
+                ["build", "--engine-json", str(tmp / "bad.json")],
+                ["status"],
+                ["upgrade"],
+                ["run", str(tmp / "job.py")],
+            ])))
+        out["verbs_s"] = time.perf_counter() - t0
+        rc = {k: v[0] for k, v in verbs.items()}
+        assert rc == {"version": 0, "build": 0, "build_bad": 1, "status": 0,
+                      "upgrade": 0, "run": 0}, (rc, {k: v[2][-2000:] for k, v in verbs.items()})
+        assert verbs["version"][1] == "0.1.0\n", verbs["version"]
+        assert "OK" in verbs["build"][1] and "invalid" in verbs["build_bad"][2]
+        status = json.loads(verbs["status"][1])
+        card = torch.cuda.get_device_name(0) if on_card else None
+        assert set(status["storage"].values()) == {True}, status
+        if on_card:
+            assert status["backend"] == "cuda", status
+            assert any(card in d for d in status["devices"]), status
+        assert verbs["upgrade"][1].startswith("predictionio_tpu_torch 0.1.0")
+        assert not on_card or verbs["run"][1].strip() == card, verbs["run"]
+        out["verbs"] = {"exit_codes": rc, "status": status,
+                        "run_printed": verbs["run"][1].strip()}
+
+        # (b) the ML-20M model under (op, 2, tls), then an ML-100K train
+        # under op100k: the latest COMPLETED instance is the wrong one
+        instance_id, U, V = write_model(storage, home, seed=SEED + 111,
+                                        coords=("op", "2", "tls"))
+        write_ml100k(tmp / "ratings.jsonl")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            assert cli.main(["app", "new", "ml100k"]) == 0
+            assert cli.main(["app", "new", "opfb", "--access-key", OP_KEY]) == 0
+            assert cli.main(["app", "new", "opwave", "--access-key", OP_WAVE_KEY]) == 0
+            t0 = time.perf_counter()
+            assert cli.main(["import", "--app", "ml100k", "--input",
+                             str(tmp / "ratings.jsonl")]) == 0
+            out["import_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            assert cli.main(["train", "--engine-json", str(tmp / "op100k.json"),
+                             "--device", device]) == 0
+            out["train_s"] = time.perf_counter() - t0
+        train_launches = read_launches()
+        op100k = printed.getvalue().split("Engine instance: ")[1].split()[0]
+        instances = storage.engine_instances()
+        latest = max(instances.get_all(), key=lambda x: x.start_time)
+        assert latest.id == op100k and latest.engine_id == "op100k", latest
+        assert instances.get_latest_completed("default", "default", "default") is None
+        assert [x.id for x in instances.get_completed("op", "2", "tls")] == [instance_id]
+        fb_app = storage.apps().get_by_name("opfb").id
+        wave_app = storage.apps().get_by_name("opwave").id
+
+        # (c) the CLI deploy: by coordinates, feedback, the plugin
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        argv = ["deploy", "--engine-json", str(op_json), "--ip", "127.0.0.1",
+                "--port", str(port), "--feedback", "--accesskey", OP_KEY,
+                "--device", device]
+        t0 = time.perf_counter()
+        first, _ = spawn_cli(home, argv, 1, env=plugin_env)
+        procs.append(first)
+        out["cli_deploy_s"] = time.perf_counter() - t0
+        solo = [post_json(port, "/queries.json", {"user": f"u{u}", "num": 10})
+                for u in solo_users]
+        assert all(st == 200 for st, _ in solo), solo[:2]
+        bodies = [b for _, b in solo]
+        hold_answers([b["itemScores"] for b in bodies], solo_users, U, V, 10)
+        status_url = json.loads(urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/status.json"), timeout=30).read())
+        assert status_url["engineInstanceId"] == instance_id, status_url
+        fed = held_feedback(predict_events(storage, fb_app), bodies, solo_users)
+        url = f"http://127.0.0.1:{port}"
+        probes = dict(zip(("status_url", "metrics_url"), cli_once(home, [
+            ["status", "--url", url, "--access-key", OP_KEY],
+            ["metrics", "--url", url, "--access-key", OP_KEY],
+        ])))
+        assert probes["status_url"][0] == 0, probes["status_url"]
+        assert json.loads(probes["status_url"][1])["healthz"]["status"] == "alive"
+        pio_series = sorted({line.split("{")[0].split(" ")[0]
+                             for line in probes["metrics_url"][1].splitlines()
+                             if line.startswith("pio_")})
+        assert probes["metrics_url"][0] == 0 and pio_series, probes["metrics_url"][2]
+        # a second deploy on the port stops the first
+        t0 = time.perf_counter()
+        second, _ = spawn_cli(home, argv, 1, env=plugin_env)
+        procs.append(second)
+        out["redeploy_s"] = time.perf_counter() - t0
+        first_rc = first.wait(timeout=60)
+        again = post_json(port, "/queries.json", {"user": f"u{solo_users[0]}", "num": 10})
+        assert first_rc == 0, cli_stderr(first)
+        assert again == solo[0], (again, solo[0])
+        (undeploy,) = cli_once(home, [["undeploy", "--port", str(port),
+                                        "--accesskey", OP_KEY]])
+        second_rc = second.wait(timeout=60)
+        assert undeploy[0] == 0 and second_rc == 0, (undeploy, cli_stderr(second))
+        with socket.socket() as s:
+            assert s.connect_ex(("127.0.0.1", port)) != 0, "the port still answers"
+        out["cli_deploy"] = {
+            "bound": instance_id == status_url["engineInstanceId"],
+            "latest_completed_was": "op100k", "solo_answers_held": len(bodies),
+            "feedback_events": fed, "status_url_exit": probes["status_url"][0],
+            "pio_series": len(pio_series), "stale_server_exit": first_rc,
+            "undeploy_exit": undeploy[0], "second_server_exit": second_rc,
+        }
+
+        # (d) the TLS deploy: one device wave through feedback and the plugin
+        subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048",
+             "-keyout", str(tmp / "key.pem"), "-out", str(tmp / "cert.pem"),
+             "-days", "1", "-nodes", "-subj", "/CN=localhost"],
+            check=True, capture_output=True, timeout=60)
+        tls_env = {"PIO_SSL_CERTFILE": str(tmp / "cert.pem"),
+                   "PIO_SSL_KEYFILE": str(tmp / "key.pem")}
+        sys.path.insert(0, str(tmp))
+        with scoped_env(PIO_PLUGINS="op_plugin:mark"):
+            plugins = PluginContext.from_env()
+        assert plugins.descriptions() == {"outputblocker": {"mark": {"class": "Mark"}}}
+
+        def serve(tls: bool, feedback_key: str | None):
+            with scoped_env(**(tls_env if tls else {})):
+                server = create_prediction_server(
+                    "", host="127.0.0.1", port=0, storage=storage,
+                    engine_id="op", engine_version="2", engine_variant="tls",
+                    feedback=FeedbackConfig(enabled=feedback_key is not None,
+                                            access_key=feedback_key),
+                    plugins=plugins, max_batch=OP_WAVE, max_queue=4 * OP_WAVE,
+                    device=device).start_background()
+            servers.append(server)
+            assert server.app.microbatcher is not None
+            return server
+
+        tls_fb = serve(True, OP_WAVE_KEY)
+        payloads = [{"user": f"u{u}", "num": 10} for u in wave_users]
+        before = read_launches()["fused_topk"]
+        t0 = time.perf_counter()
+        wave = queued_burst(tls_fb.app.microbatcher, payloads, [{} for _ in payloads])
+        wave_fb_s = time.perf_counter() - t0
+        wave_launches = read_launches()["fused_topk"] - before
+        assert all(r[0] == "ok" and r[2] == instance_id for r in wave), {
+            (r[0], r[2]) for r in wave}
+        hold_answers([r[1]["itemScores"] for r in wave], wave_users, U, V, 10)
+        wave_fed = held_feedback(predict_events(storage, wave_app),
+                                 [r[1] for r in wave], wave_users)
+        assert not on_card or wave_launches == 1, wave_launches
+
+        # (e) the batch job by coordinates
+        (tmp / "q.jsonl").write_text("".join(
+            json.dumps({"user": f"u{u}", "num": 10}) + "\n" for u in batch_users))
+        before = read_launches()["fused_topk"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            assert cli.main(["batchpredict", "--engine-json", str(op_json),
+                             "--input", str(tmp / "q.jsonl"),
+                             "--output", str(tmp / "p.jsonl"),
+                             "--device", device]) == 0
+        batch_s = time.perf_counter() - t0
+        batch_launches = read_launches()["fused_topk"] - before
+        lines = [json.loads(x) for x in (tmp / "p.jsonl").read_text().splitlines()]
+        assert [x["query"]["user"] for x in lines] == [f"u{u}" for u in batch_users]
+        batch_held = hold_answers([x["prediction"]["itemScores"] for x in lines],
+                                  batch_users, U, V, 10)
+        assert not on_card or batch_launches == 1, batch_launches
+        launches = read_launches()
+        # -- end --
+        if on_card:
+            assert train_launches == {"fused_topk": 0, "als_fused_accum": 2 * ITERATIONS,
+                                      "als_segment_accum": 0}, train_launches
+            assert launches == {"fused_topk": 2, "als_fused_accum": 2 * ITERATIONS,
+                                "als_segment_accum": 0}, launches
+
+        # outside the counts: the wave with feedback off, then the clients
+        tls, plain = serve(True, None), serve(False, None)
+        before = read_launches()["fused_topk"]
+        t0 = time.perf_counter()
+        wave_off = queued_burst(tls.app.microbatcher, payloads, [{} for _ in payloads])
+        wave_off_s = time.perf_counter() - t0
+        off_launches = read_launches()["fused_topk"] - before
+        assert [r[1] for r in wave_off] == [r[1] for r in wave], "feedback changed answers"
+        assert len(predict_events(storage, wave_app)) == OP_WAVE
+        with contextlib.redirect_stdout(printed):
+            assert cli.main(["app", "new", "opprobe"]) == 0
+        store_probe = store_commit_probe(
+            storage, storage.apps().get_by_name("opprobe").id)
+        client_ctx = ssl.create_default_context()
+        client_ctx.check_hostname = False
+        client_ctx.verify_mode = ssl.CERT_NONE
+        client_bodies = [json.dumps({"user": f"u{u}", "num": 10}).encode()
+                         for u in client_users]
+        clients = {}
+        for name, server, ctx in (("https", tls, client_ctx), ("http", plain, None)):
+            results, wall = drive_clients(server.port, client_bodies, OP_CLIENTS, tls=ctx)
+            clients[name] = client_stats(results, wall)
+            assert clients[name]["non_200"] == 0, clients[name]
+            hold_answers([json.loads(r[3])["itemScores"] for r in results],
+                         client_users, U, V, 10)
+        assert not answers_plain_http(tls.port), "the TLS deploy answered plain HTTP"
+        out.update(
+            bound_instance=instance_id,
+            train_launches=train_launches,
+            tls_wave={
+                "queries": OP_WAVE, "fused_topk": wave_launches,
+                "feedback_on_s": wave_fb_s, "feedback_off_s": wave_off_s,
+                "feedback_cost_s": wave_fb_s - wave_off_s,
+                "feedback_events": wave_fed, "marked_answers": OP_WAVE,
+                "feedback_off_fused_topk": off_launches,
+                "store": store_probe,
+            },
+            batchpredict={"queries": WAVE, "fused_topk": batch_launches,
+                          "seconds": batch_s, "lines_held": batch_held},
+            clients={**clients, "clients": OP_CLIENTS,
+                     "tls_qps_share": clients["https"]["queries_per_s"]
+                     / clients["http"]["queries_per_s"]},
+            launches=launches,
+        )
+    finally:
+        for server in servers:
+            server.shutdown()
+        for proc in procs:
+            stop_cli(proc)
+        if str(tmp) in sys.path:
+            sys.path.remove(str(tmp))
+        storage.close()
+        tmp_dir.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["nvidia_smi"] = nvidia_smi_line() if on_card else None
+    return out
+
+
 def _swallow(fn):
     """``fn()``, or None when it raised (a request to a process killed
     under it)."""
@@ -4903,6 +5381,8 @@ def main() -> int:
     emit(classification_phase())
     generations = generations_phase()
     emit(generations)
+    operator = operator_phase()
+    emit(operator)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
     pretrain = ncf_train["pretrain"]
     rank32_t = pretrain["kernel1_rank32_implicit_user_half_step"]
@@ -4949,6 +5429,9 @@ def main() -> int:
                     "launches_eval": evaluation["launches"]["fused_topk"],
                     # the device wave across the generation store's swaps
                     "launches_generations": generations["launches"]["fused_topk"],
+                    # the TLS deploy's feedback wave and pio batchpredict by
+                    # engine coordinates
+                    "launches_operator": operator["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),
@@ -4991,6 +5474,8 @@ def main() -> int:
                     launches_ncf_pretrain=pretrain["launches"]["als_fused_accum"],
                     # every fold train of both pio eval sweeps
                     launches_eval=evaluation["launches"]["als_fused_accum"],
+                    # pio train --engine-json under named coordinates
+                    launches_operator=operator["launches"]["als_fused_accum"],
                     # rank 32, implicit, on the pretrain's ML-20M user half-step
                     rank32_shape=rank32_t["shape"],
                     rank32_ms=rank32_t["ms"],
@@ -5010,6 +5495,7 @@ def main() -> int:
                 als_row(
                     "als_segment_accum", "predictionio_tpu/ops/als_pallas.py:112",
                     ml20m["chunked_launches"]["als_segment_accum"], chunk_t,
+                    launches_operator=operator["launches"]["als_segment_accum"],
                     wide_shape=wide_c["shape"],
                     wide_ms=wide_c["ms"],
                     wide_plain_ms=wide_c["plain_ms"],

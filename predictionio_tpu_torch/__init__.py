@@ -19,6 +19,6 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``
 (``device.resolve_device``).
 """
 
-__version__ = "0.1.0"
+from predictionio_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

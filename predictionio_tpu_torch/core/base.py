@@ -163,3 +163,13 @@ class FirstServing(Serving):
 
     def serve(self, query, predictions):
         return predictions[0]
+
+
+class AverageServing(Serving):
+    """Average numeric predictions (controller/LAverageServing.scala:28)."""
+
+    def __init__(self, params: Any = None):
+        pass
+
+    def serve(self, query, predictions):
+        return sum(predictions) / len(predictions)

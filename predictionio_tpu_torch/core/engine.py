@@ -280,6 +280,24 @@ class Engine:
         return results
 
 
+class SimpleEngine(Engine):
+    """Single-component engine (EngineParams.scala:130): the identity
+    preparator and first serving unless given."""
+
+    def __init__(self, datasource, algorithm, preparator=None, serving=None):
+        from predictionio_tpu_torch.core.base import (
+            FirstServing,
+            IdentityPreparator,
+        )
+
+        super().__init__(
+            datasource,
+            preparator or IdentityPreparator,
+            algorithm,
+            serving or FirstServing,
+        )
+
+
 def engine_factory(name: str):
     """Decorator registering a zero-arg engine factory under ``name``."""
 

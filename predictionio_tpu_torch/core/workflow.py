@@ -11,6 +11,7 @@ The JAX package's ``run_evaluation``: sweep the engine-params list with a
 ``MetricEvaluator`` and record an EvaluationInstance row whose status goes
 EVALUATING -> EVALCOMPLETED (with the evaluator's one-liner, HTML and
 JSON), or FAILED; the registered cleanup hooks run either way.
+``run_fake`` records any function's run the same way.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import time
 import uuid
 from dataclasses import dataclass
 from datetime import datetime, timezone
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 from predictionio_tpu_torch.core.base import EngineContext
 from predictionio_tpu_torch.core.engine import Engine, EngineParams
@@ -202,6 +203,50 @@ def run_evaluation(
                 evaluator_results=result.one_liner(),
                 evaluator_results_html=result.to_html(),
                 evaluator_results_json=result.to_json(),
+            )
+        )
+        return result
+    except Exception:
+        instances.update(
+            dataclasses.replace(instance, status="FAILED", end_time=_now())
+        )
+        raise
+    finally:
+        run_cleanups()
+
+
+def run_fake(
+    fn: Callable[[EngineContext], Any],
+    ctx: EngineContext | None = None,
+    storage: StorageRuntime | None = None,
+    label: str = "FakeWorkflow",
+) -> Any:
+    """Run an arbitrary function through the workflow plumbing
+    (workflow/FakeWorkflow.scala:33-108): an EvaluationInstance records the
+    run (EVALCOMPLETED or FAILED), the cleanups fire, and the function's
+    return value comes back.  ``ctx=None`` builds an eval context on CUDA
+    (which raises without a card)."""
+    from predictionio_tpu_torch.core.cleanup import run as run_cleanups
+
+    storage = storage or (ctx.storage if ctx is not None else None) or get_storage()
+    ctx = ctx or EngineContext(storage=storage, mode="eval")
+    instances = storage.evaluation_instances()
+    instance = EvaluationInstance(
+        id=uuid.uuid4().hex,
+        status="EVALUATING",
+        start_time=_now(),
+        end_time=_now(),
+        evaluation_class=label,
+    )
+    instances.insert(instance)
+    try:
+        result = fn(ctx)
+        instances.update(
+            dataclasses.replace(
+                instance,
+                status="EVALCOMPLETED",
+                end_time=_now(),
+                evaluator_results=f"{label} completed",
             )
         )
         return result

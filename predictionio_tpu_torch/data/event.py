@@ -9,7 +9,8 @@ and property-name restrictions.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import uuid
+from dataclasses import dataclass, field, replace
 from datetime import datetime, timezone
 from typing import Any, Mapping, Sequence
 
@@ -70,6 +71,9 @@ class Event:
             t = getattr(self, attr)
             if t.tzinfo is None:
                 object.__setattr__(self, attr, t.replace(tzinfo=timezone.utc))
+
+    def with_id(self, event_id: str | None = None) -> "Event":
+        return replace(self, event_id=event_id or uuid.uuid4().hex)
 
     def to_api_dict(self) -> dict[str, Any]:
         """Serialize in the REST API format (EventJson4sSupport's apiSerializer)."""

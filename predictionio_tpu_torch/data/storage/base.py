@@ -6,8 +6,8 @@
   ``remove``, ``close``, ``insert``, ``insert_batch``, ``get``,
   ``delete``, ``find``, and the serving path's ``find_by_entity`` and
   ``aggregate_properties``) and the columnar bulk DAO :class:`PEvents`,
-  whose ``find`` returns an :class:`EventFrame`, the subset of the JAX
-  package's frame that the templates read, whose ``write``/``delete``
+  whose ``find`` returns an :class:`EventFrame` (the JAX package's frame
+  and ``concat_frames``), whose ``write``/``delete``
   take frames and id lists, and whose ``aggregate_properties`` folds
   ``$set``/``$unset``/``$delete``.
 - Models: the blob store with its multipart (manifest + named parts)
@@ -22,7 +22,7 @@ import abc
 import json
 from dataclasses import dataclass, field, fields, replace
 from datetime import datetime, timezone
-from typing import Any, Iterator, Mapping, Sequence
+from typing import Any, Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
 
@@ -175,9 +175,17 @@ class EngineInstances(abc.ABC):
     def get(self, instance_id: str) -> EngineInstance | None: ...
 
     @abc.abstractmethod
+    def get_all(self) -> list[EngineInstance]: ...
+
+    @abc.abstractmethod
     def get_latest_completed(
         self, engine_id: str, engine_version: str, engine_variant: str
     ) -> EngineInstance | None: ...
+
+    @abc.abstractmethod
+    def get_completed(
+        self, engine_id: str, engine_version: str, engine_variant: str
+    ) -> list[EngineInstance]: ...
 
     @abc.abstractmethod
     def update(self, i: EngineInstance) -> bool: ...
@@ -247,6 +255,21 @@ class Models(abc.ABC):
 
     def get_part(self, instance_id: str, name: str) -> bytes | None:
         return self.get(f"{instance_id}:part:{name}")
+
+    def delete_parts(self, instance_id: str) -> bool:
+        raw = self.get(f"{instance_id}:manifest")
+        if raw is None:
+            return False
+        for name in _manifest_part_names(raw):
+            self.delete(f"{instance_id}:part:{name}")
+        return self.delete(f"{instance_id}:manifest")
+
+    def delete_models(self, instance_id: str) -> bool:
+        """Remove a checkpoint in either layout (sharded parts and/or the
+        single blob): the deletion entry point for cleanup paths."""
+        had_parts = self.delete_parts(instance_id)
+        had_blob = self.delete(instance_id)
+        return had_parts or had_blob
 
 
 def _manifest_blob(manifest: bytes, parts: Mapping[str, bytes]) -> bytes:
@@ -479,6 +502,43 @@ class EventFrame:
     def __len__(self) -> int:
         return len(self.event)
 
+    @classmethod
+    def from_events(cls, events: Iterable[Event]) -> "EventFrame":
+        evs = list(events)
+        n = len(evs)
+
+        def col(f, dtype=object):
+            a = np.empty(n, dtype=dtype)
+            for i, e in enumerate(evs):
+                a[i] = f(e)
+            return a
+
+        return cls(
+            event=col(lambda e: e.event),
+            entity_type=col(lambda e: e.entity_type),
+            entity_id=col(lambda e: e.entity_id),
+            target_entity_type=col(lambda e: e.target_entity_type),
+            target_entity_id=col(lambda e: e.target_entity_id),
+            event_time_ms=np.fromiter(
+                (_to_ms(e.event_time) for e in evs), dtype=np.int64, count=n
+            ),
+            properties=col(lambda e: e.properties.fields),
+            event_id=col(lambda e: e.event_id),
+            tags=col(lambda e: e.tags),
+            pr_id=col(lambda e: e.pr_id),
+            creation_time_ms=np.fromiter(
+                (_to_ms(e.creation_time) for e in evs), dtype=np.int64, count=n
+            ),
+        )
+
+    def select(self, mask: np.ndarray) -> "EventFrame":
+        """Rows where ``mask`` holds (the JAX package's name for
+        :meth:`take` with a boolean mask)."""
+        return self.take(mask)
+
+    def where_event(self, *names: str) -> "EventFrame":
+        return self.select(np.isin(self.event, list(names)))
+
     def take(self, sel) -> "EventFrame":
         """Row subset by boolean mask or index array (all columns)."""
         return EventFrame(
@@ -543,6 +603,29 @@ class EventFrame:
                 )
             )
         return out
+
+
+def _to_ms(dt: datetime) -> int:
+    return int(dt.timestamp() * 1000)
+
+
+def concat_frames(frames: Sequence[EventFrame]) -> EventFrame:
+    """Row-wise concatenation of EventFrames (all columns).  An optional
+    column is kept only when every input carries it: mixing frames from
+    different backends would otherwise fabricate ids or tags for some
+    rows."""
+    frames = [f for f in frames if len(f)]
+    if not frames:
+        return EventFrame.from_events([])
+    if len(frames) == 1:
+        return frames[0]
+    cols = {}
+    for fld in fields(EventFrame):
+        vals = [getattr(f, fld.name) for f in frames]
+        cols[fld.name] = (
+            np.concatenate(vals) if all(v is not None for v in vals) else None
+        )
+    return EventFrame(**cols)
 
 
 class PEvents(abc.ABC):

@@ -161,6 +161,22 @@ class StorageRuntime:
             )
         return SQLiteModels(self._sql_client(name, props))
 
+    def verify_all_data_objects(self) -> dict[str, bool]:
+        """Connectivity check per repository (the `pio status` probe,
+        Storage.verifyAllDataObjects)."""
+        out = {}
+        for repo, probe in (
+            ("METADATA", lambda: self.apps().get_all()),
+            ("EVENTDATA", lambda: self.l_events().init(0) and self.l_events().remove(0)),
+            ("MODELDATA", lambda: self.models().get("__probe__")),
+        ):
+            try:
+                probe()
+                out[repo] = True
+            except Exception:
+                out[repo] = False
+        return out
+
     def close(self) -> None:
         with self._lock:
             for c in self._clients.values():

@@ -189,6 +189,15 @@ class SQLiteEngineInstances(base.EngineInstances):
         )
         return _ei_from_row(rows[0]) if rows else None
 
+    def get_all(self) -> list[EngineInstance]:
+        return [
+            _ei_from_row(r)
+            for r in self.client.query(
+                f"SELECT {self._COLS} FROM pio_engine_instances "
+                "ORDER BY startTime DESC"
+            )
+        ]
+
     def get_latest_completed(
         self, engine_id: str, engine_version: str, engine_variant: str
     ) -> EngineInstance | None:
@@ -200,6 +209,19 @@ class SQLiteEngineInstances(base.EngineInstances):
             (engine_id, engine_version, engine_variant),
         )
         return _ei_from_row(rows[0]) if rows else None
+
+    def get_completed(
+        self, engine_id: str, engine_version: str, engine_variant: str
+    ) -> list[EngineInstance]:
+        return [
+            _ei_from_row(r)
+            for r in self.client.query(
+                f"SELECT {self._COLS} FROM pio_engine_instances "
+                "WHERE status = 'COMPLETED' AND engineId = ? AND "
+                "engineVersion = ? AND engineVariant = ? ORDER BY startTime DESC",
+                (engine_id, engine_version, engine_variant),
+            )
+        ]
 
     def update(self, i: EngineInstance) -> bool:
         self.insert(i)

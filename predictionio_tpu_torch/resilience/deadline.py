@@ -67,6 +67,20 @@ def remaining() -> float | None:
     return None if dl is None else dl - _now()
 
 
+def expired() -> bool:
+    dl = _deadline_var.get()
+    return dl is not None and dl <= _now()
+
+
+def check(what: str = "request") -> None:
+    """Raise :class:`DeadlineExceeded` when the bound deadline has passed."""
+    rem = remaining()
+    if rem is not None and rem <= 0:
+        raise DeadlineExceeded(
+            f"{what} deadline exceeded ({-rem * 1000.0:.0f} ms past budget)"
+        )
+
+
 def parse_budget(value: str | None) -> float | None:
     """Parse a wire budget (seconds, e.g. ``"0.25"``) into a float.
     Malformed or non-finite values yield None — a client typo must not 500

@@ -36,6 +36,7 @@ from predictionio_tpu_torch.server.httpd import (
     Response,
     error_response,
     exception_response,
+    server_ssl_context,
     unquote_groups,
 )
 
@@ -159,13 +160,23 @@ class AsyncAppServer:
     Mirrors the AppServer surface (``start_background`` / ``serve_forever``
     / ``shutdown``, ``.host``/``.port``) so callers can swap front ends.
     ``shutdown`` closes the app's micro-batcher before the loop dies, so
-    queued queries are answered (500) instead of hanging.
+    queued queries are answered (500) instead of hanging.  TLS comes from
+    the same ``PIO_SSL_CERTFILE`` / ``PIO_SSL_KEYFILE`` variables or paths
+    (``httpd.server_ssl_context``); the loop does each handshake.
     """
 
-    def __init__(self, app: HTTPApp, host: str = "0.0.0.0", port: int = 8000):
+    def __init__(
+        self,
+        app: HTTPApp,
+        host: str = "0.0.0.0",
+        port: int = 8000,
+        ssl_certfile: str | None = None,
+        ssl_keyfile: str | None = None,
+    ):
         self.app = app
         self._req_host = host
         self._req_port = port
+        self._ssl_ctx = server_ssl_context(ssl_certfile, ssl_keyfile)
         self.host: str = host
         self.port: int = port
         self._loop: asyncio.AbstractEventLoop | None = None
@@ -209,7 +220,7 @@ class AsyncAppServer:
 
     async def _serve(self) -> None:
         self._server = await asyncio.start_server(
-            self._client, self._req_host, self._req_port
+            self._client, self._req_host, self._req_port, ssl=self._ssl_ctx
         )
         sock = self._server.sockets[0].getsockname()
         self.host, self.port = sock[0], sock[1]

@@ -22,7 +22,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
+import ssl
 import threading
 import time
 from dataclasses import dataclass, field
@@ -454,13 +456,42 @@ def _make_handler_class(app: HTTPApp):
     return _Handler
 
 
+def server_ssl_context(
+    certfile: str | None = None, keyfile: str | None = None
+) -> ssl.SSLContext | None:
+    """The TLS context of a front end: PEM files given, else
+    ``PIO_SSL_CERTFILE`` / ``PIO_SSL_KEYFILE`` from the environment (the
+    reference's SSLConfiguration, SSLConfiguration.scala:28, with PEM files
+    in place of a JKS keystore); None, plain HTTP, when no certificate is
+    named."""
+    certfile = certfile or os.environ.get("PIO_SSL_CERTFILE")
+    keyfile = keyfile or os.environ.get("PIO_SSL_KEYFILE")
+    if not certfile:
+        return None
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(certfile, keyfile)
+    return ctx
+
+
 class AppServer:
     """Bind an HTTPApp on host:port (thread per connection) with a
-    background serve thread."""
+    background serve thread; TLS as :func:`server_ssl_context` says."""
 
-    def __init__(self, app: HTTPApp, host: str = "0.0.0.0", port: int = 8000):
+    def __init__(
+        self,
+        app: HTTPApp,
+        host: str = "0.0.0.0",
+        port: int = 8000,
+        ssl_certfile: str | None = None,
+        ssl_keyfile: str | None = None,
+    ):
         self.app = app
         self.httpd = ThreadingHTTPServer((host, port), _make_handler_class(app))
+        ctx = server_ssl_context(ssl_certfile, ssl_keyfile)
+        if ctx is not None:
+            self.httpd.socket = ctx.wrap_socket(
+                self.httpd.socket, server_side=True
+            )
         self.host, self.port = self.httpd.server_address[:2]
         self._thread: threading.Thread | None = None
         self._serving = False

@@ -10,6 +10,8 @@ Route parity with the JAX package (workflow/CreateServer.scala:458-706):
                       through the generation manifest's checksum gate,
                       draining the old one (key-gated; 409 on refusal)
   GET  /lifecycle.json  the generation manifest (key-gated)
+  GET  /plugins.json  the output plugins (key-gated), and
+       /plugins/<type>/<name>/...  a plugin's own REST handler
   POST /stop          shut the server down (key-gated when an access key
                       is configured)
 
@@ -46,6 +48,12 @@ its bytes are corrupt, and records what it bound as live; ``/reload``
 verifies the candidate's checksum, loads and sanity-checks it, passes the
 ``lifecycle.swap`` fault seam, commits the manifest and only then flips.
 Canary and tenant partitioning of waves come with a later slice.
+
+Each answer, solo or in a wave, passes the output plugins
+(``server.plugins``, ``PIO_PLUGINS``) and then, with ``FeedbackConfig``
+enabled, is written back as a ``predict`` event of entity type ``pio_pr``
+(CreateServer.scala:527-589); the decision record keeps the answer the
+plugins returned.  A failed feedback write is logged and fails no query.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import dataclasses
 import json
 import logging
 import os
+import secrets
 import threading
 import time
 from datetime import datetime, timezone
@@ -65,6 +74,8 @@ import torch
 from predictionio_tpu_torch.core.base import EngineContext, run_sanity_check
 from predictionio_tpu_torch.core.engine import Engine, resolve_engine_factory
 from predictionio_tpu_torch.core.persistence import load_models
+from predictionio_tpu_torch.data.datamap import DataMap
+from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import EngineInstance
 from predictionio_tpu_torch.data.storage.config import (
     StorageRuntime,
@@ -102,6 +113,7 @@ from predictionio_tpu_torch.server.httpd import (
     key_matches,
     shed_response,
 )
+from predictionio_tpu_torch.server.plugins import PluginContext
 from predictionio_tpu_torch.utils.params import extract_params
 
 log = logging.getLogger("predictionio_tpu_torch.serving")
@@ -122,6 +134,21 @@ class Binding(NamedTuple):
     algorithms: list
     models: list
     serving: Any
+
+
+@dataclasses.dataclass
+class FeedbackConfig:
+    """Loop predictions back into the event store (CreateServer.scala:527-589).
+
+    The reference POSTs to the event server over HTTP with an access key;
+    here, as in the JAX package, each answer is written through the storage
+    layer directly, keyed by app id (resolved from the access key when
+    given)."""
+
+    enabled: bool = False
+    app_id: int | None = None
+    access_key: str | None = None
+    channel_id: int | None = None
 
 
 class QueuedQuery:
@@ -516,8 +543,12 @@ def _bind_from_manifest(
 
 def create_prediction_server_app(
     deployed: DeployedEngine,
+    feedback: FeedbackConfig | None = None,
     on_stop: Callable[[], None] | None = None,
     access_key: str | None = None,
+    #: output blockers and sniffers; None = ``PluginContext.from_env()``
+    #: (``PIO_PLUGINS``)
+    plugins: PluginContext | None = None,
     use_microbatch: bool = False,
     #: the JAX package's default wave cap
     max_batch: int = 32,
@@ -548,6 +579,8 @@ def create_prediction_server_app(
     if pipeline_depth is None:
         pipeline_depth = int(os.environ.get("PIO_PIPELINE_DEPTH", "2"))
     registry = registry or REGISTRY
+    feedback = feedback or FeedbackConfig()
+    plugins = plugins or PluginContext.from_env()
     #: the front ends read these: deadline admission + binding, and the
     #: in-flight shed gate
     app.default_deadline_s = default_deadline_s
@@ -591,6 +624,51 @@ def create_prediction_server_app(
     # solo-path host-stage attribution (obs/hotpath.py): every fully served
     # request decomposes into named host stages at /hotpath.json
     hotpath = HotPathTracker(registry)
+
+    if feedback.enabled and feedback.app_id is None:
+        if not feedback.access_key:
+            raise RuntimeError(
+                "feedback requires an app_id or access_key to route events"
+            )
+        k = deployed.storage.access_keys().get(feedback.access_key)
+        if k is None:
+            raise RuntimeError("feedback access key is invalid")
+        feedback.app_id = k.appid
+
+    def _feedback_event(
+        instance_id: str, query: Any, rendered_prediction: Any
+    ) -> None:
+        ev = Event(
+            event="predict",
+            entity_type="pio_pr",
+            entity_id=secrets.token_hex(32),
+            properties=DataMap(
+                {
+                    "engineInstanceId": instance_id,
+                    "query": _render_prediction(query),
+                    "prediction": rendered_prediction,
+                }
+            ),
+        )
+        deployed.storage.l_events().insert(
+            ev, feedback.app_id, feedback.channel_id
+        )
+
+    def _postprocess(instance_id: str, payload: dict, query: Any,
+                     prediction: Any) -> Any:
+        """Render, the output plugins, then feedback: the feedback event
+        and the decision record both see the answer after the plugins.  A
+        plugin that raises fails this query; a failed feedback write is
+        logged and never does."""
+        rendered = plugins.process_output(
+            instance_id, payload, _render_prediction(prediction)
+        )
+        if feedback.enabled:
+            try:
+                _feedback_event(instance_id, query, rendered)
+            except Exception as e:
+                log.error("feedback event failed: %s", e)
+        return rendered
 
     def _note_wave_provenance(item, payload, meta, instance_id) -> None:
         """The decision record of one micro-batched answer: the wave's
@@ -814,7 +892,9 @@ def create_prediction_server_app(
                     it.prov = {**base_prov, **wave_notes}
                     if tag == "pred":
                         try:
-                            tag, value = "ok", _render_prediction(value[1])
+                            tag, value = "ok", _postprocess(
+                                iid, it.payload, *value
+                            )
                         except Exception as e:  # only this item fails
                             tag, value = "err", e
                     if tag == "ok":
@@ -947,7 +1027,9 @@ def create_prediction_server_app(
                     # the predict window splits into named stages; the
                     # unattributed interior is "dispatch"
                     with device_obs.wave_timeline() as timeline:
-                        _, prediction = deployed.predict_bound(binding, query)
+                        query, prediction = deployed.predict_bound(
+                            binding, query
+                        )
                     provenance.note(
                         cache={
                             "hits": timeline.cache_hits,
@@ -970,7 +1052,14 @@ def create_prediction_server_app(
             )
             if degraded:
                 provenance.note(degraded=list(degraded))
-            rendered = _render_prediction(prediction)
+            try:
+                rendered = _postprocess(iid, payload, query, prediction)
+            except Exception as e:
+                log.exception("query rendering failed")
+                _observe(500, t0)
+                return _stamped(
+                    error_response(500, f"{type(e).__name__}: {e}"), iid
+                )
             provenance.note_answer(rendered)
             resp = _answer(rendered, iid, degraded)
             _bump_stats(t0)
@@ -1022,6 +1111,24 @@ def create_prediction_server_app(
             },
         )
 
+    # -- plugins (CreateServer.scala:656-702) --------------------------------
+    @app.route("GET", "/plugins\\.json")
+    def list_plugins(req: Request) -> Response:
+        if not _authorized(req):
+            return error_response(401, "Invalid accessKey.")
+        return json_response(200, {"plugins": plugins.descriptions()})
+
+    @app.route(
+        "GET", "/plugins/(?P<ptype>[^/]+)/(?P<pname>[^/]+)(?P<rest>/.*)?"
+    )
+    def plugin_rest(req: Request) -> Response:
+        if not _authorized(req):
+            return error_response(401, "Invalid accessKey.")
+        return plugins.rest_response(
+            req.params["ptype"], req.params["pname"],
+            req.params.get("rest") or "/", req.query,
+        )
+
     @app.route("POST", "/stop")
     def stop(req: Request) -> Response:
         if not _authorized(req):
@@ -1061,6 +1168,27 @@ def create_prediction_server_app(
     return app
 
 
+def undeploy_stale(host: str, port: int, access_key: str | None = None) -> bool:
+    """POST /stop to whatever serves on (host, port) before binding: the
+    MasterActor's undeploy-then-bind (CreateServer.scala:281-306).  Plain
+    HTTP, as in the JAX package: a stale server on TLS is not reached."""
+    import urllib.request
+
+    probe_host = "127.0.0.1" if host in ("0.0.0.0", "") else host
+    url = f"http://{probe_host}:{port}/stop"
+    if access_key:
+        url += f"?accessKey={access_key}"
+    try:
+        with urllib.request.urlopen(
+            urllib.request.Request(url, method="POST"), timeout=3
+        ):
+            pass
+        time.sleep(0.5)  # give the old server a beat to release the port
+        return True
+    except Exception:
+        return False
+
+
 def create_prediction_server(
     engine_factory_name: str,
     host: str = "0.0.0.0",
@@ -1070,8 +1198,11 @@ def create_prediction_server(
     engine_id: str = "default",
     engine_version: str = "default",
     engine_variant: str = "default",
+    feedback: FeedbackConfig | None = None,
     access_key: str | None = None,
+    plugins: PluginContext | None = None,
     server_kind: str = "aio",
+    max_batch: int = 32,
     max_queue: int | None = None,
     max_inflight: int | None = None,
     default_deadline_s: float | None = None,
@@ -1080,11 +1211,16 @@ def create_prediction_server(
     """Deploy the engine and bind the deploy server (not started: call
     ``start_background()`` or ``serve_forever()``).
 
+    A non-zero ``port`` first stops a stale server there
+    (:func:`undeploy_stale`); port 0 binds a free port and probes nothing.
     ``server_kind="aio"`` (default) serves under the asyncio front end with
     query micro-batching — concurrent /queries.json requests coalesce into
-    one vectorized predict per wave.  ``"threaded"`` keeps the
-    thread-per-connection server (no batching).  ``POST /stop`` shuts it
-    down."""
+    one vectorized predict per wave of at most ``max_batch``.
+    ``"threaded"`` keeps the thread-per-connection server (no batching).
+    Both serve TLS when ``PIO_SSL_CERTFILE`` names a certificate.  ``POST
+    /stop`` shuts it down."""
+    if port and undeploy_stale(host, port, access_key):
+        log.info("undeployed stale server on port %d", port)
     deployed = deploy_engine(
         engine_factory_name,
         storage=storage,
@@ -1102,9 +1238,12 @@ def create_prediction_server(
 
     app = create_prediction_server_app(
         deployed,
+        feedback=feedback,
         on_stop=on_stop,
         access_key=access_key,
+        plugins=plugins,
         use_microbatch=server_kind == "aio",
+        max_batch=max_batch,
         max_queue=max_queue,
         max_inflight=max_inflight,
         default_deadline_s=default_deadline_s,

@@ -1,18 +1,27 @@
 """``python -m predictionio_tpu_torch.tools.cli <verb>``.
 
 The verbs of the JAX package's ``pio`` console (``tools/cli.py``) that the
-port runs, with the flags that apply to them: ``app``
+port runs, with the flags that apply to them: ``version``, ``status``
+(the storage checks and torch's devices, or with ``--url`` a running
+server's health routes), ``app``
 (``new|list|show|delete|data-delete|channel-new|channel-delete``),
 ``accesskey`` (``new|list|delete``), ``import``, ``export``,
-``eventserver``, ``train``, ``eval`` (an ``Evaluation`` by import path,
-``--params`` for a factory's keyword arguments), ``deploy``
-(``--event-port`` serves the event server beside it, on the same storage),
-``batchpredict``, ``template`` (``list|get``: the bundled engines, and a
-starter ``engine.json``) and ``lifecycle`` (the generation manifest, from
-a running deploy's ``/lifecycle.json`` with ``--url`` or from the model
+``eventserver``, ``build`` (validates an engine.json), ``train``, ``eval``
+(an ``Evaluation`` by import path, ``--params`` for a factory's keyword
+arguments), ``deploy`` (``--event-port`` serves the event server beside
+it, on the same storage; ``--feedback`` writes each answer back as an
+event; a server already on the port is stopped first), ``undeploy``,
+``batchpredict``, ``run`` (a user script), ``upgrade``, ``metrics``,
+``template`` (``list|get``: the bundled engines, and a starter
+``engine.json``) and ``lifecycle`` (the generation manifest, from a
+running deploy's ``/lifecycle.json`` with ``--url`` or from the model
 store), plus ``--device`` on the verbs that compute (default ``cuda``;
-``cpu`` runs the plain versions on the host).  Storage is configured by
-the same ``PIO_HOME`` / ``PIO_STORAGE_*`` variables.
+``cpu`` runs the plain versions on the host).  ``train``, ``deploy`` and
+``batchpredict`` name an engine by ``--engine-id`` / ``--engine-version``
+/ ``--variant``, each overridden by the engine.json's ``id`` /
+``version`` / ``variant``.  Storage is configured by the same
+``PIO_HOME`` / ``PIO_STORAGE_*`` variables; TLS by ``PIO_SSL_CERTFILE`` /
+``PIO_SSL_KEYFILE``.
 """
 
 from __future__ import annotations
@@ -25,10 +34,100 @@ from typing import Any
 
 from predictionio_tpu_torch.data.storage.config import get_storage
 from predictionio_tpu_torch.tools import commands as cmd
+from predictionio_tpu_torch.version import __version__
 
 
 def _print(obj: Any) -> None:
     print(json.dumps(obj, indent=2, default=str))
+
+
+def do_version(args) -> int:
+    print(__version__)
+    return 0
+
+
+def do_status(args) -> int:
+    """`pio status` (commands/Management.scala): the storage checks, with
+    the devices and backend as torch sees them (``cpu`` on a host without
+    a card), or with ``--url`` the health routes of a running server.  The
+    exit code is the storage checks' alone."""
+    if args.url:
+        return _status_remote(args.url, args.access_key, args.no_quality)
+    import torch
+
+    checks = get_storage().verify_all_data_objects()
+    cuda = torch.cuda.is_available()
+    _print(
+        {
+            "version": __version__,
+            "storage": checks,
+            "devices": [
+                f"cuda:{i} ({torch.cuda.get_device_name(i)})"
+                for i in range(torch.cuda.device_count())
+            ]
+            if cuda
+            else ["cpu"],
+            "backend": "cuda" if cuda else "cpu",
+        }
+    )
+    return 0 if all(checks.values()) else 1
+
+
+def _status_remote(
+    url: str, access_key: str | None = None, no_quality: bool = False
+) -> int:
+    """A running server's ``/healthz``, ``/readyz`` and ``/slo.json``,
+    ``/quality.json``'s drift state unless ``no_quality``, and
+    ``/lifecycle.json`` when it answers.  Exit 0 only when the server is
+    alive and ready and not drifting; a readiness 503 still prints its
+    body, so the operator sees which check fails.  ``access_key`` rides as
+    a Bearer header (a key-gated server answers 401 on every route but
+    ``/healthz`` without it).  A server without a quality route (404/401)
+    is not degraded by it."""
+    import urllib.error
+    import urllib.request
+
+    base = url.rstrip("/")
+    headers = (
+        {"Authorization": f"Bearer {access_key}"} if access_key else {}
+    )
+
+    def fetch(path: str) -> tuple[int, Any]:
+        try:
+            req = urllib.request.Request(base + path, headers=headers)
+            with urllib.request.urlopen(req, timeout=10) as r:
+                return r.status, json.loads(r.read().decode("utf-8"))
+        except urllib.error.HTTPError as e:
+            try:
+                return e.code, json.loads(e.read().decode("utf-8"))
+            except Exception:
+                return e.code, {"message": str(e)}
+        except Exception as e:  # down, refused or timed out: what the
+            return 0, {"message": f"unreachable: {e}"}  # probe is for
+
+    health_status, health = fetch("/healthz")
+    ready_status, ready = fetch("/readyz")
+    _slo_status, slo = fetch("/slo.json")
+    report = {"url": base, "healthz": health, "readyz": ready, "slo": slo}
+    drifting = False
+    if not no_quality:
+        q_status, quality = fetch("/quality.json")
+        report["quality"] = quality
+        drifting = (
+            q_status == 200
+            and quality.get("drift", {}).get("state") == "drifting"
+        )
+    lc_status, lifecycle = fetch("/lifecycle.json")
+    if lc_status == 200:
+        manifest = lifecycle.get("manifest") or {}
+        report["lifecycle"] = {
+            "live": manifest.get("live"),
+            "canary_in_progress": lifecycle.get("canary_in_progress"),
+            "rolled_back": manifest.get("rolled_back"),
+        }
+    _print(report)
+    alive = health_status == 200 and health.get("status") == "alive"
+    return 0 if alive and ready_status == 200 and not drifting else 1
 
 
 def _key(k) -> dict:
@@ -123,6 +222,39 @@ def _resolve_engine(args):
     return factory_name, resolve_engine_factory(factory_name)(), variant
 
 
+def _engine_coords(args) -> tuple[str, str, str, str]:
+    """(factory, engine id, version, variant): a key in the --engine-json
+    file wins over its flag (the JAX package's rule)."""
+    variant: dict = {}
+    if args.engine_json and Path(args.engine_json).exists():
+        variant = json.loads(Path(args.engine_json).read_text())
+    return (
+        args.engine or variant.get("engineFactory") or "",
+        variant.get("id", args.engine_id),
+        variant.get("version", args.engine_version),
+        variant.get("variant", args.variant),
+    )
+
+
+def do_build(args) -> int:
+    """`pio build`: engines are plain Python and the CUDA kernels build at
+    first use, so there is nothing to compile; validates the engine.json
+    instead."""
+    try:
+        if args.engine_json and not Path(args.engine_json).exists():
+            raise cmd.CommandError(
+                f"engine variant file {args.engine_json!r} not found"
+            )
+        factory_name, engine, variant = _resolve_engine(args)
+        engine.params_from_json(variant)
+    except Exception as e:
+        print(f"engine variant is invalid: {e}", file=sys.stderr)
+        return 1
+    print(f"Engine {factory_name!r} OK (no build step needed; the CUDA "
+          "kernels build at first use and are cached).")
+    return 0
+
+
 def do_train(args) -> int:
     from predictionio_tpu_torch.core.base import EngineContext
     from predictionio_tpu_torch.core.workflow import WorkflowParams, run_train
@@ -141,9 +273,9 @@ def do_train(args) -> int:
             stop_after_read=args.stop_after_read,
             stop_after_prepare=args.stop_after_prepare,
         ),
-        engine_id=variant.get("id", "default"),
-        engine_version=variant.get("version", "default"),
-        engine_variant=variant.get("variant", "default"),
+        engine_id=variant.get("id", args.engine_id),
+        engine_version=variant.get("version", args.engine_version),
+        engine_variant=variant.get("variant", args.variant),
         engine_factory=factory_name,
         storage=storage,
     )
@@ -179,15 +311,23 @@ def do_eval(args) -> int:
 
 def do_deploy(args) -> int:
     from predictionio_tpu_torch.server.prediction_server import (
+        FeedbackConfig,
         create_prediction_server,
     )
 
+    factory, engine_id, engine_version, engine_variant = _engine_coords(args)
     server = create_prediction_server(
-        args.engine,
+        factory,
         host=args.ip,
         port=args.port,
         storage=get_storage(),
         engine_instance_id=args.engine_instance_id,
+        engine_id=engine_id,
+        engine_version=engine_version,
+        engine_variant=engine_variant,
+        feedback=FeedbackConfig(
+            enabled=args.feedback, access_key=args.accesskey or None
+        ),
         access_key=args.accesskey or None,
         max_queue=args.max_queue,
         max_inflight=args.max_inflight,
@@ -222,18 +362,63 @@ def do_deploy(args) -> int:
     return 0
 
 
+def do_undeploy(args) -> int:
+    """`pio undeploy`: ``POST /stop`` to the deploy on ``--ip:--port``."""
+    import urllib.request
+
+    url = f"http://{args.ip}:{args.port}/stop"
+    if args.accesskey:
+        url += f"?accessKey={args.accesskey}"
+    try:
+        with urllib.request.urlopen(
+            urllib.request.Request(url, method="POST"), timeout=10
+        ) as r:
+            print(r.read().decode())
+        print("undeployed via POST /stop")
+        return 0
+    except Exception as e:
+        print(f"undeploy via POST /stop failed: {e}", file=sys.stderr)
+        return 1
+
+
 def do_batchpredict(args) -> int:
     from predictionio_tpu_torch.core.batch_predict import run_batch_predict
 
+    factory, engine_id, engine_version, engine_variant = _engine_coords(args)
     n = run_batch_predict(
-        args.engine,
+        factory,
         args.input,
         args.output,
         storage=get_storage(),
         engine_instance_id=args.engine_instance_id,
+        engine_id=engine_id,
+        engine_version=engine_version,
+        engine_variant=engine_variant,
         device=args.device,
     )
     print(f"Wrote {n} predictions to {args.output}")
+    return 0
+
+
+def do_run(args) -> int:
+    """`pio run`: a user script run as ``__main__`` with the port
+    importable (Console.scala:333's main-class run)."""
+    import runpy
+
+    sys.argv = [args.script] + (args.script_args or [])
+    runpy.run_path(args.script, run_name="__main__")
+    return 0
+
+
+def do_upgrade(args) -> int:
+    """`pio upgrade`: upgrades are the package manager's job; prints
+    where the next version comes from."""
+    print(
+        f"predictionio_tpu_torch {__version__}: upgrade by installing a "
+        "newer predictionio-tpu package (pip install -U predictionio-tpu), "
+        "which ships the port; engine data and models are stored under "
+        "PIO_HOME and carry forward."
+    )
     return 0
 
 
@@ -339,6 +524,65 @@ def _fetch_url(url: str, access_key: str | None = None) -> str:
         return r.read().decode("utf-8")
 
 
+def _run_watched(label: str, render_once, watch, watch_count) -> int:
+    """One shot or the ``--watch`` loop of the scrape verbs: one shot exits 1
+    on a failed scrape; a watch prints the error and goes on (it must
+    outlive a server restart), re-rendering every ``watch`` seconds until
+    interrupted or ``watch_count`` renders are done."""
+    import datetime as _dt
+    import threading
+
+    if not watch:
+        try:
+            render_once()
+        except Exception as e:  # a dead server: the message, exit 1
+            print(f"scrape failed: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if watch < 0:
+        print("usage error: --watch must be positive", file=sys.stderr)
+        return 2
+    # Event.wait as the timer: interruptible, and nothing busy-waits
+    pacer = threading.Event()
+    remaining = watch_count  # None = until interrupted
+    try:
+        while remaining is None or remaining > 0:
+            print(f"--- {label} @ {_dt.datetime.now().isoformat()} ---")
+            try:
+                render_once()
+            except Exception as e:
+                print(f"scrape failed: {e}", file=sys.stderr)
+            sys.stdout.flush()
+            if remaining is not None:
+                remaining -= 1
+                if remaining == 0:
+                    break
+            pacer.wait(watch)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def do_metrics(args) -> int:
+    """`pio metrics`: with ``--url``, a running server's ``/metrics`` (or
+    ``/metrics.json`` with ``--json``); without it, this process's
+    registry.  ``--watch SECONDS`` re-renders until interrupted."""
+
+    def render_once() -> None:
+        from predictionio_tpu_torch.obs.metrics import REGISTRY
+
+        if args.url:
+            path = "/metrics.json" if args.json else "/metrics"
+            body = _fetch_url(args.url.rstrip("/") + path, args.access_key)
+            print(body if not args.json else json.dumps(json.loads(body), indent=2))
+        elif args.json:
+            _print(REGISTRY.render_json())
+        else:
+            print(REGISTRY.render_prometheus(), end="")
+
+    return _run_watched("pio metrics", render_once, args.watch, args.watch_count)
+
+
 def _render_lifecycle_text(body: dict) -> str:
     """Human one-screen rendering of a /lifecycle.json body (the JAX
     package's text, line for line)."""
@@ -427,6 +671,42 @@ def build_parser() -> argparse.ArgumentParser:
             help="cuda (default; fails without a card) or cpu",
         )
 
+    def engine_flags(sp):
+        sp.add_argument(
+            "--engine", default="",
+            help="factory name or pkg.module:factory (default: the engine "
+            "JSON's engineFactory, or the instance's own factory)",
+        )
+        sp.add_argument("--engine-id", default="default")
+        sp.add_argument("--engine-version", default="default")
+        sp.add_argument("--variant", default="default")
+        sp.add_argument(
+            "--engine-json", default=None,
+            help="engine variant JSON file; its id, version and variant "
+            "win over the flags",
+        )
+
+    sub.add_parser("version").set_defaults(fn=do_version)
+    stt = sub.add_parser("status")
+    stt.add_argument(
+        "--url",
+        default=None,
+        help="probe a running server's /healthz, /readyz and /slo.json "
+        "(e.g. http://127.0.0.1:8000) instead of local storage",
+    )
+    stt.add_argument(
+        "--access-key",
+        default=None,
+        help="access key for key-gated servers (sent as a Bearer header; "
+        "/healthz alone answers without it)",
+    )
+    stt.add_argument(
+        "--no-quality",
+        action="store_true",
+        help="do not fold /quality.json's drift state into the exit code",
+    )
+    stt.set_defaults(fn=do_status)
+
     ap = sub.add_parser("app")
     asub = ap.add_subparsers(dest="app_command", required=True)
     new = asub.add_parser("new")
@@ -475,8 +755,7 @@ def build_parser() -> argparse.ArgumentParser:
     es.set_defaults(fn=do_eventserver)
 
     tr = sub.add_parser("train")
-    tr.add_argument("--engine", help="factory name or pkg.module:factory")
-    tr.add_argument("--engine-json", help="engine variant JSON file")
+    engine_flags(tr)
     tr.add_argument("--batch", default="")
     tr.add_argument("--skip-sanity-check", action="store_true")
     tr.add_argument("--stop-after-read", action="store_true")
@@ -492,22 +771,25 @@ def build_parser() -> argparse.ArgumentParser:
     device_flag(ev)
     ev.set_defaults(fn=do_eval)
 
-    def engine_flags(sp):
-        sp.add_argument(
-            "--engine", default="",
-            help="factory name or pkg.module:factory (default: the "
-            "instance's own factory)",
-        )
+    def instance_flags(sp):
+        engine_flags(sp)
         sp.add_argument(
             "--engine-instance-id",
-            help="default: the latest COMPLETED instance",
+            help="default: the engine's live generation, else its latest "
+            "COMPLETED instance",
         )
         device_flag(sp)
 
     dp = sub.add_parser("deploy")
-    engine_flags(dp)
+    instance_flags(dp)
     dp.add_argument("--ip", default="0.0.0.0")
     dp.add_argument("--port", type=int, default=8000)
+    dp.add_argument(
+        "--feedback",
+        action="store_true",
+        help="write each query and its answer back as a 'predict' event "
+        "of the app that --accesskey belongs to",
+    )
     dp.add_argument(
         "--event-port",
         type=int,
@@ -540,11 +822,57 @@ def build_parser() -> argparse.ArgumentParser:
     )
     dp.set_defaults(fn=do_deploy)
 
+    ud = sub.add_parser("undeploy")
+    ud.add_argument("--ip", default="127.0.0.1")
+    ud.add_argument("--port", type=int, default=8000)
+    ud.add_argument("--accesskey", default="")
+    ud.set_defaults(fn=do_undeploy)
+
     bp = sub.add_parser("batchpredict")
-    engine_flags(bp)
+    instance_flags(bp)
     bp.add_argument("--input", required=True)
     bp.add_argument("--output", required=True)
     bp.set_defaults(fn=do_batchpredict)
+
+    bd = sub.add_parser("build")
+    bd.add_argument("--engine")
+    bd.add_argument("--engine-json", default="engine.json")
+    bd.set_defaults(fn=do_build)
+
+    sub.add_parser("upgrade").set_defaults(fn=do_upgrade)
+
+    rn = sub.add_parser("run")
+    rn.add_argument("script")
+    rn.add_argument("script_args", nargs="*")
+    rn.set_defaults(fn=do_run)
+
+    mt = sub.add_parser("metrics")
+    mt.add_argument(
+        "--url", help="scrape a running server (e.g. http://127.0.0.1:8000)"
+    )
+    mt.add_argument(
+        "--json", action="store_true",
+        help="JSON exposition instead of Prometheus text",
+    )
+    mt.add_argument(
+        "--access-key",
+        default=None,
+        help="access key for key-gated servers (sent as a Bearer header)",
+    )
+    mt.add_argument(
+        "--watch",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="re-render every SECONDS until interrupted",
+    )
+    mt.add_argument(
+        "--watch-count",
+        type=int,
+        default=None,
+        help=argparse.SUPPRESS,  # bounded --watch renders (tests)
+    )
+    mt.set_defaults(fn=do_metrics)
 
     tp = sub.add_parser("template")
     tp.add_argument(

@@ -1074,3 +1074,112 @@ def test_markov_chain_predicts_the_same_bits_on_the_card(cuda):
     a, b = dev.predict(cur), dev.predict(cur)
     assert a == b
     np.testing.assert_allclose(a, host.predict(cur), rtol=1e-5, atol=1e-7)
+
+
+def _hold_wave(results, users, U, V, num):
+    """Each ("ok", body, iid) answer held to the host answer of its user:
+    scores within 1e-5, ids equal outside a near tie with a neighbour."""
+    want_s, want_i = topk.host_topk_batch(U[users] @ V.T, num + 1)
+    for row, body in enumerate(results):
+        got_i = [int(x["item"][1:]) for x in body["itemScores"]]
+        got_s = np.asarray([x["score"] for x in body["itemScores"]])
+        w = want_s[row]
+        np.testing.assert_allclose(got_s, w[:num], rtol=1e-5, atol=1e-6)
+        for j in np.flatnonzero(np.asarray(got_i) != want_i[row, :num]):
+            gap = min(abs(w[j] - w[x]) for x in (j - 1, j + 1) if 0 <= x <= num)
+            assert gap <= 1e-5 * abs(w[j]) + 1e-6, (row, j)
+
+
+@pytest.mark.cuda
+def test_tls_queries_to_a_card_deploy(cuda, tmp_path):
+    # the aio front end with a self-signed certificate over a deploy on the
+    # card: every HTTPS answer 200 and held to the host answer
+    import json
+    import ssl
+    import subprocess
+    import urllib.request
+
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server import prediction_server as ps
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+
+    cert, key = tmp_path / "cert.pem", tmp_path / "key.pem"
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-keyout", str(key),
+         "-out", str(cert), "-days", "1", "-nodes", "-subj", "/CN=localhost"],
+        check=True, capture_output=True, timeout=60)
+    rng = np.random.default_rng(12)
+    U, V, storage, deployed = _card_deploy(cuda, tmp_path, rng, 500, 3000, 8)
+    app = ps.create_prediction_server_app(
+        deployed, use_microbatch=True, registry=MetricsRegistry())
+    server = AsyncAppServer(app, "127.0.0.1", 0, ssl_certfile=str(cert),
+                            ssl_keyfile=str(key)).start_background()
+    ctx = ssl.create_default_context()
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    users = rng.integers(0, 500, 24)
+    try:
+        bodies = []
+        for u in users:
+            req = urllib.request.Request(
+                f"https://127.0.0.1:{server.port}/queries.json",
+                data=json.dumps({"user": f"u{u}", "num": 10}).encode())
+            with urllib.request.urlopen(req, timeout=30, context=ctx) as r:
+                assert r.status == 200 and r.headers["X-Pio-Engine-Instance"] == "card"
+                bodies.append(json.loads(r.read()))
+    finally:
+        server.shutdown()
+        storage.close()
+    _hold_wave(bodies, users, U, V, 10)
+
+
+@pytest.mark.cuda
+def test_feedback_wave_through_the_fused_topk(cuda, tmp_path):
+    # 512 queries queued at once with feedback and an output plugin on: one
+    # fused top-k launch, every answer held and marked, and one predict
+    # event per query holding that marked answer
+    from predictionio_tpu_torch.data.storage.base import EventFilter
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server import plugins
+    from predictionio_tpu_torch.server import prediction_server as ps
+    from predictionio_tpu_torch.tools.commands import app_new
+
+    class Mark(plugins.EngineServerPlugin):
+        plugin_name = "mark"
+        plugin_type = plugins.OUTPUT_BLOCKER
+
+        def process(self, engine_instance_id, query, prediction):
+            return {**prediction, "user": query["user"]}
+
+    rng = np.random.default_rng(13)
+    U, V, storage, deployed = _card_deploy(cuda, tmp_path, rng, 700, 3000, 8)
+    d = app_new(storage, "fb")
+    ctx = plugins.PluginContext()
+    ctx.register(Mark())
+    app = ps.create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=512, plugins=ctx,
+        feedback=ps.FeedbackConfig(enabled=True, access_key=d.keys[0].key),
+        registry=MetricsRegistry())
+    users = rng.integers(0, 700, 512)
+    before = topk.KERNEL_LAUNCHES["fused_topk"]
+    try:
+        results = _burst(app.microbatcher,
+                         [{"user": f"u{u}", "num": 10} for u in users],
+                         [{} for _ in users])
+        events = list(storage.l_events().find(
+            d.app.id, None, EventFilter(event_names=("predict",))))
+    finally:
+        app.microbatcher.close()
+        storage.close()
+    assert topk.KERNEL_LAUNCHES["fused_topk"] == before + 1
+    assert [(s, iid) for s, _, iid in results] == [("ok", "card")] * 512
+    bodies = [b for _, b, _ in results]
+    assert [b["user"] for b in bodies] == [f"u{u}" for u in users]
+    _hold_wave(bodies, users, U, V, 10)
+    assert len(events) == 512
+    by_user = {}
+    for e in events:
+        by_user.setdefault(e.properties.get("query")["user"], []).append(
+            e.properties.get("prediction"))
+    for b in bodies:
+        assert b in by_user[b["user"]]
