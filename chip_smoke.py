@@ -101,7 +101,19 @@ calls:
   deploy stopping the first and ``undeploy``; a TLS deploy answering a
   1,024-query device wave (kernel 3) through the plugin and feedback,
   with feedback and without, and 32 keep-alive clients over HTTPS and then
-  plain HTTP; ``batchpredict --engine-json`` of 4,096 users (kernel 3).
+  plain HTTP; ``batchpredict --engine-json`` of 4,096 users (kernel 3);
+- the lifecycle, online quality, replay and tenants (``lifecycle``): a
+  canary at half the traffic beside the live ML-20M model, 4,096 queries
+  queued at once in two waves of two partitions (kernel 3 on each), every
+  answer held to its side's factors; feedback joined per variant through
+  the event server beside the deploy, the controller promoting the canary
+  and rolling back a faulty one under 8 clients; ``replay-request`` of a
+  solo answer (``MATCHED``) and after a flipped byte
+  (``generation.bytes``), and kernel-3 answers replayed by tolerance; the
+  controller's warm-start retrain of an ML-100K model on its thread beside
+  8 clients (kernel 1), staged and promoted; two tenants on one deploy, a
+  third refused by the stored-bytes budget, one wave partitioned by tenant
+  (kernel 3 on each), and a tenant's quota shedding.
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -5325,6 +5337,654 @@ def operator_phase(device="cuda") -> dict:
     return out
 
 
+#: the lifecycle phase: waves of 2,048 (two per 4,096-query burst), the
+#: canary at half the traffic, 8 keep-alive clients, queries and feedback
+#: for the promote, canary queries for the rollback, the tenant burst
+LC_WAVE, LC_BURST, LC_FRACTION, LC_CLIENTS = 2048, 4096, 0.5, 8
+LC_FEEDBACK, LC_CANARY_ERRORS, LC_SMALL_USERS, LC_QUOTA_QUERIES = 200, 80, 600, 200
+LC_REPLAYED = 8
+
+
+def burst_items(batcher, items: list, metas: list) -> list:
+    """Every ``QueuedQuery`` of ``items`` submitted at once, all queued
+    before the batcher's worker forms a wave; the results in order."""
+    import asyncio
+
+    async def burst():
+        with batcher._cond:
+            futs = [asyncio.ensure_future(batcher.submit(it, m))
+                    for it, m in zip(items, metas)]
+            await asyncio.sleep(0)
+            assert len(batcher._pending) == len(futs), len(batcher._pending)
+        return await asyncio.gather(*futs)
+
+    return asyncio.run(burst())
+
+
+def partitions_of(items: list) -> list:
+    """Each distinct partition record the wave left on its queries."""
+    seen: dict = {}
+    for it in items:
+        seen.setdefault(id(it.partition), it.partition)
+    return [dict(p) for p in seen.values()]
+
+
+def get_json(port: int, path: str, headers: dict | None = None):
+    """(status, JSON body) of one GET."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+#: the clients of ``client_process``: keep-alive threads that query users
+#: in turn until the stop file appears, then print one JSON line
+CLIENT_PROCESS = """\
+import http.client, json, os, sys, threading, time
+port, clients, stop = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+users = json.loads(sys.argv[4])
+lock = threading.Lock()
+statuses, instances = {}, {}
+def client(k):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    n = 0
+    while not os.path.exists(stop):
+        u = users[(k * 257 + n) % len(users)]
+        n += 1
+        conn.request("POST", "/queries.json", body=json.dumps({"user": u, "num": 10}))
+        resp = conn.getresponse()
+        resp.read()
+        with lock:
+            statuses[resp.status] = statuses.get(resp.status, 0) + 1
+            iid = resp.getheader("X-Pio-Engine-Instance")
+            instances[iid] = instances.get(iid, 0) + 1
+    conn.close()
+threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"statuses": statuses, "instances": instances}))
+"""
+
+
+@contextlib.contextmanager
+def client_process(port: int, users: list, clients: int, tmp: Path):
+    """``clients`` keep-alive clients in a process of their own (so they do
+    not share the server's interpreter), querying ``users`` in turn while
+    the block runs; the dict it yields gets their status and instance
+    counts when the block ends."""
+    stop = tmp / f"stop-{port}"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLIENT_PROCESS, str(port), str(clients), str(stop),
+         json.dumps(list(users))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    result: dict = {}
+    try:
+        yield result
+    finally:
+        stop.touch()
+        try:
+            stdout, stderr = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate(timeout=30)
+    assert proc.returncode == 0, stderr[-2000:]
+    result.update(json.loads(stdout.strip().splitlines()[-1]))
+
+
+def cuda_census(top: int = 8) -> list:
+    """The largest live CUDA tensors the garbage collector can see: shape,
+    dtype, bytes and the types of what refers to each."""
+    import gc
+
+    from predictionio_tpu_torch.ops import als
+
+    cached = set()
+    for staged in als._STAGE_CACHE.values():
+        for s in staged:
+            for v in s.values():
+                for t in (v if isinstance(v, tuple) else (v,)):
+                    if isinstance(t, torch.Tensor):
+                        cached.add(id(t))
+    import warnings
+
+    rows = []
+    with warnings.catch_warnings():
+        # isinstance on some of torch's deprecated module objects warns
+        warnings.simplefilter("ignore")
+        tensors = [o for o in gc.get_objects()
+                   if isinstance(o, torch.Tensor) and o.is_cuda]
+    for obj in tensors:
+        rows.append((obj.element_size() * obj.nelement(), tuple(obj.shape),
+                     str(obj.dtype), id(obj) in cached))
+    rows.sort(key=lambda r: -r[0])
+    return [{"bytes": b, "shape": sh, "dtype": dt, "in_stage_cache": c}
+            for b, sh, dt, c in rows[:top]] + [
+        {"tensors": len(rows), "bytes": sum(r[0] for r in rows),
+         "stage_cache_bytes": sum(r[0] for r in rows if r[3])}]
+
+
+def lifecycle_phase(device="cuda") -> dict:
+    """``lifecycle``: the canary, the lifecycle controller, online quality,
+    replay and two tenants on one deploy, on ``write_model``'s seeded
+    ML-20M models (rank 10) and an ML-100K store, all on the card.
+
+    (a) Model A deployed (``max_batch`` 2,048), model B staged as the
+    canary at 0.5: 4,096 queries queued at once, their users picked by the
+    split so that each side holds 2,048, form two waves of two partitions,
+    each partition one kernel-3 launch against its own generation; every
+    answer held to the host answer of the factors its side names, and
+    solo HTTP answers named by ``X-Pio-Variant``.  (b) Feedback POSTed to
+    the event server beside the deploy (one quality monitor, as ``deploy
+    --event-port`` shares it), echoing ``X-Pio-Request-Id``, joins per
+    variant; the controller's tick promotes B under 8 clients (the
+    manifest flips, the next answers are B's); C staged with a
+    ``canary.predict`` fault answers 500 until the error guardrail rolls it
+    back under 8 clients on the live side, whose answers stay B's.  (e)
+    ``replay-request`` (a CLI process) of a solo answer: ``MATCHED``, exit
+    0; after a flipped stored byte, ``generation.bytes``, exit 1; kernel-3
+    answers of (a) replayed by the default tolerance and by 1e-5.  (c) The
+    ML-100K model deployed with the controller on (``PIO_LIFECYCLE_*``
+    staleness 2 s): its warm-start retrain runs on the controller's thread
+    (kernel 1, 40 launches) while 8 clients query, is staged, promoted,
+    and no answer is non-200.  (d) Tenants ``big`` (A) and ``small`` (the
+    ML-100K model, a quota) on one deploy, a third (C) deployed and refused
+    by the stored-bytes budget while ``big``'s clients query; one queued
+    wave of both tenants, a kernel-3 launch per tenant partition, each
+    answer held to its tenant's factors; the quota's sheds.  The launch
+    counts cover (a) to (e); the ML-100K import and first train are set-up.
+    """
+    import gc
+    import random
+
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import resolve_engine_factory
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, reset_storage
+    from predictionio_tpu_torch.lifecycle import (
+        CanaryPolicy,
+        LifecycleController,
+        LifecyclePolicy,
+        in_canary_fraction,
+    )
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.obs.provenance import replay_request
+    from predictionio_tpu_torch.obs.quality import QualityMonitor
+    from predictionio_tpu_torch.resilience import faults
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+    from predictionio_tpu_torch.server.event_server import create_event_server_app
+    from predictionio_tpu_torch.server.httpd import AppServer
+    from predictionio_tpu_torch.server.prediction_server import (
+        QueuedQuery,
+        create_multi_tenant_server_app,
+        create_prediction_server,
+        create_prediction_server_app,
+        deploy_engine,
+        deploy_tenant_engines,
+    )
+    from predictionio_tpu_torch.tenancy import Tenant, TenantAdmissionError, hbm_footprint
+    from predictionio_tpu_torch.tools import commands as cmd
+
+    on_card = torch.device(device).type == "cuda"
+
+    def allocated() -> int:
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    factor_bytes = (ML20M_USERS + ML20M_ITEMS) * RANK * 4
+    out: dict = {"phase": "lifecycle", "shape": [ML20M_USERS, ML20M_ITEMS, RANK],
+                 "small_shape": [ML100K_USERS, ML100K_ITEMS, ML100K_EVENTS],
+                 "factor_bytes": factor_bytes, "wave": LC_WAVE,
+                 "fraction": LC_FRACTION}
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    home = tmp / "pio_home"
+    storage = reset_storage(StorageConfig.from_env({"PIO_HOME": str(home)}))
+    servers: list = []
+    mem: dict = {"start": allocated()}
+    try:
+        # -- set-up: A, B and C at the ML-20M shape; the ML-100K store and
+        # its first train (rank 10, 20 iterations) under engine "ml100k"
+        t0 = time.perf_counter()
+        gens = {}
+        for name, salt in (("A", 60), ("B", 61), ("C", 62)):
+            time.sleep(0.01)
+            gens[name] = write_model(storage, home, seed=SEED + salt)
+        ids = {name: g[0] for name, g in gens.items()}
+        key = cmd.app_new(storage, "ml100k").keys[0].key
+        write_ml100k(tmp / "ratings.jsonl")
+        cmd.import_events(storage, "ml100k", tmp / "ratings.jsonl")
+        engine = resolve_engine_factory("recommendation")()
+        params = engine.params_from_json({
+            "datasource": {"params": {"appName": "ml100k"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "numIterations": ITERATIONS, "lambda": 0.01,
+                "seed": 3}}],
+        })
+        small0 = run_train(
+            engine, params, ctx=EngineContext(storage=storage, device=device),
+            engine_id="ml100k", engine_factory="recommendation", storage=storage)
+        out["setup_s"] = time.perf_counter() - t0
+        split = np.array([in_canary_fraction(f"u{u}", LC_FRACTION)
+                          for u in range(ML20M_USERS)])
+        live_users = np.flatnonzero(~split)
+        canary_users = np.flatnonzero(split)
+        rng = np.random.default_rng(SEED + 63)
+
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        # (a) the canary on the card
+        reg = MetricsRegistry()
+        monitor = QualityMonitor(registry=reg)
+        deployed = deploy_engine("recommendation", storage=storage,
+                                 engine_instance_id=ids["A"], device=device)
+        store = deployed.generation_store
+        policy = LifecyclePolicy(canary=CanaryPolicy(
+            fraction=LC_FRACTION, min_requests=50, min_joined=20))
+        controller = LifecycleController(deployed, store, quality=monitor,
+                                         policy=policy, registry=reg)
+        app = create_prediction_server_app(
+            deployed, use_microbatch=True, max_batch=LC_WAVE, max_queue=0,
+            registry=reg, quality=monitor, lifecycle=controller,
+            lifecycle_autostart=False)
+        server = AsyncAppServer(app, "127.0.0.1", 0).start_background()
+        servers.append(server)
+        events = AppServer(create_event_server_app(storage, registry=reg,
+                                                   quality=monitor),
+                           "127.0.0.1", 0).start_background()
+        servers.append(events)
+        mem["a_bound"] = allocated()
+
+        def stage(name: str) -> None:
+            """What the controller's retrain does with its result: record,
+            verify, bind as the canary, open the canary's books."""
+            inst = storage.engine_instances().get(ids[name])
+            store.verify(store.record(inst.id, status="staged"))
+            deployed.stage_canary(inst, LC_FRACTION)
+            store.start_canary(inst.id)
+            controller.tracker.start()
+
+        stage("B")
+        mem["a_live_b_canary"] = allocated()
+        users = np.concatenate([rng.choice(live_users, LC_BURST // 2),
+                                rng.choice(canary_users, LC_BURST // 2)])
+        rng.shuffle(users)
+        items = [QueuedQuery({"user": f"u{u}", "num": 10}) for u in users]
+        before = read_launches()["fused_topk"]
+        t0 = time.perf_counter()
+        results = burst_items(app.microbatcher, items, [{} for _ in items])
+        burst_s = time.perf_counter() - t0
+        held = {}
+        for side, name in (("default", "A"), ("canary", "B")):
+            rows = [j for j, it in enumerate(items) if it.variant == side]
+            assert {results[j][2] for j in rows} == {ids[name]}, side
+            assert all(results[j][0] == "ok" for j in rows), side
+            _, U, V = gens[name]
+            held[side] = hold_answers([results[j][1]["itemScores"] for j in rows],
+                                      users[rows], U, V, 10)
+            assert all(split[u] == (side == "canary") for u in users[rows])
+        parts = partitions_of(items)
+        out["canary"] = {
+            "queries": len(items), "burst_s": burst_s, "held": held,
+            "fused_topk": read_launches()["fused_topk"] - before,
+            "partitions": [{k: p[k] for k in ("variant", "size", "on_device",
+                                              "split_s", "dispatch_s", "finalize_s")}
+                           for p in parts],
+        }
+        assert len(parts) == 4 and all(p["on_device"] for p in parts), parts
+        assert all(p["size"] >= 512 for p in parts), parts
+        assert not on_card or out["canary"]["fused_topk"] == 4, out["canary"]
+        variant_hdr = {}
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        try:
+            for u in list(rng.choice(live_users, 16)) + list(rng.choice(canary_users, 16)):
+                conn.request("POST", "/queries.json",
+                             body=json.dumps({"user": f"u{u}", "num": 10}))
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                side = resp.getheader("X-Pio-Variant")
+                assert resp.status == 200 and side == (
+                    "canary" if split[u] else "default"), (u, side)
+                _, U, V = gens["B" if split[u] else "A"]
+                hold_answers([body["itemScores"]], [u], U, V, 10)
+                variant_hdr[side] = variant_hdr.get(side, 0) + 1
+        finally:
+            conn.close()
+        out["canary"]["http_variants"] = variant_hdr
+
+        # (b) feedback joined per variant, the promote, then C's rollback
+        fb_status: dict = {}
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        econn = http.client.HTTPConnection("127.0.0.1", events.port, timeout=60)
+        try:
+            for u in rng.choice(ML20M_USERS, LC_FEEDBACK):
+                conn.request("POST", "/queries.json",
+                             body=json.dumps({"user": f"u{u}", "num": 10}))
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                assert resp.status == 200
+                rid = resp.getheader("X-Pio-Request-Id")
+                econn.request(
+                    "POST", f"/events.json?accessKey={key}",
+                    body=json.dumps({
+                        "event": "buy", "entityType": "user", "entityId": f"u{u}",
+                        "targetEntityType": "item",
+                        "targetEntityId": body["itemScores"][0]["item"]}),
+                    headers={"X-Pio-Request-Id": rid})
+                eresp = econn.getresponse()
+                eresp.read()
+                fb_status[eresp.status] = fb_status.get(eresp.status, 0) + 1
+        finally:
+            conn.close()
+            econn.close()
+        quality_before = get_json(server.port, "/quality.json")[1]
+        joined = {v: d["joined"] for v, d in quality_before["variants"].items()}
+        assert fb_status == {201: LC_FEEDBACK}, fb_status
+        assert min(joined.get("default", 0), joined.get("canary", 0)) >= 20, joined
+        both = np.concatenate([live_users[:4096], canary_users[:4096]])
+        t0 = time.perf_counter()
+        verdict, promote_s, records, done = clients_around(
+            server.port, both, LC_CLIENTS, controller.tick)
+        assert verdict == "promote", (verdict, controller.last_event)
+        statuses = sorted({r[1] for r in records})
+        after = [r for r in records if r[0] > done]
+        assert statuses == [200], statuses
+        assert {r[2] for r in after} == {ids["B"]}, "A answered after the promote"
+        _, Ub, Vb = gens["B"]
+        hold_answers([json.loads(r[4])["itemScores"] for r in after],
+                     [r[3] for r in after], Ub, Vb, 10)
+        assert store.live().instance_id == ids["B"] == deployed.instance.id
+        mem["b_promoted"] = allocated()
+        lc_promoted = get_json(server.port, "/lifecycle.json")[1]
+        out["promote"] = {
+            "verdict": verdict, "tick_s": promote_s, "answers": len(records),
+            "after": len(after), "non_200": sum(r[1] != 200 for r in records),
+            "feedback_status": fb_status, "joined": joined,
+            "reason": controller.last_event.get("reason"),
+            "lifecycle": {k: lc_promoted.get(k) for k in
+                          ("engineInstanceId", "canary_in_progress")},
+        }
+        stage("C")
+        faults.install([{"seam": "canary.predict", "kind": "error",
+                         "match": ids["C"]}])
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+            canary_codes: dict = {}
+            try:
+                for u in rng.choice(canary_users, LC_CANARY_ERRORS):
+                    conn.request("POST", "/queries.json",
+                                 body=json.dumps({"user": f"u{u}", "num": 10}))
+                    resp = conn.getresponse()
+                    resp.read()
+                    canary_codes[resp.status] = canary_codes.get(resp.status, 0) + 1
+            finally:
+                conn.close()
+            assert canary_codes == {500: LC_CANARY_ERRORS}, canary_codes
+            verdict, rollback_s, records, done = clients_around(
+                server.port, live_users[:4096], LC_CLIENTS, controller.tick)
+        finally:
+            faults.clear()
+        assert verdict == "rollback", (verdict, controller.last_event)
+        assert sorted({r[1] for r in records}) == [200]
+        assert {r[2] for r in records} == {ids["B"]}, "live answers changed"
+        hold_answers([json.loads(r[4])["itemScores"] for r in records[:512]],
+                     [r[3] for r in records[:512]], Ub, Vb, 10)
+        assert store.get(ids["C"]).status == "rolled_back"
+        assert deployed.canary_instance is None
+        mem["c_rolled_back"] = allocated()
+        out["rollback"] = {
+            "verdict": verdict, "tick_s": rollback_s, "canary_status": canary_codes,
+            "live_answers": len(records), "non_200": sum(r[1] != 200 for r in records),
+            "reason": controller.last_event.get("reason"),
+            "rollbacks_total": controller._m_rollbacks.labels("error_rate").value,
+        }
+        out["quality"] = get_json(server.port, "/quality.json")[1]["variants"]
+        manifest = get_json(server.port, "/lifecycle.json")[1]["manifest"]
+        name_of = {v: k for k, v in ids.items()}
+        out["manifest"] = [(name_of.get(g["instance_id"], g["instance_id"]), g["status"])
+                           for g in manifest["generations"]]
+
+        # (e) replay: kernel-3 answers of (a) in this process, by the default
+        # tolerance and by 1e-5; a solo answer through the CLI, then again
+        # after a flipped byte
+        kernel3: dict = {"exact_matched": 0, "tolerance_matched": 0, "replayed": 0,
+                         "max_score_diff": 0.0}
+        for j in range(0, len(items), len(items) // LC_REPLAYED):
+            it = items[j]
+            record = {**it.prov, "payload": it.payload, "request_id": f"burst-{j}",
+                      "items": [{"item": x["item"], "score": x["score"]}
+                                for x in results[j][1]["itemScores"]]}
+            exact = replay_request(record, storage=storage, device=device)
+            loose = replay_request(record, storage=storage, device=device,
+                                   score_tolerance=1e-5)
+            kernel3["replayed"] += 1
+            kernel3["exact_matched"] += exact["matched"]
+            kernel3["tolerance_matched"] += loose["matched"]
+            for d in exact["divergences"]:
+                assert d["field"].endswith(".score"), d
+                kernel3["max_score_diff"] = max(
+                    kernel3["max_score_diff"], abs(d["recorded"] - d["replayed"]))
+            assert loose["matched"], loose["divergences"][:4]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/queries.json",
+            data=json.dumps({"user": f"u{int(live_users[7])}", "num": 10}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+            rid = r.headers["X-Pio-Request-Id"]
+        url = f"http://127.0.0.1:{server.port}"
+        argv = ["replay-request", rid, "--url", url, "--device", device]
+        t0 = time.perf_counter()
+        ((rc_solo, so, se),) = cli_once(home, [argv])
+        replay_s = time.perf_counter() - t0
+        assert rc_solo == 0 and "MATCHED" in so, (rc_solo, so, se[-2000:])
+        flipped = flip_stored_byte(storage.models(), ids["B"]).split(":", 1)[1]
+        ((rc_flip, so, se),) = cli_once(home, [argv])
+        assert rc_flip == 1 and "generation.bytes" in se, (rc_flip, so, se[-2000:])
+        out["replay"] = {"solo_exit": rc_solo, "flipped_exit": rc_flip,
+                         "flipped": flipped, "cli_s": replay_s, "kernel3": kernel3}
+        for s in servers:
+            s.shutdown()
+        servers.clear()
+        deployed = app = controller = server = events = None
+        mem["ab_down"] = allocated()
+
+        # (c) the warm-start retrain beside serving
+        lc_env = {"PIO_LIFECYCLE_STALENESS_S": "2", "PIO_LIFECYCLE_INTERVAL_S": "0.5",
+                  "PIO_LIFECYCLE_COOLDOWN_S": "3600", "PIO_CANARY_FRACTION": "0.5",
+                  "PIO_CANARY_MIN_REQUESTS": "50", "PIO_CANARY_MIN_JOINED": "0",
+                  "PIO_LIFECYCLE_RETRAIN_ON_DRIFT": "0"}
+        before = read_launches()
+        with scoped_env(**lc_env):
+            server = create_prediction_server(
+                "recommendation", host="127.0.0.1", port=0, storage=storage,
+                engine_id="ml100k", device=device, enable_lifecycle=True)
+        servers.append(server)
+        server.start_background()
+        controller = server.app.lifecycle
+        small_users = np.arange(ML100K_USERS)
+        stages = _Stages()
+        wf_log = logging.getLogger("predictionio_tpu_torch.workflow")
+        wf_log.setLevel(logging.INFO)
+        wf_log.addHandler(stages)
+        t0 = time.perf_counter()
+        seen: dict = {}
+
+        def promoted():
+            # each controller event's first sighting, 10 ms apart at most
+            while True:
+                last = controller.last_event or {}
+                seen.setdefault(last.get("event"), time.perf_counter() - t0)
+                if last.get("event") in ("promote", "rollback", "retrain_failed"):
+                    return last
+                assert time.perf_counter() - t0 < 240, last
+                time.sleep(0.01)
+
+        try:
+            with client_process(server.port, [f"u{u}" for u in small_users],
+                                LC_CLIENTS, tmp) as clients:
+                last = promoted()
+                retrain_s = time.perf_counter() - t0
+                # the clients go on past the promote: answers from the new
+                # generation after the flip
+                time.sleep(1.0)
+        finally:
+            wf_log.removeHandler(stages)
+        assert last["event"] == "promote", last
+        launches = read_launches()
+        small = storage.engine_instances().get(last["instance"])
+        assert server.app.lifecycle.deployed.instance.id == small.id
+        answers = sum(clients["statuses"].values())
+        out["retrain"] = {
+            "seconds_to_promote": retrain_s, "answers": answers,
+            "non_200": answers - clients["statuses"].get("200", 0),
+            "answered_by": {("new" if k == small.id else "old"): v
+                            for k, v in clients["instances"].items()},
+            "als_fused_accum": launches["als_fused_accum"] - before["als_fused_accum"],
+            "fused_topk": launches["fused_topk"] - before["fused_topk"],
+            "warm_start_from": small0.id, "promoted": small.id,
+            "reason": last.get("reason"),
+            # seconds from the deploy's start to each event's first sighting
+            "events_s": {k: v for k, v in seen.items() if k},
+            # the retrain's own stage split (run_train's logged breakdown)
+            "retrain_stage_s": stages.stages,
+            "answers_per_s": answers / (retrain_s + 1.0),
+        }
+        assert out["retrain"]["non_200"] == 0, out["retrain"]
+        assert not on_card or out["retrain"]["als_fused_accum"] == 2 * ITERATIONS, out
+        server.shutdown()
+        servers.clear()
+        server = controller = None
+        mem["retrain_down"] = allocated()
+        out["retrain"]["live_cuda_tensors"] = cuda_census() if on_card else None
+
+        # (d) two tenants on one deploy, a third refused
+        blob = load_factors(storage, small.id)
+        Us, Vs = blob["user_factors"], blob["item_factors"]
+        small_vocab = [str(x) for x in blob["user_vocab"]]
+        small_items = [str(x) for x in blob["item_vocab"]]
+        sizes = {n: hbm_footprint(storage.models(), i)
+                 for n, i in (("big", ids["A"]), ("small", small.id),
+                              ("third", ids["C"]))}
+        budget = sizes["big"] + sizes["small"] + sizes["third"] // 2
+        treg = MetricsRegistry()
+        tenants = deploy_tenant_engines(
+            [{"app": "big", "engine_factory": "recommendation",
+              "engine_instance_id": ids["A"]},
+             {"app": "small", "engine_factory": "recommendation",
+              "engine_id": "ml100k", "engine_instance_id": small.id,
+              "quota_rps": 50, "quota_burst": 50}],
+            storage=storage, hbm_budget_bytes=budget, registry=treg, device=device)
+        tapp = create_multi_tenant_server_app(
+            tenants, use_microbatch=True, max_batch=LC_WAVE, max_queue=0,
+            registry=treg)
+        server = AsyncAppServer(tapp, "127.0.0.1", 0).start_background()
+        servers.append(server)
+        mem["tenants_bound"] = allocated()
+        third = deploy_engine("recommendation", storage=storage,
+                              engine_instance_id=ids["C"], device=device)
+        mem["third_loaded"] = allocated()
+
+        def refuse():
+            try:
+                tenants.admit(Tenant("third", third))
+            except TenantAdmissionError as e:
+                return e.to_dict()
+            raise AssertionError("the third tenant was admitted")
+
+        refusal, refuse_s, records, _ = clients_around(
+            server.port, rng.choice(ML20M_USERS, 4096), LC_CLIENTS, refuse)
+        third = None
+        mem["third_refused"] = allocated()
+        assert sorted({r[1] for r in records}) == [200]
+        assert tenants.apps() == ["big", "small"]
+        _, Ua, Va = gens["A"]
+        hold_answers([json.loads(r[4])["itemScores"] for r in records[:512]],
+                     [r[3] for r in records[:512]], Ua, Va, 10)
+        assert mem["third_refused"] - mem["tenants_bound"] < factor_bytes // 4, mem
+        big_users = rng.choice(ML20M_USERS, 1024)
+        small_rows = rng.choice(len(small_vocab), LC_SMALL_USERS, replace=False)
+        mixed = ([QueuedQuery({"user": f"u{u}", "num": 10}, tenants.get("big"))
+                  for u in big_users]
+                 + [QueuedQuery({"user": small_vocab[r], "num": 10}, tenants.get("small"))
+                    for r in small_rows])
+        order = list(range(len(mixed)))
+        random.Random(SEED).shuffle(order)
+        mixed = [mixed[j] for j in order]
+        before = read_launches()["fused_topk"]
+        t0 = time.perf_counter()
+        mres = burst_items(tapp.microbatcher, mixed, [{} for _ in mixed])
+        mixed_s = time.perf_counter() - t0
+        assert all(r[0] == "ok" for r in mres)
+        big_rows = [j for j, it in enumerate(mixed) if it.tenant.name == "big"]
+        sm_rows = [j for j, it in enumerate(mixed) if it.tenant.name == "small"]
+        hold_answers([mres[j][1]["itemScores"] for j in big_rows],
+                     [int(mixed[j].payload["user"][1:]) for j in big_rows], Ua, Va, 10)
+        row_of = {name: k for k, name in enumerate(small_vocab)}
+        hold_answers([mres[j][1]["itemScores"] for j in sm_rows],
+                     [row_of[mixed[j].payload["user"]] for j in sm_rows], Us, Vs, 10,
+                     item_name=small_items.__getitem__)
+        tparts = partitions_of(mixed)
+        sheds = 0
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        try:
+            for k in range(LC_QUOTA_QUERIES):
+                conn.request("POST", "/queries.json",
+                             body=json.dumps({"user": small_vocab[k % len(small_vocab)],
+                                              "num": 10}),
+                             headers={"X-Pio-App": "small"})
+                resp = conn.getresponse()
+                resp.read()
+                if resp.status == 503:
+                    assert resp.getheader("X-Pio-Shed-Reason") == "tenant_quota"
+                    sheds += 1
+                else:
+                    assert resp.status == 200 and resp.getheader("X-Pio-App") == "small"
+        finally:
+            conn.close()
+        tj = get_json(server.port, "/tenants.json")[1]
+        out["tenants"] = {
+            "budget_bytes": budget, "stored_bytes": sizes, "refusal": refusal,
+            "refuse_s": refuse_s, "answers_around_refusal": len(records),
+            "mixed_queries": len(mixed), "mixed_s": mixed_s,
+            "fused_topk": read_launches()["fused_topk"] - before,
+            "partitions": [{k: p[k] for k in ("app", "size", "on_device",
+                                              "split_s", "dispatch_s", "finalize_s")}
+                           for p in tparts],
+            "quota_queries": LC_QUOTA_QUERIES, "quota_sheds": sheds,
+            "quota_denied": [t["quota"]["denied"] for t in tj["tenants"]
+                             if t["app"] == "small"][0],
+            "device_memory": tj.get("device_memory"),
+        }
+        assert len(tparts) == 2 and all(p["on_device"] for p in tparts), tparts
+        assert not on_card or out["tenants"]["fused_topk"] == 2, out["tenants"]
+        assert sheds > 0 and out["tenants"]["quota_denied"] == sheds, out["tenants"]
+        out["launches"] = read_launches()
+        # -- end --
+        server.shutdown()
+        servers.clear()
+        tenants = tapp = server = None
+        mem["end"] = allocated()
+        out["device_memory"] = mem
+    finally:
+        faults.clear()
+        for s in servers:
+            s.shutdown()
+        storage.close()
+        tmp_dir.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["nvidia_smi"] = nvidia_smi_line() if on_card else None
+    return out
+
+
 def _swallow(fn):
     """``fn()``, or None when it raised (a request to a process killed
     under it)."""
@@ -5383,6 +6043,8 @@ def main() -> int:
     emit(generations)
     operator = operator_phase()
     emit(operator)
+    lifecycle = lifecycle_phase()
+    emit(lifecycle)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
     pretrain = ncf_train["pretrain"]
     rank32_t = pretrain["kernel1_rank32_implicit_user_half_step"]
@@ -5432,6 +6094,9 @@ def main() -> int:
                     # the TLS deploy's feedback wave and pio batchpredict by
                     # engine coordinates
                     "launches_operator": operator["launches"]["fused_topk"],
+                    # both canary waves' two partitions each, and the two
+                    # tenants' partitions of one wave
+                    "launches_lifecycle": lifecycle["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),
@@ -5476,6 +6141,8 @@ def main() -> int:
                     launches_eval=evaluation["launches"]["als_fused_accum"],
                     # pio train --engine-json under named coordinates
                     launches_operator=operator["launches"]["als_fused_accum"],
+                    # the lifecycle controller's warm-start retrain
+                    launches_lifecycle=lifecycle["launches"]["als_fused_accum"],
                     # rank 32, implicit, on the pretrain's ML-20M user half-step
                     rank32_shape=rank32_t["shape"],
                     rank32_ms=rank32_t["ms"],
@@ -5496,6 +6163,7 @@ def main() -> int:
                     "als_segment_accum", "predictionio_tpu/ops/als_pallas.py:112",
                     ml20m["chunked_launches"]["als_segment_accum"], chunk_t,
                     launches_operator=operator["launches"]["als_segment_accum"],
+                    launches_lifecycle=lifecycle["launches"]["als_segment_accum"],
                     wide_shape=wide_c["shape"],
                     wide_ms=wide_c["ms"],
                     wide_plain_ms=wide_c["plain_ms"],

@@ -13,7 +13,10 @@ host numpy replica, larger ones by the hand-written fused score+top-k CUDA
 kernel (``csrc/fused_topk.cu``), fenced while the next wave dispatches.
 The rest of the ALS family trains implicit ALS on the same kernels and
 serves through ``ops.similarity``: ``similarproduct``, ``recommendeduser``
-and ``ecommerce`` (whose business rules read the event store live).
+and ``ecommerce`` (whose business rules read the event store live).  A
+deploy may hold a canary beside its live generation, run the lifecycle
+controller (``lifecycle``) and serve several engines as tenants
+(``tenancy``), each wave partitioned by tenant and side.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``
 (``device.resolve_device``).

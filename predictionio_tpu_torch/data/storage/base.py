@@ -19,6 +19,7 @@
 from __future__ import annotations
 
 import abc
+import hashlib
 import json
 from dataclasses import dataclass, field, fields, replace
 from datetime import datetime, timezone
@@ -603,6 +604,16 @@ class EventFrame:
                 )
             )
         return out
+
+
+def entity_shard(entity_type: str, entity_id: str, n_shards: int) -> int:
+    """The HBEventsUtil.scala:83 row-key hash, reduced to a shard index:
+    the md5 of ``f"{entity_type}-{entity_id}"``, its first four bytes
+    big-endian, modulo ``n_shards``.  The JAX package's function bit for
+    bit: the canary split (``lifecycle.canary``) keys on it, so a user
+    lands on the same side of a split in either package."""
+    digest = hashlib.md5(f"{entity_type}-{entity_id}".encode()).digest()
+    return int.from_bytes(digest[:4], "big") % n_shards
 
 
 def _to_ms(dt: datetime) -> int:

@@ -1,10 +1,20 @@
-"""Model lifecycle: the crash-safe generation store and its checksum gate.
-
-The JAX package's ``lifecycle`` minus what is not ported yet: the canary
-(``canary.py``) and the closed-loop controller (``controller.py``) come
-with a later slice.
+"""Zero-downtime model lifecycle: crash-safe generations, canary rollout,
+and drift-triggered warm-start retraining (the JAX package's
+``lifecycle``, exported under the same names).
 """
 
+from predictionio_tpu_torch.lifecycle.canary import (
+    CANARY_VARIANT,
+    CanaryDecider,
+    CanaryPolicy,
+    CanaryTracker,
+    in_canary_fraction,
+)
+from predictionio_tpu_torch.lifecycle.controller import (
+    LifecycleController,
+    LifecyclePolicy,
+    default_retrain,
+)
 from predictionio_tpu_torch.lifecycle.generations import (
     CorruptModelError,
     Generation,
@@ -15,10 +25,18 @@ from predictionio_tpu_torch.lifecycle.generations import (
 )
 
 __all__ = [
+    "CANARY_VARIANT",
+    "CanaryDecider",
+    "CanaryPolicy",
+    "CanaryTracker",
     "CorruptModelError",
     "Generation",
     "GenerationStore",
+    "LifecycleController",
     "LifecycleError",
+    "LifecyclePolicy",
     "compute_checksum",
     "compute_checksums",
+    "default_retrain",
+    "in_canary_fraction",
 ]

@@ -7,10 +7,11 @@ device roofline from CUDA events and least-work costs, launch-shape churn
 and the wave timeline (device.py), ``torch.profiler`` capture and the card's
 memory gauges (profiler.py), the host stack sampler (sampling.py), solo-path
 stage attribution (hotpath.py), the headroom model (capacity.py), decision
-provenance (provenance.py), and the HTTP routes for all of it (http.py).
+provenance and its replay (provenance.py), online model quality and drift
+(quality.py), and the HTTP routes for all of it (http.py).
 
 The JAX package's ``obs/`` under the same metric names, routes and JSON
-shapes.  Not here yet: the cost ledger, online quality, alerts, incidents,
+shapes.  Not here yet: the cost ledger, alerts, incidents,
 the cross-process trace assembler, the verdict module and the sniffer
 plugin.  Dependency-free apart from torch, which only device.py and
 profiler.py read, and only when the process already uses it.

@@ -32,11 +32,15 @@ paths, status codes and JSON shapes:
                             no keys); advisory SLO status rides along
   GET  /readyz              readiness checks (model loaded, stores up, ...)
   GET  /slo.json            rolling-window SLO + burn rates
+  GET  /quality.json        online model quality: per-variant metrics and
+                            drift (``obs/quality.py``; when a monitor is
+                            passed)
+  GET  /tenants.json        the resident tenants (``tenancy``; when a
+                            registry is passed; ?app= for one)
 
 Not here yet, each with its module: ``/costs.json`` (``obs/costs.py``),
-``/quality.json`` (``obs/quality.py``), ``/alerts.json`` and
-``/incidents*`` (``obs/alerts.py``, ``obs/incident.py``),
-``/tenants.json`` (tenancy), ``/shards.json`` (multi-device).
+``/alerts.json`` and ``/incidents*`` (``obs/alerts.py``,
+``obs/incident.py``), ``/shards.json`` (multi-device).
 
 Auth: pass ``access_key`` to gate everything here except ``/healthz``; apps
 with an app-level ``HTTPApp(access_key=...)`` gate these like every other
@@ -182,6 +186,8 @@ def add_observability_routes(
     debug_routes: bool = True,
     hotpath: Any | None = None,
     provenance: ProvenanceStore | None = None,
+    quality: Any | None = None,
+    tenants: Any | None = None,
 ):
     """The observability surface: metrics + logs + flight + profiler +
     health.  Installs ``app.slo`` / ``app.flight`` / ``app.provenance`` /
@@ -200,7 +206,13 @@ def add_observability_routes(
     ``hotpath`` (a :class:`~predictionio_tpu_torch.obs.hotpath.HotPathTracker`)
     installs ``app.hotpath`` and, on debug-route servers, serves the
     solo-path stage table at ``GET /hotpath.json``; a route whose object is
-    not passed is not registered.  ``POST /debug/profile`` profiles CUDA
+    not passed is not registered; so do ``quality`` (a
+    :class:`~predictionio_tpu_torch.obs.quality.QualityMonitor`:
+    ``app.quality``, ``GET /quality.json`` on debug-route servers, its
+    gauges refreshed on each scrape) and ``tenants`` (a
+    :class:`~predictionio_tpu_torch.tenancy.TenantRegistry`:
+    ``app.tenants``, ``GET /tenants.json`` on the scrape surface).
+    ``POST /debug/profile`` profiles CUDA
     activity when the app says its model lives on the card
     (``app.profile_cuda``), CPU activity only otherwise.
     """
@@ -228,6 +240,10 @@ def add_observability_routes(
     app.readiness = dict(readiness or {})
     if hotpath is not None:
         app.hotpath = hotpath
+    if quality is not None:
+        app.quality = quality
+    if tenants is not None:
+        app.tenants = tenants
     ring = get_log_ring()
 
     original_route = app.route
@@ -256,9 +272,13 @@ def add_observability_routes(
     # -- metrics + traces (gated when a key is configured) -------------------
     def _prescrape() -> None:
         """Freshen scrape-time state: the runtime gauges (the card's memory,
-        the transfer tallies), THEN the sparkline ring so it samples the
-        refreshed numbers."""
+        the transfer tallies), the online-quality gauges (rate-limited: a
+        feedback outage must show as decaying values, not frozen ones),
+        THEN the sparkline ring so it samples the refreshed numbers."""
         sample_runtime_gauges(reg)
+        q = getattr(app, "quality", None)
+        if q is not None:
+            q.refresh_gauges()
         reg.history.sample(reg)
 
     @route("GET", "/metrics")
@@ -302,9 +322,33 @@ def add_observability_routes(
             ),
         )
 
+    # -- tenant registry: on the scrape surface (gated when a key is
+    # configured); `tenants --url` and `status --url` read it
+    if tenants is not None:
+
+        @route("GET", "/tenants\\.json")
+        def tenants_json(req: Request) -> Response:
+            snap = app.tenants.snapshot()
+            want = req.query.get("app")
+            if want is not None:
+                rows = [t for t in snap["tenants"] if t.get("app") == want]
+                if not rows:
+                    return json_response(
+                        404, {"error": "unknown_tenant", "app": want}
+                    )
+                snap = dict(snap, tenants=rows)
+            return json_response(200, snap)
+
     if not debug_routes:
         _add_health_routes(app, route)
         return app
+
+    # -- online model quality ------------------------------------------------
+    if quality is not None:
+
+        @route("GET", "/quality\\.json")
+        def quality_json(req: Request) -> Response:
+            return json_response(200, app.quality.snapshot())
 
     # -- structured log ring -------------------------------------------------
     @route("GET", "/logs\\.json")

@@ -1,7 +1,6 @@
-"""Decision provenance: explain any answer the server gave.
+"""Decision provenance: explain any answer the server gave, and replay it.
 
-The JAX package's ``obs/provenance.py`` without its lifecycle half.
-Metrics say p99 moved, traces say where the time went — neither says
+The JAX package's ``obs/provenance.py``.  Metrics say p99 moved, traces say where the time went — neither says
 *why* an answer came out as it did: which generation, which route through
 the engine, which factor-cache rows, which filters, which wave.  The
 :class:`ProvenanceStore` keeps a bounded ring of per-answer
@@ -25,9 +24,14 @@ MicroBatcher's worker/finalizer threads (where the request scope is not
 visible).  The record is assembled once, at request finish, by
 :func:`finalize_record` (called from ``record_request_outcome``).
 
-Not here: the generation manifest's identity (checksum, shard axes) and
-``replay_request`` (``pio replay-request``), which need the lifecycle's
-generation store; the port has none yet.
+Each record carries the generation manifest's identity of the binding
+that answered (:func:`generation_info`: checksum, status, engine
+coordinates), so :func:`replay_request` (the CLI's ``replay-request``)
+can rebind exactly those bytes, checksum-verified, re-answer the recorded
+query through the host replica (``DeployedEngine.predict``) and diff the
+item ids and raw scores.  Scores compare by ``repr`` unless a tolerance
+is given: an answer a device wave computed (kernel 3 on a card) may differ
+from the host replica's in the last bit of a score.
 """
 
 from __future__ import annotations
@@ -75,6 +79,11 @@ def begin_capture(deep: bool = False) -> contextvars.Token:
 
 def end_capture(token: contextvars.Token) -> None:
     _scope_var.reset(token)
+
+
+def deep_active() -> bool:
+    s = _scope_var.get()
+    return bool(s is not None and s["deep"])
 
 
 def note(**fields: Any) -> None:
@@ -147,21 +156,81 @@ def note_answer(rendered: Any) -> None:
         note(answer=rendered)
 
 
+#: per instance id, so one manifest read per generation per process
+_GEN_MEMO: dict[tuple[str, str], dict[str, Any]] = {}
+_GEN_MEMO_CAP = 128
+_gen_memo_lock = threading.Lock()
+
+
+def generation_info(gen_store: Any, instance_id: str) -> dict[str, Any] | None:
+    """The manifest's identity of one generation: checksum, status, shard
+    axes, and the engine coordinates replay needs to rebuild the store.
+    Memoized; None when the engine has no generation store."""
+    if gen_store is None or instance_id is None:
+        return None
+    memo_key = (
+        f"{gen_store.engine_id}/{gen_store.engine_version}/"
+        f"{gen_store.engine_variant}",
+        instance_id,
+    )
+    with _gen_memo_lock:
+        hit = _GEN_MEMO.get(memo_key)
+    if hit is not None:
+        return hit
+    try:
+        gen = gen_store.get(instance_id)
+    except Exception:
+        return None
+    if gen is None:
+        return None
+    axes = (gen.shard_plan or {}).get("axes")
+    info = {
+        "instance": instance_id,
+        "checksum": gen.checksum,
+        "status": gen.status,
+        "shard_axes": dict(axes) if axes else None,
+        "engine": {
+            "id": gen_store.engine_id,
+            "version": gen_store.engine_version,
+            "variant": gen_store.engine_variant,
+        },
+    }
+    with _gen_memo_lock:
+        if len(_GEN_MEMO) >= _GEN_MEMO_CAP:
+            _GEN_MEMO.clear()
+        _GEN_MEMO[memo_key] = info
+    return info
+
+
 def binding_fields(deployed: Any, binding: Any) -> dict[str, Any]:
-    """The cheap per-answer binding identity: which generation answered and
-    on which side.  The port serves one live generation (no canary yet),
-    so ``role`` is ``"live"`` and ``variant`` the instance's engine
-    variant, as the JAX package labels a live binding."""
+    """The cheap per-answer binding identity: which generation, which
+    hash-side, and (memoized) what the manifest says about its bytes.  A
+    deployed engine without ``binding_label`` (a bare test stub) labels
+    the binding with its instance's engine variant, as a live binding is
+    labelled."""
     instance = binding.instance
+    label = getattr(deployed, "binding_label", None)
     fields: dict[str, Any] = {
         "instance_id": instance.id,
-        "variant": getattr(instance, "engine_variant", None) or "default",
+        "variant": (
+            label(binding) if label is not None
+            else getattr(instance, "engine_variant", None) or "default"
+        ),
         "role": getattr(binding, "role", "live"),
     }
     factory = getattr(instance, "engine_factory", None)
     if factory:
         fields["engine_factory"] = factory
+    gen = generation_info(
+        getattr(deployed, "generation_store", None), instance.id
+    )
+    if gen is not None:
+        fields["generation"] = gen
     return fields
+
+
+def note_binding(deployed: Any, binding: Any) -> None:
+    note(**binding_fields(deployed, binding))
 
 
 # -- the bounded record store ------------------------------------------------
@@ -246,3 +315,199 @@ def finalize_record(
     if scope["deep"] and scope["deep_notes"]:
         entry["deep"] = dict(scope["deep_notes"])
     store.record(entry)
+
+
+# -- offline replay ----------------------------------------------------------
+
+
+class ReplayError(RuntimeError):
+    """The record cannot be replayed at all (no payload, unknown engine)."""
+
+
+def _diff_items(
+    recorded: list[dict[str, Any]],
+    replayed: list[dict[str, Any]],
+    score_tolerance: float,
+) -> list[dict[str, Any]]:
+    """Name every divergent field between the recorded and replayed item
+    lists.  Scores compare bit-exactly by default (``repr`` equality, so
+    NaN == NaN and -0.0 != 0.0); ``score_tolerance`` relaxes that for
+    replays of answers another route computed (a device wave's kernel 3
+    against the host replica)."""
+    divergences: list[dict[str, Any]] = []
+    if len(recorded) != len(replayed):
+        divergences.append(
+            {
+                "field": "items.length",
+                "recorded": len(recorded),
+                "replayed": len(replayed),
+            }
+        )
+    for i, (a, b) in enumerate(zip(recorded, replayed)):
+        if a.get("item") != b.get("item"):
+            divergences.append(
+                {
+                    "field": f"items[{i}].item",
+                    "recorded": a.get("item"),
+                    "replayed": b.get("item"),
+                }
+            )
+            continue
+        sa, sb = a.get("score"), b.get("score")
+        if score_tolerance > 0 and sa is not None and sb is not None:
+            if abs(float(sa) - float(sb)) <= score_tolerance:
+                continue
+        elif repr(sa) == repr(sb):
+            continue
+        divergences.append(
+            {
+                "field": f"items[{i}].score",
+                "recorded": sa,
+                "replayed": sb,
+            }
+        )
+    return divergences
+
+
+def replay_request(
+    record: Mapping[str, Any],
+    storage: Any = None,
+    score_tolerance: float = 0.0,
+    device: Any = None,
+) -> dict[str, Any]:
+    """Re-execute a recorded decision offline and diff it bit-exactly.
+
+    Rebinds the record's manifest-named generation from the
+    :class:`~predictionio_tpu_torch.lifecycle.generations.GenerationStore`
+    (checksum-verified: corrupt or swapped bytes are a named divergence,
+    not a silent re-bless) onto ``device`` (default CUDA; raises without a
+    card unless ``device="cpu"``), re-runs the recorded query through the
+    same engine factory, and compares returned item ids + raw scores.
+
+    Returns ``{"matched": bool, "divergences": [...], "replayed": ...,
+    "instance_id": ...}``; ``matched`` is True only when every field is
+    bit-identical (or within ``score_tolerance``).  Divergences name what
+    moved:
+
+    - ``generation``          — instance absent from the manifest
+    - ``generation.checksum`` — manifest names DIFFERENT bytes now
+    - ``generation.bytes``    — stored bytes fail checksum (corrupt/torn)
+    - ``items[i].item``       — a different item id at rank i
+    - ``items[i].score``      — same item, another score
+    - ``answer``              — non-itemScores answers compare whole
+    """
+    from predictionio_tpu_torch.data.storage.config import get_storage
+    from predictionio_tpu_torch.device import resolve_device
+    from predictionio_tpu_torch.lifecycle.generations import (
+        CorruptModelError,
+        GenerationStore,
+    )
+
+    instance_id = record.get("instance_id")
+    payload = record.get("payload")
+    gen = record.get("generation") or {}
+    engine_coords = gen.get("engine") or {}
+    factory_name = record.get("engine_factory")
+    if instance_id is None or payload is None:
+        raise ReplayError(
+            "record is not replayable: missing instance_id or payload "
+            "(was it captured by an answered /queries.json request?)"
+        )
+    device = resolve_device(device)
+    storage = storage or get_storage()
+    divergences: list[dict[str, Any]] = []
+
+    gen_store = GenerationStore(
+        storage.models(),
+        engine_coords.get("id", "default"),
+        engine_coords.get("version", "default"),
+        engine_coords.get("variant", "default"),
+    )
+    manifest_gen = gen_store.get(instance_id)
+    if manifest_gen is None:
+        divergences.append(
+            {
+                "field": "generation",
+                "recorded": instance_id,
+                "replayed": None,
+                "detail": "instance is not in the generation manifest",
+            }
+        )
+        return _replay_report(record, divergences, None)
+    recorded_checksum = gen.get("checksum")
+    if recorded_checksum and manifest_gen.checksum != recorded_checksum:
+        divergences.append(
+            {
+                "field": "generation.checksum",
+                "recorded": recorded_checksum,
+                "replayed": manifest_gen.checksum,
+                "detail": "manifest now names a different generation's bytes",
+            }
+        )
+        return _replay_report(record, divergences, None)
+    try:
+        gen_store.verify(manifest_gen)
+    except CorruptModelError as e:
+        divergences.append(
+            {
+                "field": "generation.bytes",
+                "recorded": recorded_checksum,
+                "replayed": None,
+                "detail": str(e),
+            }
+        )
+        return _replay_report(record, divergences, None)
+
+    from predictionio_tpu_torch.core.engine import resolve_engine_factory
+    from predictionio_tpu_torch.server.prediction_server import (
+        DeployedEngine,
+        _render_prediction,
+    )
+
+    instance = storage.engine_instances().get(instance_id)
+    if instance is None:
+        raise ReplayError(
+            f"engine instance {instance_id!r} is not in the instance store"
+        )
+    factory = resolve_engine_factory(factory_name or instance.engine_factory)
+    deployed = DeployedEngine(
+        factory(), instance, storage, gen_store, device=device
+    )
+    query = deployed.extract_query(dict(payload))
+    _, prediction = deployed.predict(query)
+    rendered = _render_prediction(prediction)
+    replayed = item_scores(rendered)
+
+    recorded_items = record.get("items")
+    if recorded_items is not None and replayed is not None:
+        divergences.extend(
+            _diff_items(recorded_items, replayed, score_tolerance)
+        )
+    elif record.get("answer") is not None:
+        if record["answer"] != rendered:
+            divergences.append(
+                {
+                    "field": "answer",
+                    "recorded": record["answer"],
+                    "replayed": rendered,
+                }
+            )
+    else:
+        raise ReplayError(
+            "record holds neither items nor an answer body to diff"
+        )
+    return _replay_report(record, divergences, replayed or rendered)
+
+
+def _replay_report(
+    record: Mapping[str, Any],
+    divergences: list[dict[str, Any]],
+    replayed: Any,
+) -> dict[str, Any]:
+    return {
+        "matched": not divergences,
+        "request_id": record.get("request_id"),
+        "instance_id": record.get("instance_id"),
+        "divergences": divergences,
+        "replayed": replayed,
+    }

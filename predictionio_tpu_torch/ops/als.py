@@ -343,9 +343,10 @@ def _train_mode(user_idx, item_idx, rating, num_users, num_items,
         U = solve(accumulate(su, V, p, mode), V, p)
         V = solve(accumulate(si, U, p, mode), U, p)
     if device.type == "cuda":
-        # the train ends when the card is done (and a fault surfaces here,
-        # inside the mode ladder)
-        torch.cuda.synchronize(device)
+        # the train ends when the card is done with it (and a fault surfaces
+        # here, inside the mode ladder); its own stream only, so a retrain
+        # on a side stream does not wait for a deploy's waves
+        torch.cuda.current_stream(device).synchronize()
     _record_pallas_efficiency(time.perf_counter() - t0, p, su, si, mode,
                               len(user_idx))
     return ALSState(user_factors=U[:num_users], item_factors=V[:num_items])

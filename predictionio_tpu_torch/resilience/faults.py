@@ -10,10 +10,14 @@ faults in either package.  The seams the port wires:
 - ``lifecycle.swap`` — ``verify_and_swap`` between verification and the
   manifest commit, where a stall lets a chaos run kill the process
   mid-swap;
-- ``eventstore.write`` — the event server, checked before each insert.
+- ``eventstore.write`` — the event server, checked before each insert;
+- ``canary.predict`` — every answer a canary binding computes (solo, host
+  wave, device dispatch), where injected errors trip the canary's error
+  guardrail;
+- ``lifecycle.swap`` also at the lifecycle controller's promote and
+  rollback, and ``lifecycle.retrain`` before its warm-start retrain.
 
-The remote-storage, compaction, canary and retrain seams come with their
-modules.
+The remote-storage and compaction seams come with their modules.
 
 Zero overhead when disabled: the seams do
 ``if faults.ACTIVE is not None: faults.ACTIVE.check(seam, label)`` — one

@@ -287,6 +287,11 @@ class AsyncAppServer:
             loop.call_soon_threadsafe(_stop)
         except RuntimeError:
             pass  # the loop already stopped (an earlier shutdown)
+        # the lifecycle controller's thread dies with the server: a stopped
+        # deploy must not go on retraining
+        lifecycle = getattr(self.app, "lifecycle", None)
+        if lifecycle is not None:
+            lifecycle.stop()
         # close the micro-batcher BEFORE the loop dies: queued submits get
         # failed while their futures can still be delivered (handlers answer
         # 500 instead of hanging), and its worker thread is released

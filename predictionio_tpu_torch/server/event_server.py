@@ -37,8 +37,13 @@ debug routes exist too and the key gates everything but ``/healthz``.
 The server never touches the card: a scrape creates no CUDA context.
 
 Each insert passes the ``eventstore.write`` fault seam first
-(``resilience.faults``).  Not here yet: the per-app cost ledger and the
-feedback join of online model quality.
+(``resilience.faults``).  Each accepted event whose name is a feedback
+event (``PIO_FEEDBACK_EVENTS``, default rate/buy/click/like/view/
+conversion) is joined back to a logged prediction of the quality monitor
+(``obs.quality``; the process default, which a ``deploy --event-port``
+shares with its prediction server): by the ``X-Pio-Request-Id`` the client
+echoed, then by the event's ``prId`` or ``pioRequestId`` property, then by
+entity within the join window.  Not here yet: the per-app cost ledger.
 """
 
 from __future__ import annotations
@@ -59,7 +64,9 @@ from predictionio_tpu_torch.data.webhooks import (
     to_event,
 )
 from predictionio_tpu_torch.obs.http import add_observability_routes
+from predictionio_tpu_torch.obs.logging import get_request_id
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+from predictionio_tpu_torch.obs.quality import QualityMonitor, default_quality
 from predictionio_tpu_torch.resilience import faults
 from predictionio_tpu_torch.resilience.admission import AdmissionController
 from predictionio_tpu_torch.server.httpd import (
@@ -140,18 +147,27 @@ def create_event_server_app(
     registry: MetricsRegistry | None = None,
     max_write_inflight: int | None = None,
     obs_access_key: str | None = None,
+    quality: QualityMonitor | None = None,
 ) -> HTTPApp:
     """The event server's routes over ``storage`` (default: the process
     storage).  ``max_write_inflight`` bounds the event-store writes in
     flight (default ``PIO_EVENT_MAX_INFLIGHT`` or 256; 0 = no bound).
     ``obs_access_key`` (default ``PIO_OBS_ACCESS_KEY``) opens the debug
-    observability routes behind that key."""
+    observability routes behind that key.  ``quality`` is the monitor
+    feedback events join (default: the process default on the default
+    registry, else a monitor of the given registry's own)."""
     storage = storage or get_storage()
     app = HTTPApp("eventserver")
     hourly = HourlyStats() if stats else None
     levents = storage.l_events()
     plugins = plugins or PluginContext.from_env()
     registry = registry or REGISTRY
+    if quality is None:
+        quality = (
+            default_quality()
+            if registry is REGISTRY
+            else QualityMonitor(registry=registry)
+        )
     if max_write_inflight is None:
         try:
             max_write_inflight = int(os.environ.get("PIO_EVENT_MAX_INFLIGHT", 256))
@@ -214,6 +230,14 @@ def create_event_server_app(
             else:
                 seen_event_labels.add(name)
         m_ingested.labels(name).inc()
+        if quality.is_feedback(event.event):
+            # the join key preference order: the X-Pio-Request-Id the
+            # client echoed on this ingest call (bound to the request
+            # context by the front end), then the event's own prId /
+            # pioRequestId, then entity id within the join window
+            quality.observe_feedback(
+                event, request_id=get_request_id(), app=auth.app_id
+            )
         if hourly is not None:
             hourly.update(
                 auth.app_id,
@@ -481,6 +505,7 @@ def create_event_server_app(
             "event_store": _event_store_ready,
             "metadata_store": _metadata_ready,
         },
+        quality=quality,
     )
     return app
 

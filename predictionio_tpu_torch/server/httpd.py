@@ -166,10 +166,16 @@ def header_get(headers: Mapping[str, str] | None, name: str) -> str:
 def request_budget(app: "HTTPApp", req: Request) -> float | None:
     """The request's time budget in seconds: the ``X-Pio-Deadline`` header
     when present (malformed values are ignored, not 500s), else the
-    server's ``default_deadline_s`` (None = no deadline)."""
+    request's tenant's deadline default (stamped on ``req`` by the
+    admission gate), else the server's ``default_deadline_s`` (None = no
+    deadline)."""
     budget = parse_budget(header_get(req.headers, DEADLINE_HEADER))
     if budget is None:
-        budget = getattr(app, "default_deadline_s", None)
+        tenant = getattr(req, "tenant", None)
+        if tenant is not None and tenant.default_deadline_s is not None:
+            budget = tenant.default_deadline_s
+        else:
+            budget = getattr(app, "default_deadline_s", None)
     return budget
 
 
@@ -181,19 +187,51 @@ def _record_slo_failure(app: "HTTPApp") -> None:
         slo.record(False, 0.0)
 
 
-def admit_request(app: "HTTPApp"):
-    """The server-wide in-flight cap, shared by both front ends.  Returns
-    ``(releaser, None)`` when admitted (``releaser`` is what the caller
-    must ``release()`` in its finally; None when no cap is configured) or
-    ``(None, 503 shed response)`` when rejected: past the cap, shedding
-    now is cheaper for everyone than queueing into a timeout."""
+class _CompositeRelease:
+    """Release both the server-wide admission slot and the per-tenant one
+    in one ``release()``: what ``admit_request`` hands the front ends when
+    a tenant registry is configured."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self, *parts):
+        self._parts = [p for p in parts if p is not None]
+
+    def release(self) -> None:
+        for p in self._parts:
+            p.release()
+
+
+def admit_request(app: "HTTPApp", req: Request | None = None):
+    """The admission gate shared by both front ends: the server-wide
+    in-flight cap, then (when ``app.tenants`` is a ``TenantRegistry`` and
+    the request is given) the per-tenant gate: its quota token bucket and
+    its in-flight cap, shed with ``reason=tenant_quota`` /
+    ``tenant_inflight`` before the query reaches the micro-batcher.
+
+    Returns ``(releaser, None)`` when admitted (``releaser`` is what the
+    caller must ``release()`` in its finally; None when no cap is
+    configured) or ``(None, 503 shed response)`` when rejected: past a
+    cap, shedding now is cheaper for everyone than queueing into a
+    timeout."""
     adm = getattr(app, "admission", None)
     if adm is not None and not adm.try_acquire():
         _record_slo_failure(app)
         return None, shed_response(
             "server over capacity; retry later", adm.retry_after_s
         )
-    return adm, None
+    tenants = getattr(app, "tenants", None)
+    if tenants is None or req is None:
+        return adm, None
+    tenant, releaser, shed = tenants.gate(req)
+    if shed is not None:
+        # the tenant's own SLO burned inside gate(); the server-wide SLO
+        # does not burn for a per-tenant shed, so one flooding tenant
+        # cannot page the whole replica
+        if adm is not None:
+            adm.release()
+        return None, shed
+    return _CompositeRelease(adm, releaser), None
 
 
 def admission_expired_response(app: "HTTPApp") -> Response:
@@ -333,7 +371,7 @@ class RequestScope:
     def __enter__(self) -> "RequestScope":
         if not self.observed:
             return self
-        self._adm, self.early = admit_request(self.app)
+        self._adm, self.early = admit_request(self.app, self.req)
         if self.early is not None:
             return self
         req = self.req
@@ -523,6 +561,11 @@ class AppServer:
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        # the lifecycle controller's thread dies with the server: a stopped
+        # deploy must not go on retraining
+        lifecycle = getattr(self.app, "lifecycle", None)
+        if lifecycle is not None:
+            lifecycle.stop()
         batcher = getattr(self.app, "microbatcher", None)
         if batcher is not None:
             batcher.close()

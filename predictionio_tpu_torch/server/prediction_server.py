@@ -47,7 +47,26 @@ live generation, checksum-verified, walking back to the last good one when
 its bytes are corrupt, and records what it bound as live; ``/reload``
 verifies the candidate's checksum, loads and sanity-checks it, passes the
 ``lifecycle.swap`` fault seam, commits the manifest and only then flips.
-Canary and tenant partitioning of waves come with a later slice.
+
+A deployed engine holds up to two generations: the live one and a canary
+(``stage_canary``), which answers the entities that hash into its fraction
+(``lifecycle.canary.in_canary_fraction`` over the payload's entity id).
+The lifecycle controller (``lifecycle.controller``, ``enable_lifecycle`` or
+``PIO_LIFECYCLE``) retrains warm on drift or staleness, stages the result
+as the canary, and promotes or rolls it back.  One deploy may serve several
+engines as tenants (``tenancy``, :func:`deploy_tenant_engines`): each
+request resolves its tenant (``X-Pio-App``, ``?app=`` or its access key)
+at the front ends' admission gate.  A micro-batched wave splits first by
+tenant, then by each tenant's live/canary split, each tenant's bindings
+captured once per wave; every partition takes its own serving slot and
+runs its own dispatch, fence and release, so the device-wave rules hold
+per partition: one of ``DEVICE_BATCH_MIN`` known users or more dispatches
+kernel 3 and keeps its retries on the card, a smaller one is answered by
+the host replica.  A poison query or a corrupt generation fails only its
+own partition.  Every answer names its generation, variant and tenant
+(``X-Pio-Engine-Instance``, ``X-Pio-Variant``, ``X-Pio-App``) and is
+logged, with that variant, to the online quality monitor
+(``obs.quality``), whose feedback join the event server feeds.
 
 Each answer, solo or in a wave, passes the output plugins
 (``server.plugins``, ``PIO_PLUGINS``) and then, with ``FeedbackConfig``
@@ -82,6 +101,10 @@ from predictionio_tpu_torch.data.storage.config import (
     get_storage,
 )
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.lifecycle.canary import (
+    CANARY_VARIANT,
+    in_canary_fraction,
+)
 from predictionio_tpu_torch.lifecycle.generations import (
     CorruptModelError,
     GenerationStore,
@@ -96,7 +119,13 @@ from predictionio_tpu_torch.obs.hotpath import (
     StageClock,
 )
 from predictionio_tpu_torch.obs.http import add_observability_routes
+from predictionio_tpu_torch.obs.logging import get_request_id
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+from predictionio_tpu_torch.obs.quality import (
+    DEFAULT_ENTITY_FIELDS,
+    QualityMonitor,
+    default_quality,
+)
 from predictionio_tpu_torch.obs.tracing import trace
 from predictionio_tpu_torch.parallel import device_cache
 from predictionio_tpu_torch.resilience import LoadShed, faults
@@ -114,26 +143,36 @@ from predictionio_tpu_torch.server.httpd import (
     shed_response,
 )
 from predictionio_tpu_torch.server.plugins import PluginContext
+from predictionio_tpu_torch.tenancy import (
+    APP_HEADER,
+    Tenant,
+    TenantRegistry,
+    TokenBucket,
+)
 from predictionio_tpu_torch.utils.params import extract_params
 
 log = logging.getLogger("predictionio_tpu_torch.serving")
 
 #: response header naming the generation that answered
 INSTANCE_HEADER = "X-Pio-Engine-Instance"
+#: response header naming the variant that answered: the engine variant
+#: for the live generation, ``canary`` for the canary
+VARIANT_HEADER = "X-Pio-Variant"
 #: response header listing the degraded-mode reasons of a 200 answer
 DEGRADED_HEADER = "X-Pio-Degraded"
 
 
 class Binding(NamedTuple):
     """One generation's immutable serving snapshot.  Every request and
-    every wave captures exactly one Binding, so a concurrent swap can never
-    hand it a torn mix of old algorithms and new models."""
+    every wave partition captures exactly one Binding, so a concurrent swap
+    can never hand it a torn mix of old algorithms and new models."""
 
     instance: EngineInstance
     params: Any
     algorithms: list
     models: list
     serving: Any
+    role: str = "live"  # "live" | "canary"
 
 
 @dataclasses.dataclass
@@ -152,22 +191,32 @@ class FeedbackConfig:
 
 
 class QueuedQuery:
-    """One ``/queries.json`` payload in the micro-batcher.  A wave that
-    dispatches it to the device sets ``on_device``: if that wave fails,
-    its bisection and the batcher's solo retry re-dispatch the query on
-    the device, never on the host replica, so a failing card answers 500
-    and not a host answer.  A wave that answers it sets ``degraded`` to the
-    degraded-mode reasons of that wave, and ``prov`` to the provenance the
+    """One ``/queries.json`` payload in the micro-batcher, for ``tenant``
+    (None: the deploy's default tenant).  A wave partition that dispatches
+    it to the device sets ``on_device``: if that partition fails, its
+    bisection and the batcher's solo retry re-dispatch the query on the
+    device, never on the host replica, so a failing card answers 500 and
+    not a host answer.  A wave that answers it sets ``degraded`` to the
+    degraded-mode reasons of that wave, ``prov`` to the provenance the
     wave collected for it (binding identity and the engine's notes; deep
-    fields under ``_deep``)."""
+    fields under ``_deep``), ``variant`` to the variant label that
+    answered, and ``partition`` to its partition's record (tenant,
+    variant, size, whether it went to the device, its dispatch and
+    finalize seconds, and the wave's split seconds)."""
 
-    __slots__ = ("payload", "on_device", "degraded", "prov")
+    __slots__ = (
+        "payload", "tenant", "on_device", "degraded", "prov", "variant",
+        "partition",
+    )
 
-    def __init__(self, payload: dict):
+    def __init__(self, payload: dict, tenant: Tenant | None = None):
         self.payload = payload
+        self.tenant = tenant
         self.on_device = False
         self.degraded: tuple[str, ...] = ()
         self.prov: dict[str, Any] = {}
+        self.variant: str | None = None
+        self.partition: dict[str, Any] = {}
 
 
 def _render_prediction(p: Any) -> Any:
@@ -215,15 +264,20 @@ def _instance_variant(instance: EngineInstance) -> dict[str, Any]:
 class DeployedEngine:
     """Engine + materialized models for one engine instance, hot-swappable.
 
-    The live generation's ``instance/params/algorithms/models/serving``
-    attributes are replaced together under one lock; readers snapshot a
-    whole :class:`Binding` once per request or wave, so in-flight work
+    Holds up to TWO bound generations: the **live** one (the
+    ``instance/params/algorithms/models/serving`` attributes) and an
+    optional **canary**.  Every flip (swap, promote, rollback) replaces
+    whole attribute sets under one lock; readers snapshot a whole
+    :class:`Binding` once per request or wave partition, so in-flight work
     finishes on the generation it started on.  A per-generation in-flight
-    count (one slot from a wave's dispatch to its fence) gives
-    ``wait_drained``, the step after a swap that retires the old
-    generation: once its last slot is released nothing holds its device
-    factors.
+    count (one slot from a partition's dispatch to its fence) gives
+    ``wait_drained``, the step after a flip that retires the loser: once
+    its last slot is released nothing holds its device factors.
     """
+
+    #: query payload fields probed (in order) for the entity id that the
+    #: canary split and the quality join key on
+    entity_fields: tuple[str, ...] = DEFAULT_ENTITY_FIELDS
 
     def __init__(
         self,
@@ -241,11 +295,13 @@ class DeployedEngine:
         self._lock = threading.RLock()
         self._drain_cond = threading.Condition()
         self._inflight: dict[str, int] = {}
+        self._canary_binding: Binding | None = None
+        self._canary_fraction = 0.0
         self._install_live(self.load_binding(instance))
 
     # -- binding construction ------------------------------------------------
 
-    def load_binding(self, instance: EngineInstance) -> Binding:
+    def load_binding(self, instance: EngineInstance, role: str = "live") -> Binding:
         """Materialize one generation WITHOUT flipping anything: parse its
         params, load its models onto the context's device, instantiate its
         components (the slow half of a swap, done outside the lock)."""
@@ -257,7 +313,7 @@ class DeployedEngine:
             self.ctx, params, persisted, instance_id=instance.id
         )
         _, _, algos, serving = self.engine.instantiate(params)
-        return Binding(instance, params, algos, models, serving)
+        return Binding(instance, params, algos, models, serving, role)
 
     def _install_live(self, binding: Binding) -> None:
         old_models = getattr(self, "models", None)
@@ -265,18 +321,63 @@ class DeployedEngine:
             (
                 self.instance, self.params, self.algorithms, self.models,
                 self.serving,
-            ) = binding
+            ) = binding[:5]
         # the retired generation's factor caches die with it: a repeat
         # entity's next request gathers from the NEW generation's factors
         if old_models is not None and old_models is not binding.models:
             device_cache.invalidate_model_caches(old_models, "swap")
 
+    # -- snapshots -----------------------------------------------------------
+
     def live_binding(self) -> Binding:
         with self._lock:
             return Binding(
                 self.instance, self.params, self.algorithms, self.models,
-                self.serving,
+                self.serving, "live",
             )
+
+    def canary_binding(self) -> Binding | None:
+        with self._lock:
+            return self._canary_binding
+
+    def canary_split(self) -> tuple[Binding | None, float]:
+        with self._lock:
+            return self._canary_binding, self._canary_fraction
+
+    @property
+    def canary_instance(self) -> EngineInstance | None:
+        b = self._canary_binding
+        return b.instance if b is not None else None
+
+    @property
+    def variant_label(self) -> str:
+        return getattr(self.instance, "engine_variant", None) or "default"
+
+    def binding_label(self, binding: Binding) -> str:
+        return (
+            CANARY_VARIANT if binding.role == "canary" else self.variant_label
+        )
+
+    def binding_for_entity(self, entity: str | None) -> Binding:
+        """Route one query: the canary when one is staged AND the entity
+        hashes into its fraction (the same side for the same entity), else
+        live."""
+        with self._lock:
+            canary = self._canary_binding
+            fraction = self._canary_fraction
+        if canary is not None and in_canary_fraction(entity, fraction):
+            return canary
+        return self.live_binding()
+
+    def payload_entity(self, payload: Any) -> str | None:
+        """The joinable entity id of a query payload (the fields the
+        quality joiner keys on)."""
+        if isinstance(payload, dict):
+            for f in self.entity_fields:
+                v = payload.get(f)
+                if v is not None:
+                    return str(v)
+        return None
 
     # -- in-flight tracking (the drain half of a swap) -----------------------
 
@@ -320,6 +421,45 @@ class DeployedEngine:
             return self._drain_cond.wait_for(
                 lambda: self._inflight.get(instance_id, 0) == 0, timeout
             )
+
+    # -- lifecycle transitions ----------------------------------------------
+
+    def stage_canary(self, instance: EngineInstance, fraction: float) -> None:
+        """Bind a staged generation as the canary: loaded onto the device
+        outside the lock, flipped under it.  A canary it replaces loses its
+        factor caches (``canary_flip``)."""
+        binding = self.load_binding(instance, role="canary")
+        with self._lock:
+            replaced = self._canary_binding
+            self._canary_binding = binding
+            self._canary_fraction = fraction
+        if replaced is not None:
+            device_cache.invalidate_model_caches(replaced.models, "canary_flip")
+
+    def promote_canary(self) -> EngineInstance:
+        """The in-memory flip: the canary becomes live in one lock region.
+        A request admitted before the flip finishes on the binding it
+        captured; one admitted after sees only the new one."""
+        with self._lock:
+            binding = self._canary_binding
+            if binding is None:
+                raise RuntimeError("no canary generation to promote")
+            old = self.instance
+            self._install_live(binding._replace(role="live"))
+            self._canary_binding = None
+            self._canary_fraction = 0.0
+        log.info("promoted generation %s (was %s)", binding.instance.id, old.id)
+        return binding.instance
+
+    def clear_canary(self) -> None:
+        """Drop the canary (a rollback): its factor caches die with it
+        (``canary_flip``); live traffic never notices."""
+        with self._lock:
+            dropped = self._canary_binding
+            self._canary_binding = None
+            self._canary_fraction = 0.0
+        if dropped is not None:
+            device_cache.invalidate_model_caches(dropped.models, "canary_flip")
 
     # -- swaps ---------------------------------------------------------------
 
@@ -374,8 +514,16 @@ class DeployedEngine:
     def predict(self, query: Any) -> tuple[Any, Any]:
         return self.predict_bound(self.live_binding(), query)
 
+    @staticmethod
+    def _canary_seam(binding: Binding) -> None:
+        """The ``canary.predict`` fault seam: every answer a canary
+        binding computes passes it (solo, host wave, device dispatch)."""
+        if binding.role == "canary" and faults.ACTIVE is not None:
+            faults.ACTIVE.check("canary.predict", binding.instance.id)
+
     def predict_bound(self, binding: Binding, query: Any) -> tuple[Any, Any]:
         """One query: supplement, predict per algorithm, serve."""
+        self._canary_seam(binding)
         query = binding.serving.supplement(query)
         predictions = [
             a.predict(m, query) for a, m in zip(binding.algorithms, binding.models)
@@ -390,6 +538,7 @@ class DeployedEngine:
     ) -> list[tuple[Any, Any]]:
         """A wave of queries in one vectorized ``batch_predict`` pass per
         algorithm — the MicroBatcher's synchronous target."""
+        self._canary_seam(binding)
         serving = binding.serving
         supplemented = [serving.supplement(q) for q in queries]
         per_algo: list[list[Any]] = []
@@ -412,6 +561,7 @@ class DeployedEngine:
         declines the wave (below ``DEVICE_BATCH_MIN``).  ``force`` asks
         each algorithm to dispatch on its device at any size (the retries
         of a failed device wave)."""
+        self._canary_seam(binding)
         dispatches = [
             getattr(a, "dispatch_batch", None) for a in binding.algorithms
         ]
@@ -553,6 +703,10 @@ def create_prediction_server_app(
     #: the JAX package's default wave cap
     max_batch: int = 32,
     registry: MetricsRegistry | None = None,
+    #: the online quality monitor answers are logged to; None = the process
+    #: default on the default registry (so an embedded event server's
+    #: feedback joins this server's predictions), else a monitor of its own
+    quality: QualityMonitor | None = None,
     #: queued queries past which /queries.json sheds 503 + Retry-After
     #: (PIO_MAX_QUEUE); None = the MicroBatcher's default bound (1024),
     #: 0 or negative = unbounded
@@ -568,7 +722,23 @@ def create_prediction_server_app(
     pipeline_depth: int | None = None,
     #: how long the MicroBatcher's close() waits for in-flight waves
     drain_timeout_s: float = 5.0,
+    #: the closed-loop lifecycle controller: None = PIO_LIFECYCLE, True /
+    #: False = explicit; a built LifecycleController may be passed (tests)
+    enable_lifecycle: bool | None = None,
+    lifecycle: Any = None,
+    lifecycle_policy: Any = None,
+    #: start the controller's thread (tests drive tick() directly)
+    lifecycle_autostart: bool = True,
+    #: the resident tenants this deploy serves; None wraps ``deployed`` in
+    #: one default tenant.  Each request resolves its tenant (X-Pio-App,
+    #: ?app=, its access key) at the front ends' admission gate
+    tenants: TenantRegistry | None = None,
 ) -> HTTPApp:
+    from predictionio_tpu_torch.lifecycle.controller import (
+        LifecycleController,
+        LifecyclePolicy,
+    )
+
     app = HTTPApp("predictionserver")
     if max_queue is None and os.environ.get("PIO_MAX_QUEUE"):
         max_queue = int(os.environ["PIO_MAX_QUEUE"])
@@ -589,6 +759,62 @@ def create_prediction_server_app(
     started_at = datetime.now(tz=timezone.utc)
     stats = {"request_count": 0, "avg_serving_sec": 0.0, "last_serving_sec": 0.0}
     stats_lock = threading.Lock()
+    if quality is None:
+        quality = (
+            default_quality()
+            if registry is REGISTRY
+            else QualityMonitor(registry=registry)
+        )
+
+    # -- tenants: a single-engine deploy is one default tenant, so both
+    # front ends run the same gate (quota, in-flight cap) whether a deploy
+    # hosts one engine or several; the implicit tenant declares 0 bytes
+    # (nothing to bin-pack: it is already resident)
+    default_app = os.environ.get("PIO_COST_APP") or str(
+        getattr(deployed.instance, "engine_factory", None)
+        or getattr(deployed.instance, "engine_id", None)
+        or "engine"
+    )
+    if tenants is None:
+        tenants = TenantRegistry(registry=registry)
+    if tenants.default is None:
+        tenants.admit(Tenant(default_app, deployed, quality=quality, hbm_bytes=0))
+    default_tenant = tenants.default
+    app.tenants = tenants
+
+    def _req_tenant(req: Request) -> Tenant:
+        # the admission gate stamps req.tenant; resolving here covers
+        # callers that drive a handler directly
+        t = getattr(req, "tenant", None)
+        if t is None:
+            t = tenants.resolve(req) or default_tenant
+        return t
+
+    # -- the lifecycle controller: manifest + canary + retrain loop
+    if enable_lifecycle is None and lifecycle is None:
+        enable_lifecycle = os.environ.get("PIO_LIFECYCLE", "").lower() in (
+            "1", "on", "true", "yes",
+        )
+    if lifecycle is None and enable_lifecycle:
+        lifecycle = LifecycleController(
+            deployed,
+            deployed.generation_store,
+            quality=quality,
+            policy=lifecycle_policy or LifecyclePolicy.from_env(),
+            registry=registry,
+        )
+    app.lifecycle = lifecycle
+    canary_tracker = lifecycle.tracker if lifecycle is not None else None
+    if lifecycle is not None and lifecycle_autostart:
+        lifecycle.start()
+
+    def _observe_variant(variant: str, status: int, t0: float) -> None:
+        """Feed the canary guardrails (error rate and latency per side)."""
+        if canary_tracker is not None:
+            canary_tracker.observe(
+                variant == CANARY_VARIANT, status, time.perf_counter() - t0
+            )
+
     m_latency = registry.histogram(
         "pio_request_latency_seconds",
         "Serving request latency by route and status",
@@ -608,15 +834,19 @@ def create_prediction_server_app(
             stats["last_serving_sec"] = dt
             stats["request_count"] = n + 1
 
-    def _stamped(resp: Response, instance_id: str) -> Response:
+    def _stamped(resp: Response, instance_id: str, variant: str,
+                 tenant: Tenant) -> Response:
         resp.headers[INSTANCE_HEADER] = instance_id
+        resp.headers[VARIANT_HEADER] = variant
+        resp.headers[APP_HEADER] = tenant.name
         return resp
 
-    def _answer(value: Any, instance_id: str, degraded) -> Response:
-        """A 200 answer, stamped with its generation and, when the engine
-        fell back to a degraded answer (metrics carry
+    def _answer(value: Any, instance_id: str, variant: str, tenant: Tenant,
+                degraded) -> Response:
+        """A 200 answer, stamped with its generation, variant and tenant
+        and, when the engine fell back to a degraded answer (metrics carry
         ``pio_degraded_total``), the reasons."""
-        resp = _stamped(json_response(200, value), instance_id)
+        resp = _stamped(json_response(200, value), instance_id, variant, tenant)
         if degraded:
             resp.headers[DEGRADED_HEADER] = ",".join(degraded)
         return resp
@@ -733,6 +963,7 @@ def create_prediction_server_app(
                 # an in-flight request and the micro-batch queue is idle
                 "inflightGenerations": deployed.inflight_snapshot(),
                 "batcherBusy": bool(batcher is not None and batcher.busy),
+                "apps": tenants.apps(),
                 **stats,
             },
         )
@@ -746,22 +977,23 @@ def create_prediction_server_app(
             PendingWave,
         )
 
-        def _predict_bisect(binding, parsed, idxs, out, on_device, depth=0):
+        def _predict_bisect(dep, binding, parsed, idxs, out, on_device,
+                            depth=0):
             """Batched predict with bisection fault isolation: a failing
-            wave splits in half and each half retries batched, so P poison
-            queries cost O(P log B) extra waves instead of B solo predicts.
-            The whole recursion runs against ONE captured binding.  The
-            halves of a device wave (``on_device``) re-dispatch on the
-            device at any size and fence inline: a card that keeps failing
-            fails every query of the wave."""
+            partition splits in half and each half retries batched, so P
+            poison queries cost O(P log B) extra waves instead of B solo
+            predicts.  The whole recursion runs against ONE captured
+            binding.  The halves of a device partition (``on_device``)
+            re-dispatch on the device at any size and fence inline: a card
+            that keeps failing fails every query of the partition."""
             queries = [parsed[i][1] for i in idxs]
             try:
                 if on_device:
-                    results = deployed.dispatch_batch_bound(
+                    results = dep.dispatch_batch_bound(
                         binding, queries, force=True
                     )()
                 else:
-                    results = deployed.predict_batch_bound(binding, queries)
+                    results = dep.predict_batch_bound(binding, queries)
             except DeadlineExceeded:
                 # the wave's (tightest member's) budget ran out: not a
                 # poison query; the MicroBatcher's solo-retry pass re-runs
@@ -776,133 +1008,211 @@ def create_prediction_server_app(
                 mid = len(idxs) // 2
                 for half in (idxs[:mid], idxs[mid:]):
                     _predict_bisect(
-                        binding, parsed, half, out, on_device, depth + 1
+                        dep, binding, parsed, half, out, on_device, depth + 1
                     )
                 return
             for i, (q, pred) in zip(idxs, results):
                 out[i] = ("pred", (q, pred))
 
         def _serve_wave(items):
-            """One wave of :class:`QueuedQuery`, split at the fence.
+            """One wave of :class:`QueuedQuery`, partitioned, each
+            partition split at the fence.
 
-            The DISPATCH half runs here on the worker thread: extract, then
-            ``dispatch_batch_bound`` against the live binding captured once
-            for the wave (gather, upload, kernel launch, the result's copy
-            into pinned memory; nothing blocks), holding one serving slot.
-            The FINALIZE half — fence, serve, render — rides the returned
-            :class:`PendingWave` onto the finalizer thread, which releases
-            the slot.  A wave the engine computes on the host (below
+            The split: the wave partitions first by tenant, then by that
+            tenant's live/canary split (the entity hash of each payload),
+            with each tenant's live and canary bindings captured once for
+            the wave.  Then, per partition, the DISPATCH half runs here on
+            the worker thread: extract, then ``dispatch_batch_bound``
+            against the partition's binding (gather, upload, kernel launch,
+            the result's copy into pinned memory; nothing blocks), holding
+            one serving slot of that generation.  The FINALIZE half (fence,
+            serve, render) of every partition rides one :class:`PendingWave`
+            onto the finalizer thread, which releases each slot.  A wave
+            whose partitions all compute on the host (each below
             ``DEVICE_BATCH_MIN``) runs inline here instead: the busy worker
             is what lets queue pressure coalesce the next wave.
 
-            A device wave marks its queries ``on_device``.  When its
+            A device partition marks its queries ``on_device``.  When its
             dispatch or fence fails, its bisection re-dispatches on the
             device, and so does the batcher's solo retry of any of its
             queries: no failed device work is answered from the host
-            replica.  A dispatch that raised counts as a device wave, since
-            the card may be what failed.  Each result is ("ok", rendered,
-            instance id) | ("bad", error, id) -> 400 | ("err", error, id)
-            -> 500.  The degraded-mode reasons that either half collected
-            (one scope each, as the JAX package's waves do) go on every
+            replica.  A dispatch that raised counts as a device partition,
+            since the card may be what failed.  A failure stays inside its
+            partition.  Each result is ("ok", rendered, instance id) |
+            ("bad", error, id) -> 400 | ("err", error, id) -> 500; the
+            query's ``variant`` and ``partition`` name its route.  The
+            degraded-mode reasons that either half collected go on every
             query the wave answered (``QueuedQuery.degraded``)."""
-            binding = deployed.live_binding()
-            on_device = any(it.on_device for it in items)
-            out: list[tuple] = []
-            fin = None
-            # the decision record's identity half, once per wave; the
+            t_split = time.perf_counter()
+            wave_tenants: list[Tenant] = []
+            for it in items:
+                t = it.tenant or default_tenant
+                if not any(t is wt for wt in wave_tenants):
+                    wave_tenants.append(t)
+            splits = {}
+            for t in wave_tenants:
+                canary_b, fraction = t.deployed.canary_split()
+                splits[id(t)] = (t.deployed.live_binding(), canary_b, fraction)
+            bindings = []
+            for it in items:
+                t = it.tenant or default_tenant
+                live_b, canary_b, fraction = splits[id(t)]
+                b = live_b
+                if canary_b is not None and in_canary_fraction(
+                    t.deployed.payload_entity(it.payload), fraction
+                ):
+                    b = canary_b
+                bindings.append(b)
+            # partitions in the order of their first query: (tenant,
+            # binding, indices into the wave)
+            partitions: list[list] = []
+            for t in wave_tenants:
+                live_b, canary_b, _ = splits[id(t)]
+                for b in (live_b, canary_b):
+                    idx = [i for i, bi in enumerate(bindings) if bi is b]
+                    if idx:
+                        partitions.append([t, b, idx])
+            split_s = time.perf_counter() - t_split
+            # the decision record's identity half, once per binding; the
             # engine's notes collect in a wave-scoped provenance collector
-            # per half (the request scopes are invisible on the batcher's
-            # threads) and reach each query through ``QueuedQuery.prov``
-            base_prov = provenance.binding_fields(deployed, binding)
-            wave_notes: dict[str, Any] = {}
+            # per partition (the request scopes are invisible on the
+            # batcher's threads) and reach each query through its ``prov``
+            base_prov = {
+                id(b): dict(provenance.binding_fields(t.deployed, b), app=t.name)
+                for t, b, _ in partitions
+            }
+            part_notes: dict[int, dict[str, Any]] = {}
 
-            def _merge_notes(wtoken) -> None:
+            def _merge_notes(b, wtoken) -> None:
                 collected = provenance.end_wave(wtoken)
                 deep = collected.pop("_deep", None)
-                wave_notes.update(collected)
+                notes = part_notes.setdefault(id(b), {})
+                notes.update(collected)
                 if deep:
-                    wave_notes.setdefault("_deep", {}).update(deep)
+                    notes.setdefault("_deep", {}).update(deep)
 
+            out: list[tuple] = []
+            # per partition: its ok indices, its finalize (or None), whether
+            # it is a device partition, and its record
+            work: list[tuple] = []
             with degraded_scope() as degraded:
                 for it in items:
+                    dep = (it.tenant or default_tenant).deployed
                     try:
-                        out.append(("q", deployed.extract_query(it.payload)))
+                        out.append(("q", dep.extract_query(it.payload)))
                     except Exception as e:
                         out.append(("bad", e))
                 parsed = list(out)
-                ok_idx = [i for i, (tag, _) in enumerate(parsed) if tag == "q"]
-                if ok_idx:
-                    deployed.acquire_slot(binding)
-                    wtoken = provenance.begin_wave()
-                    try:
-                        fin = deployed.dispatch_batch_bound(
-                            binding, [parsed[i][1] for i in ok_idx],
-                            force=on_device,
-                        )
-                    except Exception:
-                        # dispatch failed before the fence: the finalize
-                        # half re-runs the wave with bisection on the
-                        # device, which names the real poison
-                        log.exception(
-                            "device wave dispatch failed; bisecting on the "
-                            "device"
-                        )
-                        on_device = True
-                    else:
-                        on_device = fin is not None
-                    finally:
-                        _merge_notes(wtoken)
+                for t, b, idx in partitions:
+                    dep = t.deployed
+                    on_device = any(items[i].on_device for i in idx)
+                    ok_idx = [i for i in idx if parsed[i][0] == "q"]
+                    record = {
+                        "app": t.name, "variant": dep.binding_label(b),
+                        "instance_id": b.instance.id, "size": len(idx),
+                        "split_s": split_s,
+                    }
+                    fin = None
+                    if ok_idx:
+                        dep.acquire_slot(b)
+                        t_disp = time.perf_counter()
+                        wtoken = provenance.begin_wave()
+                        try:
+                            fin = dep.dispatch_batch_bound(
+                                b, [parsed[i][1] for i in ok_idx],
+                                force=on_device,
+                            )
+                        except Exception:
+                            # dispatch failed before the fence: the finalize
+                            # half re-runs the partition with bisection on
+                            # the device, which names the real poison
+                            log.exception(
+                                "device partition dispatch failed; "
+                                "bisecting on the device"
+                            )
+                            on_device = True
+                        else:
+                            on_device = fin is not None
+                        finally:
+                            _merge_notes(b, wtoken)
+                            record["dispatch_s"] = time.perf_counter() - t_disp
+                    record["on_device"] = on_device
+                    if on_device:
+                        for i in ok_idx:
+                            items[i].on_device = True
+                    work.append((t, b, idx, ok_idx, fin, on_device, record))
             degraded_pre = tuple(degraded)
-            if on_device:
-                for i in ok_idx:
-                    items[i].on_device = True
 
             def _finalize():
-                with degraded_scope() as degraded:
-                    wtoken = provenance.begin_wave()
-                    try:
-                        if fin is not None:
+                remaining = list(work)
+                try:
+                    with degraded_scope() as degraded:
+                        while remaining:
+                            t, b, _, ok_idx, fin, on_device, record = remaining[0]
+                            dep = t.deployed
+                            t_fin = time.perf_counter()
+                            wtoken = provenance.begin_wave()
                             try:
-                                results = fin()
-                            except DeadlineExceeded:
-                                raise
-                            except Exception:
-                                log.exception(
-                                    "device wave finalize failed; bisecting "
-                                    "on the device"
+                                if fin is not None:
+                                    try:
+                                        results = fin()
+                                    except DeadlineExceeded:
+                                        raise
+                                    except Exception:
+                                        log.exception(
+                                            "device partition finalize "
+                                            "failed; bisecting on the device"
+                                        )
+                                        _predict_bisect(
+                                            dep, b, parsed, ok_idx, out, True
+                                        )
+                                    else:
+                                        for i, (q, pred) in zip(ok_idx, results):
+                                            out[i] = ("pred", (q, pred))
+                                elif ok_idx:
+                                    _predict_bisect(
+                                        dep, b, parsed, ok_idx, out, on_device
+                                    )
+                            finally:
+                                _merge_notes(b, wtoken)
+                                if ok_idx:
+                                    dep.release_slot(b)
+                                record["finalize_s"] = (
+                                    time.perf_counter() - t_fin
                                 )
-                                _predict_bisect(binding, parsed, ok_idx, out, True)
-                            else:
-                                for i, (q, pred) in zip(ok_idx, results):
-                                    out[i] = ("pred", (q, pred))
-                        elif ok_idx:
-                            _predict_bisect(
-                                binding, parsed, ok_idx, out, on_device
-                            )
-                    finally:
-                        _merge_notes(wtoken)
+                                remaining.pop(0)
+                except BaseException:
+                    for t, b, _, ok_idx, _, _, _ in remaining:
                         if ok_idx:
-                            deployed.release_slot(binding)
+                            t.deployed.release_slot(b)
+                    raise
                 deg = degraded_pre + tuple(
                     d for d in degraded if d not in degraded_pre
                 )
-                iid = binding.instance.id
-                done = []
-                for it, (tag, value) in zip(items, out):
-                    it.prov = {**base_prov, **wave_notes}
-                    if tag == "pred":
-                        try:
-                            tag, value = "ok", _postprocess(
-                                iid, it.payload, *value
-                            )
-                        except Exception as e:  # only this item fails
-                            tag, value = "err", e
-                    if tag == "ok":
-                        it.degraded = deg
-                    done.append((tag, value, iid))
+                done: list = [None] * len(items)
+                for t, b, idx, _, _, _, record in work:
+                    iid = b.instance.id
+                    variant = t.deployed.binding_label(b)
+                    prov = {**base_prov[id(b)], **part_notes.get(id(b), {})}
+                    for i in idx:
+                        it = items[i]
+                        tag, value = out[i]
+                        it.prov = dict(prov)
+                        it.variant = variant
+                        it.partition = record
+                        if tag == "pred":
+                            try:
+                                tag, value = "ok", _postprocess(
+                                    iid, it.payload, *value
+                                )
+                            except Exception as e:  # only this item fails
+                                tag, value = "err", e
+                        if tag == "ok":
+                            it.degraded = deg
+                        done[i] = (tag, value, iid)
                 return done
 
-            if fin is None:
+            if all(w[4] is None for w in work):
                 return _finalize()
             return PendingWave(_finalize)
 
@@ -933,7 +1243,8 @@ def create_prediction_server_app(
                 _observe(400, t0)
                 return error_response(400, f"invalid query: {e}")
             clock.lap("parse")
-            item = QueuedQuery(payload)
+            tenant = _req_tenant(req)
+            item = QueuedQuery(payload, tenant)
             # the worker fills meta with this query's queue-wait/device
             # split + wave mates; annotate() hands it to the flight recorder
             meta: dict[str, Any] = {}
@@ -970,28 +1281,34 @@ def create_prediction_server_app(
             finally:
                 if meta:
                     annotate(**meta)
+            variant = item.variant or tenant.deployed.variant_label
             _note_wave_provenance(item, payload, meta, instance_id)
-            annotate(
-                instance_id=instance_id,
-                variant=item.prov.get("variant", "default"),
-            )
+            annotate(instance_id=instance_id, variant=variant)
             if status == "bad":
                 _observe(400, t0)
+                _observe_variant(variant, 400, t0)
                 return _stamped(
-                    error_response(400, f"invalid query: {value}"), instance_id
+                    error_response(400, f"invalid query: {value}"),
+                    instance_id, variant, tenant,
                 )
             if status == "err":
                 log.error("query serving failed: %s", value)
                 _observe(500, t0)
+                _observe_variant(variant, 500, t0)
                 return _stamped(
                     error_response(500, f"{type(value).__name__}: {value}"),
-                    instance_id,
+                    instance_id, variant, tenant,
                 )
             _bump_stats(t0)
+            _observe_variant(variant, 200, t0)
+            (tenant.quality or quality).observe_prediction(
+                get_request_id(), payload, value, variant=variant,
+                wave_size=meta.get("wave_size"), wave_seq=meta.get("wave_seq"),
+            )
             # the decision record keeps what was returned: item ids with
             # raw scores
             provenance.note_answer(value)
-            resp = _answer(value, instance_id, item.degraded)
+            resp = _answer(value, instance_id, variant, tenant, item.degraded)
             # encode NOW (memoized: the front end reuses it) so the JSON
             # serialization lands in the serialize stage
             resp.encoded()
@@ -1005,31 +1322,37 @@ def create_prediction_server_app(
         def queries(req: Request) -> Response:
             t0 = time.perf_counter()
             clock = StageClock()
-            binding = deployed.live_binding()
-            iid = binding.instance.id
+            tenant = _req_tenant(req)
+            dep = tenant.deployed
             try:
                 payload = req.json()
                 if not isinstance(payload, dict):
                     raise ValueError("query must be a JSON object")
-                query = deployed.extract_query(payload)
+                query = dep.extract_query(payload)
             except Exception as e:
                 _observe(400, t0)
-                return _stamped(error_response(400, f"invalid query: {e}"), iid)
+                return _stamped(
+                    error_response(400, f"invalid query: {e}"),
+                    dep.instance.id, dep.variant_label, tenant,
+                )
             clock.lap("parse")
+            binding = dep.binding_for_entity(dep.payload_entity(payload))
+            iid = binding.instance.id
+            variant = dep.binding_label(binding)
             # the decision record's identity half: payload + generation
-            fields = provenance.binding_fields(deployed, binding)
-            provenance.note(payload=payload, **fields)
-            annotate(instance_id=iid, variant=fields["variant"])
+            provenance.note(
+                payload=payload, app=tenant.name,
+                **provenance.binding_fields(dep, binding),
+            )
+            annotate(instance_id=iid, variant=variant)
             clock.lap("route")
             try:
-                with deployed.serving_slot(binding), degraded_scope() as degraded:
+                with dep.serving_slot(binding), degraded_scope() as degraded:
                     # the wave timeline collects the engine's stage marks so
                     # the predict window splits into named stages; the
                     # unattributed interior is "dispatch"
                     with device_obs.wave_timeline() as timeline:
-                        query, prediction = deployed.predict_bound(
-                            binding, query
-                        )
+                        query, prediction = dep.predict_bound(binding, query)
                     provenance.note(
                         cache={
                             "hits": timeline.cache_hits,
@@ -1039,12 +1362,17 @@ def create_prediction_server_app(
                     )
             except DeadlineExceeded as e:
                 _observe(504, t0)
-                return _stamped(error_response(504, f"deadline exceeded: {e}"), iid)
+                return _stamped(
+                    error_response(504, f"deadline exceeded: {e}"),
+                    iid, variant, tenant,
+                )
             except Exception as e:
                 log.exception("query serving failed")
                 _observe(500, t0)
+                _observe_variant(variant, 500, t0)
                 return _stamped(
-                    error_response(500, f"{type(e).__name__}: {e}"), iid
+                    error_response(500, f"{type(e).__name__}: {e}"),
+                    iid, variant, tenant,
                 )
             clock.split(
                 {WAVE_STAGE_MAP.get(k, k): v for k, v in timeline.stages.items()},
@@ -1057,12 +1385,18 @@ def create_prediction_server_app(
             except Exception as e:
                 log.exception("query rendering failed")
                 _observe(500, t0)
+                _observe_variant(variant, 500, t0)
                 return _stamped(
-                    error_response(500, f"{type(e).__name__}: {e}"), iid
+                    error_response(500, f"{type(e).__name__}: {e}"),
+                    iid, variant, tenant,
                 )
             provenance.note_answer(rendered)
-            resp = _answer(rendered, iid, degraded)
+            resp = _answer(rendered, iid, variant, tenant, degraded)
             _bump_stats(t0)
+            _observe_variant(variant, 200, t0)
+            (tenant.quality or quality).observe_prediction(
+                get_request_id(), payload, rendered, variant=variant
+            )
             resp.encoded()
             clock.lap("serialize")
             hotpath.observe_clock(clock)
@@ -1073,43 +1407,52 @@ def create_prediction_server_app(
 
     @app.route("POST", "/reload")
     def reload(req: Request) -> Response:
-        """Hot-swap to the latest COMPLETED instance, gated behind the
-        generation manifest: the candidate's checksum and its
-        ``sanity_check()`` pass BEFORE the flip; a refusal answers 409 with
-        the reason while the old generation keeps serving."""
+        """Hot-swap the request's tenant to its latest COMPLETED instance,
+        gated behind the generation manifest: the candidate's checksum and
+        its ``sanity_check()`` pass BEFORE the flip; a refusal answers 409
+        with the reason while the old generation keeps serving."""
         if not _authorized(req):
             return error_response(401, "Invalid accessKey.")
+        t = _req_tenant(req)
         try:
-            inst = deployed.reload_latest()
+            inst = t.deployed.reload_latest()
         except Exception as e:
-            log.error("reload refused: %s", e)
+            log.error("reload refused (app=%s): %s", t.name, e)
             return json_response(
                 409,
                 {
                     "message": f"reload refused: {e}",
-                    "engineInstanceId": deployed.instance.id,
+                    "app": t.name,
+                    "engineInstanceId": t.deployed.instance.id,
                 },
             )
         return json_response(
-            200, {"message": "Reloaded", "engineInstanceId": inst.id}
+            200,
+            {"message": "Reloaded", "app": t.name, "engineInstanceId": inst.id},
         )
 
     @app.route("GET", "/lifecycle\\.json")
     def lifecycle_json(req: Request) -> Response:
-        """The generation manifest, gated like the other debug routes.
-        The canary and the lifecycle controller are not ported yet."""
+        """The generation manifest and the canary and controller state,
+        gated like the other debug routes."""
         if not _authorized(req):
             return error_response(401, "Invalid accessKey.")
-        return json_response(
-            200,
-            {
-                "engineInstanceId": deployed.instance.id,
-                "variant": deployed.instance.engine_variant or "default",
-                "manifest": deployed.generation_store.snapshot(),
-                "controller": {"enabled": False},
-                "canary_in_progress": False,
-            },
-        )
+        body: dict[str, Any] = {
+            "engineInstanceId": deployed.instance.id,
+            "variant": deployed.variant_label,
+            "manifest": deployed.generation_store.snapshot(),
+            "controller": (
+                app.lifecycle.snapshot()
+                if app.lifecycle is not None
+                else {"enabled": False}
+            ),
+        }
+        canary_b, fraction = deployed.canary_split()
+        body["canary_in_progress"] = canary_b is not None
+        if canary_b is not None:
+            body["canary_instance"] = canary_b.instance.id
+            body["canary_fraction"] = fraction
+        return json_response(200, body)
 
     # -- plugins (CreateServer.scala:656-702) --------------------------------
     @app.route("GET", "/plugins\\.json")
@@ -1164,6 +1507,8 @@ def create_prediction_server_app(
             "event_store": _event_store_ready,
         },
         hotpath=hotpath,
+        quality=quality,
+        tenants=tenants,
     )
     return app
 
@@ -1207,6 +1552,7 @@ def create_prediction_server(
     max_inflight: int | None = None,
     default_deadline_s: float | None = None,
     device: torch.device | str | None = None,
+    enable_lifecycle: bool | None = None,
 ):
     """Deploy the engine and bind the deploy server (not started: call
     ``start_background()`` or ``serve_forever()``).
@@ -1217,8 +1563,9 @@ def create_prediction_server(
     query micro-batching — concurrent /queries.json requests coalesce into
     one vectorized predict per wave of at most ``max_batch``.
     ``"threaded"`` keeps the thread-per-connection server (no batching).
-    Both serve TLS when ``PIO_SSL_CERTFILE`` names a certificate.  ``POST
-    /stop`` shuts it down."""
+    Both serve TLS when ``PIO_SSL_CERTFILE`` names a certificate.
+    ``enable_lifecycle`` runs the lifecycle controller (None:
+    ``PIO_LIFECYCLE``).  ``POST /stop`` shuts it down."""
     if port and undeploy_stale(host, port, access_key):
         log.info("undeployed stale server on port %d", port)
     deployed = deploy_engine(
@@ -1247,6 +1594,7 @@ def create_prediction_server(
         max_queue=max_queue,
         max_inflight=max_inflight,
         default_deadline_s=default_deadline_s,
+        enable_lifecycle=enable_lifecycle,
     )
     if server_kind == "aio":
         from predictionio_tpu_torch.server.aio import AsyncAppServer
@@ -1256,3 +1604,73 @@ def create_prediction_server(
         server = AppServer(app, host, port)
     server_ref.append(server)
     return server
+
+
+def deploy_tenant_engines(
+    specs: list[dict],
+    storage: StorageRuntime | None = None,
+    hbm_budget_bytes: int | None = None,
+    registry: MetricsRegistry | None = None,
+    device: torch.device | str | None = None,
+) -> TenantRegistry:
+    """Deploy several engines into one :class:`TenantRegistry`, each on
+    ``device`` (default CUDA; raises without a card unless
+    ``device="cpu"``): the multi-tenant deploy's boot path (``deploy --app
+    name=... --app name=...``).
+
+    Each spec is ``{"app": name, "engine_factory": ..., "engine_id": ...,
+    "engine_version": ..., "engine_variant": ..., "engine_instance_id": ...,
+    "quota_rps": ..., "quota_burst": ..., "max_inflight": ...,
+    "default_deadline_s": ..., "access_key": ...}`` (only ``app`` and
+    ``engine_factory`` required).  Admission bin-packs each generation's
+    stored bytes against ``hbm_budget_bytes``.  As in the JAX package a
+    tenant is deployed before it is admitted: one that does not fit raises
+    :class:`~predictionio_tpu_torch.tenancy.TenantAdmissionError` naming
+    the shortfall, its engine is dropped with the raise (its device
+    factors go once nothing references them), and the residents admitted
+    before it are untouched."""
+    tenants = TenantRegistry(
+        hbm_budget_bytes=hbm_budget_bytes, registry=registry
+    )
+    for spec in specs:
+        dep = deploy_engine(
+            spec.get("engine_factory") or spec.get("engine_factory_name") or "",
+            storage=storage,
+            engine_instance_id=spec.get("engine_instance_id"),
+            engine_id=spec.get("engine_id", "default"),
+            engine_version=spec.get("engine_version", "default"),
+            engine_variant=spec.get("engine_variant", "default"),
+            device=device,
+        )
+        quota = None
+        if spec.get("quota_rps"):
+            quota = TokenBucket(
+                float(spec["quota_rps"]), spec.get("quota_burst")
+            )
+        tenants.admit(
+            Tenant(
+                spec["app"],
+                dep,
+                quota=quota,
+                max_inflight=spec.get("max_inflight"),
+                default_deadline_s=spec.get("default_deadline_s"),
+                access_key=spec.get("access_key"),
+            )
+        )
+    return tenants
+
+
+def create_multi_tenant_server_app(
+    tenants: TenantRegistry, **kwargs: Any
+) -> HTTPApp:
+    """A prediction-server app over an already-populated
+    :class:`TenantRegistry`: the registry's default tenant anchors the
+    single-engine surfaces (``/``, ``/status.json``'s engineInstanceId,
+    ``/lifecycle.json``); every other surface resolves its tenant per
+    request."""
+    default = tenants.default
+    if default is None:
+        raise ValueError("tenant registry has no resident tenants")
+    return create_prediction_server_app(
+        default.deployed, tenants=tenants, **kwargs
+    )

@@ -9,13 +9,20 @@ server's health routes), ``app``
 ``eventserver``, ``build`` (validates an engine.json), ``train``, ``eval``
 (an ``Evaluation`` by import path, ``--params`` for a factory's keyword
 arguments), ``deploy`` (``--event-port`` serves the event server beside
-it, on the same storage; ``--feedback`` writes each answer back as an
-event; a server already on the port is stopped first), ``undeploy``,
+it, on the same storage, and joins its feedback events to the deploy's
+answers; ``--feedback`` writes each answer back as an event; a server
+already on the port is stopped first; ``--lifecycle`` runs the lifecycle
+controller; ``--app SPEC`` (repeatable) serves several engines as tenants,
+admitted against ``--hbm-budget-bytes``), ``undeploy``,
 ``batchpredict``, ``run`` (a user script), ``upgrade``, ``metrics``,
 ``template`` (``list|get``: the bundled engines, and a starter
-``engine.json``) and ``lifecycle`` (the generation manifest, from a
-running deploy's ``/lifecycle.json`` with ``--url`` or from the model
-store), plus ``--device`` on the verbs that compute (default ``cuda``;
+``engine.json``), ``lifecycle`` (the generation manifest, canary and
+controller, from a running deploy's ``/lifecycle.json`` with ``--url`` or
+from the model store; ``--watch``), ``quality`` (``/quality.json``'s
+online metrics and drift; ``--watch``), ``tenants`` (``/tenants.json``)
+and ``replay-request`` (re-answer a recorded request from its
+checksum-verified generation and diff it), plus ``--device`` on the verbs
+that compute (default ``cuda``;
 ``cpu`` runs the plain versions on the host).  ``train``, ``deploy`` and
 ``batchpredict`` name an engine by ``--engine-id`` / ``--engine-version``
 / ``--variant``, each overridden by the engine.json's ``id`` /
@@ -125,6 +132,37 @@ def _status_remote(
             "canary_in_progress": lifecycle.get("canary_in_progress"),
             "rolled_back": manifest.get("rolled_back"),
         }
+    # one row per resident tenant, so the operator sees which app is
+    # unhealthy; a degraded tenant is a warning, the exit code stays the
+    # replica's own
+    tn_status, tn_body = fetch("/tenants.json")
+    if tn_status == 200 and isinstance(tn_body.get("tenants"), list):
+        report["tenants"] = {
+            "count": tn_body.get("count"),
+            "hbm_resident_bytes": tn_body.get("hbm_resident_bytes"),
+            "hbm_budget_bytes": tn_body.get("hbm_budget_bytes"),
+            "rows": [
+                {
+                    "app": t.get("app"),
+                    "slo": (t.get("slo") or {}).get("status"),
+                    "availability": (t.get("slo") or {}).get("availability"),
+                    "quota_denied": (t.get("quota") or {}).get("denied"),
+                    "hbm_bytes": t.get("hbm_bytes"),
+                    "inflight": t.get("inflight"),
+                    "degraded": t.get("degraded") or [],
+                }
+                for t in tn_body["tenants"]
+            ],
+        }
+        for t in tn_body["tenants"]:
+            slo_state = (t.get("slo") or {}).get("status")
+            degraded = t.get("degraded") or []
+            if slo_state == "degraded" or degraded:
+                print(
+                    f"WARNING: tenant {t.get('app')} slo={slo_state}"
+                    + (f" degraded={','.join(degraded)}" if degraded else ""),
+                    file=sys.stderr,
+                )
     _print(report)
     alive = health_status == 200 and health.get("status") == "alive"
     return 0 if alive and ready_status == 200 and not drifting else 1
@@ -309,12 +347,108 @@ def do_eval(args) -> int:
     return 0
 
 
+def _parse_tenant_spec(raw: str) -> dict:
+    """One ``--app`` value -> a ``deploy_tenant_engines`` spec dict."""
+    kv: dict[str, str] = {}
+    for part in raw.split(","):
+        if not part.strip():
+            continue
+        k, sep, v = part.partition("=")
+        if not sep:
+            raise cmd.CommandError(
+                f"bad --app spec part {part!r}: expected key=value"
+            )
+        kv[k.strip()] = v.strip()
+    if "name" not in kv or "engine" not in kv:
+        raise cmd.CommandError(
+            "--app spec needs at least name=<app>,engine=<factory>"
+        )
+    spec: dict[str, Any] = {
+        "app": kv["name"],
+        "engine_factory": kv["engine"],
+        "engine_id": kv.get("engine_id", "default"),
+        "engine_version": kv.get("engine_version", "default"),
+        "engine_variant": kv.get("variant", "default"),
+        "engine_instance_id": kv.get("engine_instance_id"),
+        "access_key": kv.get("access_key"),
+    }
+    if kv.get("quota_rps"):
+        spec["quota_rps"] = float(kv["quota_rps"])
+    if kv.get("quota_burst"):
+        spec["quota_burst"] = float(kv["quota_burst"])
+    if kv.get("max_inflight"):
+        spec["max_inflight"] = int(kv["max_inflight"])
+    if kv.get("deadline_s"):
+        spec["default_deadline_s"] = float(kv["deadline_s"])
+    return spec
+
+
+def _deploy_multi_tenant(args) -> int:
+    """``deploy --app ... --app ...``: several engines as tenants of one
+    deploy, each admitted against ``--hbm-budget-bytes``.  A refusal prints
+    the bin-packer's structured reason and exits 1."""
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_multi_tenant_server_app,
+        deploy_tenant_engines,
+        undeploy_stale,
+    )
+    from predictionio_tpu_torch.tenancy import TenantAdmissionError
+
+    specs = [_parse_tenant_spec(s) for s in args.app_specs]
+    if args.port and undeploy_stale(args.ip, args.port, args.accesskey or None):
+        print(f"undeployed stale server on port {args.port}")
+    try:
+        tenants = deploy_tenant_engines(
+            specs,
+            storage=get_storage(),
+            hbm_budget_bytes=args.hbm_budget_bytes,
+            device=args.device,
+        )
+    except TenantAdmissionError as e:
+        print(json.dumps(e.to_dict(), indent=2), file=sys.stderr)
+        return 1
+    server_ref: list[Any] = []
+
+    def on_stop():
+        if server_ref:
+            server_ref[0].shutdown()
+
+    app = create_multi_tenant_server_app(
+        tenants,
+        on_stop=on_stop,
+        access_key=args.accesskey or None,
+        use_microbatch=True,
+        max_queue=args.max_queue,
+        max_inflight=args.max_inflight,
+        default_deadline_s=args.deadline_s,
+    )
+    server = AsyncAppServer(app, args.ip, args.port)
+    server_ref.append(server)
+    server.start_background()
+    print(
+        f"Serving {len(tenants)} tenants ({', '.join(tenants.apps())}) on "
+        f"http://{args.ip}:{server.port} ({args.device}; the X-Pio-App "
+        "header or ?app= selects the tenant)",
+        flush=True,
+    )
+    try:
+        server.join()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+    return 0
+
+
 def do_deploy(args) -> int:
     from predictionio_tpu_torch.server.prediction_server import (
         FeedbackConfig,
         create_prediction_server,
     )
 
+    if args.app_specs:
+        return _deploy_multi_tenant(args)
     factory, engine_id, engine_version, engine_variant = _engine_coords(args)
     server = create_prediction_server(
         factory,
@@ -333,12 +467,14 @@ def do_deploy(args) -> int:
         max_inflight=args.max_inflight,
         default_deadline_s=args.deadline_s,
         device=args.device,
+        enable_lifecycle=True if args.lifecycle else None,
     )
     event_server = None
     if args.event_port is not None:
         # the speed layer in one process: events POSTed here land in the
         # storage whose live reads (the ecommerce engine's) serve the
-        # next query
+        # next query, and its feedback events join this deploy's answers
+        # in the process-default quality monitor
         from predictionio_tpu_torch.server.event_server import create_event_server
 
         event_server = create_event_server(
@@ -622,12 +758,14 @@ def _render_lifecycle_text(body: dict) -> str:
 
 
 def do_lifecycle(args) -> int:
-    """`lifecycle`: the generation manifest.  With ``--url``, a running
-    deploy's ``/lifecycle.json``; without it, the manifest straight from
-    the configured model store for the given engine coordinates.  Either
-    way it reads JSON and computes nothing on a device.  A failed scrape
-    prints the error and exits 1."""
-    try:
+    """`lifecycle`: the generation manifest, the canary and the controller.
+    With ``--url``, a running deploy's ``/lifecycle.json``; without it, the
+    manifest straight from the configured model store for the given engine
+    coordinates.  Either way it reads JSON and computes nothing on a
+    device.  A failed scrape prints the error and exits 1; ``--watch
+    SECONDS`` re-renders until interrupted."""
+
+    def render_once() -> None:
         if args.url:
             body = json.loads(
                 _fetch_url(
@@ -650,11 +788,159 @@ def do_lifecycle(args) -> int:
                 "controller": {"enabled": False},
                 "canary_in_progress": store.canary() is not None,
             }
+        print(
+            json.dumps(body, indent=2)
+            if args.json
+            else _render_lifecycle_text(body)
+        )
+
+    return _run_watched(
+        "pio lifecycle", render_once, args.watch, args.watch_count
+    )
+
+
+def do_quality(args) -> int:
+    """`quality`: the online model-quality report.  With ``--url``, a
+    running server's ``/quality.json`` (per-variant online metrics and
+    drift); without it, this process's monitor.  ``--watch SECONDS``
+    re-renders until interrupted."""
+
+    def render_once() -> None:
+        from predictionio_tpu_torch.obs.quality import (
+            default_quality,
+            render_quality_text,
+        )
+
+        if args.url:
+            snap = json.loads(
+                _fetch_url(
+                    args.url.rstrip("/") + "/quality.json", args.access_key
+                )
+            )
+        else:
+            snap = default_quality().snapshot()
+        print(
+            json.dumps(snap, indent=2) if args.json
+            else render_quality_text(snap)
+        )
+
+    return _run_watched("pio quality", render_once, args.watch, args.watch_count)
+
+
+def do_tenants(args) -> int:
+    """`tenants`: a running deploy's ``/tenants.json``: per-tenant SLO
+    state, quota, stored bytes, in-flight count and degraded reasons."""
+
+    def render_once() -> None:
+        from predictionio_tpu_torch.tenancy import render_tenants_text
+
+        doc = json.loads(
+            _fetch_url(args.url.rstrip("/") + "/tenants.json", args.access_key)
+        )
+        print(json.dumps(doc, indent=2) if args.json else render_tenants_text(doc))
+
+    return _run_watched("pio tenants", render_once, args.watch, args.watch_count)
+
+
+def _load_provenance_record(args) -> dict | None:
+    """The provenance record to replay: a recorded file (``--record``) or
+    a running server's ``/explain.json?request_id=``.  Prints the reason to
+    stderr and returns None when no record can be had."""
+    from urllib.parse import quote
+
+    rid = args.request_id
+    if args.record:
+        try:
+            body = json.loads(Path(args.record).read_text())
+        except (OSError, ValueError) as e:
+            print(f"record unreadable: {e}", file=sys.stderr)
+            return None
+        if isinstance(body, dict) and isinstance(body.get("record"), dict):
+            body = body["record"]
+        if isinstance(body, dict) and isinstance(body.get("records"), list):
+            records = [r for r in body["records"] if isinstance(r, dict)]
+            if rid:
+                records = [r for r in records if r.get("request_id") == rid]
+            if not records:
+                print(
+                    f"no record for request {rid!r} in {args.record}",
+                    file=sys.stderr,
+                )
+                return None
+            return records[0]
+        if not isinstance(body, dict):
+            print(f"{args.record} holds no provenance record", file=sys.stderr)
+            return None
+        if rid and body.get("request_id") not in (None, rid):
+            print(
+                f"{args.record} records request "
+                f"{body.get('request_id')!r}, not {rid!r}",
+                file=sys.stderr,
+            )
+            return None
+        return body
+    if not args.url:
+        print("need --url (a running server) or --record FILE", file=sys.stderr)
+        return None
+    try:
+        body = json.loads(
+            _fetch_url(
+                args.url.rstrip("/") + "/explain.json?request_id=" + quote(rid),
+                args.access_key,
+            )
+        )
     except Exception as e:
-        print(f"scrape failed: {e}", file=sys.stderr)
-        return 1
-    print(json.dumps(body, indent=2) if args.json else _render_lifecycle_text(body))
-    return 0
+        print(f"fetch failed: {e}", file=sys.stderr)
+        return None
+    rec = body.get("record")
+    if not isinstance(rec, dict):
+        print(f"server returned no record for {rid!r}", file=sys.stderr)
+        return None
+    return rec
+
+
+def do_replay_request(args) -> int:
+    """`replay-request <request_id> --url URL | --record FILE`: re-execute
+    a recorded decision from its manifest-named, checksum-verified
+    generation in local storage, on ``--device``, and diff the item ids and
+    raw scores.  Scores compare by ``repr`` unless ``--tolerance`` is
+    given.  Exit 0 = matched, 1 = divergence (each one named), 2 = record
+    unavailable or not replayable."""
+    from predictionio_tpu_torch.obs.provenance import ReplayError, replay_request
+
+    record = _load_provenance_record(args)
+    if record is None:
+        return 2
+    try:
+        report = replay_request(
+            record, score_tolerance=args.tolerance or 0.0, device=args.device
+        )
+    except ReplayError as e:
+        print(f"not replayable: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        _print(report)
+    if report["matched"]:
+        n = len(record.get("items") or [])
+        print(
+            f"replay MATCHED bit-exactly: request {report['request_id']} "
+            f"on generation {report['instance_id']}"
+            + (f" ({n} item(s))" if n else "")
+        )
+        return 0
+    print(
+        f"replay DIVERGED for request {report['request_id']} "
+        f"(generation {report['instance_id']}):",
+        file=sys.stderr,
+    )
+    for d in report["divergences"]:
+        print(
+            f"  {d['field']}: recorded={d.get('recorded')!r} "
+            f"replayed={d.get('replayed')!r}"
+            + (f"  ({d['detail']})" if d.get("detail") else ""),
+            file=sys.stderr,
+        )
+    return 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -669,6 +955,21 @@ def build_parser() -> argparse.ArgumentParser:
             "--device",
             default="cuda",
             help="cuda (default; fails without a card) or cpu",
+        )
+
+    def watch_flags(sp):
+        sp.add_argument(
+            "--watch",
+            type=float,
+            default=None,
+            metavar="SECONDS",
+            help="re-render every SECONDS until interrupted",
+        )
+        sp.add_argument(
+            "--watch-count",
+            type=int,
+            default=None,
+            help=argparse.SUPPRESS,  # bounded --watch renders (tests)
         )
 
     def engine_flags(sp):
@@ -820,6 +1121,35 @@ def build_parser() -> argparse.ArgumentParser:
         help="micro-batch queue bound; excess queries shed with 503 + "
         "Retry-After (PIO_MAX_QUEUE; default 1024, 0 = unbounded)",
     )
+    dp.add_argument(
+        "--app",
+        action="append",
+        dest="app_specs",
+        metavar="SPEC",
+        default=None,
+        help="serve several engines as tenants of one deploy (repeatable). "
+        "SPEC is comma-separated key=value pairs: name=<app>,engine="
+        "<factory> required; optional engine_id=, engine_version=, "
+        "variant=, engine_instance_id=, quota_rps=, quota_burst=, "
+        "max_inflight=, deadline_s=, access_key=.  A request picks its "
+        "tenant by the X-Pio-App header or ?app=",
+    )
+    dp.add_argument(
+        "--hbm-budget-bytes",
+        type=int,
+        default=None,
+        help="the device-memory budget tenants are admitted against, in "
+        "stored model bytes; a tenant that does not fit is refused at "
+        "deploy",
+    )
+    dp.add_argument(
+        "--lifecycle",
+        action="store_true",
+        help="run the lifecycle controller: drift or staleness triggers a "
+        "warm-start retrain, the result canaries on an entity-hash "
+        "fraction of the traffic, and guardrails promote or roll it back "
+        "(PIO_LIFECYCLE=1; knobs PIO_CANARY_* and PIO_LIFECYCLE_*)",
+    )
     dp.set_defaults(fn=do_deploy)
 
     ud = sub.add_parser("undeploy")
@@ -903,7 +1233,73 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="access key for key-gated deploys (sent as a Bearer header)",
     )
+    watch_flags(lcp)
     lcp.set_defaults(fn=do_lifecycle)
+
+    ql = sub.add_parser(
+        "quality",
+        description="Online model quality: per-variant rolling metrics "
+        "(CTR, hit rate, precision@k, rating MAE) and drift (PSI/KS against "
+        "the reference window), from a running server's /quality.json or "
+        "this process's monitor.",
+    )
+    ql.add_argument("--url", help="read a running server (e.g. http://127.0.0.1:8000)")
+    ql.add_argument(
+        "--json", action="store_true",
+        help="raw /quality.json instead of the text summary",
+    )
+    ql.add_argument(
+        "--access-key", default=None,
+        help="access key for key-gated servers (sent as a Bearer header)",
+    )
+    watch_flags(ql)
+    ql.set_defaults(fn=do_quality)
+
+    tn = sub.add_parser(
+        "tenants",
+        description="The resident tenants of a running deploy: SLO state, "
+        "quota, stored bytes, in-flight count and degraded reasons, from "
+        "its /tenants.json.",
+    )
+    tn.add_argument(
+        "--url", required=True,
+        help="read a running server (e.g. http://127.0.0.1:8000)",
+    )
+    tn.add_argument(
+        "--json", action="store_true",
+        help="raw /tenants.json instead of the text table",
+    )
+    tn.add_argument(
+        "--access-key", default=None,
+        help="access key for key-gated servers (sent as a Bearer header)",
+    )
+    watch_flags(tn)
+    tn.set_defaults(fn=do_tenants)
+
+    rr = sub.add_parser(
+        "replay-request",
+        description="Re-answer a recorded request from the record's "
+        "manifest-named, checksum-verified generation in local storage and "
+        "diff item ids and raw scores.  Exit 0 = identical; 1 = divergence "
+        "(each named); 2 = record unavailable or not replayable.",
+    )
+    rr.add_argument("request_id", help="the X-Pio-Request-Id to replay")
+    rr.add_argument(
+        "--url", default=None,
+        help="fetch the record from a running server's /explain.json",
+    )
+    rr.add_argument(
+        "--record", default=None, metavar="FILE",
+        help="a recorded provenance record to replay instead of fetching",
+    )
+    rr.add_argument("--access-key", default=None)
+    rr.add_argument(
+        "--tolerance", type=float, default=0.0, metavar="EPS",
+        help="absolute score tolerance (default 0: scores compare by repr)",
+    )
+    rr.add_argument("--json", action="store_true")
+    device_flag(rr)
+    rr.set_defaults(fn=do_replay_request)
     return parser
 
 

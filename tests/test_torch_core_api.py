@@ -249,6 +249,9 @@ def test_event_frames_match_jax():
 def test_event_with_id():
     d = _api_events()[0]
     del d["eventId"]
+    # a creation time of its own: without one each package stamps "now",
+    # and the two reads of the clock may fall in different milliseconds
+    d["creationTime"] = "2024-02-01T00:00:00.000Z"
     e = Event.from_api_dict(d)
     assert e.event_id is None
     named = e.with_id("ev42")

@@ -1183,3 +1183,69 @@ def test_feedback_wave_through_the_fused_topk(cuda, tmp_path):
             e.properties.get("prediction"))
     for b in bodies:
         assert b in by_user[b["user"]]
+
+
+@pytest.mark.cuda
+def test_partitioned_wave_holds_both_partitions_to_plain(cuda, tmp_path):
+    # a canary staged at 0.5 beside the live generation: 1,100 queries
+    # queued at once, their users chosen by the split so that each side
+    # holds 550 (past the device floor of 512), form one wave of two
+    # partitions, each one fused top-k launch against its own generation;
+    # every answer held to fused_topk_plain on the card with its side's
+    # factors
+    from datetime import datetime, timezone
+
+    from predictionio_tpu_torch.core.persistence import save_models
+    from predictionio_tpu_torch.lifecycle.canary import in_canary_fraction
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server import prediction_server as ps
+
+    rng = np.random.default_rng(14)
+    n_users, n_items, rank, num, side = 4000, 3000, 8, 10, 550
+    U, V, storage, deployed = _card_deploy(cuda, tmp_path, rng, n_users, n_items, rank)
+    U2 = rng.standard_normal((n_users, rank)).astype(np.float32)
+    V2 = rng.standard_normal((n_items, rank)).astype(np.float32)
+    live = storage.engine_instances().get("card")
+    now = datetime.now(tz=timezone.utc)
+    canary = dataclasses.replace(live, id="card-canary", start_time=now, end_time=now)
+    storage.engine_instances().insert(canary)
+    save_models(storage.models(), canary.id, [{
+        "user_factors": U2, "item_factors": V2,
+        "user_vocab": np.array([f"u{i}" for i in range(n_users)]),
+        "item_vocab": np.array([f"i{i}" for i in range(n_items)]),
+    }])
+    deployed.stage_canary(canary, 0.5)
+    on_canary = np.array([in_canary_fraction(f"u{u}", 0.5) for u in range(n_users)])
+    users = np.concatenate([rng.choice(np.flatnonzero(~on_canary), side),
+                            rng.choice(np.flatnonzero(on_canary), side)])
+    rng.shuffle(users)
+    app = ps.create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=2048, max_queue=0,
+        registry=MetricsRegistry())
+    before = topk.KERNEL_LAUNCHES["fused_topk"]
+    try:
+        results = _burst(app.microbatcher,
+                         [{"user": f"u{u}", "num": num} for u in users],
+                         [{} for _ in users])
+    finally:
+        app.microbatcher.close()
+        storage.close()
+    assert topk.KERNEL_LAUNCHES["fused_topk"] == before + 2
+    assert [s for s, _, _ in results] == ["ok"] * len(users)
+    for want_canary, (Uf, Vf, iid) in ((False, (U, V, "card")),
+                                        (True, (U2, V2, "card-canary"))):
+        rows = [j for j, u in enumerate(users) if on_canary[u] == want_canary]
+        assert len(rows) == side
+        assert {results[j][2] for j in rows} == {iid}
+        qd = torch.as_tensor(Uf[users[rows]], device=cuda)
+        td = torch.as_tensor(Vf, device=cuda)
+        wider = topk.fused_topk_plain(qd, td, num + 1, n_items).cpu().numpy()
+        for row, j in enumerate(rows):
+            got = results[j][1]["itemScores"]
+            got_i = [int(x["item"][1:]) for x in got]
+            got_s = np.asarray([x["score"] for x in got])
+            w, wi = wider[0][row], wider[1][row].astype(np.int64)
+            np.testing.assert_allclose(got_s, w[:num], rtol=1e-5, atol=1e-6)
+            for c in np.flatnonzero(np.asarray(got_i) != wi[:num]):
+                gap = min(abs(w[c] - w[x]) for x in (c - 1, c + 1) if 0 <= x <= num)
+                assert gap <= 1e-5 * abs(w[c]) + 1e-6, (j, c)

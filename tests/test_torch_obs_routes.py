@@ -89,8 +89,6 @@ KEY = "obs-key"
 #: deploy routes of JAX modules the port leaves out (each with its module)
 LEFT_OUT_ROUTES = {
     "/costs.json",      # obs/costs.py: the per-app cost ledger
-    "/quality.json",    # obs/quality.py: online model quality
-    "/tenants.json",    # tenancy (lifecycle/tenancy over port engines)
     "/shards.json",     # StragglerBoard + shard attribution: multi-device
 }
 
@@ -98,16 +96,12 @@ LEFT_OUT_ROUTES = {
 #: by the left-out module that registers them
 LEFT_OUT_FAMILY_PREFIXES = (
     "pio_cost_",              # obs/costs.py
-    "pio_quality_",           # obs/quality.py
-    "pio_drift_",             # obs/quality.py's drift detector
-    "pio_tenant_",            # tenancy's HBM budget and sheds
     "pio_jax_live_buffer_",   # jax.live_arrays: no torch counterpart
     "pio_jax_pjit_cache_",    # the jit cache: no torch counterpart
 )
 
 #: and single families, each with why the port's CPU deploy has none
 LEFT_OUT_FAMILIES = {
-    "pio_online_metric",  # obs/quality.py's online metric
     # the port reads device memory only in a process that initialized
     # CUDA (a CPU deploy has no card); JAX registers it on every scrape
     "pio_jax_device_memory_bytes",
@@ -226,7 +220,8 @@ GET_ROUTES = [
     "/metrics", "/metrics.json", "/traces.json", "/spans.json", "/logs.json",
     "/efficiency.json", "/locks.json", "/hotpath.json", "/capacity.json",
     "/debug/stacks.json", "/explain.json", "/debug/flight.json",
-    "/debug/profile", "/healthz", "/readyz", "/slo.json",
+    "/debug/profile", "/healthz", "/readyz", "/slo.json", "/quality.json",
+    "/tenants.json",
 ]
 
 
@@ -563,7 +558,8 @@ def test_event_server_routes_and_ingest_count(trained, obs_key, monkeypatch):
         for path, (anon, keyed) in codes.items():
             if path == "/healthz":
                 continue
-            if path == "/hotpath.json":  # no hot-path tracker on ingest
+            if path in ("/hotpath.json", "/tenants.json"):
+                # no hot-path tracker and no tenant registry on ingest
                 assert (anon, keyed) == (404, 404)
             elif obs_key is None:
                 assert (anon, keyed) == ((200, 200) if path in scrape else (404, 404))
