@@ -113,7 +113,17 @@ calls:
   controller's warm-start retrain of an ML-100K model on its thread beside
   8 clients (kernel 1), staged and promoted; two tenants on one deploy, a
   third refused by the stored-bytes budget, one wave partitioned by tenant
-  (kernel 3 on each), and a tenant's quota shedding.
+  (kernel 3 on each), and a tenant's quota shedding;
+- the storage plane (``storage``): ``pio storageserver`` as a subprocess
+  (parquet events), the ML-20M ratings written to it as bulk frames,
+  ``pio eventstore status|compact --url``, ``pio train`` with every
+  repository on the daemon (kernel 1), held to an in-memory train from one
+  start per entity; the deploy bound through the daemon answering a
+  queued wave (kernel 3), solo queries and ``pio batchpredict``; the
+  daemon SIGKILLed under the deploy (a wave still answered, ``/readyz``
+  not ready, the event server's 503 + ``Retry-After``) and restarted (the
+  breaker closed, every acknowledged event read back); ``pio app
+  compact``; a train with ``TYPE=hdfs`` models and a wave from it.
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -190,12 +200,25 @@ def toolchain() -> dict:
         triton_version = triton.__version__
     except ImportError:
         triton_version = "absent"
+    def version(package: str) -> str:
+        # the installed distribution's version, without importing it
+        from importlib import metadata
+
+        try:
+            return metadata.version(package)
+        except metadata.PackageNotFoundError:
+            return "absent"
+
     return {
         "phase": "toolchain",
         "python": sys.version.split()[0],
         "torch": torch.__version__,
         "torch_cuda": torch.version.cuda,
         "triton": triton_version,
+        # the storage phase's daemon runs parquet events with pyarrow
+        "pyarrow": version("pyarrow"),
+        "fsspec": version("fsspec"),
+        "pandas": version("pandas"),
         "nvcc": _kernels.nvcc_path(),
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": nvidia_smi_line(),
@@ -5985,6 +6008,506 @@ def lifecycle_phase(device="cuda") -> dict:
     return out
 
 
+# -- the storage plane ---------------------------------------------------------
+
+#: the storage phase writes the ML-20M ratings to the daemon in frames of
+#: about a million rows, from this many writer threads
+STORE_FRAME_ROWS = 1 << 20
+STORE_WRITERS = 2
+#: the phase's expected seconds at the full ML-20M stream (stated before
+#: its first run on the card; PERF.md has the prediction)
+STORE_EXPECTED_S = 240
+#: the remote source's knobs: a socket timeout sized to a 20M-row scan,
+#: one retry, and a breaker that opens after 2 failures and half-opens 2 s
+#: later
+STORE_KNOBS = {"TIMEOUT": "900", "RETRIES": "2", "BREAKER_THRESHOLD": "2",
+               "BREAKER_RESET_S": "2"}
+
+
+def remote_env(url: str, models: dict | None = None) -> dict:
+    """Every repository on the storage daemon at ``url`` (MODELDATA on
+    ``models`` when given)."""
+    env = {"PIO_STORAGE_SOURCES_R_TYPE": "remote",
+           "PIO_STORAGE_SOURCES_R_URL": url,
+           **{f"PIO_STORAGE_SOURCES_R_{k}": v for k, v in STORE_KNOBS.items()},
+           "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "R",
+           "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "R",
+           "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "R"}
+    if models:
+        env.update({f"PIO_STORAGE_SOURCES_M_{k}": v for k, v in models.items()})
+        env["PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE"] = "M"
+    return env
+
+
+def rating_frames(u, i, r, rows: int):
+    """The ratings as ``rate`` event frames of ``rows`` rows: id-less bulk
+    rows, columns built as vocabulary[codes] (one object per user, item and
+    rating document), event times a millisecond apart."""
+    from predictionio_tpu_torch.data.storage.base import EventFrame
+
+    users = np.array([f"u{k}" for k in range(int(u.max()) + 1)], object)
+    items = np.array([f"i{k}" for k in range(int(i.max()) + 1)], object)
+    docs = np.array([json.dumps({"rating": k / 2}) for k in range(11)], object)
+    const = {v: np.array([v], object) for v in ("rate", "user", "item")}
+    for lo in range(0, len(u), rows):
+        n = min(rows, len(u) - lo)
+        zeros = np.zeros(n, np.int64)
+        yield EventFrame(
+            event=const["rate"][zeros],
+            entity_type=const["user"][zeros],
+            entity_id=users[u[lo:lo + n]],
+            target_entity_type=const["item"][zeros],
+            target_entity_id=items[i[lo:lo + n]],
+            event_time_ms=T_BASE_MS + np.arange(lo, lo + n, dtype=np.int64),
+            properties=docs[np.rint(r[lo:lo + n] * 2).astype(np.int64)],
+        )
+
+
+class _WireTally:
+    """Bytes a ``RemoteClient`` sent and received, request by request."""
+
+    def __init__(self, client):
+        self.sent = self.received = self.calls = 0
+        self._lock = threading.Lock()
+        real = client.request
+
+        def request(method, path, params=None, body=None, *a, **kw):
+            status, raw = real(method, path, params, body, *a, **kw)
+            with self._lock:
+                self.sent += len(body or b"")
+                self.received += len(raw)
+                self.calls += 1
+            return status, raw
+
+        client.request = request
+
+
+def vocab_init(captured: dict, init_u: np.ndarray, init_v: np.ndarray):
+    """A ``train_als`` wrapper's start: the rows of the seeded tables that
+    belong to the captured vocabularies' entities (``u<k>``, ``i<k>``), so
+    a train over any read order starts each entity where the in-memory
+    train starts it."""
+    pd = captured["pd"]
+    ku = np.fromiter((int(x[1:]) for x in pd.user_vocab.keys_array()), np.int64)
+    ki = np.fromiter((int(x[1:]) for x in pd.item_vocab.keys_array()), np.int64)
+    return init_u[ku], init_v[ki]
+
+
+@contextlib.contextmanager
+def entity_seeded_train(rec, init_u, init_v, captured: dict):
+    """The recommendation engine's train started from ``vocab_init``, its
+    prepared data and ALS params captured for the in-memory hold."""
+    real_prepare = rec.RatingsPreparator.prepare
+    real_train = rec.train_als
+
+    def prepare(self, ctx, td):
+        captured["pd"] = real_prepare(self, ctx, td)
+        return captured["pd"]
+
+    def train(u, i, r, num_users, num_items, params, **kw):
+        kw.pop("init_factors", None)
+        captured["params"] = params
+        return real_train(u, i, r, num_users=num_users, num_items=num_items,
+                          params=params,
+                          init_factors=vocab_init(captured, init_u, init_v), **kw)
+
+    rec.RatingsPreparator.prepare = prepare
+    rec.train_als = train
+    try:
+        yield
+    finally:
+        rec.RatingsPreparator.prepare = real_prepare
+        rec.train_als = real_train
+
+
+def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
+                  n_users: int = ML20M_USERS, n_items: int = ML20M_ITEMS) -> dict:
+    """``storage``: the main path with all three repositories on a remote
+    storage daemon (``pio storageserver`` as a subprocess, parquet events).
+
+    The ML-20M ratings go to the daemon as id-less bulk frames of about a
+    million rows (``RemotePEvents.write``, two writer threads); ``pio
+    eventstore status --url`` shows the hot segments and ``compact --url``
+    folds them.  ``pio train`` (rank 10, 20 iterations) reads them back
+    through the daemon (40 kernel-1 launches), held to an in-memory
+    ``train_als`` of the generated ratings from one start per entity within
+    2e-3.  The deploy binds that model through the daemon: a 4,096-query
+    queued wave (kernel 3) held to the host answer with num+1 scores, 8
+    solo queries, and ``pio batchpredict`` (kernel 3).  Then the daemon is
+    SIGKILLed while the deploy serves: a second queued wave answers from
+    the bound model, ``/readyz`` turns not ready on ``storage_breakers``,
+    ``/slo.json`` shows the breaker open, an event server on the daemon
+    answers 503 + ``Retry-After``; restarted on the same root and port,
+    the breaker closes, writes succeed and an ML-100K-shaped app reads
+    back every event acknowledged before the kill and after the restart.
+    ``pio app compact`` folds that app; a second ``pio train`` of it with
+    MODELDATA on ``TYPE=hdfs`` over ``file://`` and a deploy from it answer
+    one device wave (kernel 3)."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from predictionio_tpu_torch.core.persistence import load_models
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, reset_storage
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+    from predictionio_tpu_torch.server.event_server import create_event_server_app
+    from predictionio_tpu_torch.server.httpd import Request
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_prediction_server_app,
+        deploy_engine,
+    )
+    from predictionio_tpu_torch.tools import cli
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "storage", "backend": "parquet",
+                 "shape": [n_users, n_items, n_events], "rank": RANK,
+                 "iterations": ITERATIONS, "expected_s": STORE_EXPECTED_S,
+                 "knobs": STORE_KNOBS}
+    if n_events != ML20M_RATINGS:
+        out["reduced"] = {"events": n_events}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    root = tmp / "root"
+    root.mkdir()
+    daemon = server = storage = None
+    stages = _Stages()
+    wf_log = logging.getLogger("predictionio_tpu_torch.workflow")
+    wf_log.setLevel(logging.INFO)
+    wf_log.addHandler(stages)
+    printed = io.StringIO()
+
+    def start_daemon(port: int):
+        proc, lines = spawn_cli(root, ["storageserver", "--ip", "127.0.0.1",
+                                       "--port", str(port), "--root", str(root),
+                                       "--events", "parquet", "--no-compact"], 1)
+        return proc, bound_port(lines[0])
+
+    try:
+        t0 = time.perf_counter()
+        u, i, r = movielens_like(n_events, n_users, n_items, SEED + 20,
+                                 half_stars=True)
+        out["generate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        daemon, port = start_daemon(0)
+        out["daemon_start_s"] = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        env = {"PIO_HOME": str(tmp / "client_home"), **remote_env(url)}
+        (tmp / "engine.json").write_text(json.dumps({
+            "id": "default", "engineFactory": "recommendation",
+            "datasource": {"params": {"appName": "ml20m"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "numIterations": ITERATIONS, "lambda": 0.01,
+                "seed": 3}}],
+        }))
+        start = np.random.default_rng(SEED + 140)
+        init_u, init_v = (
+            (np.abs(start.standard_normal((n, RANK))) / np.sqrt(RANK)).astype(np.float32)
+            for n in (n_users, n_items)
+        )
+        captured: dict = {}
+        with scoped_env(**env):
+            storage = reset_storage(StorageConfig.from_env())
+            pe = storage.p_events()
+            with contextlib.redirect_stdout(printed):
+                assert cli.main(["app", "new", "ml20m"]) == 0
+            app_id = storage.apps().get_by_name("ml20m").id
+            tally = _WireTally(pe.client)
+
+            # 1. the ratings to the daemon, frame by frame
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(STORE_WRITERS) as pool:
+                for f in [pool.submit(pe.write, fr, app_id)
+                          for fr in rating_frames(u, i, r, STORE_FRAME_ROWS)]:
+                    f.result()
+            wall = time.perf_counter() - t0
+            out["write"] = {"rows": n_events, "s": wall, "rows_per_s": n_events / wall,
+                            "frames": tally.calls, "wire_bytes": tally.sent,
+                            "bytes_per_row": tally.sent / n_events,
+                            "writers": STORE_WRITERS}
+
+            # 2. the segment layout, and a fold through the daemon
+            print(f"storage: wrote {n_events} rows in {wall:.1f} s", flush=True)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["eventstore", "status", "--url", url, "--json"])
+            before = json.loads(buf.getvalue())
+            # the status verb exits 1 while the backlog is over its budget
+            assert rc == (1 if before["over_budget"] else 0), (rc, before["over_budget"])
+            (app_st,) = [a for a in before["apps"] if a["app_id"] == app_id]
+            assert app_st["segments_hot"] > 0 and app_st["rows_hint"] == n_events, app_st
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(["eventstore", "compact", "--url", url, "--json",
+                                 "--timeout", "900"]) == 0
+            folded = json.loads(buf.getvalue())
+            compact_s = time.perf_counter() - t0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(["eventstore", "status", "--url", url, "--json"]) == 0
+            after = json.loads(buf.getvalue())
+            (app_after,) = [a for a in after["apps"] if a["app_id"] == app_id]
+            assert folded["rows"] == n_events and app_after["segments_hot"] == 0, (
+                folded, app_after)
+            assert app_after["rows_hint"] == n_events, app_after
+            print(f"storage: folded in {compact_s:.1f} s", flush=True)
+            out["compaction"] = {
+                "over_budget_before": before["over_budget"],
+                "hot_segments_before": app_st["segments_hot"],
+                "bytes_before": app_st["bytes"], "s": compact_s,
+                "rows": folded["rows"],
+                "compacted_segments": app_after["segments_compacted"],
+                "bytes_after": app_after["bytes"],
+            }
+
+            # 3. pio train over the daemon, kernel 1 counted
+            received0 = tally.received
+            with entity_seeded_train(rec, init_u, init_v, captured):
+                # -- the main path, with every launch count at 0 just before it --
+                reset_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    assert cli.main(["train", "--engine-json", str(tmp / "engine.json"),
+                                     "--device", device]) == 0
+                out["train_cli_s"] = time.perf_counter() - t0
+                train_launches = read_launches()
+                # -- end --
+            instance_id = printed.getvalue().split("Engine instance: ")[1].split()[0]
+            print(f"storage: pio train {out['train_cli_s']:.1f} s", flush=True)
+            st = stages.stages
+            staging_s = als.LAST_PLAN_INFO["stage_s"]
+            out["train"] = {
+                "instance": instance_id,
+                "read_s": st["datasource.read"],
+                "prepare_s": st["preparator.prepare"],
+                "staging_s": staging_s,
+                "iterations_s": st["algorithm.als"] - staging_s,
+                "persist_s": st["persist.save_models"],
+                "total_s": st["total"],
+                "launches": train_launches,
+            }
+            out["scan_bytes"] = tally.received - received0
+            assert not on_card or train_launches["als_fused_accum"] == 2 * ITERATIONS, (
+                train_launches)
+            (blob,) = load_models(storage.models(), instance_id)
+            U, V = blob["user_factors"], blob["item_factors"]
+            assert np.isfinite(U).all() and np.isfinite(V).all()
+            ukeys = np.fromiter((int(x[1:]) for x in blob["user_vocab"]), np.int64)
+            ikeys = np.fromiter((int(x[1:]) for x in blob["item_vocab"]), np.int64)
+            t0 = time.perf_counter()
+            mem = als.train_als(u, i, r, n_users, n_items, captured["params"],
+                                device=device, init_factors=(init_u, init_v))
+            out["in_memory_train_s"] = time.perf_counter() - t0
+            diff = max(
+                float(np.abs(mem.user_factors.cpu().numpy()[ukeys] - U).max()),
+                float(np.abs(mem.item_factors.cpu().numpy()[ikeys] - V).max()),
+            )
+            assert diff <= 2e-3, f"factors over the daemon differ by {diff}"
+            out["train"]["vs_in_memory_max_abs_diff"] = diff
+            out["train"]["users"], out["train"]["items"] = len(ukeys), len(ikeys)
+            del mem
+
+            # 4. the deploy through the daemon: a queued wave, solo queries
+            reset_launches()
+            t0 = time.perf_counter()
+            deployed = deploy_engine("recommendation", storage=storage, device=device)
+            out["deploy_bind_s"] = time.perf_counter() - t0
+            assert deployed.instance.id == instance_id
+            app = create_prediction_server_app(
+                deployed, use_microbatch=True, max_batch=WAVE, max_queue=4 * WAVE,
+                registry=MetricsRegistry())
+            server = AsyncAppServer(app, "127.0.0.1", 0).start_background()
+            wave_rows = np.random.default_rng(SEED + 141).integers(0, len(ukeys), WAVE)
+            wave_users = [f"u{ukeys[x]}" for x in wave_rows]
+            item_name = lambda j: f"i{ikeys[j]}"  # noqa: E731
+
+            def device_wave(label: str) -> dict:
+                before = read_launches()["fused_topk"]
+                t1 = time.perf_counter()
+                burst = queued_burst(app.microbatcher,
+                                     [{"user": x, "num": 10} for x in wave_users],
+                                     [{} for _ in wave_users])
+                wave_s = time.perf_counter() - t1
+                assert all(b[0] == "ok" for b in burst), {b[0] for b in burst}
+                held = hold_answers([b[1]["itemScores"] for b in burst], wave_rows,
+                                    U, V, 10, item_name=item_name)
+                launched = read_launches()["fused_topk"] - before
+                assert not on_card or launched == 1, (label, launched)
+                return {"queries": WAVE, "held": held, "s": wave_s,
+                        "fused_topk": launched}
+
+            out["wave"] = device_wave("bound")
+            solo = []
+            for x in wave_rows[:8]:
+                status, body, ms = post_query(server.port, {"user": f"u{ukeys[x]}",
+                                                            "num": 10})
+                assert status == 200
+                solo.append(ms)
+                hold_answers([body["itemScores"]], [x], U, V, 10, item_name=item_name)
+            out["solo_ms"] = solo
+            (tmp / "q.jsonl").write_text("".join(
+                json.dumps({"user": x, "num": 10}) + "\n" for x in wave_users))
+            before = read_launches()["fused_topk"]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                assert cli.main(["batchpredict", "--engine", "recommendation",
+                                 "--input", str(tmp / "q.jsonl"),
+                                 "--output", str(tmp / "p.jsonl"),
+                                 "--device", device]) == 0
+            lines = [json.loads(x) for x in (tmp / "p.jsonl").read_text().splitlines()]
+            assert len(lines) == WAVE
+            hold_answers([x["prediction"]["itemScores"] for x in lines], wave_rows,
+                         U, V, 10, item_name=item_name)
+            out["batchpredict"] = {"s": time.perf_counter() - t0, "queries": WAVE,
+                                   "fused_topk": read_launches()["fused_topk"] - before}
+            assert not on_card or out["batchpredict"]["fused_topk"] >= 1, out
+
+            # 5. an ML-100K-shaped app, then the daemon's death and revival
+            with contextlib.redirect_stdout(printed):
+                assert cli.main(["app", "new", "life"]) == 0
+            life = storage.apps().get_by_name("life")
+            key = storage.access_keys().get_by_appid(life.id)[0].key
+            lu, li, lr = movielens_like(ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS,
+                                        SEED + 142, half_stars=True)
+            for fr in rating_frames(lu, li, lr, ML100K_EVENTS):
+                pe.write(fr, life.id)
+            acked = ML100K_EVENTS
+            es_app = create_event_server_app(storage, registry=MetricsRegistry())
+            rest = json.dumps({"event": "rate", "entityType": "user", "entityId": "u1",
+                               "targetEntityType": "item", "targetEntityId": "i1",
+                               "properties": {"rating": 4.0}}).encode()
+
+            def ingest():
+                return es_app.handle(Request("POST", "/events.json",
+                                             {"accessKey": key}, {}, rest))
+
+            assert ingest().status == 201
+            acked += 1
+            breaker = storage.breakers()[0]
+            daemon.send_signal(signal.SIGKILL)
+            daemon.wait(timeout=30)
+            t_kill = time.perf_counter()
+            shed = ingest()
+            assert shed.status == 503 and int(shed.headers["Retry-After"]) >= 1, (
+                shed.status, shed.body)
+            statuses = [shed.status]
+            while breaker.state != "open":  # the threshold's failures
+                statuses.append(ingest().status)
+                assert len(statuses) < 10, statuses
+            assert set(statuses) == {503}, statuses
+            open_s = time.perf_counter() - t_kill
+            ready_status, ready = get_json(server.port, "/readyz")
+            assert ready_status == 503 and ready["checks"]["storage_breakers"] is False, ready
+            _, slo = get_json(server.port, "/slo.json")
+            assert slo["breakers"][f"storage:127.0.0.1:{port}"]["state"] == "open", slo
+            dead_wave = device_wave("daemon down")
+            t0 = time.perf_counter()
+            daemon, port2 = start_daemon(port)
+            assert port2 == port
+            restart_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            while True:  # the breaker half-opens after BREAKER_RESET_S
+                resp = ingest()
+                if resp.status == 201:
+                    break
+                assert resp.status == 503 and time.perf_counter() - t0 < 60, resp.status
+                time.sleep(0.1)
+            close_s = time.perf_counter() - t0
+            acked += 1
+            assert breaker.state == "closed", breaker.state
+            for _ in range(49):
+                assert ingest().status == 201
+                acked += 1
+            assert get_json(server.port, "/readyz")[0] == 200
+            read_back = len(pe.find(life.id))
+            assert read_back == acked, (read_back, acked)
+            rows_hint = pe.status(app_id)["rows_hint"]
+            assert rows_hint == n_events, rows_hint
+            out["daemon_death"] = {
+                "sheds": statuses, "retry_after_s": int(shed.headers["Retry-After"]),
+                "breaker_open_s": open_s, "readyz": ready_status,
+                "wave_while_down": dead_wave, "restart_s": restart_s,
+                "breaker_close_s": close_s, "acked": acked, "read_back": read_back,
+                "ml20m_rows_after": rows_hint,
+            }
+
+            # 6. pio app compact, then a train with models on TYPE=hdfs
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(["app", "compact", "life"]) == 0
+            assert buf.getvalue().strip() == f"Compacted app life: {acked} live events.", (
+                buf.getvalue())
+            server.shutdown()
+            server = None
+            deployed = app = None
+        hdfs = {"TYPE": "hdfs", "PATH": f"file://{tmp}/hdfs_models"}
+        (tmp / "life.json").write_text(json.dumps({
+            "id": "life", "engineFactory": "recommendation",
+            "datasource": {"params": {"appName": "life"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "numIterations": ITERATIONS, "lambda": 0.01}}],
+        }))
+        with scoped_env(**{"PIO_HOME": str(tmp / "client_home"),
+                           **remote_env(url, models=hdfs)}):
+            storage.close()
+            storage = reset_storage(StorageConfig.from_env())
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                assert cli.main(["train", "--engine-json", str(tmp / "life.json"),
+                                 "--device", device]) == 0
+            hdfs_train_s = time.perf_counter() - t0
+            hdfs_launches = read_launches()
+            assert not on_card or hdfs_launches["als_fused_accum"] == 2 * ITERATIONS
+            life_id = printed.getvalue().split("Engine instance: ")[-1].split()[0]
+            assert any((tmp / "hdfs_models").iterdir())
+            (blob,) = load_models(storage.models(), life_id)
+            Ul, Vl = blob["user_factors"], blob["item_factors"]
+            lkeys = [str(x) for x in blob["item_vocab"]]
+            deployed = deploy_engine("recommendation", storage=storage,
+                                     engine_instance_id=life_id, device=device)
+            app = create_prediction_server_app(
+                deployed, use_microbatch=True, max_batch=WAVE, max_queue=4 * WAVE,
+                registry=MetricsRegistry())
+            rows = np.arange(len(blob["user_vocab"]))
+            before = read_launches()["fused_topk"]
+            burst = queued_burst(app.microbatcher,
+                                 [{"user": str(blob["user_vocab"][x]), "num": 10}
+                                  for x in rows], [{} for _ in rows])
+            assert all(b[0] == "ok" for b in burst)
+            hold_answers([b[1]["itemScores"] for b in burst], rows, Ul, Vl, 10,
+                         item_name=lambda j: lkeys[j])
+            hdfs_wave = read_launches()["fused_topk"] - before
+            assert not on_card or hdfs_wave == 1, hdfs_wave
+            out["hdfs_models"] = {"train_s": hdfs_train_s, "launches": hdfs_launches,
+                                  "wave_queries": len(rows), "wave_fused_topk": hdfs_wave}
+    finally:
+        wf_log.removeHandler(stages)
+        if server is not None:
+            server.shutdown()
+        if storage is not None:
+            storage.close()
+        if daemon is not None:
+            stop_cli(daemon)
+        reset_storage(StorageConfig.from_env({"PIO_HOME": str(tmp / "idle_home")}))
+        tmp_dir.cleanup()
+    out["launches"] = {
+        "als_segment_accum": out["train"]["launches"]["als_segment_accum"]
+        + out["hdfs_models"]["launches"]["als_segment_accum"],
+        "als_fused_accum": out["train"]["launches"]["als_fused_accum"]
+        + out["hdfs_models"]["launches"]["als_fused_accum"],
+        "fused_topk": out["wave"]["fused_topk"] + out["batchpredict"]["fused_topk"]
+        + out["daemon_death"]["wave_while_down"]["fused_topk"]
+        + out["hdfs_models"]["wave_fused_topk"],
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["nvidia_smi"] = nvidia_smi_line() if on_card else "not measured"
+    return out
+
+
 def _swallow(fn):
     """``fn()``, or None when it raised (a request to a process killed
     under it)."""
@@ -6045,6 +6568,8 @@ def main() -> int:
     emit(operator)
     lifecycle = lifecycle_phase()
     emit(lifecycle)
+    storage = storage_phase()
+    emit(storage)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
     pretrain = ncf_train["pretrain"]
     rank32_t = pretrain["kernel1_rank32_implicit_user_half_step"]
@@ -6097,6 +6622,10 @@ def main() -> int:
                     # both canary waves' two partitions each, and the two
                     # tenants' partitions of one wave
                     "launches_lifecycle": lifecycle["launches"]["fused_topk"],
+                    # the waves of the deploy bound through the storage
+                    # daemon (before and after its SIGKILL), its pio
+                    # batchpredict, and the TYPE=hdfs model's wave
+                    "launches_storage": storage["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),
@@ -6143,6 +6672,9 @@ def main() -> int:
                     launches_operator=operator["launches"]["als_fused_accum"],
                     # the lifecycle controller's warm-start retrain
                     launches_lifecycle=lifecycle["launches"]["als_fused_accum"],
+                    # pio train of the ML-20M ratings through the storage
+                    # daemon, and of the ML-100K app with TYPE=hdfs models
+                    launches_storage=storage["launches"]["als_fused_accum"],
                     # rank 32, implicit, on the pretrain's ML-20M user half-step
                     rank32_shape=rank32_t["shape"],
                     rank32_ms=rank32_t["ms"],
@@ -6164,6 +6696,7 @@ def main() -> int:
                     ml20m["chunked_launches"]["als_segment_accum"], chunk_t,
                     launches_operator=operator["launches"]["als_segment_accum"],
                     launches_lifecycle=lifecycle["launches"]["als_segment_accum"],
+                    launches_storage=storage["launches"]["als_segment_accum"],
                     wide_shape=wide_c["shape"],
                     wide_ms=wide_c["ms"],
                     wide_plain_ms=wide_c["plain_ms"],

@@ -616,6 +616,173 @@ def entity_shard(entity_type: str, entity_id: str, n_shards: int) -> int:
     return int.from_bytes(digest[:4], "big") % n_shards
 
 
+def run_concurrent(executor, thunks: Sequence) -> list:
+    """Run thunks on the executor and join them all, then surface the
+    first error: the fan-out idiom of the parquet backend's per-shard
+    segment writes and the remote fleet's per-daemon calls (joining
+    everything first keeps a partial failure from orphaning in-flight
+    writes)."""
+    if len(thunks) == 1:
+        return [thunks[0]()]
+    futs = [executor.submit(t) for t in thunks]
+    out, errs = [], []
+    for f in futs:
+        try:
+            out.append(f.result())
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errs.append(e)
+    if errs:
+        raise errs[0]
+    return out
+
+
+def obj_ptrs(col: np.ndarray) -> np.ndarray | None:
+    """int64 view of an object array's PyObject pointers (read-only; the
+    caller keeps ``col`` alive while using the view), or None for any
+    other array.
+
+    Pointer equality implies value equality, so a pointer-level
+    factorization is a conservative dictionary encode: bulk columns are
+    built as ``vocabulary[codes]`` (one Python object per unique value,
+    broadcast), and 8-byte pointers sort far faster than the strings or
+    dicts they point to.  Distinct but equal objects merely split a
+    dictionary entry."""
+    if col.dtype != object or col.itemsize != 8 or len(col) == 0:
+        return None
+    import ctypes
+
+    buf = (ctypes.c_char * (len(col) * col.itemsize)).from_address(
+        col.ctypes.data
+    )
+    return np.frombuffer(buf, dtype=np.int64)
+
+
+#: pointer factorization: the leading rows whose distinct pointers are
+#: looked up first (a column of a few objects never pays a full sort)
+_PTR_SAMPLE = 65536
+#: ... when they are at most this many
+_PTR_FEW = 4096
+
+
+def _ptr_codes(
+    col: np.ndarray, max_card_frac: float, sample_only: bool = False
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """(codes, first row of each code) by pointer identity, or None.  The
+    pointers of a leading sample are sorted first; when every row's
+    pointer is among them, a binary search codes the column (a few
+    objects: no sort of the whole column), and a sample of nearly distinct
+    pointers ends the pass; ``sample_only`` gives None rather than sort the
+    whole column."""
+    ptrs = obj_ptrs(col)
+    if ptrs is None:
+        return None
+    n = len(ptrs)
+    limit = max(int(n * max_card_frac), 64)
+    uniq_ptrs, first = np.unique(ptrs[:_PTR_SAMPLE], return_index=True)
+    if len(uniq_ptrs) > limit or (
+        n > _PTR_SAMPLE and len(uniq_ptrs) * 10 > _PTR_SAMPLE * 9
+    ):
+        return None
+    if len(uniq_ptrs) <= _PTR_FEW:
+        codes = np.searchsorted(uniq_ptrs, ptrs)
+        codes[codes == len(uniq_ptrs)] = 0
+        covered = bool((uniq_ptrs[codes] == ptrs).all())
+    else:
+        covered = False
+    if not covered:  # pointers past the sample, or too many to search
+        if sample_only:
+            return None
+        uniq_ptrs, first, codes = np.unique(
+            ptrs, return_index=True, return_inverse=True
+        )
+        if len(uniq_ptrs) > limit:
+            return None
+    return codes.reshape(-1).astype(np.int64, copy=False), first
+
+
+def ptr_factorize(
+    col: np.ndarray, max_card_frac: float = 0.25, sample_only: bool = False
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """(codes int64, unique objects) by pointer identity, or None when the
+    column is mostly distinct at the pointer level (more than
+    ``max_card_frac`` of its rows, and more than 64), or with
+    ``sample_only`` when its leading rows do not hold every object.  The
+    JAX package's contract with numpy alone: uniques come in pointer
+    order, not first occurrence, which no caller reads."""
+    col = np.ascontiguousarray(col)
+    f = _ptr_codes(col, max_card_frac, sample_only)
+    if f is None:
+        return None
+    codes, first = f
+    return codes, col[first]
+
+
+def value_factorize(col: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(codes int64, unique values) by value equality, uniques in first
+    occurrence order (``pandas.factorize``'s order; None is a value here):
+    the pointer pass when it collapses the column, its uniques then merged
+    by value, else one dict pass over the rows."""
+    col = np.ascontiguousarray(col)
+    seen: dict = {}
+    f = _ptr_codes(col, 0.25)
+    if f is None:
+        codes = np.fromiter(
+            (seen.setdefault(v, len(seen)) for v in col), np.int64, len(col)
+        )
+        values = np.empty(len(seen), object)
+        values[:] = list(seen)
+        return codes, values
+    codes, first = f
+    remap = np.fromiter(
+        (seen.setdefault(v, len(seen)) for v in col[first]),
+        np.int64,
+        len(first),
+    )
+    # a merged value's first row is the least first row of its pointers
+    first_row = np.full(len(seen), len(col), np.int64)
+    np.minimum.at(first_row, remap, first)
+    order = np.argsort(first_row, kind="stable")
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    values = np.empty(len(seen), object)
+    values[:] = list(seen)
+    return rank[remap][codes], values[order]
+
+
+def frame_shard_of(
+    entity_type_col: np.ndarray | None,
+    entity_id_col: np.ndarray | None,
+    n_shards: int,
+    factorized: tuple[tuple, tuple] | None = None,
+) -> np.ndarray:
+    """Vectorized :func:`entity_shard` over frame columns: the md5 of each
+    unique (type, id) pair once (entities are ~100x fewer than events),
+    broadcast through the pair codes.  The JAX package's function with
+    numpy in place of pandas: the shard of every row is the same.
+
+    ``factorized`` lets a caller that already factorized the two columns
+    skip that pass: ``((tcode, utypes), (icode, uids))``."""
+    if factorized is not None:
+        (tcode, utypes), (icode, uids) = factorized
+    else:
+        tcode, utypes = value_factorize(entity_type_col)
+        icode, uids = value_factorize(entity_id_col)
+    nid = max(len(uids), 1)
+    upairs, inv = np.unique(
+        np.asarray(tcode, np.int64) * nid + np.asarray(icode, np.int64),
+        return_inverse=True,
+    )
+    shard_of_uniq = np.fromiter(
+        (
+            entity_shard(utypes[c // nid], uids[c % nid], n_shards)
+            for c in upairs.tolist()
+        ),
+        np.int64,
+        len(upairs),
+    )
+    return shard_of_uniq[inv.reshape(-1)]
+
+
 def _to_ms(dt: datetime) -> int:
     return int(dt.timestamp() * 1000)
 
@@ -641,6 +808,13 @@ def concat_frames(frames: Sequence[EventFrame]) -> EventFrame:
 
 class PEvents(abc.ABC):
     """Bulk columnar event access (PEvents.scala:38)."""
+
+    def n_shards(self, app_id: int, channel_id: int | None = None) -> int:
+        """Entity-hash scan-shard count of this app's layout (1 =
+        unsharded): part of the contract so shard-addressed consumers (the
+        storage daemon's ``/shards`` route) never reach into a backend's
+        internals for it."""
+        return 1
 
     @abc.abstractmethod
     def find(

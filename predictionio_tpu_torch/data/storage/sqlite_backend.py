@@ -595,6 +595,34 @@ class SQLitePEvents(base.PEvents):
             f"DELETE FROM {table} WHERE id = ?", [(i,) for i in event_ids]
         )
 
+    # -- entity-hash scan sharding ------------------------------------------
+    #: default logical shard count for multi-process scans
+    N_SCAN_SHARDS = 8
+
+    def n_shards(self, app_id: int, channel_id: int | None = None) -> int:
+        return self.N_SCAN_SHARDS
+
+    def iter_shards(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        filter: EventFilter | None = None,
+        shards: Sequence[int] | None = None,
+        n_shards: int | None = None,
+    ):
+        """Yield (shard, EventFrame) by the same md5 entity-hash shard
+        function as the parquet layout (HBEventsUtil.scala:83's row-key
+        prefix role), so multi-process training splits any event store
+        identically: process p consumes ``shards=range(p, n, P)``.
+        Embedded sqlite has no md5(), and its rows are local: one scan,
+        split on the host (the JAX package's path for such a dialect)."""
+        n = n_shards or self.N_SCAN_SHARDS
+        want = list(range(n)) if shards is None else list(shards)
+        frame = self.find(app_id, channel_id, filter)
+        shard_of = base.frame_shard_of(frame.entity_type, frame.entity_id, n)
+        for k in want:
+            yield k, frame.take(shard_of == k)
+
 
 # ---------------------------------------------------------------------------
 # App, access-key and channel metadata

@@ -141,6 +141,20 @@ def current_trace_context() -> tuple[str | None, str | None]:
     return tid, sid
 
 
+def propagation_headers() -> dict[str, str]:
+    """The outbound headers a cross-process client forwards: the bound
+    trace id plus the innermost open span's id as the parent, so the
+    callee's spans parent under the call site (the storage client's
+    ``X-Pio-Trace-Id`` / ``X-Pio-Parent-Span``)."""
+    tid, sid = current_trace_context()
+    if tid is None:
+        return {}
+    headers = {TRACE_ID_HEADER: tid}
+    if sid:
+        headers[PARENT_SPAN_HEADER] = sid
+    return headers
+
+
 # ---------------------------------------------------------------------------
 # process identity
 

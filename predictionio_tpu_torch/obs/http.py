@@ -547,6 +547,13 @@ def _add_health_routes(app, route) -> None:
 
     @route("GET", "/slo\\.json")
     def slo_json(req: Request) -> Response:
-        # the JAX package adds its circuit breakers' states here; the port
-        # has no breaker until its remote storage backend
-        return json_response(200, app.slo.snapshot())
+        from predictionio_tpu_torch.resilience.breaker import breaker_states
+
+        snap = app.slo.snapshot()
+        breakers = breaker_states()
+        if breakers:
+            # circuit-breaker states ride the SLO surface: one scrape tells
+            # the operator both "are we meeting objectives" and "which
+            # dependency is being routed around"
+            snap["breakers"] = breakers
+        return json_response(200, snap)

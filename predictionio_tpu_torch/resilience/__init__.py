@@ -15,10 +15,44 @@ needs:
 - :mod:`faults` — the seeded, plan-driven fault injector
   (``PIO_FAULT_PLAN``) at the micro-batcher, generation-store, swap and
   event-store seams.
-
-Circuit breakers and retry budgets guard the remote storage backend and
-come with it.
+- :mod:`retry` — bounded retry policy with decorrelated-jitter backoff and
+  a retry budget (no retry storms), and :mod:`breaker` — closed, open and
+  half-open circuit breakers per storage-daemon endpoint, exported as
+  ``pio_breaker_state`` gauges, folded into ``/readyz`` and ``/slo.json``;
+  both guard ``RemoteClient``, whose ``remote.send`` and
+  ``remote.response`` seams the fault injector also covers.
 """
+
+from predictionio_tpu_torch.resilience.admission import AdmissionController  # noqa: F401
+from predictionio_tpu_torch.resilience.breaker import (  # noqa: F401
+    BREAKER_STATES,
+    CircuitBreaker,
+    CircuitOpen,
+    breaker_states,
+    get_breaker,
+    reset_breakers,
+)
+from predictionio_tpu_torch.resilience.deadline import (  # noqa: F401
+    DEADLINE_HEADER,
+    DeadlineExceeded,
+    deadline_scope,
+    get_deadline,
+    remaining,
+)
+from predictionio_tpu_torch.resilience.degrade import (  # noqa: F401
+    current_degraded,
+    degraded_scope,
+    mark_degraded,
+)
+from predictionio_tpu_torch.resilience.faults import (  # noqa: F401
+    FaultInjected,
+    FaultInjector,
+    FaultRule,
+)
+from predictionio_tpu_torch.resilience.retry import (  # noqa: F401
+    RetryBudget,
+    RetryPolicy,
+)
 
 
 class LoadShed(Exception):

@@ -15,9 +15,14 @@ faults in either package.  The seams the port wires:
   wave, device dispatch), where injected errors trip the canary's error
   guardrail;
 - ``lifecycle.swap`` also at the lifecycle controller's promote and
-  rollback, and ``lifecycle.retrain`` before its warm-start retrain.
-
-The remote-storage and compaction seams come with their modules.
+  rollback, and ``lifecycle.retrain`` before its warm-start retrain;
+- ``remote.send`` / ``remote.response`` — the ``RemoteClient`` transport
+  (connect/send phase and response phase), where injected connection
+  resets, timeouts and latency exercise the retry policy and the circuit
+  breaker as a dying storage daemon would;
+- ``compact.fold`` / ``compact.publish`` — each shard's fold in the
+  parquet event log, before the fold and between the compacted segment's
+  publish and the unlink of what it supersedes.
 
 Zero overhead when disabled: the seams do
 ``if faults.ACTIVE is not None: faults.ACTIVE.check(seam, label)`` — one

@@ -25,7 +25,9 @@ names (403 otherwise).
 Every route that writes the event store passes the ingest gate first: past
 ``max_write_inflight`` writes in flight it answers 503 + ``Retry-After``
 (``pio_shed_total{reason="eventstore"}``).  A store that raises
-``ConnectionError`` or ``TimeoutError`` answers 503 + ``Retry-After`` too.
+``RemoteStorageError`` (a storage daemon down, or its circuit breaker
+open), ``ConnectionError`` or ``TimeoutError`` answers 503 +
+``Retry-After`` too.
 Accepted events count in ``pio_events_ingested_total{event}``.
 
 The observability routes are the JAX package's (``obs.http``): without an
@@ -57,6 +59,7 @@ from predictionio_tpu_torch.data.datamap import parse_event_time
 from predictionio_tpu_torch.data.event import Event, EventValidationError
 from predictionio_tpu_torch.data.storage.base import EventFilter
 from predictionio_tpu_torch.data.storage.config import StorageRuntime, get_storage
+from predictionio_tpu_torch.data.storage.remote_backend import RemoteStorageError
 from predictionio_tpu_torch.data.webhooks import (
     ConnectorException,
     form_connectors,
@@ -99,8 +102,9 @@ class AuthError(Exception):
 
 #: event-store failures that mean "temporarily unavailable, retry later":
 #: ingest answers 503 + Retry-After, so SDK clients back off and retry
-#: instead of dropping events
-_STORE_UNAVAILABLE = (ConnectionError, TimeoutError)
+#: instead of dropping events (a storage daemon's ``StorageUnavailable``
+#: carries the breaker's reset hint as ``retry_after_s``)
+_STORE_UNAVAILABLE = (RemoteStorageError, ConnectionError, TimeoutError)
 
 #: past this many distinct event names, new names count under "_other":
 #: names are client-supplied and registry children are never evicted

@@ -3,7 +3,8 @@
 The JAX package's ``server/httpd.py`` request/response model
 (``Request``, ``Response``, ``HTTPApp``), its admission and deadline
 wiring (``admit_request``, ``request_budget``, ``exception_response``:
-``LoadShed`` -> 503 + Retry-After, ``DeadlineExceeded`` -> 504) and its
+``LoadShed`` and the circuit breaker's ``CircuitOpen`` -> 503 +
+Retry-After, ``DeadlineExceeded`` -> 504) and its
 thread-per-connection front end (``AppServer``).  The asyncio front end
 (``server/aio.py``) routes through the same ``HTTPApp.match`` and
 ``auth_error``, and handles each request inside the same
@@ -12,8 +13,7 @@ thread-per-connection front end (``AppServer``).  The asyncio front end
 adopted trace context, one unrecorded root span and the
 flight-annotation and provenance scopes; its outcome feeds the SLO
 tracker, the provenance ring and the flight recorder
-(``obs.http.record_request_outcome``).  The circuit breaker's
-``CircuitOpen`` mapping comes with the remote storage backend it guards.
+(``obs.http.record_request_outcome``).
 Handlers are plain functions, so route logic is testable without sockets.
 """
 
@@ -58,6 +58,7 @@ from predictionio_tpu_torch.obs.provenance import (
 )
 from predictionio_tpu_torch.obs.tracing import trace
 from predictionio_tpu_torch.resilience import LoadShed
+from predictionio_tpu_torch.resilience.breaker import CircuitOpen
 from predictionio_tpu_torch.resilience.deadline import (
     DEADLINE_HEADER,
     DeadlineExceeded,
@@ -145,11 +146,11 @@ def shed_response(message: str, retry_after_s: float = 1.0) -> Response:
 
 def exception_response(e: Exception) -> Response:
     """Map a handler exception to its HTTP shape: deadline errors are 504,
-    sheds are 503 + Retry-After, anything else is 500.  Shared by both
-    front ends and ``HTTPApp.handle``."""
+    shed and breaker rejections are 503 + Retry-After, anything else is
+    500.  Shared by both front ends and ``HTTPApp.handle``."""
     if isinstance(e, DeadlineExceeded):
         return error_response(504, f"deadline exceeded: {e}")
-    if isinstance(e, LoadShed):
+    if isinstance(e, (LoadShed, CircuitOpen)):
         return shed_response(str(e), e.retry_after_s)
     return error_response(500, f"{type(e).__name__}: {e}")
 
@@ -487,6 +488,9 @@ def _make_handler_class(app: HTTPApp):
 
         def do_DELETE(self):
             self._dispatch("DELETE")
+
+        def do_PUT(self):
+            self._dispatch("PUT")
 
         def log_message(self, fmt, *args):  # quiet by default
             pass

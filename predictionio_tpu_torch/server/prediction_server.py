@@ -1495,6 +1495,16 @@ def create_prediction_server_app(
             return True
         return storage.l_events() is not None
 
+    def _storage_breakers_ok() -> bool:
+        # an open breaker to any of this runtime's storage daemons flips
+        # /readyz: serving may continue (device waves answer from the bound
+        # model), but operators and load balancers see the outage; a
+        # half-open breaker reads as recovering and does not flip it
+        storage = getattr(deployed, "storage", None)
+        if storage is None or not hasattr(storage, "breakers"):
+            return True
+        return all(br.state != "open" for br in storage.breakers())
+
     # /debug/profile traces the card when the model lives there
     app.profile_cuda = deployed.ctx.device.type == "cuda"
     add_observability_routes(
@@ -1505,6 +1515,7 @@ def create_prediction_server_app(
             "model_loaded": _model_loaded,
             "microbatcher": _batcher_ready,
             "event_store": _event_store_ready,
+            "storage_breakers": _storage_breakers_ok,
         },
         hotpath=hotpath,
         quality=quality,

@@ -15,6 +15,9 @@ already on the port is stopped first; ``--lifecycle`` runs the lifecycle
 controller; ``--app SPEC`` (repeatable) serves several engines as tenants,
 admitted against ``--hbm-budget-bytes``), ``undeploy``,
 ``batchpredict``, ``run`` (a user script), ``upgrade``, ``metrics``,
+``storageserver`` (the remote storage daemon over a root: sqlite
+metadata and models, ``--events parquet|sqlite``), ``eventstore``
+(``status|compact``, local or ``--url`` of a daemon), ``app compact``,
 ``template`` (``list|get``: the bundled engines, and a starter
 ``engine.json``), ``lifecycle`` (the generation manifest, canary and
 controller, from a running deploy's ``/lifecycle.json`` with ``--url`` or
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 from typing import Any
@@ -132,6 +136,28 @@ def _status_remote(
             "canary_in_progress": lifecycle.get("canary_in_progress"),
             "rolled_back": manifest.get("rolled_back"),
         }
+    # event-store surface (404/401-tolerant): a compaction backlog over
+    # the watermark budget means scans are paying the write-hot head, an
+    # operator-actionable WARNING; the exit code is unchanged (ingest
+    # still works)
+    es_status, es_body = fetch("/eventstore.json")
+    if es_status == 200 and "backlog_segments" in es_body:
+        report["eventstore"] = {
+            "backlog_segments": es_body.get("backlog_segments"),
+            "watermark_lag_s": es_body.get("watermark_lag_s"),
+            "compactor_running": es_body.get("running"),
+        }
+        if es_body.get("over_budget"):
+            budget = (es_body.get("policy") or {}).get(
+                "backlog_budget_segments"
+            )
+            print(
+                "WARNING: event-store compaction backlog "
+                f"{es_body.get('backlog_segments')} segments exceeds the "
+                f"watermark budget ({budget}); scans are paying the "
+                "write-hot head",
+                file=sys.stderr,
+            )
     # one row per resident tenant, so the operator sees which app is
     # unhealthy; a degraded tenant is a warning, the exit code stays the
     # replica's own
@@ -190,12 +216,210 @@ def do_app(args) -> int:
     elif args.app_command == "data-delete":
         cmd.app_data_delete(storage, args.name, channel=args.channel)
         print(f"Data of app {args.name} deleted.")
+    elif args.app_command == "compact":
+        rows = cmd.app_compact(storage, args.name, channel=args.channel)
+        if rows is None:
+            print("Event store rewrites in place; nothing to compact.")
+        else:
+            print(f"Compacted app {args.name}: {rows} live events.")
     elif args.app_command == "channel-new":
         ch = cmd.channel_new(storage, args.name, args.channel)
         _print({"id": ch.id, "name": ch.name, "appid": ch.appid})
     elif args.app_command == "channel-delete":
         cmd.channel_delete(storage, args.name, args.channel)
         print(f"Channel {args.channel} deleted.")
+    return 0
+
+
+def _local_compactor():
+    """A Compactor over the locally configured parquet event store, or
+    None when the event backend has no segment layout (SQL stores)."""
+    pe = get_storage().p_events()
+    client = getattr(getattr(pe, "store", None), "client", None)
+    if client is None:
+        return None
+    from predictionio_tpu_torch.data.storage.compactor import (
+        CompactionPolicy,
+        Compactor,
+    )
+
+    return Compactor(client, CompactionPolicy.from_env())
+
+
+def _render_eventstore_status(st: dict) -> None:
+    """Human rendering of the /eventstore.json shape."""
+    pol = st.get("policy") or {}
+    print(
+        f"compactor: {'running' if st.get('running') else 'idle'}  "
+        f"backlog={st.get('backlog_segments')} segments"
+        + (
+            f" (budget {pol.get('backlog_budget_segments')})"
+            if pol
+            else ""
+        )
+    )
+    lag = st.get("watermark_lag_s")
+    if lag is not None:
+        print(f"watermark lag: {lag:.1f}s")
+    vis = st.get("visibility") or {}
+    if vis.get("rows_observed"):
+        print(
+            f"visibility lag: p50={vis.get('lag_p50_s', 0):.1f}s "
+            f"p99={vis.get('lag_p99_s', 0):.1f}s "
+            f"(rows observed {vis['rows_observed']:,})"
+        )
+    for a in st.get("apps", []):
+        if a.get("error"):
+            print(f"  app {a.get('app_id')}: ERROR {a['error']}")
+            continue
+        chan = (
+            f" channel {a['channel_id']}"
+            if a.get("channel_id") is not None
+            else ""
+        )
+        print(
+            f"  app {a.get('app_id')}{chan}: shards={a.get('n_shards')} "
+            f"hot={a.get('segments_hot')} "
+            f"compacted={a.get('segments_compacted')} "
+            f"bytes={a.get('bytes', 0):,} "
+            f"byte_skew={a.get('byte_skew_frac', 0):.2f} "
+            f"rows~{a.get('rows_hint', 0):,}"
+        )
+    if st.get("over_budget"):
+        print(
+            "WARNING: backlog exceeds the watermark budget; scans are "
+            "paying the write-hot head"
+        )
+
+
+def do_eventstore(args) -> int:
+    """`pio eventstore status|compact`: segment counts, compaction backlog,
+    watermark lag and per-shard byte skew; ``compact`` folds the
+    write-hot head now.  With ``--url``, through a running storage daemon
+    (which owns its root's in-flight write bookkeeping); locally, a root
+    that a daemon owns is refused."""
+    if args.url:
+        import urllib.request
+
+        base = args.url.rstrip("/")
+        headers = (
+            {"Authorization": f"Bearer {args.access_key}"}
+            if args.access_key
+            else {}
+        )
+
+        def call(method: str, path: str):
+            req = urllib.request.Request(
+                base + path, headers=headers, method=method
+            )
+            with urllib.request.urlopen(req, timeout=args.timeout) as r:
+                return json.loads(r.read().decode("utf-8"))
+
+        try:
+            if args.es_command == "compact":
+                out = call("POST", "/eventstore/compact")
+            else:
+                out = call("GET", "/eventstore.json")
+        except Exception as e:
+            print(f"eventstore: {base} unreachable: {e}", file=sys.stderr)
+            return 1
+    else:
+        comp = _local_compactor()
+        if comp is None:
+            print(
+                "eventstore: the configured event backend has no segment "
+                "layout (SQL stores rewrite in place); nothing to report."
+            )
+            return 0
+        if args.es_command == "compact":
+            from predictionio_tpu_torch.data.storage.parquet_backend import (
+                acquire_root_ownership,
+            )
+
+            owner = acquire_root_ownership(comp.client.root)
+            if owner is None:
+                print(
+                    "eventstore: another process (a storage daemon?) owns "
+                    f"root {comp.client.root}; folding from here could "
+                    "race its in-flight writes; compact through it with "
+                    "--url instead.",
+                    file=sys.stderr,
+                )
+                return 1
+            try:
+                apps = rows = 0
+                for app_id, channel_id in comp.app_keys():
+                    rows += comp.store.compact(app_id, channel_id)
+                    apps += 1
+                out = {"supported": True, "apps": apps, "rows": rows}
+            finally:
+                owner.close()
+        else:
+            out = comp.status()
+    if args.json:
+        _print(out)
+    elif args.es_command == "compact":
+        print(
+            f"Compacted {out.get('apps', 0)} app(s): "
+            f"{out.get('rows', 0):,} live rows."
+            if out.get("supported", True)
+            else "Event store rewrites in place; nothing to compact."
+        )
+    else:
+        _render_eventstore_status(out)
+    if args.es_command == "status" and out.get("over_budget"):
+        return 1
+    return 0
+
+
+def do_storageserver(args) -> int:
+    """`pio storageserver`: run the remote storage daemon, the networked
+    storage role the reference fills with Elasticsearch/HBase servers
+    (ESLEvents.scala:41); clients point ``PIO_STORAGE_SOURCES_*_TYPE=
+    remote`` at it.  It prints its bound line once serving (``--port 0``
+    binds a free port) and shuts down on SIGINT or SIGTERM."""
+    import signal
+    import threading
+
+    from predictionio_tpu_torch.server.storage_server import StorageServer
+
+    if (
+        args.ip not in ("127.0.0.1", "localhost", "::1")
+        and not args.access_key
+        and not os.environ.get("PIO_STORAGE_SERVER_ALLOW_OPEN")
+    ):
+        print(
+            f"storageserver: refusing to bind {args.ip} without --access-key "
+            "(the daemon exposes raw model-blob writes; a remote pickle "
+            "write is code execution on the next train/deploy host). Pass "
+            "--access-key, bind 127.0.0.1, or set "
+            "PIO_STORAGE_SERVER_ALLOW_OPEN=1 to override.",
+            file=sys.stderr,
+        )
+        return 1
+    server = StorageServer(
+        root=args.root,
+        host=args.ip,
+        port=args.port,
+        access_key=args.access_key,
+        events=args.events,
+        compaction=not args.no_compact,
+        compact_interval_s=args.compact_interval,
+    )
+    stop = threading.Event()
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    server.start_background()
+    print(
+        f"Storage daemon on http://{args.ip}:{server.port} (root={args.root})",
+        flush=True,
+    )
+    try:
+        stop.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
     return 0
 
 
@@ -1020,11 +1244,78 @@ def build_parser() -> argparse.ArgumentParser:
     dd = asub.add_parser("data-delete")
     dd.add_argument("name")
     dd.add_argument("--channel")
+    ac = asub.add_parser("compact")
+    ac.add_argument("name")
+    ac.add_argument("--channel", default=None)
     for verb in ("channel-new", "channel-delete"):
         ch = asub.add_parser(verb)
         ch.add_argument("name")
         ch.add_argument("channel")
     ap.set_defaults(fn=do_app)
+
+    ss = sub.add_parser("storageserver")
+    # loopback by default: the daemon serves unauthenticated reads and
+    # writes of events, metadata and pickled model blobs, so an open bind
+    # without an access key is code execution on the next host that loads
+    # a model; non-loopback binds demand a key (or an explicit override)
+    ss.add_argument("--ip", default="127.0.0.1")
+    ss.add_argument("--port", type=int, default=7072)
+    ss.add_argument(
+        "--root",
+        default=os.environ.get(
+            "PIO_HOME", str(Path.home() / ".predictionio_tpu")
+        ),
+    )
+    ss.add_argument("--access-key", default=None)
+    ss.add_argument(
+        "--events", choices=("parquet", "sqlite"), default="parquet"
+    )
+    ss.add_argument(
+        "--no-compact",
+        action="store_true",
+        help="disable the background segment compactor (on by default for "
+        "parquet stores)",
+    )
+    ss.add_argument(
+        "--compact-interval",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="compactor tick cadence (default PIO_COMPACT_INTERVAL_S or 30)",
+    )
+    ss.set_defaults(fn=do_storageserver)
+
+    est = sub.add_parser(
+        "eventstore",
+        help="event-store data plane: segment/compaction status and "
+        "on-demand compaction",
+    )
+    essub = est.add_subparsers(dest="es_command", required=True)
+    for name, hlp in (
+        ("status", "segment counts, compaction backlog, watermark lag, "
+         "per-shard byte skew (exit 1 when backlog exceeds the budget)"),
+        ("compact", "fold the write-hot head into compacted segments now"),
+    ):
+        sp_es = essub.add_parser(name, help=hlp)
+        sp_es.add_argument(
+            "--url",
+            default=None,
+            help="a running storage daemon (default: the locally "
+            "configured store; when a daemon serves this root, compact "
+            "through it with --url)",
+        )
+        sp_es.add_argument("--access-key", default=None)
+        sp_es.add_argument(
+            "--timeout",
+            type=float,
+            default=30.0,
+            help="seconds to wait for the daemon's answer (a fold of a "
+            "large log takes longer than the default)",
+        )
+        sp_es.add_argument(
+            "--json", action="store_true", help="machine-readable output"
+        )
+    est.set_defaults(fn=do_eventstore)
 
     ak = sub.add_parser("accesskey")
     aksub = ak.add_subparsers(dest="ak_command", required=True)

@@ -238,6 +238,22 @@ def import_events(
     return n
 
 
+def app_compact(
+    storage: StorageRuntime, name: str, channel: str | None = None
+) -> int | None:
+    """Fold the app's event-log segments (parquet and remote stores; the
+    HBase major-compaction role).  Returns live rows, or None when the
+    configured event store rewrites in place and has nothing to fold."""
+    app = _require_app(storage, name)
+    channel_id = (
+        _require_channel(storage, app, channel).id if channel else None
+    )
+    fn = getattr(storage.p_events(), "compact", None)
+    if fn is None:
+        return None
+    return fn(app.id, channel_id)
+
+
 def export_events(
     storage: StorageRuntime,
     app_name: str,
@@ -255,19 +271,21 @@ def export_events(
         e.to_api_dict() for e in storage.l_events().find(app.id, channel_id)
     ]
     if format == "parquet":
-        try:
-            import pyarrow as pa
-            import pyarrow.parquet as pq
-        except ImportError:
+        import importlib.util
+
+        if importlib.util.find_spec("pyarrow") is None:
             raise CommandError(
                 "parquet export requires pyarrow; use --format json"
-            ) from None
+            )
+        from predictionio_tpu_torch.data.storage.parquet_backend import (
+            write_rows_parquet,
+        )
 
         # properties nest arbitrarily: a JSON string column
         flat = [
             {**r, "properties": json.dumps(r.get("properties", {}))} for r in rows
         ]
-        pq.write_table(pa.Table.from_pylist(flat), str(output_path))
+        write_rows_parquet(flat, output_path)
         return len(flat)
     if format != "json":
         raise CommandError(f"unsupported export format {format!r}")

@@ -2,7 +2,8 @@
 
 1. The port stands alone: no module of it, nor ``chip_smoke.py`` or
    ``solo_latency.py``, imports ``jax`` or anything of the JAX package
-   ``predictionio_tpu``.
+   ``predictionio_tpu``; none imports ``pandas``, and only the parquet
+   event log and its compactor import ``pyarrow``.
 2. Its entry points run on CUDA unless the caller asks for the CPU: without
    a card, ``deploy_engine``, ``create_prediction_server``,
    ``run_batch_predict``, the CLI and ``EngineContext`` raise unless given
@@ -71,6 +72,26 @@ def _forbidden(module: str) -> bool:
 def test_no_jax_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+#: the only port modules that may import pyarrow (the parquet event log
+#: and its compactor); the daemon, the codec and every client run without it
+PYARROW_HOMES = {
+    "predictionio_tpu_torch/data/storage/parquet_backend.py",
+    "predictionio_tpu_torch/data/storage/compactor.py",
+}
+
+
+@pytest.mark.parametrize(
+    "path",
+    PORT_FILES + [REPO / "chip_smoke.py", REPO / "solo_latency.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_pandas_and_pyarrow_only_in_the_parquet_modules(path):
+    tops = {m.split(".")[0] for m in _imported_modules(path)}
+    assert "pandas" not in tops, f"{path.relative_to(REPO)} imports pandas"
+    if str(path.relative_to(REPO)) not in PYARROW_HOMES:
+        assert "pyarrow" not in tops, f"{path.relative_to(REPO)} imports pyarrow"
 
 
 def test_scan_sees_the_whole_package():

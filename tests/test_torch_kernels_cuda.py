@@ -1249,3 +1249,115 @@ def test_partitioned_wave_holds_both_partitions_to_plain(cuda, tmp_path):
             for c in np.flatnonzero(np.asarray(got_i) != wi[:num]):
                 gap = min(abs(w[c] - w[x]) for x in (c - 1, c + 1) if 0 <= x <= num)
                 assert gap <= 1e-5 * abs(w[c]) + 1e-6, (j, c)
+
+
+@pytest.mark.cuda
+def test_train_and_wave_over_the_storage_daemon_on_the_card(cuda, tmp_path):
+    # every repository on a storage daemon (parquet events): ratings written
+    # as bulk frames, the recommendation train on the card (2 fused launches
+    # an iteration) held to the same train on the CPU from one seeded start
+    # within 2e-3, then the deploy bound through the daemon answering a
+    # queued wave of 600 known users with one fused top-k launch, held to
+    # the host answer of the stored factors
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import resolve_engine_factory
+    from predictionio_tpu_torch.core.persistence import load_models
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data.storage.base import EventFrame
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server import prediction_server as ps
+    from predictionio_tpu_torch.server.storage_server import StorageServer
+    from predictionio_tpu_torch.tools import commands
+
+    n_users, n_items, n, rank, iters = 900, 700, 60_000, 8, 6
+    rng = np.random.default_rng(15)
+    u = rng.integers(0, n_users, n)
+    i = rng.integers(0, n_items, n)
+    u[:n_users] = np.arange(n_users)  # every user rated at least once
+    r = rng.integers(1, 11, n) / 2.0
+    daemon = StorageServer(tmp_path / "root", host="127.0.0.1", port=0,
+                           compaction=False).start_background()
+    storage = StorageRuntime(StorageConfig.from_env({
+        "PIO_HOME": str(tmp_path / "home"),
+        "PIO_STORAGE_SOURCES_R_TYPE": "remote",
+        "PIO_STORAGE_SOURCES_R_URL": f"http://127.0.0.1:{daemon.port}",
+        "PIO_STORAGE_SOURCES_R_TIMEOUT": "60",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "R",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "R",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "R",
+    }))
+    real_train = rec.train_als
+    start = np.random.default_rng(16)
+    init = [(np.abs(start.standard_normal((k, rank))) / np.sqrt(rank)).astype(np.float32)
+            for k in (n_users, n_items)]
+    vocab = {}
+
+    def seeded(uu, ii, rr, num_users, num_items, params, **kw):
+        # each entity starts from its own row of the seeded tables
+        kw.pop("init_factors", None)
+        pd = vocab["pd"]
+        ku = [int(x[1:]) for x in pd.user_vocab.keys_array()]
+        ki = [int(x[1:]) for x in pd.item_vocab.keys_array()]
+        return real_train(uu, ii, rr, num_users=num_users, num_items=num_items,
+                          params=params, init_factors=(init[0][ku], init[1][ki]), **kw)
+
+    real_prepare = rec.RatingsPreparator.prepare
+
+    def prepare(self, ctx, td):
+        vocab["pd"] = real_prepare(self, ctx, td)
+        return vocab["pd"]
+
+    rec.train_als, rec.RatingsPreparator.prepare = seeded, prepare
+    try:
+        app = commands.app_new(storage, "cardstore").app
+        users = np.array([f"u{k}" for k in range(n_users)], object)
+        items = np.array([f"i{k}" for k in range(n_items)], object)
+        docs = np.array(['{"rating": %s}' % (k / 2) for k in range(11)], object)
+        const = np.array(["rate", "user", "item"], object)
+        storage.p_events().write(EventFrame(
+            event=const[np.zeros(n, np.int64)], entity_type=const[np.ones(n, np.int64)],
+            entity_id=users[u], target_entity_type=const[np.full(n, 2)],
+            target_entity_id=items[i],
+            event_time_ms=1_700_000_000_000 + np.arange(n, dtype=np.int64),
+            properties=docs[np.rint(r * 2).astype(np.int64)]), app.id)
+        engine = resolve_engine_factory("recommendation")()
+        params = engine.params_from_json({
+            "datasource": {"params": {"appName": "cardstore"}},
+            "algorithms": [{"name": "als", "params": {"rank": rank,
+                                                      "numIterations": iters}}]})
+        blobs = {}
+        for dev in ("cuda", "cpu"):
+            before = als_accum.KERNEL_LAUNCHES["als_fused_accum"]
+            inst = run_train(engine, params, ctx=EngineContext(storage=storage, device=dev),
+                             engine_factory="recommendation", storage=storage)
+            launched = als_accum.KERNEL_LAUNCHES["als_fused_accum"] - before
+            assert launched == (2 * iters if dev == "cuda" else 0)
+            (blobs[dev],) = load_models(storage.models(), inst.id)
+        for key in ("user_factors", "item_factors"):
+            np.testing.assert_allclose(blobs["cuda"][key], blobs["cpu"][key],
+                                       atol=2e-3, rtol=0)
+        deployed = ps.deploy_engine("recommendation", storage=storage,
+                                    engine_instance_id=inst.id, device=cuda)
+        ps_app = ps.create_prediction_server_app(
+            deployed, use_microbatch=True, max_batch=1024, registry=MetricsRegistry())
+        rows = rng.choice(n_users, 600, replace=False)
+        names = [str(x) for x in blobs["cpu"]["user_vocab"]]
+        before = topk.KERNEL_LAUNCHES["fused_topk"]
+        try:
+            results = _burst(ps_app.microbatcher,
+                             [{"user": names[x], "num": 10} for x in rows],
+                             [{} for _ in rows])
+        finally:
+            ps_app.microbatcher.close()
+        assert topk.KERNEL_LAUNCHES["fused_topk"] == before + 1
+        assert [s for s, _, _ in results] == ["ok"] * len(rows)
+        ivocab = [int(str(x)[1:]) for x in blobs["cpu"]["item_vocab"]]
+        V = np.zeros((n_items, rank), np.float32)
+        V[ivocab] = blobs["cpu"]["item_factors"]  # rows by item number
+        _hold_wave([b for _, b, _ in results], rows, blobs["cpu"]["user_factors"], V, 10)
+    finally:
+        rec.train_als, rec.RatingsPreparator.prepare = real_train, real_prepare
+        storage.close()
+        daemon.shutdown()
