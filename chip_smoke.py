@@ -80,7 +80,7 @@ calls:
   at the UCI Covertype shape (581,012 x 54, 7 classes, a seeded generator)
   on the card, Naive Bayes and 200 logistic-regression steps each trained
   twice to the same bits and held to the CPU; then ``app new`` ->
-  ``import`` of 100,000 users' ``$set`` events -> ``train`` -> the default
+  ``import`` of 20,000 users' ``$set`` events -> ``train`` -> the default
   deploy answering 1,000 queries from 8 clients, each held to a host numpy
   Naive Bayes over the persisted blob, and ``pio eval`` of the template's
   lambda sweep, plainly and through ``FastEvalEngine``, with the same JSON;
@@ -115,15 +115,28 @@ calls:
   third refused by the stored-bytes budget, one wave partitioned by tenant
   (kernel 3 on each), and a tenant's quota shedding;
 - the storage plane (``storage``): ``pio storageserver`` as a subprocess
-  (parquet events), the ML-20M ratings written to it as bulk frames,
-  ``pio eventstore status|compact --url``, ``pio train`` with every
+  (parquet events), 5,000,000 ratings at the ML-20M width written to it
+  as bulk frames, ``pio eventstore status|compact --url``, ``pio train`` with every
   repository on the daemon (kernel 1), held to an in-memory train from one
   start per entity; the deploy bound through the daemon answering a
   queued wave (kernel 3), solo queries and ``pio batchpredict``; the
   daemon SIGKILLed under the deploy (a wave still answered, ``/readyz``
   not ready, the event server's 503 + ``Retry-After``) and restarted (the
   breaker closed, every acknowledged event read back); ``pio app
-  compact``; a train with ``TYPE=hdfs`` models and a wave from it.
+  compact``; a train with ``TYPE=hdfs`` models and a wave from it;
+- the watch loop (``watch``): two tenants on one deploy over a storage
+  daemon, 4 x 1,024 queued HTTP queries for one (kernel 3 on each wave)
+  and 64 solo queries for the other, every answer billed: the cost
+  ledger's device seconds held to the batcher's within 1e-6 of them;
+  ``cost_skew`` firing for the noisy tenant; ``pio profile`` capturing
+  kernel 3 on the card and ``pio trace`` joining the deploy, the daemon and
+  an event server; the daemon SIGKILLed (``breaker_open`` firing, one
+  incident bundle, ``pio status --url`` exiting 1, a wave still through
+  kernel 3), the read-only verbs (``incident``, ``alerts``, ``costs``,
+  ``top``, ``capacity``, ``explain``, ``profile --stacks``) at once, and
+  the daemon restarted (the alert resolved, ``status --url`` exiting 0);
+  then an ML-100K train over a throwaway PostgreSQL server where the host
+  has one (kernel 1).
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -192,6 +205,7 @@ def nvidia_smi_line() -> str:
 
 
 def toolchain() -> dict:
+    from predictionio_tpu_torch.data.storage import pq_driver
     from predictionio_tpu_torch.ops import _kernels
 
     try:
@@ -220,6 +234,9 @@ def toolchain() -> dict:
         "fsspec": version("fsspec"),
         "pandas": version("pandas"),
         "nvcc": _kernels.nvcc_path(),
+        # the watch phase's Postgres train runs where a server can start
+        "libpq": pq_driver.available(),
+        "postgres_bin": (postgres_binaries() or {}).get("pg_ctl"),
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": nvidia_smi_line(),
     }
@@ -3065,10 +3082,15 @@ def als_family_phases(ratings) -> list[dict]:
 #: the ingest clients: threads of this script, each with its own keep-alive
 #: connection to the event server, a subprocess of its own
 INGEST_CLIENTS, INGEST_BATCH, INGEST_SINGLES = 8, 50, 1_000
+#: the ingested stream: the first INGEST_EVENTS of the ML-100K-shaped
+#: stream (cut from all 100,000 to make room for the watch phase; the
+#: users, items and rates per event keep the ML-100K shape)
+INGEST_EVENTS = 20_000
 LIVE_USERS = 8  # the live loop's users, one view POSTed for each
 #: the tied slice: the stream's first TIED_EVENTS, TIED_PER_SECOND of them
-#: to one second, each second's events spread over 20 batches
-TIED_EVENTS, TIED_PER_SECOND = 20_000, 1_000
+#: to one second, each second's events spread over 20 batches (cut from
+#: 20,000 with the stream)
+TIED_EVENTS, TIED_PER_SECOND = 6_000, 1_000
 
 
 def spawn_cli(home: Path, argv: list, lines: int, env: dict | None = None):
@@ -3454,8 +3476,8 @@ def eventserver_obs(port: int, pid: int, accepted: int) -> dict:
 def event_ingest_phase() -> dict:
     """The Lambda path through the port's entry points on a fresh home:
     ``app new`` and ``accesskey new``; ``eventserver --stats`` as a
-    subprocess, fed the ML-100K ``rate`` stream by INGEST_CLIENTS threads in
-    batches of 50, then INGEST_SINGLES single POSTs (events and both
+    subprocess, fed the first INGEST_EVENTS of the ML-100K-shaped ``rate``
+    stream by INGEST_CLIENTS threads in batches of 50, then INGEST_SINGLES single POSTs (events and both
     webhooks); ``export`` equal to what was sent, ``/stats.json`` counting
     it; the ingest gate shedding; ``train`` on the card over the ingested
     events (kernel 1) held to a train of the same events by ``import``;
@@ -3468,7 +3490,9 @@ def event_ingest_phase() -> dict:
     from predictionio_tpu_torch.tools import cli
 
     out: dict = {"phase": "event_ingest",
-                 "shape": [ML100K_USERS, ML100K_ITEMS, ML100K_EVENTS],
+                 "shape": [ML100K_USERS, ML100K_ITEMS, INGEST_EVENTS],
+                 "reduced": {"events": [ML100K_EVENTS, INGEST_EVENTS],
+                             "tied_events": [20_000, TIED_EVENTS]},
                  "rank": RANK, "iterations": ITERATIONS, "clients": INGEST_CLIENTS,
                  "nvidia_smi": nvidia_smi_line()}
     t_phase = time.perf_counter()
@@ -3478,7 +3502,8 @@ def event_ingest_phase() -> dict:
         storage = reset_storage(StorageConfig.from_env({"PIO_HOME": str(home)}))
         u, i, r = movielens_like(ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS,
                                  SEED + 10, half_stars=False)
-        rates, singles = ingest_streams(u, i, r)
+        rates, singles = ingest_streams(u[:INGEST_EVENTS], i[:INGEST_EVENTS],
+                                        r[:INGEST_EVENTS])
         printed = io.StringIO()
 
         def run(*argv) -> str:
@@ -4162,7 +4187,8 @@ LOGREG_RTOL = 1e-4
 CLS_PRED_ROWS = 4096
 #: the classification template's CLI store: users with $set attr0-2/plan,
 #: the queries sent to its deploy and the clients sending them
-CLS_USERS, CLS_QUERIES, CLS_CLIENTS = 100_000, 1_000, 8
+#: the template's users (cut from 100,000 to make room for the watch phase)
+CLS_USERS, CLS_QUERIES, CLS_CLIENTS = 20_000, 1_000, 8
 #: the template's planted rule: plan p draws attr0-2 from Poisson(rates[p])
 CLS_RATES = ((6.0, 2.0, 1.0), (1.0, 5.0, 2.0), (2.0, 1.0, 5.0))
 #: a near tie: the top two scores within this share of the top one
@@ -6167,7 +6193,7 @@ def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
                  "iterations": ITERATIONS, "expected_s": STORE_EXPECTED_S,
                  "knobs": STORE_KNOBS}
     if n_events != ML20M_RATINGS:
-        out["reduced"] = {"events": n_events}
+        out["reduced"] = {"events": [ML20M_RATINGS, n_events]}
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = Path(tmp_dir.name)
     root = tmp / "root"
@@ -6301,11 +6327,22 @@ def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
             mem = als.train_als(u, i, r, n_users, n_items, captured["params"],
                                 device=device, init_factors=(init_u, init_v))
             out["in_memory_train_s"] = time.perf_counter() - t0
-            diff = max(
-                float(np.abs(mem.user_factors.cpu().numpy()[ukeys] - U).max()),
-                float(np.abs(mem.item_factors.cpu().numpy()[ikeys] - V).max()),
-            )
-            assert diff <= 2e-3, f"factors over the daemon differ by {diff}"
+            gaps = {}
+            for side, got, keys, want, ids in (
+                    ("user", U, ukeys, mem.user_factors, u),
+                    ("item", V, ikeys, mem.item_factors, i)):
+                per = np.abs(want.cpu().numpy()[keys] - got).max(axis=1)
+                top = int(per.argmax())
+                counts = np.bincount(np.asarray(ids), minlength=int(keys.max()) + 1)
+                # the entity that sets the gap and how many ratings it has:
+                # the gap is a maximum over entities, set by the fewest-rated
+                gaps[side] = {"max": float(per[top]), "entity": int(keys[top]),
+                              "ratings": int(counts[keys[top]]),
+                              "p999": float(np.quantile(per, 0.999)),
+                              "median_ratings": float(np.median(counts[keys]))}
+            diff = max(g["max"] for g in gaps.values())
+            out["train"]["vs_in_memory_gap"] = gaps
+            assert diff <= 2e-3, f"factors over the daemon differ by {diff}: {gaps}"
             out["train"]["vs_in_memory_max_abs_diff"] = diff
             out["train"]["users"], out["train"]["items"] = len(ukeys), len(ikeys)
             del mem
@@ -6508,6 +6545,667 @@ def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
     return out
 
 
+# -- the watch loop: costs, alerts, incidents, traces, the obs verbs ----------
+
+#: the watch phase's expected seconds (PERF.md §4), tenant one's queued
+#: bursts of known users (each one device wave: kernel 3), tenant two's
+#: solo queries, the evaluator's tick, and the latency objective of the
+#: deploy's SLO tracker: a burst queues 1,024 queries at once by design,
+#: so the 0.5 s default would page slo_burn for the burst itself
+WATCH_EXPECTED_S = (45, 75)
+WATCH_BURSTS, WATCH_WAVE, WATCH_SOLO = 4, 1024, 64
+WATCH_TICK_S, WATCH_SLO_LATENCY_S = 1.0, 60.0
+#: the profile verb's capture window (seconds)
+WATCH_PROFILE_S = 2.0
+#: the deploy's storage client: a breaker that stays open through the
+#: daemon's outage (its reset outlasts kill -> firing -> status -> a wave
+#: -> restart), so breaker_open fires once and records one bundle, and a
+#: half-open probe after the restart closes it
+WATCH_STORE_KNOBS = {"TIMEOUT": "60", "RETRIES": "1", "BREAKER_THRESHOLD": "2",
+                     "BREAKER_RESET_S": "12"}
+
+
+def device_lead_us(trace_path: str) -> float | None:
+    """How far ahead of the host's stamp of a launch its device work is
+    stamped in a capture's chrome trace: the largest over correlated
+    pairs, in us (negative when every device op starts after its launch)."""
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    leads = [launches[e["args"]["correlation"]] - e["ts"] for e in events
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+             and e.get("args", {}).get("correlation") in launches]
+    return max(leads) if leads else None
+
+
+def raise_open_files(want: int) -> dict:
+    """The soft limit of open files raised toward ``want`` (within the hard
+    limit): a burst holds one connection per query, both ends in this
+    process."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    target = want if hard == resource.RLIM_INFINITY else min(want, hard)
+    if soft != resource.RLIM_INFINITY and soft < target:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (target, hard))
+    return {"soft": resource.getrlimit(resource.RLIMIT_NOFILE)[0], "hard": hard}
+
+
+def held_http_burst(batcher, port: int, users, tenant: str,
+                    second_headers: dict | None = None, before_release=None) -> list:
+    """``len(users)`` queries for ``tenant`` over HTTP, one connection each,
+    queued behind a held wave of one query, so the next wave takes them all
+    (kernel 3 at 512 known users or more).  The first, sent alone before
+    the rest, leads the wave: the wave's finalize (its feedback writes)
+    runs under that query's request context.  The second carries
+    ``second_headers``, so a trace it names holds its own spans and its
+    wave's stages, not the wave's 1,024 feedback writes.  ``before_release``
+    runs once every query is queued, just before the held wave lets go.
+    Returns (status, X-Pio-Request-Id, body) per query, in order."""
+    import asyncio
+
+    real = batcher.batch_fn
+    gate, held = threading.Event(), threading.Event()
+
+    def gated(items):
+        if not held.is_set():
+            held.set()
+            gate.wait(120)
+        return real(items)
+
+    async def one(user, headers):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        body = json.dumps({"user": f"u{user}", "num": 10}).encode()
+        head = "".join(f"{k}: {v}\r\n" for k, v in headers.items())
+        writer.write((f"POST /queries.json HTTP/1.1\r\nHost: smoke\r\n"
+                      f"X-Pio-App: {tenant}\r\n{head}Content-Length: "
+                      f"{len(body)}\r\nConnection: close\r\n\r\n").encode() + body)
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        head, _, data = raw.partition(b"\r\n\r\n")
+        lines = head.decode("latin-1").split("\r\n")
+        hdrs = {k.strip().lower(): v.strip() for k, _, v in
+                (x.partition(":") for x in lines[1:] if x)}
+        return int(lines[0].split()[1]), hdrs.get("x-pio-request-id"), data
+
+    async def burst():
+        first = asyncio.ensure_future(one(users[0], {}))
+        for _ in range(600):
+            if len(batcher._pending) >= 1:
+                break
+            await asyncio.sleep(0.01)
+        rest = [asyncio.ensure_future(one(u, (second_headers or {}) if k == 0 else {}))
+                for k, u in enumerate(users[1:])]
+        for _ in range(1200):
+            if len(batcher._pending) >= len(users):
+                break
+            await asyncio.sleep(0.05)
+        assert len(batcher._pending) == len(users), len(batcher._pending)
+        if before_release is not None:
+            before_release()
+        gate.set()
+        return await asyncio.gather(first, *rest)
+
+    batcher.batch_fn = gated
+    try:
+        hold = threading.Thread(target=post_tenant, args=(port, "u0", tenant))
+        hold.start()
+        assert held.wait(60), "the holding wave never started"
+        results = asyncio.run(asyncio.wait_for(burst(), timeout=300))
+        hold.join(120)
+    finally:
+        gate.set()
+        batcher.batch_fn = real
+    return results
+
+
+def post_tenant(port: int, user: str, tenant: str) -> int:
+    """The status of one query for ``tenant`` on a connection of its own."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        return http_call(conn, "POST", "/queries.json",
+                         json.dumps({"user": user, "num": 10}).encode(),
+                         {"X-Pio-App": tenant})[0]
+    finally:
+        conn.close()
+
+
+def alert_events(port: int) -> list:
+    """The deploy's recent alert transitions, oldest first."""
+    status, snap = obs_get(port, "/alerts.json")
+    assert status == 200, snap
+    return list(reversed(snap["recent"]))
+
+
+def wait_for_transition(port: int, rule: str, event: str, timeout: float,
+                        since: float = 0.0) -> dict:
+    """The first ``event`` transition of ``rule`` at or after ``since``
+    (wall time), polled from ``/alerts.json``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for e in alert_events(port):
+            if e["rule"] == rule and e["event"] == event and e["at"] >= since - 1e-3:
+                return e
+        assert time.monotonic() < deadline, (
+            f"no {event} of {rule} in {timeout} s", alert_events(port)[-6:])
+        time.sleep(0.1)
+
+
+def postgres_binaries() -> dict | None:
+    """``initdb`` and ``pg_ctl`` on PATH or under /usr/lib/postgresql, or
+    None."""
+    import glob
+    import shutil
+
+    for d in [None, *sorted(glob.glob("/usr/lib/postgresql/*/bin"), reverse=True)]:
+        initdb = shutil.which("initdb", path=d)
+        pg_ctl = shutil.which("pg_ctl", path=d)
+        if initdb and pg_ctl:
+            return {"initdb": initdb, "pg_ctl": pg_ctl}
+    return None
+
+
+def postgres_train(tmp: Path, device) -> dict:
+    """With a PostgreSQL server on this host: a throwaway server, the
+    ML-100K app's metadata, events and models on it, ``run_train`` (40
+    kernel-1 launches) and the server-side shard split held to
+    ``entity_shard``.  Without one: ``{"server": None}``."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import resolve_engine_factory
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import base, postgres_backend, pq_driver
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.tools import commands
+
+    bins = postgres_binaries()
+    if bins is None or not pq_driver.available():
+        return {"server": None}
+    data, sock = tmp / "pgdata", tmp / "pgsock"
+    sock.mkdir()
+    subprocess.run([bins["initdb"], "-D", str(data), "-U", "pio", "--auth=trust"],
+                   check=True, capture_output=True, timeout=120)
+    subprocess.run([bins["pg_ctl"], "-D", str(data), "-o",
+                    f"-c listen_addresses='' -k {sock}", "-w", "start"],
+                   check=True, capture_output=True, timeout=120)
+    out: dict = {"server": bins["pg_ctl"]}
+    storage = None
+    try:
+        url = f"postgresql://pio@/postgres?host={sock}"
+        storage = StorageRuntime(StorageConfig.from_env({
+            "PIO_HOME": str(tmp / "pg_home"),
+            "PIO_STORAGE_SOURCES_PG_TYPE": "postgres",
+            "PIO_STORAGE_SOURCES_PG_URL": url,
+            **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "PG"
+               for r in ("METADATA", "EVENTDATA", "MODELDATA")}}))
+        app = commands.app_new(storage, "pg100k").app
+        u, i, r = movielens_like(ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS,
+                                 SEED + 40, half_stars=False)
+        t0 = time.perf_counter()
+        storage.l_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=f"u{a}",
+                  target_entity_type="item", target_entity_id=f"i{b}",
+                  properties=DataMap({"rating": float(c)}))
+            for a, b, c in zip(u.tolist(), i.tolist(), r.tolist())], app.id)
+        out["write_s"] = time.perf_counter() - t0
+        pe = storage.p_events()
+        assert isinstance(pe, postgres_backend.PGPEvents)
+        t0 = time.perf_counter()
+        n = 0
+        for k, frame in pe.iter_shards(app.id, n_shards=4):
+            got = base.frame_shard_of(frame.entity_type, frame.entity_id, 4)
+            assert (got == k).all(), k
+            n += len(frame.event)
+        assert n == ML100K_EVENTS, n
+        out["shards_s"] = time.perf_counter() - t0
+        engine = resolve_engine_factory("recommendation")()
+        params = engine.params_from_json({
+            "datasource": {"params": {"appName": "pg100k"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "numIterations": ITERATIONS}}]})
+        before = read_launches()["als_fused_accum"]
+        t0 = time.perf_counter()
+        inst = run_train(engine, params, ctx=EngineContext(storage=storage, device=device),
+                         engine_factory="recommendation", storage=storage)
+        out["train_s"] = time.perf_counter() - t0
+        out["train_launches"] = read_launches()["als_fused_accum"] - before
+        assert inst is not None and inst.status == "COMPLETED"
+        assert torch.device(device).type != "cuda" or out["train_launches"] == 2 * ITERATIONS
+    finally:
+        if storage is not None:
+            storage.close()
+        subprocess.run([bins["pg_ctl"], "-D", str(data), "-m", "immediate", "stop"],
+                       capture_output=True, timeout=120)
+    return out
+
+
+def watch_phase(device="cuda") -> dict:
+    """``watch``: the watch loop over a two-tenant deploy on the card.
+
+    A ``storageserver`` process (sqlite events: feedback writes one event
+    an answer) holds every repository;
+    two seeded models at the ML-20M shape are written to it and deployed
+    as tenants ``one`` and ``two`` (``deploy_tenant_engines`` + the
+    multi-tenant app: waves of up to 1,024, feedback on, an access key)
+    with the watch loop on (the default rule pack, a tick of 1 s, bundles
+    into ``PIO_INCIDENT_DIR``); a ``pio eventserver`` process on the same
+    daemon.  ``one`` gets 4 x 1,024 queued known-user queries over HTTP,
+    each burst one device wave through kernel 3 (every answer held to the
+    host answer), ``two`` 64 solo queries: ``/costs.json`` bills both, and
+    the ledger's device seconds over all apps equal the batcher's
+    ``pio_microbatch_device_seconds`` within 1e-6 of it.  ``cost_skew``
+    fires for ``one`` within ``for_s`` and two ticks of its pending.  The
+    fourth burst leads with a query sent with ``X-Pio-Trace-Id`` while
+    ``pio profile --url --seconds 2`` captures (a CUDA capture naming
+    kernel 3); an event POSTed to the event server under the same trace;
+    ``pio trace`` over the deploy, the daemon and the event server joins
+    them, the wave's stages on the ``device:cuda:0`` lane.  The daemon is
+    SIGKILLed: the next answers' feedback writes open the breaker,
+    ``breaker_open`` fires within one tick, one bundle is written for it,
+    ``pio status --url`` exits 1, and a wave still answers through kernel
+    3; the read-only verbs run together (``incident list|show|export
+    --perfetto``, ``alerts``, ``costs``, ``top --json``, ``capacity``,
+    ``explain`` of a kernel-3 answer, ``profile --stacks``).  Restarted on
+    its port, the breaker closes, ``breaker_open`` resolves and ``status
+    --url`` exits 0.  Last, Postgres: with ``initdb`` and ``pg_ctl`` on the
+    host, an ML-100K train over a throwaway server (kernel 1); without
+    them ``{"server": null}``."""
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.obs.profiler import PROFILER
+    from predictionio_tpu_torch.resilience.breaker import breaker_states
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+    from predictionio_tpu_torch.server.prediction_server import (
+        FeedbackConfig,
+        create_multi_tenant_server_app,
+        deploy_tenant_engines,
+    )
+    from predictionio_tpu_torch.tools import commands
+
+    import signal
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "watch", "expected_s": WATCH_EXPECTED_S,
+                 "shape": [ML20M_USERS, ML20M_ITEMS, RANK],
+                 "bursts": [WATCH_BURSTS, WATCH_WAVE], "solo": WATCH_SOLO,
+                 "tick_s": WATCH_TICK_S, "slo_latency_s": WATCH_SLO_LATENCY_S,
+                 "open_files": raise_open_files(4 * WATCH_WAVE + 1024),
+                 "nvidia_smi": nvidia_smi_line()}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    root, incident_dir = tmp / "root", tmp / "incidents"
+    root.mkdir()
+    daemon = es_proc = server = storage = None
+    reset_launches()
+
+    def start_daemon(port: int):
+        # sqlite events: every answer's feedback is one insert, and the
+        # parquet log writes a segment per insert (the storage phase drives
+        # the parquet log at the ML-20M shape)
+        proc, lines = spawn_cli(root, ["storageserver", "--ip", "127.0.0.1",
+                                       "--port", str(port), "--root", str(root),
+                                       "--events", "sqlite"], 1)
+        return proc, bound_port(lines[0])
+
+    def status_url() -> tuple[int, str]:
+        # --no-quality: the bursts' scores drift from the quality monitor's
+        # reference window by construction (seeded random users); the
+        # alert fold and the probes decide the exit code here
+        ((rc, _, err),) = cli_once(tmp / "cli_home", [
+            ["status", "--url", deploy_url, "--access-key", OBS_KEY,
+             "--no-quality"]])
+        return rc, err
+
+    try:
+        t0 = time.perf_counter()
+        daemon, dport = start_daemon(0)
+        daemon_url = f"http://127.0.0.1:{dport}"
+        env = {**remote_env(daemon_url),
+               **{f"PIO_STORAGE_SOURCES_R_{k}": v for k, v in WATCH_STORE_KNOBS.items()}}
+        storage = StorageRuntime(StorageConfig.from_env(
+            {"PIO_HOME": str(tmp / "home"), **env}))
+        es_proc, es_lines = spawn_cli(tmp / "es_home", [
+            "eventserver", "--ip", "127.0.0.1", "--port", "0"], 1, env=env)
+        es_url = f"http://127.0.0.1:{bound_port(es_lines[0])}"
+        one_app = commands.app_new(storage, "one")
+        ids, factors = {}, {}
+        for name, seed, coords in (("one", SEED + 30, ("default",) * 3),
+                                   ("two", SEED + 31, ("two", "default", "default"))):
+            ids[name], U, V = write_model(storage, tmp, seed=seed, coords=coords)
+            factors[name] = (U, V)
+        reg = MetricsRegistry()
+        with scoped_env(PIO_INCIDENT_DIR=str(incident_dir),
+                        PIO_ALERT_INTERVAL_S=str(WATCH_TICK_S)):
+            tenants = deploy_tenant_engines([
+                {"app": "one", "engine_factory": "recommendation",
+                 "engine_instance_id": ids["one"]},
+                {"app": "two", "engine_factory": "recommendation", "engine_id": "two",
+                 "engine_instance_id": ids["two"]},
+            ], storage=storage, registry=reg, device=device)
+            app = create_multi_tenant_server_app(
+                tenants, use_microbatch=True, max_batch=WATCH_WAVE, max_queue=0,
+                registry=reg, access_key=OBS_KEY,
+                feedback=FeedbackConfig(enabled=True, app_id=one_app.app.id))
+        app.slo.latency_threshold_s = WATCH_SLO_LATENCY_S
+        assert app.alerts is not None and app.alerts.interval_s == WATCH_TICK_S
+        assert app.incidents.directory == str(incident_dir)
+        server = AsyncAppServer(app, "127.0.0.1", 0).start_background()
+        deploy_url = f"http://127.0.0.1:{server.port}"
+        out["setup_s"] = time.perf_counter() - t0
+
+        # (a) the billed solo queries and bursts; the ledger conserves.  The
+        # solo queries go first, so cost_skew's hold runs beside the bursts
+        rng = np.random.default_rng(SEED + 32)
+        U1, V1 = factors["one"]
+        U2, V2 = factors["two"]
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        solo_ms = []
+        try:
+            for user in rng.choice(ML20M_USERS, WATCH_SOLO, replace=False):
+                status, headers, body, ms = http_call(
+                    conn, "POST", "/queries.json",
+                    json.dumps({"user": f"u{user}", "num": 10}).encode(),
+                    {"X-Pio-App": "two"})
+                assert status == 200 and headers["X-Pio-App"] == "two", status
+                want = host_answer(U2, V2, int(user), 10)
+                hold_scored(body["itemScores"], want, 10, user)
+                solo_ms.append(ms)
+        finally:
+            conn.close()
+        out["solo_p50_ms"] = statistics.median(solo_ms)
+        burst_s, kernel3 = [], []
+        tid = uuid.uuid4().hex
+        profiling: list = []
+
+        def start_profile() -> None:
+            """``pio profile --url`` armed with the wave queued, so its
+            capture holds the wave's kernel."""
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch.tools.cli",
+                 "profile", "--url", deploy_url, "--access-key", OBS_KEY,
+                 "--seconds", str(WATCH_PROFILE_S)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=dict(os.environ, PIO_HOME=str(tmp / "cli_home"),
+                         PYTHONUNBUFFERED="1"),
+                cwd=Path(__file__).resolve().parent)
+            profiling.append(proc)
+            # the verb prints its first line once the server answered 202,
+            # which it does once the profiler has started on the capture's
+            # thread (the status reads running from the request on)
+            first = proc.stdout.readline()
+            assert first.startswith("torch profiler capturing"), (
+                first, proc.communicate())
+            assert PROFILER.status()["running"]
+
+        def burst(traced: bool, profiled: bool) -> list:
+            """One held burst of tenant one's known users (one kernel-3
+            wave), its answers held to the host answer."""
+            users = rng.choice(ML20M_USERS, WATCH_WAVE, replace=False)
+            before = read_launches()["fused_topk"]
+            t0 = time.perf_counter()
+            res = held_http_burst(
+                app.microbatcher, server.port, users, "one",
+                {"X-Pio-Trace-Id": tid} if traced else None,
+                start_profile if profiled else None)
+            burst_s.append(time.perf_counter() - t0)
+            kernel3.append(read_launches()["fused_topk"] - before)
+            assert [r[0] for r in res] == [200] * WATCH_WAVE, [r[0] for r in res][:8]
+            hold_answers([json.loads(r[2])["itemScores"] for r in res[:256]],
+                         users[:256], U1, V1, 10)
+            return res
+
+        def wave_t0(rid: str) -> float:
+            """The dispatch wall time of the wave that answered ``rid``
+            (its provenance record's wave id: dispatch wall-ms in hex)."""
+            record = obs_get(server.port, f"/explain.json?request_id={rid}")[1]["record"]
+            return int(record["wave"]["id"].split("-")[0], 16) / 1e3
+
+        for _ in range(WATCH_BURSTS - 1):
+            burst(False, False)
+        # the last burst: traced, and captured by the profile verb once
+        res = burst(True, True)
+        proc = profiling[-1]
+        prof_out, prof_err = proc.communicate(timeout=120)
+        last = {}
+        if proc.returncode == 0:
+            last = json.loads(prof_out[prof_out.index("{"):])["last"]
+        capture = {
+            "rc": proc.returncode, "cuda": last.get("cuda"),
+            "error": last.get("error") or (prof_err.strip().splitlines() or [""])[-1],
+            "window": [last.get("started"), last.get("finished")],
+            "wave_t0": wave_t0(res[1][1]),
+            "fused_topk_ops": [o for o in last.get("device_ops") or ()
+                               if "fused_topk" in o["name"]],
+            "device_lead_us": device_lead_us(last["trace"]) if last.get("trace") else None}
+        out["bursts_s"] = burst_s
+        out["burst_launches"] = kernel3
+        assert not on_card or kernel3 == [1] * len(burst_s), kernel3
+        costs = obs_get(server.port, "/costs.json")[1]
+        billed = {}
+        for row in costs["totals"]:
+            agg = billed.setdefault(row["app"], {"requests": 0.0, "device_s": 0.0})
+            agg["requests"] += row["requests"]
+            agg["device_s"] += row["device_s"]
+        fam = reg.get("pio_microbatch_device_seconds")
+        device_s = sum(child.sum for _, child in fam.series())
+        ledger_s = sum(a["device_s"] for a in billed.values())
+        out["costs"] = {"billed": billed, "batcher_device_s": device_s,
+                        "ledger_device_s": ledger_s,
+                        "rel_diff": abs(ledger_s - device_s) / device_s}
+        assert billed["one"]["requests"] == len(burst_s) * (WATCH_WAVE + 1), billed
+        assert billed["two"]["requests"] == WATCH_SOLO, billed
+        assert out["costs"]["rel_diff"] <= 1e-6, out["costs"]
+
+        # (b) the profile verb's capture, the trace across three processes
+        out["profile"] = capture
+        assert capture["rc"] == 0, capture
+        assert not on_card or (capture["cuda"] and not capture["error"]
+                               and capture["fused_topk_ops"]), capture
+        conn = http.client.HTTPConnection(es_url.split("//")[1], timeout=60)
+        try:
+            status, _, body, _ = http_call(
+                conn, "POST", f"/events.json?accessKey={one_app.keys[0].key}",
+                json.dumps({"event": "view", "entityType": "user", "entityId": "u7",
+                            "targetEntityType": "item", "targetEntityId": "i7"}).encode(),
+                {"Content-Type": "application/json", "X-Pio-Trace-Id": tid})
+        finally:
+            conn.close()
+        assert status == 201, body
+        ((rc, trace_out, trace_err),) = cli_once(tmp / "cli_home", [
+            ["trace", tid, "--from", f"{deploy_url},{daemon_url},{es_url}",
+             "--json", "--access-key", OBS_KEY]])
+        assert rc == 0, trace_err[-2000:]
+        tl = json.loads(trace_out)
+
+        def nodes(spans):
+            for n in spans:
+                yield n
+                yield from nodes(n.get("children", ()))
+
+        lanes: dict = {}
+        for n in nodes(tl["spans"]):
+            lanes.setdefault(n.get("track", "spans"), []).append(n["name"])
+        out["trace"] = {"processes": tl["processes"], "span_count": tl["span_count"],
+                        "lanes": {k: sorted(set(v)) for k, v in lanes.items()},
+                        "source_errors": tl["source_errors"]}
+        assert len(tl["processes"]) >= 2, out["trace"]
+        device_lane = f"device:{device}:0" if on_card else "device:cpu:0"
+        assert lanes.get(device_lane), out["trace"]
+
+        # (c) cost_skew fires for one within for_s and two ticks
+        pending = wait_for_transition(server.port, "cost_skew", "pending", 30)
+        firing = wait_for_transition(server.port, "cost_skew", "firing", 30)
+        skew_rule = next(r for r in app.alerts.rules if r.name == "cost_skew")
+        out["cost_skew"] = {"key": firing["key"], "value": firing["value"],
+                            "pending_to_firing_s": firing["at"] - pending["at"],
+                            "for_s": skew_rule.for_s}
+        assert firing["key"] == "app=one", firing
+        assert out["cost_skew"]["pending_to_firing_s"] <= (
+            skew_rule.for_s + 2 * WATCH_TICK_S + 0.5), out["cost_skew"]
+        rc, err = status_url()
+        out["status_before_kill"] = rc
+        assert rc == 0, err[-2000:]
+
+        # (d) the daemon dies: breaker_open, one bundle, status exits 1
+        daemon.send_signal(signal.SIGKILL)
+        daemon.wait(timeout=30)
+        t_kill = time.time()
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        try:
+            opened_at = None
+            for k in range(32):
+                status, _, _, _ = http_call(
+                    conn, "POST", "/queries.json",
+                    json.dumps({"user": f"u{k}", "num": 10}).encode(),
+                    {"X-Pio-App": "two"})
+                assert status == 200, status
+                if any(s.get("state") == "open" for s in breaker_states().values()):
+                    opened_at = time.time()
+                    break
+        finally:
+            conn.close()
+        assert opened_at is not None, breaker_states()
+        fired = wait_for_transition(server.port, "breaker_open", "firing", 10,
+                                    since=opened_at)
+        out["breaker_open"] = {"key": fired["key"],
+                               "kill_to_open_s": opened_at - t_kill,
+                               "open_to_firing_s": fired["at"] - opened_at}
+        assert fired["severity"] == "critical", fired
+        assert out["breaker_open"]["open_to_firing_s"] <= WATCH_TICK_S + 0.5, out
+        # the bundle is written on the firing tick, after the transition
+        deadline = time.monotonic() + 10
+        while not any(r["rule"] == "breaker_open" for r in app.incidents.list()):
+            assert time.monotonic() < deadline, app.incidents.list()
+            time.sleep(0.05)
+        # a bundle per firing, but one a rule a minute (the recorder's
+        # rate limit): a rule that fired again meanwhile (a drift detector
+        # at the burst's edge) counts the rest as suppressed.  Another rule
+        # may fire while this reads: read until the books balance
+        suppressed_fam = reg.get("pio_incidents_suppressed_total")
+        deadline = time.monotonic() + 10
+        while True:
+            firings: dict = {}
+            for e in alert_events(server.port):
+                if e["event"] == "firing":
+                    firings[e["rule"]] = firings.get(e["rule"], 0) + 1
+            bundles = app.incidents.list()
+            by_rule: dict = {}
+            for row in bundles:
+                by_rule[row["rule"]] = by_rule.get(row["rule"], 0) + 1
+            suppressed = {lv[0]: int(c.value) for lv, c in suppressed_fam.series()
+                          if c.value} if suppressed_fam is not None else {}
+            balanced = set(by_rule) == set(firings) and all(
+                by_rule[r] == 1 and suppressed.get(r, 0) == n - 1
+                for r, n in firings.items())
+            if balanced or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        out["bundles"] = by_rule
+        out["firings"] = firings
+        out["bundles_suppressed"] = suppressed
+        assert by_rule.get("breaker_open") == 1 and firings["breaker_open"] == 1
+        assert balanced, (by_rule, firings, suppressed)
+        rc, err = status_url()
+        out["status_daemon_dead"] = rc
+        assert rc == 1 and "breaker_open" in err, err[-2000:]
+        users = rng.choice(ML20M_USERS, WATCH_WAVE, replace=False)
+        before = read_launches()["fused_topk"]
+        res = held_http_burst(app.microbatcher, server.port, users, "one")
+        out["wave_daemon_dead_launches"] = read_launches()["fused_topk"] - before
+        assert [r[0] for r in res] == [200] * WATCH_WAVE
+        assert not on_card or out["wave_daemon_dead_launches"] == 1, out
+        hold_answers([json.loads(r[2])["itemScores"] for r in res[:256]],
+                     users[:256], U1, V1, 10)
+        t_restart = time.time()
+        t0 = time.perf_counter()
+        daemon, _ = start_daemon(dport)
+        out["restart_s"] = time.perf_counter() - t0
+        out["outage_s"] = t_restart - t_kill + out["restart_s"]
+
+        # (e) the read-only verbs, all at once
+        bundle = next(r for r in bundles if r["rule"] == "breaker_open")
+        # a kernel-3 answer still in the provenance ring (1,024 records)
+        explained = res[-1][1]
+        verbs = [
+            ["incident", "list", "--url", deploy_url],
+            ["incident", "show", bundle["id"], "--url", deploy_url],
+            ["incident", "export", bundle["id"], "--url", deploy_url, "--perfetto", "-"],
+            ["alerts", "--url", deploy_url],
+            ["costs", "--url", deploy_url],
+            ["top", "--url", deploy_url, "--json", "--once"],
+            ["capacity", "--url", deploy_url],
+            ["explain", explained, "--url", deploy_url, "--json", "--no-trace"],
+            ["profile", "--url", deploy_url, "--stacks", "--seconds", "1"],
+        ]
+        t0 = time.perf_counter()
+        got = cli_once(tmp / "cli_home", [v + ["--access-key", OBS_KEY] for v in verbs])
+        out["verbs_s"] = time.perf_counter() - t0
+        rcs = {" ".join(v[:2]): rc for v, (rc, _, _) in zip(verbs, got)}
+        out["verbs_rc"] = rcs
+        for v, (rc, stdout, stderr) in zip(verbs, got):
+            # alerts exits 1 while anything fires
+            assert rc == (1 if v[0] == "alerts" else 0), (v, stderr[-2000:])
+        assert bundle["id"] in got[0][1]
+        assert "rule:      breaker_open" in got[1][1]
+        chrome = json.loads(got[2][1])
+        out["bundle_chrome_events"] = len(chrome["traceEvents"])
+        assert any(e["ph"] == "X" for e in chrome["traceEvents"])
+        assert "breaker_open" in got[3][1] and "one" in got[4][1]
+        assert set(json.loads(got[5][1])) == {"costs", "alerts"}
+        assert "max sustainable" in got[6][1]
+        record = json.loads(got[7][1])["record"]
+        out["explained"] = {"engine_path": record.get("engine_path"),
+                            "wave": record.get("wave")}
+        assert record["engine_path"] == "als.device_topk", record
+        assert '"samples"' in got[8][1]
+
+        # (f) restarted: the breaker half-opens, a feedback write closes it,
+        # the alert resolves, status exits 0
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        try:
+            deadline = time.monotonic() + 60
+            while any(s.get("state") != "closed" for s in breaker_states().values()):
+                assert time.monotonic() < deadline, breaker_states()
+                status, _, _, _ = http_call(
+                    conn, "POST", "/queries.json",
+                    json.dumps({"user": "u1", "num": 10}).encode(), {"X-Pio-App": "two"})
+                assert status == 200
+                time.sleep(0.2)
+            closed_at = time.time()
+        finally:
+            conn.close()
+        # resolved after the restart (at the half-open probe or the close),
+        # and no firing since
+        resolved = wait_for_transition(server.port, "breaker_open", "resolved", 10,
+                                       since=t_restart)
+        out["breaker_open"]["restart_to_resolved_s"] = resolved["at"] - t_restart
+        out["breaker_open"]["firings"] = sum(
+            1 for e in alert_events(server.port)
+            if e["rule"] == "breaker_open" and e["event"] == "firing")
+        assert out["breaker_open"]["firings"] == 1, out["breaker_open"]
+        assert not app.alerts.firing() or all(
+            a["rule"] != "breaker_open" for a in app.alerts.firing()), app.alerts.firing()
+        rc, err = status_url()
+        out["status_restarted"] = rc
+        assert rc == 0, err[-2000:]
+        out["postgres"] = postgres_train(tmp, device)
+        out["launches"] = read_launches()
+    finally:
+        if server is not None:
+            server.shutdown()
+        if storage is not None:
+            storage.close()
+        for proc in (es_proc, daemon):
+            if proc is not None:
+                stop_cli(proc)
+        tmp_dir.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _swallow(fn):
     """``fn()``, or None when it raised (a request to a process killed
     under it)."""
@@ -6570,6 +7268,8 @@ def main() -> int:
     emit(lifecycle)
     storage = storage_phase()
     emit(storage)
+    watch = watch_phase()
+    emit(watch)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
     pretrain = ncf_train["pretrain"]
     rank32_t = pretrain["kernel1_rank32_implicit_user_half_step"]
@@ -6626,6 +7326,9 @@ def main() -> int:
                     # daemon (before and after its SIGKILL), its pio
                     # batchpredict, and the TYPE=hdfs model's wave
                     "launches_storage": storage["launches"]["fused_topk"],
+                    # the watch loop's billed waves: four queued bursts of
+                    # one tenant and the wave after the daemon's SIGKILL
+                    "launches_watch": watch["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),
@@ -6675,6 +7378,10 @@ def main() -> int:
                     # pio train of the ML-20M ratings through the storage
                     # daemon, and of the ML-100K app with TYPE=hdfs models
                     launches_storage=storage["launches"]["als_fused_accum"],
+                    # the ML-100K train over a throwaway PostgreSQL server,
+                    # where the host has one
+                    **({"launches_watch": watch["launches"]["als_fused_accum"]}
+                       if watch["postgres"]["server"] else {}),
                     # rank 32, implicit, on the pretrain's ML-20M user half-step
                     rank32_shape=rank32_t["shape"],
                     rank32_ms=rank32_t["ms"],

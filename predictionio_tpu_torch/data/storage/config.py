@@ -9,8 +9,10 @@ models), ``remote`` (all three over the storage daemon,
 ``server/storage_server.py``: the Elasticsearch server-fleet role; a
 comma-separated URL names a fleet the event DAOs fan out over),
 ``parquet`` (events only: the entity-hash-sharded columnar log),
-``localfs`` and ``hdfs`` (models only; ``hdfs`` is any fsspec URL).
-``postgres`` and ``jdbc`` raise until their slice of the port.
+``localfs`` and ``hdfs`` (models only; ``hdfs`` is any fsspec URL),
+``postgres`` / ``jdbc`` (events, metadata and models on a PostgreSQL
+server: the sqlite DAOs over a dialect-translating client,
+``postgres_backend.py``).
 """
 
 from __future__ import annotations
@@ -115,23 +117,26 @@ class StorageRuntime:
         ):
             from predictionio_tpu_torch.data.storage import parquet_backend  # noqa: F401
 
-    def _sql_client(self, name: str, props: dict[str, str]) -> SQLiteClient:
+    def _sql_client(self, name: str, props: dict[str, str]):
+        """A SQL client for a source: sqlite (embedded) or postgres (the
+        same DAOs over a dialect-translating client)."""
         with self._lock:
             if name not in self._clients:
                 typ = props.get("TYPE", "sqlite")
-                if typ in ("postgres", "jdbc"):
-                    raise StorageError(
-                        f"source {name} has TYPE {typ!r}: the postgres "
-                        "backend comes with the next slice of this port; "
-                        "use sqlite or remote"
+                if typ == "sqlite":
+                    path = props.get("PATH") or props.get("URL") or ":memory:"
+                    client = SQLiteClient(path)
+                    create_tables(client)
+                elif typ in ("postgres", "jdbc"):
+                    from predictionio_tpu_torch.data.storage.postgres_backend import (
+                        make_client,
                     )
-                if typ != "sqlite":
+
+                    client = make_client(props.get("URL", ""))
+                else:
                     raise StorageError(
                         f"source {name} has unsupported SQL TYPE {typ!r}"
                     )
-                path = props.get("PATH") or props.get("URL") or ":memory:"
-                client = SQLiteClient(path)
-                create_tables(client)
                 self._clients[name] = client
             return self._clients[name]
 
@@ -317,6 +322,16 @@ class StorageRuntime:
                         RemotePEvents(clients[0])
                         if len(clients) == 1
                         else FanoutPEvents(clients)
+                    )
+                elif typ in ("postgres", "jdbc"):
+                    from predictionio_tpu_torch.data.storage.postgres_backend import (
+                        PGPEvents,
+                    )
+
+                    # the server hashes entities: iter_shards moves only
+                    # the asked-for shards
+                    dao = PGPEvents(
+                        self._sql_client(name, props), self.l_events()
                     )
                 else:
                     dao = SQLitePEvents(

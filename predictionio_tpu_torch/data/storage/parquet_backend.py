@@ -88,6 +88,7 @@ from predictionio_tpu_torch.data.storage.base import (
     run_concurrent,
 )
 from predictionio_tpu_torch.data.storage.base import value_factorize
+from predictionio_tpu_torch.obs.costs import note_storage_read
 from predictionio_tpu_torch.resilience import faults
 
 log = logging.getLogger("predictionio_tpu_torch.data.parquet")
@@ -1131,6 +1132,7 @@ class ParquetEventStore:
         columns: Sequence[str] | None = None,
         kind: str = "shard",
         max_seq: int | None = None,
+        bill: bool = True,
     ) -> pa.Table | None:
         """Read one shard: compacted segment + write-hot head, newest-wins
         dedup, tombstones, then filter.
@@ -1251,6 +1253,11 @@ class ParquetEventStore:
             skipped += cseg.size
 
         m["bytes_read"].labels(kind).inc(read_bytes)
+        if bill:
+            # on the thread that asked for the scan, once per shard read:
+            # a pool thread sees no request or wave scope (``bill=False``
+            # for the compaction's folds, which run there)
+            note_storage_read(read_bytes)
         if skipped:
             m["bytes_skipped"].labels(kind).inc(skipped)
         if not parts:
@@ -1424,6 +1431,7 @@ class ParquetEventStore:
             skipped += cseg.size
 
         m["bytes_read"].labels("entity").inc(read_bytes)
+        note_storage_read(read_bytes)
         m["bytes_skipped"].labels("entity").inc(skipped)
         m["scan_s"].labels("entity").observe(time.perf_counter() - t0)
         if not parts:
@@ -1570,7 +1578,9 @@ class ParquetEventStore:
         # enumerated above), not the barrier: a segment published between
         # the listing and the read carries a larger seq and must stay a
         # live hot segment, never be folded-but-not-unlinked (duplicates)
-        t = self._shard_table(shard_dir, None, tombs, max_seq=watermark)
+        t = self._shard_table(
+            shard_dir, None, tombs, max_seq=watermark, bill=False
+        )
         folded = ([cseg] if cseg is not None else []) + hots
         new_path = shard_dir / f"cseg-{watermark}.parquet"
         if t is not None:

@@ -602,6 +602,12 @@ class SQLitePEvents(base.PEvents):
     def n_shards(self, app_id: int, channel_id: int | None = None) -> int:
         return self.N_SCAN_SHARDS
 
+    def _shard_expr(self, n_shards: int) -> str | None:
+        """SQL expression computing the entity-hash shard of a row, or None
+        when the dialect can't (scan once + split on the host instead).
+        Embedded sqlite has no md5(), and its rows are local anyway."""
+        return None
+
     def iter_shards(
         self,
         app_id: int,
@@ -614,14 +620,41 @@ class SQLitePEvents(base.PEvents):
         function as the parquet layout (HBEventsUtil.scala:83's row-key
         prefix role), so multi-process training splits any event store
         identically: process p consumes ``shards=range(p, n, P)``.
-        Embedded sqlite has no md5(), and its rows are local: one scan,
-        split on the host (the JAX package's path for such a dialect)."""
+
+        A dialect that hashes in SQL (Postgres, :meth:`_shard_expr`)
+        filters rows on the server, so each process transfers only its own
+        shards; sqlite scans once and splits on the host."""
         n = n_shards or self.N_SCAN_SHARDS
         want = list(range(n)) if shards is None else list(shards)
-        frame = self.find(app_id, channel_id, filter)
-        shard_of = base.frame_shard_of(frame.entity_type, frame.entity_id, n)
+        expr = self._shard_expr(n)
+        f = filter or EventFilter()
+        # a LIMIT is global across the scan (find() semantics), which a
+        # per-shard WHERE cannot express: split on the host so every
+        # backend returns the same rows for the same filter
+        if expr is None or f.limit is not None:
+            frame = self.find(app_id, channel_id, filter)
+            shard_of = base.frame_shard_of(
+                frame.entity_type, frame.entity_id, n
+            )
+            for k in want:
+                yield k, frame.take(shard_of == k)
+            return
+        table = self.levents._ensure(app_id, channel_id)
+        where, params = SQLiteLEvents._where(f)
+        order = "DESC" if f.reversed else "ASC"
         for k in want:
-            yield k, frame.take(shard_of == k)
+            shard_where = (
+                f"{where} AND {expr} = {int(k)}"
+                if where
+                else f" WHERE {expr} = {int(k)}"
+            )
+            sql = (
+                f"SELECT event, entityType, entityId, targetEntityType, "
+                f"targetEntityId, properties, eventTime, id, tags, prId, "
+                f"creationTime FROM {table}{shard_where} "
+                f"ORDER BY eventTime {order}"
+            )
+            yield k, self._rows_to_frame(self.client.query(sql, params))
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ traffic yet there is no device ceiling, and the snapshot says so in
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Mapping
 
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 
@@ -208,3 +208,89 @@ def capacity_snapshot(app: Any, registry: MetricsRegistry | None = None) -> dict
         "target_utilization": TARGET_UTILIZATION,
         "caveats": caveats,
     }
+
+
+def render_capacity_text(snap: Mapping[str, Any]) -> str:
+    """Human one-screen rendering of a /capacity.json body — including the
+    fleet-aggregated shape a router serves (a ``fleet`` block with
+    per-replica rows rides on top of the shared summary keys)."""
+    inputs = snap.get("inputs", {})
+    fleet = snap.get("fleet")
+    if fleet:
+        lines = [
+            f"fleet:             {fleet.get('replicas', 0)} replicas "
+            f"({fleet.get('routable', 0)} routable, "
+            f"{fleet.get('active', 0)} active)",
+        ]
+        for rid, cap in sorted((fleet.get("per_replica") or {}).items()):
+            if cap is None:
+                lines.append(f"  {rid:<22} (no capacity scrape yet)")
+                continue
+            lines.append(
+                f"  {rid:<22} max {_fmt(cap.get('max_sustainable_qps'))} qps, "
+                f"observed {_fmt(cap.get('observed_qps'))} qps, headroom "
+                + (
+                    f"{cap['headroom_frac']:.1%}"
+                    if isinstance(cap.get("headroom_frac"), (int, float))
+                    else "n/a"
+                )
+            )
+        lines += [
+            "",
+            f"max sustainable:   {_fmt(snap.get('max_sustainable_qps'))} qps "
+            "(sum of replica ceilings)",
+            f"headroom:          "
+            + (
+                f"{snap['headroom_frac']:.1%} (worst replica)"
+                if snap.get("headroom_frac") is not None
+                else "n/a"
+            ),
+            f"recommended replicas: {snap.get('recommended_replicas') or 'n/a'} "
+            f"(fleet-wide, sized for "
+            f"{snap.get('target_utilization', TARGET_UTILIZATION):.0%} "
+            f"utilization)   scale hint: {snap.get('scale_hint')}",
+        ]
+        for c in snap.get("caveats", []):
+            lines.append(f"caveat: {c}")
+        return "\n".join(lines)
+    lines = [
+        f"observed load:     {_fmt(inputs.get('observed_qps'))} qps "
+        f"(mean latency {_fmt_ms(inputs.get('mean_request_latency_s'))})",
+        f"device ceiling:    {_fmt(snap.get('ceilings_qps', {}).get('device'))} qps "
+        f"({inputs.get('waves', 0)} waves, "
+        f"{inputs.get('device_busy_seconds', 0.0):.3f}s busy)",
+        f"admission ceiling: {_fmt(snap.get('ceilings_qps', {}).get('admission'))} qps "
+        f"(in-flight {inputs.get('inflight')}/{inputs.get('max_inflight')})",
+        f"queue:             {inputs.get('queue_depth', 0):g} queued "
+        + (
+            f"({inputs['queue_occupancy_frac']:.1%} of bound)"
+            if inputs.get("queue_occupancy_frac") is not None
+            else "(no bound)"
+        ),
+        f"slo:               {inputs.get('slo_status', 'n/a')} "
+        f"(error burn {inputs.get('error_burn_rate', 0.0)}, "
+        f"latency burn {inputs.get('latency_burn_rate', 0.0)})",
+        "",
+        f"max sustainable:   {_fmt(snap.get('max_sustainable_qps'))} qps "
+        f"(binding: {snap.get('binding_ceiling') or 'n/a'})",
+        f"headroom:          "
+        + (
+            f"{snap['headroom_frac']:.1%}"
+            if snap.get("headroom_frac") is not None
+            else "n/a"
+        ),
+        f"recommended replicas: {snap.get('recommended_replicas') or 'n/a'} "
+        f"(sized for {snap.get('target_utilization', TARGET_UTILIZATION):.0%} "
+        f"utilization)   scale hint: {snap.get('scale_hint')}",
+    ]
+    for c in snap.get("caveats", []):
+        lines.append(f"caveat: {c}")
+    return "\n".join(lines)
+
+
+def _fmt(v: Any) -> str:
+    return f"{v:g}" if isinstance(v, (int, float)) else "n/a"
+
+
+def _fmt_ms(v: Any) -> str:
+    return f"{v * 1e3:.3f} ms" if isinstance(v, (int, float)) else "n/a"

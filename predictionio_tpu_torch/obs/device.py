@@ -477,6 +477,7 @@ class WaveTimeline:
     __slots__ = (
         "stages", "device", "fn", "flops", "bytes", "transfers",
         "kernel_s", "cache_hits", "cache_misses", "cache_miss_bytes",
+        "storage_bytes",
     )
 
     def __init__(self):
@@ -497,6 +498,10 @@ class WaveTimeline:
         #: ... and the misses, with the bytes their resolving fetch moved
         self.cache_misses: int = 0
         self.cache_miss_bytes: float = 0.0
+        #: event-store bytes read inside this wave (costs.note_storage_read
+        #: lands here when no request record is bound; the wave's total is
+        #: split back to its members through per-item meta)
+        self.storage_bytes: float = 0.0
 
     def merge(self, other: "WaveTimeline") -> None:
         """Fold another scope's marks into this one: a pipelined wave's
@@ -516,6 +521,7 @@ class WaveTimeline:
         self.cache_hits += other.cache_hits
         self.cache_misses += other.cache_misses
         self.cache_miss_bytes += other.cache_miss_bytes
+        self.storage_bytes += other.storage_bytes
 
 
 _timeline_var: contextvars.ContextVar[WaveTimeline | None] = (
@@ -538,6 +544,10 @@ def wave_timeline():
         yield tl
     finally:
         _timeline_var.reset(token)
+
+
+def current_timeline() -> WaveTimeline | None:
+    return _timeline_var.get()
 
 
 @contextlib.contextmanager

@@ -13,18 +13,18 @@ grepping a request id.  This module is the propagation half:
   flatten into *fragments* — flat parent-linked records a collector can
   merge across processes;
 - a bounded per-process :class:`FragmentStore` served at
-  ``GET /spans.json?trace_id=`` (obs/http.py), which is what a cross-process
-  assembler fetches and clock-aligns (the JAX package's ``pio trace``; the
-  port has no assembler yet).
+  ``GET /spans.json?trace_id=`` (obs/http.py), which the cross-process
+  assembler (obs/timeline.py, ``pio trace``) fetches and clock-aligns.
 
 Propagation rides the existing contextvar machinery: the HTTP front ends
 adopt the incoming headers (:func:`adopt_trace_context` +
 :func:`bind_parent_span`), and the MicroBatcher re-binds the first wave
 member's context (:func:`current_trace_context`) around ``batch_fn`` so a
-wave's log records and outbound calls join that request's trace.  The
-outbound half (the JAX package's ``propagation_headers``) comes with the
-port's first cross-process client, its remote storage.  Everything is stdlib-only and never raises into the
-caller — telemetry must not break serving.
+wave's log records and outbound calls join that request's trace; the
+remote storage client sends :func:`propagation_headers` on each call, so
+the storage daemon's spans parent under the caller's.  Everything is
+stdlib-only and never raises into the caller — telemetry must not break
+serving.
 """
 
 from __future__ import annotations

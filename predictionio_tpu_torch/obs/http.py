@@ -37,10 +37,18 @@ paths, status codes and JSON shapes:
                             passed)
   GET  /tenants.json        the resident tenants (``tenancy``; when a
                             registry is passed; ?app= for one)
+  GET  /costs.json          the per-app cost ledger (``obs/costs.py``): open
+                            + closed windows, per-key totals, budgets
+                            (?windows=N); on the scrape surface
+  GET  /alerts.json         the alert evaluator's live state: firing/pending
+                            instances, recent transitions, the rule set
+                            (``obs/alerts.py``)
+  GET  /incidents.json      recorded incident bundles, newest first
+                            (``obs/incident.py``)
+  GET  /incidents/<id>.json one full bundle (replayable by ``pio trace
+                            --file``)
 
-Not here yet, each with its module: ``/costs.json`` (``obs/costs.py``),
-``/alerts.json`` and ``/incidents*`` (``obs/alerts.py``,
-``obs/incident.py``), ``/shards.json`` (multi-device).
+Not here yet: ``/shards.json`` (multi-device).
 
 Auth: pass ``access_key`` to gate everything here except ``/healthz``; apps
 with an app-level ``HTTPApp(access_key=...)`` gate these like every other
@@ -93,11 +101,11 @@ _OBS_PATHS = frozenset(
         "/shards.json",
         "/hotpath.json",
         "/capacity.json",
-        "/fleet.json",
-        "/alerts.json",
-        "/incidents.json",
-        "/costs.json",
-        "/eventstore.json",
+        "/fleet.json",         # the fleet router (not ported yet)
+        "/alerts.json",        # obs/alerts.py, served here
+        "/incidents.json",     # obs/incident.py, served here
+        "/costs.json",         # obs/costs.py, served here
+        "/eventstore.json",    # server/storage_server.py
         "/locks.json",
         "/explain.json",
         "/tenants.json",
@@ -188,6 +196,9 @@ def add_observability_routes(
     provenance: ProvenanceStore | None = None,
     quality: Any | None = None,
     tenants: Any | None = None,
+    alerts: Any | None = None,
+    incidents: Any | None = None,
+    costs: Any | None = None,
 ):
     """The observability surface: metrics + logs + flight + profiler +
     health.  Installs ``app.slo`` / ``app.flight`` / ``app.provenance`` /
@@ -211,7 +222,15 @@ def add_observability_routes(
     ``app.quality``, ``GET /quality.json`` on debug-route servers, its
     gauges refreshed on each scrape) and ``tenants`` (a
     :class:`~predictionio_tpu_torch.tenancy.TenantRegistry`:
-    ``app.tenants``, ``GET /tenants.json`` on the scrape surface).
+    ``app.tenants``, ``GET /tenants.json`` on the scrape surface) and
+    ``costs`` (a :class:`~predictionio_tpu_torch.obs.costs.CostLedger`:
+    ``app.costs``, ``GET /costs.json`` on the scrape surface).
+    ``alerts`` (an :class:`~predictionio_tpu_torch.obs.alerts.AlertEvaluator`)
+    installs ``app.alerts`` and, on debug-route servers, serves its live
+    state at ``GET /alerts.json``; ``incidents`` (an
+    :class:`~predictionio_tpu_torch.obs.incident.IncidentRecorder`)
+    installs ``app.incidents`` with ``GET /incidents.json`` (the listing)
+    and ``GET /incidents/<id>.json`` (one full bundle), debug-gated too.
     ``POST /debug/profile`` profiles CUDA
     activity when the app says its model lives on the card
     (``app.profile_cuda``), CPU activity only otherwise.
@@ -244,6 +263,12 @@ def add_observability_routes(
         app.quality = quality
     if tenants is not None:
         app.tenants = tenants
+    if alerts is not None:
+        app.alerts = alerts
+    if incidents is not None:
+        app.incidents = incidents
+    if costs is not None:
+        app.costs = costs
     ring = get_log_ring()
 
     original_route = app.route
@@ -322,6 +347,23 @@ def add_observability_routes(
             ),
         )
 
+    # -- per-app cost ledger: on the scrape surface (not debug-gated): the
+    # same rollups are the pio_cost_* series on /metrics, and the event
+    # server's no-debug port must still answer `pio costs`
+    if costs is not None:
+
+        @route("GET", "/costs\\.json")
+        def costs_json(req: Request) -> Response:
+            windows = None
+            if "windows" in req.query:
+                try:
+                    windows = int(req.query["windows"])
+                except ValueError:
+                    return json_response(
+                        400, {"message": "windows must be an integer"}
+                    )
+            return json_response(200, app.costs.snapshot(windows=windows))
+
     # -- tenant registry: on the scrape surface (gated when a key is
     # configured); `tenants --url` and `status --url` read it
     if tenants is not None:
@@ -349,6 +391,41 @@ def add_observability_routes(
         @route("GET", "/quality\\.json")
         def quality_json(req: Request) -> Response:
             return json_response(200, app.quality.snapshot())
+
+    # -- alert engine + incident recorder ------------------------------------
+    # the watch loop's surfaces: live firing/pending state, and the
+    # forensic bundles recorded on firing transitions.  Debug-gated like
+    # the flight recorder: alert keys and bundles name breakers, routes,
+    # and error bodies.
+    if alerts is not None:
+
+        @route("GET", "/alerts\\.json")
+        def alerts_json(req: Request) -> Response:
+            return json_response(200, app.alerts.snapshot())
+
+    if incidents is not None:
+
+        @route("GET", "/incidents\\.json")
+        def incidents_json(req: Request) -> Response:
+            return json_response(200, app.incidents.snapshot())
+
+        @route("GET", "/incidents/(?P<iid>[^/]+)\\.json")
+        def incident_bundle(req: Request) -> Response:
+            path = app.incidents.get_path(req.params["iid"])
+            if path is None:
+                return json_response(
+                    404, {"message": f"no incident {req.params['iid']!r}"}
+                )
+            try:
+                with open(path, "r", encoding="utf-8") as f:
+                    body = f.read()
+            except OSError as e:
+                return json_response(
+                    404, {"message": f"bundle unreadable: {e}"}
+                )
+            return Response(
+                200, body, content_type="application/json; charset=utf-8"
+            )
 
     # -- structured log ring -------------------------------------------------
     @route("GET", "/logs\\.json")

@@ -7,7 +7,9 @@ running server without restarting it, with the JAX package's contract:
 - one capture at a time (:class:`ProfilerBusy` -> 409);
 - the request thread answers at once (202): the capture runs on a daemon
   thread, which starts the profiler, waits ``seconds`` and stops it, so a
-  stalled profiler never holds an event-loop executor slot;
+  stalled profiler never holds an event-loop executor slot; a CUDA
+  capture answers once it has recorded for ``DEVICE_CLOCK_GUARD_S``, so
+  device work launched after the 202 lies inside its window;
 - a capture that cannot start raises :class:`ProfilerUnsupported` (-> 501
   with the error text);
 - ``GET /debug/profile`` reports the running capture or the last one.
@@ -46,6 +48,17 @@ MAX_CAPTURE_SECONDS = 300.0
 
 #: device operations listed in a finished capture's status
 TOP_DEVICE_OPS = 20
+
+#: how long a CUDA capture records before it counts as started.  Kineto
+#: keeps a device record only when its start, mapped from the card's clock
+#: onto the host's, falls inside the capture window, and that mapping
+#: jitters: on an H100 a kernel has been stamped up to 5.2 ms before the
+#: host's stamp of its own launch, where it is usually stamped 40-170 us
+#: after.  A kernel launched in the window's first instants is then
+#: dropped as out of range (2-4 captures in 100 lost a launch made as the
+#: capture started).  Answering once this guard has passed keeps the work
+#: a caller releases after the 202 inside the window.
+DEVICE_CLOCK_GUARD_S = 0.1
 
 
 class ProfilerUnsupported(RuntimeError):
@@ -205,6 +218,10 @@ class ProfilerController:
                 self._running = None
             armed.set()
             return
+        if cuda:
+            # a kernel of the window's first instants may be stamped before
+            # its start and dropped (DEVICE_CLOCK_GUARD_S)
+            self._wakeup.wait(DEVICE_CLOCK_GUARD_S)
         armed.set()
         # paced by an Event, not a sleep poll: interruptible
         self._wakeup.wait(seconds)

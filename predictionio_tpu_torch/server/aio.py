@@ -249,7 +249,18 @@ class AsyncAppServer:
                 self._loop.close()
                 self._stopped.set()
 
+    def _start_app_daemons(self) -> None:
+        """Per-app daemons (the alert evaluator) start when the app starts
+        SERVING: constructing an app stays thread-free, so a process that
+        builds many (tests, tooling) accumulates no watchers."""
+        alerts = getattr(self.app, "alerts", None)
+        if alerts is not None and getattr(
+            self.app, "alerts_autostart", False
+        ):
+            alerts.start()
+
     def start_background(self) -> "AsyncAppServer":
+        self._start_app_daemons()
         self._thread = threading.Thread(
             target=self._run_loop, name=f"{self.app.name}-aio", daemon=True
         )
@@ -263,6 +274,7 @@ class AsyncAppServer:
         return self
 
     def serve_forever(self) -> None:
+        self._start_app_daemons()
         self._run_loop()
 
     def join(self) -> None:
@@ -298,6 +310,9 @@ class AsyncAppServer:
         batcher = getattr(self.app, "microbatcher", None)
         if batcher is not None:
             batcher.close()
+        alerts = getattr(self.app, "alerts", None)
+        if alerts is not None:
+            alerts.stop()
         if self._thread is not None:
             self._thread.join(timeout=5)
         else:

@@ -45,7 +45,13 @@ conversion) is joined back to a logged prediction of the quality monitor
 (``obs.quality``; the process default, which a ``deploy --event-port``
 shares with its prediction server): by the ``X-Pio-Request-Id`` the client
 echoed, then by the event's ``prId`` or ``pioRequestId`` property, then by
-entity within the join window.  Not here yet: the per-app cost ledger.
+entity within the join window.
+
+Ingest bills the per-app cost ledger (``obs.costs``; the process default,
+which a ``deploy --event-port`` shares with its prediction server): every
+authenticated call runs under a bound ``RequestCost`` keyed
+``app:<id>`` / route / ``ingest``, so the parquet log's storage reads bill
+to the calling app, and a shed before auth bills the ``unknown`` row.
 """
 
 from __future__ import annotations
@@ -65,6 +71,11 @@ from predictionio_tpu_torch.data.webhooks import (
     form_connectors,
     json_connectors,
     to_event,
+)
+from predictionio_tpu_torch.obs.costs import (
+    CostLedger,
+    default_ledger,
+    request_cost,
 )
 from predictionio_tpu_torch.obs.http import add_observability_routes
 from predictionio_tpu_torch.obs.logging import get_request_id
@@ -152,6 +163,10 @@ def create_event_server_app(
     max_write_inflight: int | None = None,
     obs_access_key: str | None = None,
     quality: QualityMonitor | None = None,
+    #: the per-app cost ledger: None = the process default on the default
+    #: registry, so a single-process deploy bills ingest and serving into
+    #: one rollup
+    costs: CostLedger | None = None,
 ) -> HTTPApp:
     """The event server's routes over ``storage`` (default: the process
     storage).  ``max_write_inflight`` bounds the event-store writes in
@@ -172,6 +187,24 @@ def create_event_server_app(
             if registry is REGISTRY
             else QualityMonitor(registry=registry)
         )
+    # the cost ledger bills ingest by access-key app id; id-bearing paths
+    # collapse so ledger keys stay low-cardinality
+    if costs is None:
+        costs = (
+            default_ledger()
+            if registry is REGISTRY
+            else CostLedger(registry=registry)
+        )
+    app.costs = costs
+
+    def _cost_route(path: str) -> str:
+        path = path.split("?", 1)[0]
+        if path.startswith("/events/"):
+            return "/events/*.json"
+        if path.startswith("/webhooks/"):
+            return "/webhooks/*"
+        return path
+
     if max_write_inflight is None:
         try:
             max_write_inflight = int(os.environ.get("PIO_EVENT_MAX_INFLIGHT", 256))
@@ -194,6 +227,9 @@ def create_event_server_app(
             if ingest_gate is None:
                 return handler(req)
             if not ingest_gate.try_acquire():
+                # shed before auth: no app identity yet, so the ledger
+                # carries it under the shared "unknown" row
+                costs.note_shed("unknown", _cost_route(req.path), "ingest")
                 return shed_response(
                     "event-store write queue saturated; retry later",
                     ingest_gate.retry_after_s,
@@ -220,7 +256,16 @@ def create_event_server_app(
             except _STORE_UNAVAILABLE as e:
                 # the key lookup needs the metadata store: down -> retryable
                 return _unavailable_response(e)
-            return handler(req, auth)
+            # every authenticated call runs under a bound RequestCost, so
+            # the parquet log's note_storage_read bills its reads to the
+            # calling app
+            with request_cost(
+                f"app:{auth.app_id}",
+                _cost_route(req.path),
+                "ingest",
+                ledger=costs,
+            ):
+                return handler(req, auth)
 
         return wrapped
 
@@ -510,6 +555,7 @@ def create_event_server_app(
             "metadata_store": _metadata_ready,
         },
         quality=quality,
+        costs=costs,
     )
     return app
 

@@ -539,7 +539,18 @@ class AppServer:
         self._serving = False
         self._closed = False
 
+    def _start_app_daemons(self) -> None:
+        """Per-app daemons (the alert evaluator) start when the app starts
+        SERVING: constructing an app stays thread-free, so a process that
+        builds many (tests, tooling) accumulates no watchers."""
+        alerts = getattr(self.app, "alerts", None)
+        if alerts is not None and getattr(
+            self.app, "alerts_autostart", False
+        ):
+            alerts.start()
+
     def start_background(self) -> "AppServer":
+        self._start_app_daemons()
         self._serving = True
         self._thread = threading.Thread(
             target=self.httpd.serve_forever,
@@ -550,6 +561,7 @@ class AppServer:
         return self
 
     def serve_forever(self) -> None:
+        self._start_app_daemons()
         self._serving = True
         self.httpd.serve_forever()
 
@@ -573,3 +585,6 @@ class AppServer:
         batcher = getattr(self.app, "microbatcher", None)
         if batcher is not None:
             batcher.close()
+        alerts = getattr(self.app, "alerts", None)
+        if alerts is not None:
+            alerts.stop()

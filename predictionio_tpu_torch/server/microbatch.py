@@ -519,7 +519,11 @@ class MicroBatcher:
             if meta is None:
                 continue
             meta["queue_wait_s"] = round(t_dispatch - e.t_enq, 6)
-            meta["device_s"] = round(device_s, 6)
+            #: to the nanosecond (the JAX package rounds to the
+            #: microsecond): the cost ledger's per-member shares then sum
+            #: to the batcher's own pio_microbatch_device_seconds within
+            #: 1e-6 of it, however many short waves ran
+            meta["device_s"] = round(device_s, 9)
             #: host time: where the host waited, summing to device_s
             meta["device_breakdown"] = breakdown
             meta["wave_device"] = timeline.device
@@ -545,6 +549,11 @@ class MicroBatcher:
                     meta["cache_miss_bytes"] = round(
                         timeline.cache_miss_bytes, 1
                     )
+            if timeline.storage_bytes:
+                # event-store bytes the wave read (costs.note_storage_read
+                # on the worker or finalizer thread): the ledger splits
+                # them over the wave's members
+                meta["wave_storage_bytes"] = round(timeline.storage_bytes, 1)
             meta["wave_size"] = len(live)
             meta["wave_seq"] = wave_seq
             #: process-unique wave handle (dispatch wall-ms + seq):

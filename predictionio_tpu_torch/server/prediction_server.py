@@ -111,6 +111,12 @@ from predictionio_tpu_torch.lifecycle.generations import (
 )
 from predictionio_tpu_torch.obs import device as device_obs
 from predictionio_tpu_torch.obs import provenance
+from predictionio_tpu_torch.obs.alerts import AlertEvaluator, WebhookSink
+from predictionio_tpu_torch.obs.costs import (
+    CostLedger,
+    default_ledger,
+    request_cost,
+)
 from predictionio_tpu_torch.obs.disttrace import note_wave_events
 from predictionio_tpu_torch.obs.flight import annotate
 from predictionio_tpu_torch.obs.hotpath import (
@@ -119,6 +125,7 @@ from predictionio_tpu_torch.obs.hotpath import (
     StageClock,
 )
 from predictionio_tpu_torch.obs.http import add_observability_routes
+from predictionio_tpu_torch.obs.incident import IncidentRecorder
 from predictionio_tpu_torch.obs.logging import get_request_id
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 from predictionio_tpu_torch.obs.quality import (
@@ -733,6 +740,18 @@ def create_prediction_server_app(
     #: one default tenant.  Each request resolves its tenant (X-Pio-App,
     #: ?app=, its access key) at the front ends' admission gate
     tenants: TenantRegistry | None = None,
+    #: the watch loop (alert rules + incident bundles): None = PIO_ALERTS
+    #: (default on); built instances may be passed (tests)
+    enable_alerts: bool | None = None,
+    alerts: AlertEvaluator | None = None,
+    incidents: IncidentRecorder | None = None,
+    #: start the evaluator's thread when a server starts serving (tests
+    #: drive tick() directly)
+    alerts_autostart: bool = True,
+    #: the per-app cost ledger: None = the process default on the default
+    #: registry (an embedded event server bills into the same one), else
+    #: a ledger of its own
+    costs: CostLedger | None = None,
 ) -> HTTPApp:
     from predictionio_tpu_torch.lifecycle.controller import (
         LifecycleController,
@@ -765,6 +784,15 @@ def create_prediction_server_app(
             if registry is REGISTRY
             else QualityMonitor(registry=registry)
         )
+    # the per-app cost ledger: bills key on (app, route, variant); the app
+    # a deploy serves is its engine (PIO_COST_APP names it otherwise)
+    if costs is None:
+        costs = (
+            default_ledger()
+            if registry is REGISTRY
+            else CostLedger(registry=registry)
+        )
+    app.costs = costs
 
     # -- tenants: a single-engine deploy is one default tenant, so both
     # front ends run the same gate (quota, in-flight cap) whether a deploy
@@ -778,7 +806,10 @@ def create_prediction_server_app(
     if tenants is None:
         tenants = TenantRegistry(registry=registry)
     if tenants.default is None:
-        tenants.admit(Tenant(default_app, deployed, quality=quality, hbm_bytes=0))
+        tenants.admit(Tenant(
+            default_app, deployed, quality=quality, cost_name=default_app,
+            hbm_bytes=0,
+        ))
     default_tenant = tenants.default
     app.tenants = tenants
 
@@ -1270,9 +1301,19 @@ def create_prediction_server_app(
             except LoadShed as e:
                 # bounded queue: an honest 503 + Retry-After
                 _observe(503, t0)
+                costs.note_shed(
+                    tenant.cost_name, "/queries.json",
+                    tenant.deployed.variant_label,
+                )
                 return shed_response(str(e), e.retry_after_s)
             except DeadlineExceeded as e:
+                # the budget ran out while queued (or mid-wave): the queue
+                # seconds it held were real, so they still bill
                 _observe(504, t0)
+                costs.bill_meta(
+                    tenant.cost_name, "/queries.json",
+                    tenant.deployed.variant_label, meta, queue_only=True,
+                )
                 return error_response(504, f"deadline exceeded: {e}")
             except Exception as e:
                 log.exception("query serving failed")
@@ -1282,6 +1323,11 @@ def create_prediction_server_app(
                 if meta:
                     annotate(**meta)
             variant = item.variant or tenant.deployed.variant_label
+            # the member's share of its wave, billed to the tenant and the
+            # variant of the partition that answered it, for every answered
+            # status (400/500 included: the wave computed for it), so the
+            # ledger's device seconds sum to the batcher's
+            costs.bill_meta(tenant.cost_name, "/queries.json", variant, meta)
             _note_wave_provenance(item, payload, meta, instance_id)
             annotate(instance_id=instance_id, variant=variant)
             if status == "bad":
@@ -1320,9 +1366,19 @@ def create_prediction_server_app(
 
         @app.route("POST", "/queries\\.json")
         def queries(req: Request) -> Response:
+            # the whole solo path runs on this thread, so one bound
+            # RequestCost catches its storage reads directly; the predict
+            # window's device time bills on exit
+            tenant = _req_tenant(req)
+            with request_cost(
+                tenant.cost_name, "/queries.json",
+                tenant.deployed.variant_label, ledger=costs,
+            ) as cost_rec:
+                return _solo_query(req, tenant, cost_rec)
+
+        def _solo_query(req: Request, tenant: Tenant, cost_rec) -> Response:
             t0 = time.perf_counter()
             clock = StageClock()
-            tenant = _req_tenant(req)
             dep = tenant.deployed
             try:
                 payload = req.json()
@@ -1339,6 +1395,7 @@ def create_prediction_server_app(
             binding = dep.binding_for_entity(dep.payload_entity(payload))
             iid = binding.instance.id
             variant = dep.binding_label(binding)
+            cost_rec.variant = variant
             # the decision record's identity half: payload + generation
             provenance.note(
                 payload=payload, app=tenant.name,
@@ -1351,8 +1408,26 @@ def create_prediction_server_app(
                     # the wave timeline collects the engine's stage marks so
                     # the predict window splits into named stages; the
                     # unattributed interior is "dispatch"
-                    with device_obs.wave_timeline() as timeline:
-                        query, prediction = dep.predict_bound(binding, query)
+                    timeline = None
+                    t_pred = time.perf_counter()
+                    try:
+                        with device_obs.wave_timeline() as timeline:
+                            query, prediction = dep.predict_bound(
+                                binding, query
+                            )
+                    finally:
+                        # solo device_s is the predict window, the bracket
+                        # the batcher draws around a wave (billed on error
+                        # paths too: the compute happened)
+                        cost_rec.add(device_s=time.perf_counter() - t_pred)
+                        if timeline is not None:
+                            cost_rec.add(
+                                flops=timeline.flops,
+                                hbm_bytes=timeline.bytes,
+                                storage_bytes=timeline.storage_bytes,
+                                cache_hits=timeline.cache_hits,
+                                cache_misses=timeline.cache_misses,
+                            )
                     provenance.note(
                         cache={
                             "hits": timeline.cache_hits,
@@ -1505,6 +1580,36 @@ def create_prediction_server_app(
             return True
         return all(br.state != "open" for br in storage.breakers())
 
+    # -- the watch loop: alert rules engine + incident recorder --------------
+    # the evaluator ticks the default pack (plus PIO_ALERT_RULES) against
+    # this process's registry, SLO, breakers, drift, capacity and cost
+    # ledger on the host (it never touches a CUDA stream); a firing
+    # transition snapshots a forensic bundle before the rings rotate
+    if enable_alerts is None and alerts is None:
+        enable_alerts = os.environ.get("PIO_ALERTS", "1").lower() not in (
+            "0", "off", "false", "no",
+        )
+    if alerts is None and enable_alerts:
+        if incidents is None:
+            incidents = IncidentRecorder(registry=registry, app=app)
+        sinks = []
+        webhook = os.environ.get("PIO_ALERT_WEBHOOK")
+        if webhook:
+            sinks.append(WebhookSink(webhook, registry=registry))
+        alerts = AlertEvaluator(
+            registry=registry,
+            app=app,
+            interval_s=float(os.environ.get("PIO_ALERT_INTERVAL_S", "5")),
+            sinks=sinks,
+            incidents=incidents,
+        )
+    elif alerts is not None and incidents is not None:
+        alerts.incidents = incidents
+    if alerts is not None:
+        alerts.app = app
+    if incidents is not None:
+        incidents.app = app
+
     # /debug/profile traces the card when the model lives there
     app.profile_cuda = deployed.ctx.device.type == "cuda"
     add_observability_routes(
@@ -1520,7 +1625,14 @@ def create_prediction_server_app(
         hotpath=hotpath,
         quality=quality,
         tenants=tenants,
+        alerts=alerts,
+        incidents=incidents,
+        costs=costs,
     )
+    # the evaluator starts when a server starts serving (AppServer and
+    # AsyncAppServer honour this flag), not here: a process that builds
+    # many apps (tests, tooling) must not keep one idle watcher per app
+    app.alerts_autostart = alerts is not None and alerts_autostart
     return app
 
 

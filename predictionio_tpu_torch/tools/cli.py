@@ -23,8 +23,16 @@ metadata and models, ``--events parquet|sqlite``), ``eventstore``
 controller, from a running deploy's ``/lifecycle.json`` with ``--url`` or
 from the model store; ``--watch``), ``quality`` (``/quality.json``'s
 online metrics and drift; ``--watch``), ``tenants`` (``/tenants.json``)
-and ``replay-request`` (re-answer a recorded request from its
-checksum-verified generation and diff it), plus ``--device`` on the verbs
+``replay-request`` (re-answer a recorded request from its
+checksum-verified generation and diff it), and the watch loop's verbs:
+``alerts``, ``costs``, ``top`` and ``capacity`` (a running server's
+``/alerts.json``, ``/costs.json``, ``/capacity.json``; ``--watch``),
+``incident`` (``list|show|export`` of the forensic bundles, local or
+``--url``), ``trace`` (one cross-process trace assembled from
+``--from`` URLs and ``--file`` sets), ``explain`` (one answer's
+provenance joined with its flight entry, logs and trace) and ``profile``
+(the server's ``torch.profiler`` capture, or host stacks with
+``--stacks``), plus ``--device`` on the verbs
 that compute (default ``cuda``;
 ``cpu`` runs the plain versions on the host).  ``train``, ``deploy`` and
 ``batchpredict`` name an engine by ``--engine-id`` / ``--engine-version``
@@ -89,9 +97,10 @@ def _status_remote(
 ) -> int:
     """A running server's ``/healthz``, ``/readyz`` and ``/slo.json``,
     ``/quality.json``'s drift state unless ``no_quality``, and
-    ``/lifecycle.json`` when it answers.  Exit 0 only when the server is
-    alive and ready and not drifting; a readiness 503 still prints its
-    body, so the operator sees which check fails.  ``access_key`` rides as
+    ``/lifecycle.json``, ``/eventstore.json``, ``/tenants.json`` and
+    ``/alerts.json`` when they answer.  Exit 0 only when the server is
+    alive and ready, not drifting, and no critical alert fires; a readiness
+    503 still prints its body, so the operator sees which check fails.  ``access_key`` rides as
     a Bearer header (a key-gated server answers 401 on every route but
     ``/healthz`` without it).  A server without a quality route (404/401)
     is not degraded by it."""
@@ -189,9 +198,37 @@ def _status_remote(
                     + (f" degraded={','.join(degraded)}" if degraded else ""),
                     file=sys.stderr,
                 )
+    # alert surface (404/401-tolerant like quality): every FIRING alert is
+    # an operator-actionable WARNING line, and a firing alert of severity
+    # "critical" flips the exit code: the watch loop's verdict outranks a
+    # process that merely answers its probes
+    critical_firing = False
+    al_status, alerts_body = fetch("/alerts.json")
+    if al_status == 200 and isinstance(alerts_body.get("alerts"), list):
+        report["alerts"] = {
+            "firing": alerts_body.get("firing", 0),
+            "pending": alerts_body.get("pending", 0),
+        }
+        for a in alerts_body["alerts"]:
+            if a.get("state") != "firing":
+                continue
+            print(
+                f"WARNING: alert {a.get('rule')}"
+                + (f"{{{a['key']}}}" if a.get("key") else "")
+                + f" firing (value={a.get('value')}, "
+                f"severity={a.get('severity')})",
+                file=sys.stderr,
+            )
+            if a.get("severity") == "critical":
+                critical_firing = True
     _print(report)
     alive = health_status == 200 and health.get("status") == "alive"
-    return 0 if alive and ready_status == 200 and not drifting else 1
+    return (
+        0
+        if alive and ready_status == 200 and not drifting
+        and not critical_firing
+        else 1
+    )
 
 
 def _key(k) -> dict:
@@ -1167,6 +1204,640 @@ def do_replay_request(args) -> int:
     return 1
 
 
+# ---------------------------------------------------------------------------
+# the watch loop's verbs: capacity, alerts, costs, top, incident, profile,
+# trace, explain (the JAX package's, printing what it prints)
+
+
+def do_capacity(args) -> int:
+    """`capacity`: the headroom model, from a running server's
+    ``/capacity.json`` with ``--url`` or over this process's registry;
+    ``--watch SECONDS`` re-renders."""
+
+    def render_once() -> None:
+        from predictionio_tpu_torch.obs.capacity import (
+            capacity_snapshot,
+            render_capacity_text,
+        )
+
+        if args.url:
+            snap = json.loads(
+                _fetch_url(
+                    args.url.rstrip("/") + "/capacity.json", args.access_key
+                )
+            )
+        else:
+            snap = capacity_snapshot(None)
+        print(json.dumps(snap, indent=2) if args.json else render_capacity_text(snap))
+
+    return _run_watched("pio capacity", render_once, args.watch, args.watch_count)
+
+
+def do_alerts(args) -> int:
+    """`alerts`: the watch loop's live state (firing/pending instances,
+    recent transitions, the rule set) from a running server's
+    ``/alerts.json``; without ``--url``, this process's (empty) state.
+    One shot exits 1 on any firing alert, so scripts can gate on it."""
+    firing_seen: list = []
+
+    def render_once() -> None:
+        from predictionio_tpu_torch.obs.alerts import render_alerts_text
+
+        if args.url:
+            snap = json.loads(
+                _fetch_url(args.url.rstrip("/") + "/alerts.json", args.access_key)
+            )
+        else:
+            snap = {"alerts": [], "firing": 0, "pending": 0, "rules": []}
+        firing_seen[:] = [snap.get("firing", 0)]
+        print(json.dumps(snap, indent=2) if args.json else render_alerts_text(snap))
+
+    rc = _run_watched("pio alerts", render_once, args.watch, args.watch_count)
+    if rc != 0:
+        return rc
+    if not args.watch and firing_seen and firing_seen[0]:
+        return 1
+    return 0
+
+
+def do_costs(args) -> int:
+    """`costs`: the per-app cost ledger, from a running server's
+    ``/costs.json`` with ``--url`` or this process's default ledger;
+    ``--window N`` keeps the last N closed windows."""
+
+    def render_once() -> None:
+        from predictionio_tpu_torch.obs.costs import (
+            default_ledger,
+            render_costs_text,
+        )
+
+        if args.url:
+            path = "/costs.json"
+            if args.window is not None:
+                path += f"?windows={int(args.window)}"
+            doc = json.loads(
+                _fetch_url(args.url.rstrip("/") + path, args.access_key)
+            )
+        else:
+            doc = default_ledger().snapshot(windows=args.window)
+        print(json.dumps(doc, indent=2) if args.json else render_costs_text(doc))
+
+    return _run_watched("pio costs", render_once, args.watch, args.watch_count)
+
+
+def _render_top(
+    costs_doc: dict, alerts_doc: dict, metrics_doc: dict | None
+) -> str:
+    """One `top` frame: the replica header, request latency, alerts, and
+    the top apps by attributed device time."""
+    lines: list[str] = []
+    replicas = costs_doc.get("replicas")
+    lines.append(
+        f"fleet: {len(replicas)} replica(s) — " + ", ".join(replicas)
+        if replicas
+        else "single replica"
+    )
+    for rid, err in sorted((costs_doc.get("source_errors") or {}).items()):
+        lines.append(f"  ! {rid}: {err}")
+    if metrics_doc:
+        fam = metrics_doc.get("pio_request_latency_seconds")
+        if isinstance(fam, dict):
+            total = p50 = p99 = 0.0
+            for s in fam.get("series") or ():
+                c = float(s.get("count") or 0.0)
+                if c <= 0:
+                    continue
+                total += c
+                p50 = max(p50, float(s.get("p50") or 0.0))
+                p99 = max(p99, float(s.get("p99") or 0.0))
+            if total:
+                lines.append(
+                    f"requests: {int(total)} total   "
+                    f"p50 {p50 * 1e3:.2f} ms   p99 {p99 * 1e3:.2f} ms"
+                )
+        util = metrics_doc.get("pio_device_duty_cycle") or {}
+        for s in util.get("series") or ():
+            lines.append(f"device duty cycle: {float(s.get('value', 0)):.1%}")
+    firing = int(alerts_doc.get("firing") or 0)
+    pending = int(alerts_doc.get("pending") or 0)
+    lines.append(f"alerts: {firing} firing, {pending} pending")
+    for a in alerts_doc.get("alerts") or ():
+        if a.get("state") == "firing":
+            tag = f"@{a['replica']}" if a.get("replica") else ""
+            lines.append(
+                f"  ▲ {a.get('rule')}{tag} {a.get('key', '')} "
+                f"value={a.get('value')}"
+            )
+    lines.append("")
+    lines.append(
+        f"{'APP':<20} {'ROUTE':<18} {'REQS':>8} {'DEVICE_S':>10} "
+        f"{'STORAGE':>10} {'QUEUE_S':>8} {'SHEDS':>6}"
+    )
+    rows = (costs_doc.get("totals") or [])[:15]
+    if not rows:
+        lines.append("(no attributed cost yet)")
+    for row in rows:
+        app = str(row.get("app", "?"))
+        if row.get("replica"):
+            app = f"{app}@{row['replica']}"
+        storage = float(row.get("storage_bytes", 0.0))
+        for unit in ("B", "KiB", "MiB", "GiB"):
+            if storage < 1024 or unit == "GiB":
+                break
+            storage /= 1024.0
+        lines.append(
+            f"{app:<20.20} {str(row.get('route', '')):<18.18} "
+            f"{int(row.get('requests', 0)):>8} "
+            f"{float(row.get('device_s', 0.0)):>10.4f} "
+            f"{storage:>9.1f}{unit} "
+            f"{float(row.get('queue_s', 0.0)):>8.3f} "
+            f"{int(row.get('sheds', 0)):>6}"
+        )
+    return "\n".join(lines)
+
+
+def do_top(args) -> int:
+    """`top`: a live view of who costs what, from a running server with
+    ``--url`` or this process's ledger; refreshes every ``--watch``
+    seconds (default 2), ``--once`` renders one frame.  (A fleet router's
+    federated view waits for the port's ``fleet/``.)"""
+
+    def render_once() -> None:
+        if args.url:
+            base = args.url.rstrip("/")
+            costs_doc = json.loads(_fetch_url(base + "/costs.json", args.access_key))
+            try:
+                alerts_doc = json.loads(
+                    _fetch_url(base + "/alerts.json", args.access_key)
+                )
+            except Exception:
+                alerts_doc = {}  # no evaluator on this server
+            try:
+                metrics_doc = json.loads(
+                    _fetch_url(base + "/metrics.json", args.access_key)
+                )
+            except Exception:
+                metrics_doc = None
+        else:
+            from predictionio_tpu_torch.obs.costs import default_ledger
+            from predictionio_tpu_torch.obs.metrics import REGISTRY
+
+            costs_doc = default_ledger().snapshot()
+            alerts_doc = {}
+            metrics_doc = REGISTRY.render_json()
+        if args.json:
+            print(json.dumps({"costs": costs_doc, "alerts": alerts_doc}, indent=2))
+        else:
+            if sys.stdout.isatty() and args.watch:
+                sys.stdout.write("\x1b[2J\x1b[H")  # clear between frames
+            print(_render_top(costs_doc, alerts_doc, metrics_doc))
+
+    watch = args.watch if args.watch is not None else 2.0
+    if args.once:
+        watch = None
+    return _run_watched("pio top", render_once, watch, args.watch_count)
+
+
+def do_incident(args) -> int:
+    """`incident list|show ID|export ID`: the forensic bundles, from
+    ``--dir`` (default ``PIO_INCIDENT_DIR`` or ``$PIO_HOME/incidents``) or
+    a running server's ``/incidents.json`` with ``--url``.  ``show``
+    renders one offline (with the exemplar request's waterfall);
+    ``export`` writes the raw bundle, or with ``--perfetto`` the exemplar
+    trace as Chrome trace-event JSON.  Either package's bundles read."""
+    from predictionio_tpu_torch.obs.incident import (
+        bundle_timeline,
+        default_incident_dir,
+        find_bundle,
+        list_incidents,
+        load_bundle,
+        render_incident_text,
+    )
+
+    directory = args.dir or default_incident_dir()
+    url = args.url
+
+    def load_by_id(incident_id: str) -> dict | None:
+        if url:
+            try:
+                return json.loads(
+                    _fetch_url(
+                        url.rstrip("/") + f"/incidents/{incident_id}.json",
+                        args.access_key,
+                    )
+                )
+            except Exception as e:
+                print(f"fetch failed: {e}", file=sys.stderr)
+                return None
+        path = find_bundle(directory, incident_id)
+        if path is None:
+            print(
+                f"no incident {incident_id!r} under {directory} "
+                "(try `pio incident list`)",
+                file=sys.stderr,
+            )
+            return None
+        try:
+            return load_bundle(path)
+        except (OSError, ValueError) as e:
+            print(f"bundle unreadable: {e}", file=sys.stderr)
+            return None
+
+    if args.incident_command == "list":
+        if url:
+            try:
+                body = json.loads(
+                    _fetch_url(url.rstrip("/") + "/incidents.json", args.access_key)
+                )
+            except Exception as e:
+                print(f"fetch failed: {e}", file=sys.stderr)
+                return 1
+            incidents = body.get("incidents", [])
+        else:
+            incidents = list_incidents(directory)
+        if args.json:
+            _print(incidents)
+            return 0
+        if not incidents:
+            print(f"no incident bundles ({url or directory})")
+            return 0
+        print(f"{len(incidents)} incident bundle(s), newest first:")
+        for i in incidents:
+            print(
+                f"  {i.get('id')}  rule={i.get('rule')}"
+                + (f"{{{i['key']}}}" if i.get("key") else "")
+                + f"  severity={i.get('severity')}  spans={i.get('spans', 0)}"
+                + (f"  ERROR: {i['error']}" if i.get("error") else "")
+            )
+        return 0
+
+    bundle = load_by_id(args.incident_id)
+    if bundle is None:
+        return 1
+    if args.incident_command == "show":
+        if args.json:
+            _print(bundle)
+        else:
+            print(render_incident_text(bundle))
+        return 0
+    out = getattr(args, "out", None) or "-"
+    if getattr(args, "perfetto", None):
+        tl = bundle_timeline(bundle, trace_id=args.trace_id)
+        if tl is None:
+            print(
+                "bundle holds no fragments for that trace "
+                f"(recorded: {bundle.get('trace_ids')})",
+                file=sys.stderr,
+            )
+            return 1
+        body = json.dumps(tl.to_chrome_trace())
+        if args.perfetto == "-":
+            print(body)
+        else:
+            Path(args.perfetto).write_text(body)
+            print(
+                f"wrote {tl.span_count} span(s) to {args.perfetto} "
+                "(open in https://ui.perfetto.dev)"
+            )
+        return 0
+    body = json.dumps(bundle, indent=2, sort_keys=True)
+    if out == "-":
+        print(body)
+    else:
+        Path(out).write_text(body)
+        print(f"wrote {bundle.get('id')} to {out}")
+    return 0
+
+
+def do_profile(args) -> int:
+    """`profile`: a profile of a running server (or this process).
+
+    The default arms the server's ``torch.profiler`` capture (``POST
+    /debug/profile``, key-gated; CUDA activity when the deploy's model is
+    on the card), waits for it to finish and prints its status: the trace
+    file and the device operations by device time.  ``--stacks`` captures
+    HOST stacks instead through the server's continuous sampler (``GET
+    /debug/stacks.json?reset=1``, then the fresh window after
+    ``--seconds``), printed as a summary and collapsed stacks, or written
+    to ``--speedscope OUT.json``.  A server that answers 501 (the profiler
+    refused) gets the host stack capture instead.  Without ``--url`` the
+    stack capture samples this process."""
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    seconds = args.seconds
+    if seconds <= 0:
+        print("usage error: --seconds must be positive", file=sys.stderr)
+        return 2
+    pacer = threading.Event()
+
+    def _request(url: str, method: str = "GET") -> tuple[int, str]:
+        headers = (
+            {"Authorization": f"Bearer {args.access_key}"}
+            if args.access_key
+            else {}
+        )
+        req = urllib.request.Request(url, headers=headers, method=method)
+        try:
+            with urllib.request.urlopen(
+                req, timeout=max(seconds + 10.0, 15.0)
+            ) as r:
+                return r.status, r.read().decode("utf-8")
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode("utf-8", "replace")
+
+    def _write_speedscope(doc: dict) -> None:
+        Path(args.speedscope).write_text(json.dumps(doc))
+        print(
+            f"wrote speedscope profile to {args.speedscope} "
+            "(open at https://www.speedscope.app)"
+        )
+
+    def _remote_stacks() -> int:
+        base = args.url.rstrip("/")
+        # the first request arms the server's sampler AND resets its
+        # aggregation, so the window holds only the next --seconds
+        status, body = _request(base + "/debug/stacks.json?reset=1")
+        if status != 200:
+            print(f"stack capture failed: HTTP {status}: {body[:200]}",
+                  file=sys.stderr)
+            return 1
+        pacer.wait(seconds)
+        status, body = _request(base + "/debug/stacks.json")
+        if status != 200:
+            print(f"stack capture failed: HTTP {status}: {body[:200]}",
+                  file=sys.stderr)
+            return 1
+        snap = json.loads(body)
+        collapsed = snap.pop("collapsed", "")
+        print(json.dumps(snap, indent=2))
+        if args.speedscope:
+            status, body = _request(base + "/debug/stacks.json?format=speedscope")
+            if status != 200:
+                print(f"speedscope export failed: HTTP {status}", file=sys.stderr)
+                return 1
+            _write_speedscope(json.loads(body))
+        elif collapsed:
+            print(collapsed, end="")
+        return 0
+
+    def _local_stacks() -> int:
+        from predictionio_tpu_torch.obs.sampling import StackSampler
+
+        sampler = StackSampler()
+        sampler.start()
+        pacer.wait(seconds)
+        sampler.stop()
+        print(json.dumps(sampler.snapshot(), indent=2))
+        if args.speedscope:
+            _write_speedscope(sampler.speedscope())
+        else:
+            print(sampler.collapsed(), end="")
+        return 0
+
+    try:
+        if not args.url:
+            return _local_stacks()
+        if args.stacks or args.speedscope:
+            # --speedscope IS a stack capture (the device profiler writes
+            # a chrome trace, not speedscope JSON)
+            return _remote_stacks()
+        base = args.url.rstrip("/")
+        status, body = _request(
+            f"{base}/debug/profile?seconds={seconds:g}", method="POST"
+        )
+        if status == 202:
+            started = json.loads(body)
+            print(
+                f"torch profiler capturing {seconds:g}s "
+                f"({'+'.join(started.get('activities') or ['cpu'])}) into "
+                f"{started.get('dir')} (server-side)"
+            )
+            pacer.wait(seconds + 0.5)
+            # the capture's stop writes the chrome trace and the
+            # key_averages table; wait for it (bounded) before reporting
+            deadline = time.monotonic() + seconds + 60.0
+            while True:
+                status, body = _request(base + "/debug/profile")
+                if status != 200:
+                    break
+                doc = json.loads(body)
+                if not doc.get("running") or time.monotonic() > deadline:
+                    print(json.dumps(doc, indent=2))
+                    last = doc.get("last") or {}
+                    if last.get("error"):
+                        print(f"profile failed: {last['error']}", file=sys.stderr)
+                        return 1
+                    return 0
+                pacer.wait(0.25)
+            print(f"profile status failed: HTTP {status}", file=sys.stderr)
+            return 1
+        if status == 501:
+            # the verb still delivers: host-only stack capture
+            print(
+                "torch profiler unsupported on this server; capturing host "
+                "stacks instead",
+                file=sys.stderr,
+            )
+            return _remote_stacks()
+        print(f"profile failed: HTTP {status}: {body[:300]}", file=sys.stderr)
+        return 1
+    except Exception as e:  # a dead server: the message, exit 1
+        print(f"profile failed: {e}", file=sys.stderr)
+        return 1
+
+
+def do_trace(args) -> int:
+    """`trace <id> --from URL,URL`: assemble one cross-process trace from
+    every named process's ``/spans.json?trace_id=`` (clock-aligned),
+    recorded ``--file`` sets (a ``/spans.json`` body, a fragment list, an
+    incident bundle) and/or this process's own store, rendered as a text
+    waterfall, ``--json`` or Chrome trace-event JSON (``--perfetto OUT``).
+    Exit 1 when no fragment of the trace is found."""
+    from predictionio_tpu_torch.obs.timeline import (
+        TraceAssemblyError,
+        collect_trace,
+    )
+
+    urls = [
+        u.strip()
+        for part in (args.from_urls or [])
+        for u in part.split(",")
+        if u.strip()
+    ]
+    files = list(args.file or [])
+    try:
+        tl = collect_trace(
+            args.trace_id,
+            urls=urls,
+            files=files,
+            include_local=args.local or not (urls or files),
+            access_key=args.access_key,
+        )
+    except TraceAssemblyError as e:
+        print(f"trace assembly failed: {e}", file=sys.stderr)
+        return 1
+    if args.perfetto:
+        body = json.dumps(tl.to_chrome_trace())
+        if args.perfetto == "-":
+            print(body)
+        else:
+            Path(args.perfetto).write_text(body)
+            print(
+                f"wrote {tl.span_count} span(s) across "
+                f"{len(tl.processes)} process(es) to {args.perfetto} "
+                "(open in https://ui.perfetto.dev or chrome://tracing)"
+            )
+    elif args.json:
+        _print(tl.to_dict())
+    else:
+        print(tl.render_text())
+    return 0
+
+
+def _render_explain(report: dict) -> str:
+    """The explain report as an indented text card."""
+    rec = report.get("record") or {}
+    lines = [
+        f"request {rec.get('request_id')}  "
+        f"{rec.get('server')}{rec.get('path')}  status={rec.get('status')}  "
+        f"{rec.get('duration_s', 0) * 1000:.2f} ms  "
+        f"capture={rec.get('capture')}"
+    ]
+    gen = rec.get("generation") or {}
+    lines.append(
+        f"  answered by: instance={rec.get('instance_id')}  "
+        f"variant={rec.get('variant')}  role={rec.get('role')}"
+    )
+    if gen:
+        axes = gen.get("shard_axes")
+        lines.append(
+            f"  generation: checksum={gen.get('checksum')}  "
+            f"status={gen.get('status')}"
+            + (f"  shard_axes={axes}" if axes else "")
+        )
+    if rec.get("engine_path"):
+        lines.append(f"  engine path: {rec['engine_path']}")
+    cache = rec.get("cache")
+    if cache:
+        lines.append(
+            f"  factor cache: {cache.get('hits', 0)} hit(s) / "
+            f"{cache.get('misses', 0)} miss(es)  "
+            f"generation={cache.get('generation')}"
+        )
+    wave = rec.get("wave")
+    if wave:
+        lines.append(
+            f"  wave: id={wave.get('id')}  size={wave.get('size')}  "
+            f"seq={wave.get('seq')}"
+        )
+    filters = rec.get("filters")
+    if filters:
+        lines.append(
+            "  filters: "
+            + "  ".join(f"{k}={v}" for k, v in sorted(filters.items()))
+        )
+    if rec.get("event_watermark"):
+        lines.append(f"  event watermark: {rec['event_watermark']}")
+    if rec.get("degraded"):
+        lines.append(f"  degraded: {', '.join(rec['degraded'])}")
+    items = rec.get("items")
+    if items is not None:
+        lines.append(f"  items ({len(items)}):")
+        for it in items[:10]:
+            lines.append(f"    {it.get('item')}  score={it.get('score')!r}")
+        if len(items) > 10:
+            lines.append(f"    ... {len(items) - 10} more")
+    elif rec.get("answer") is not None:
+        lines.append(f"  answer: {json.dumps(rec['answer'], default=str)}")
+    if rec.get("deep"):
+        lines.append(f"  deep: {json.dumps(rec['deep'], default=str)}")
+    flight = report.get("flight")
+    if flight:
+        lines.append(
+            f"  flight: {len(flight)} entr{'y' if len(flight) == 1 else 'ies'}"
+        )
+        for e in flight[:2]:
+            stages = e.get("stages") or {}
+            lines.append(
+                f"    {e.get('route', e.get('path'))}  "
+                f"{e.get('duration_s', 0) * 1000:.2f} ms"
+                + (
+                    "  stages: "
+                    + " ".join(
+                        f"{k}={v * 1000:.2f}ms"
+                        for k, v in stages.items()
+                        if isinstance(v, (int, float))
+                    )
+                    if stages
+                    else ""
+                )
+            )
+    logs = report.get("logs")
+    if logs:
+        lines.append(f"  logs ({len(logs)}):")
+        for r in logs[:8]:
+            lines.append(f"    [{r.get('level')}] {r.get('message', r.get('msg'))}")
+    trace = report.get("trace")
+    if trace:
+        lines.append(f"  trace: {trace.get('span_count', '?')} span(s)")
+    return "\n".join(lines)
+
+
+def do_explain(args) -> int:
+    """`explain <request_id> --url URL | --record FILE`: one answer's
+    decision report: the provenance record (``/explain.json``) joined with
+    its flight-recorder entry, its log lines and, when span fragments
+    exist, its assembled trace (``--no-trace`` skips it); ``--record``
+    renders a recorded record offline.  Exit 1 when no record is found."""
+    from urllib.parse import quote
+
+    record = _load_provenance_record(args)
+    if record is None:
+        return 1
+    report: dict = {"record": record}
+    if args.url:
+        base = args.url.rstrip("/")
+        key = args.access_key
+        rid = args.request_id
+        # the joins are best-effort: a missing surface costs its section
+        try:
+            snap = json.loads(
+                _fetch_url(base + "/debug/flight.json?request_id=" + quote(rid), key)
+            )
+            report["flight"] = snap.get("slowest", []) + snap.get("errors", [])
+        except Exception:
+            pass
+        try:
+            body = json.loads(
+                _fetch_url(base + "/logs.json?request_id=" + quote(rid), key)
+            )
+            report["logs"] = body.get("logs", [])
+        except Exception:
+            pass
+        trace_id = record.get("trace_id")
+        if trace_id and not args.no_trace:
+            from predictionio_tpu_torch.obs.timeline import (
+                TraceAssemblyError,
+                collect_trace,
+            )
+
+            try:
+                tl = collect_trace(
+                    trace_id, urls=[base], include_local=False, access_key=key
+                )
+                report["trace"] = tl.to_dict()
+            except TraceAssemblyError:
+                pass
+    if args.json:
+        _print(report)
+    else:
+        print(_render_explain(report))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.tools.cli",
@@ -1591,6 +2262,199 @@ def build_parser() -> argparse.ArgumentParser:
     rr.add_argument("--json", action="store_true")
     device_flag(rr)
     rr.set_defaults(fn=do_replay_request)
+
+    def scrape_flags(sp, url_help: str = "read a running server "
+                     "(e.g. http://127.0.0.1:8000)") -> None:
+        """--url, --json, --access-key, --watch and --watch-count: the
+        flags every scrape verb shares."""
+        sp.add_argument("--url", help=url_help)
+        sp.add_argument(
+            "--json", action="store_true",
+            help="the raw JSON body instead of the text rendering",
+        )
+        sp.add_argument(
+            "--access-key",
+            default=None,
+            help="access key for key-gated servers (sent as a Bearer header)",
+        )
+        sp.add_argument(
+            "--watch",
+            type=float,
+            default=None,
+            metavar="SECONDS",
+            help="re-render every SECONDS until interrupted",
+        )
+        sp.add_argument(
+            "--watch-count",
+            type=int,
+            default=None,
+            help=argparse.SUPPRESS,  # bounded --watch renders (tests)
+        )
+
+    cp = sub.add_parser(
+        "capacity",
+        description="Capacity / headroom model: observed load vs the "
+        "device and admission ceilings, joined with SLO burn into "
+        "max-sustainable-QPS, headroom and a recommended replica count, "
+        "from a running server's /capacity.json or this process.",
+    )
+    scrape_flags(cp)
+    cp.set_defaults(fn=do_capacity)
+
+    al = sub.add_parser(
+        "alerts",
+        description="Alert rules engine state: firing/pending instances, "
+        "recent transitions and the rule set, from a running server's "
+        "/alerts.json.  One shot exits 1 when anything is firing.",
+    )
+    scrape_flags(al)
+    al.set_defaults(fn=do_alerts)
+
+    co = sub.add_parser(
+        "costs",
+        description="Per-app cost ledger: attributed device-seconds, "
+        "least-work flops and bytes, storage bytes, queue-seconds and "
+        "sheds by (app, route, variant), from a running server's "
+        "/costs.json or this process's ledger.",
+    )
+    scrape_flags(co)
+    co.add_argument(
+        "--window", type=int, default=None, metavar="N",
+        help="include only the last N closed accounting windows",
+    )
+    co.set_defaults(fn=do_costs)
+
+    tpv = sub.add_parser(
+        "top",
+        description="Live view: request latency, firing alerts and the top "
+        "apps by attributed device time.  Refreshes every --watch seconds "
+        "(default 2); --once renders one frame.",
+    )
+    scrape_flags(tpv)
+    tpv.add_argument(
+        "--once", action="store_true", help="render one frame and exit",
+    )
+    tpv.set_defaults(fn=do_top)
+
+    ic = sub.add_parser(
+        "incident",
+        description="Forensic incident bundles recorded by the alert "
+        "engine: list them, render one offline (the SLO and breaker state "
+        "and the exemplar request's waterfall), or export the raw bundle "
+        "or its trace as Chrome trace-event JSON.",
+    )
+    icsub = ic.add_subparsers(dest="incident_command", required=True)
+    icl = icsub.add_parser("list", help="list recorded bundles")
+    ics = icsub.add_parser("show", help="render one bundle")
+    ics.add_argument("incident_id", help="bundle id (or unique prefix)")
+    ice = icsub.add_parser("export", help="dump one bundle (or --perfetto)")
+    ice.add_argument("incident_id", help="bundle id (or unique prefix)")
+    ice.add_argument("--out", default=None, help="output path (default: stdout)")
+    ice.add_argument(
+        "--perfetto", metavar="OUT.json", default=None,
+        help="write the exemplar trace as Chrome trace-event JSON "
+        "('-' for stdout)",
+    )
+    ice.add_argument(
+        "--trace-id", default=None,
+        help="which recorded trace to export (default: the exemplar)",
+    )
+    for sp_ in (icl, ics, ice):
+        sp_.add_argument(
+            "--dir", default=None,
+            help="bundle directory (default: PIO_INCIDENT_DIR or "
+            "$PIO_HOME/incidents)",
+        )
+        sp_.add_argument(
+            "--url", default=None,
+            help="read a running server's /incidents.json instead",
+        )
+        sp_.add_argument("--access-key", default=None)
+        sp_.add_argument("--json", action="store_true")
+    ic.set_defaults(fn=do_incident)
+
+    tc = sub.add_parser(
+        "trace",
+        description="Assemble one cross-process trace: fetch span "
+        "fragments from every named process's /spans.json?trace_id=, "
+        "clock-align them and merge them into one host+device timeline "
+        "(text waterfall, JSON, or Chrome trace-event JSON).",
+    )
+    tc.add_argument("trace_id", help="the X-Pio-Trace-Id to assemble")
+    tc.add_argument(
+        "--from", dest="from_urls", action="append", default=None,
+        metavar="URL[,URL]",
+        help="server base URLs to fetch /spans.json from (repeatable, "
+        "comma-separable); a dead process costs its fragments only",
+    )
+    tc.add_argument(
+        "--file", action="append", default=None, metavar="PATH",
+        help="a recorded /spans.json body, fragment list or incident "
+        "bundle to fold in (repeatable)",
+    )
+    tc.add_argument(
+        "--local", action="store_true",
+        help="include this process's own fragment store (the default "
+        "without --from/--file)",
+    )
+    tc.add_argument("--json", action="store_true", help="the tree as JSON")
+    tc.add_argument(
+        "--perfetto", metavar="OUT", default=None,
+        help="write Chrome trace-event JSON to OUT ('-' for stdout)",
+    )
+    tc.add_argument(
+        "--access-key", default=None,
+        help="access key for key-gated servers (sent as a Bearer header)",
+    )
+    tc.set_defaults(fn=do_trace)
+
+    ex = sub.add_parser(
+        "explain",
+        description="One answer's decision provenance (/explain.json) "
+        "joined with its flight-recorder entry, its log lines and its "
+        "assembled trace, or a recorded record rendered offline "
+        "(--record).",
+    )
+    ex.add_argument("request_id", help="the X-Pio-Request-Id to explain")
+    ex.add_argument("--url", default=None, help="running server to read")
+    ex.add_argument(
+        "--record", default=None, metavar="FILE",
+        help="a recorded provenance record to render instead of fetching",
+    )
+    ex.add_argument("--access-key", default=None)
+    ex.add_argument("--json", action="store_true")
+    ex.add_argument(
+        "--no-trace", action="store_true",
+        help="skip the cross-process trace join",
+    )
+    ex.set_defaults(fn=do_explain)
+
+    pf = sub.add_parser(
+        "profile",
+        description="Profile a running server: arm its torch.profiler "
+        "capture (default; key-gated POST /debug/profile; CUDA activity "
+        "when its model is on the card) or capture host stacks through "
+        "its continuous sampler (--stacks).  A server whose profiler "
+        "answers 501 gets the host stack capture.  Without --url, samples "
+        "this process's threads.",
+    )
+    pf.add_argument("--url", help="target server (e.g. http://127.0.0.1:8000)")
+    pf.add_argument(
+        "--seconds", type=float, default=5.0, help="capture window (default 5)",
+    )
+    pf.add_argument(
+        "--stacks", action="store_true",
+        help="capture host stacks instead of the device profile",
+    )
+    pf.add_argument(
+        "--speedscope", metavar="OUT.json", default=None,
+        help="write the stack capture as speedscope JSON",
+    )
+    pf.add_argument(
+        "--access-key", default=None,
+        help="access key for key-gated servers (sent as a Bearer header)",
+    )
+    pf.set_defaults(fn=do_profile)
     return parser
 
 

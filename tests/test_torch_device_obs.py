@@ -410,6 +410,25 @@ def test_profiler_passes_the_apps_device(monkeypatch):
     assert seen == [True]
 
 
+def test_a_cuda_capture_answers_once_its_guard_has_passed(monkeypatch):
+    # the 202 of a CUDA capture comes DEVICE_CLOCK_GUARD_S after the
+    # profiler started, so device work launched after it lies inside the
+    # window; a CPU capture answers at once
+    _wait_idle()
+    started = []
+    monkeypatch.setattr(pt_profiler, "DEVICE_CLOCK_GUARD_S", 2.0)
+    monkeypatch.setattr(pt_profiler, "_start_trace",
+                        lambda cuda: started.append(time.monotonic()))
+    monkeypatch.setattr(pt_profiler, "_stop_trace",
+                        lambda prof, out, cuda: {"device_ops": []})
+    waits = {}
+    for cuda in (True, False):
+        pt_profiler.PROFILER.start(0.05, cuda=cuda)
+        waits[cuda] = time.monotonic() - started[-1]
+        _wait_idle()
+    assert waits[True] >= 2.0 > waits[False], waits
+
+
 def test_real_cpu_capture_writes_trace_and_table(tmp_path):
     _wait_idle()
     out = tmp_path / "cap"

@@ -88,14 +88,12 @@ KEY = "obs-key"
 
 #: deploy routes of JAX modules the port leaves out (each with its module)
 LEFT_OUT_ROUTES = {
-    "/costs.json",      # obs/costs.py: the per-app cost ledger
     "/shards.json",     # StragglerBoard + shard attribution: multi-device
 }
 
 #: /metrics families of the JAX deploy that the port does not register,
 #: by the left-out module that registers them
 LEFT_OUT_FAMILY_PREFIXES = (
-    "pio_cost_",              # obs/costs.py
     "pio_jax_live_buffer_",   # jax.live_arrays: no torch counterpart
     "pio_jax_pjit_cache_",    # the jit cache: no torch counterpart
 )
@@ -196,7 +194,7 @@ def _deploys(trained, **kw):
     )
     pt_app = pt_server.create_prediction_server_app(
         trained["port"], use_microbatch=True, registry=MetricsRegistry(),
-        access_key=KEY, **kw,
+        enable_alerts=False, access_key=KEY, **kw,
     )
     return [
         ("jax", jax_app, jax_aio.AsyncAppServer(jax_app, "127.0.0.1", 0).start_background()),
@@ -223,7 +221,7 @@ GET_ROUTES = [
     "/efficiency.json", "/locks.json", "/hotpath.json", "/capacity.json",
     "/debug/stacks.json", "/explain.json", "/debug/flight.json",
     "/debug/profile", "/healthz", "/readyz", "/slo.json", "/quality.json",
-    "/tenants.json",
+    "/tenants.json", "/costs.json",
 ]
 
 
@@ -557,7 +555,7 @@ def test_event_server_routes_and_ingest_count(trained, obs_key, monkeypatch):
         codes = {r[0]: r[1:3] for r in rows if len(r) == 4}
         assert codes["/healthz"] == (200, 200)
         scrape = {"/metrics", "/metrics.json", "/traces.json", "/spans.json",
-                  "/readyz", "/slo.json"}
+                  "/readyz", "/slo.json", "/costs.json"}
         for path, (anon, keyed) in codes.items():
             if path == "/healthz":
                 continue

@@ -950,17 +950,32 @@ def test_daemon_death_and_revival(tmp_path):
 
 @pytest.mark.parametrize("typ", ["postgres", "jdbc"])
 def test_postgres_sources_wait_for_their_slice(tmp_path, typ):
-    from predictionio_tpu_torch.data.storage.config import StorageError
+    """A postgres source resolves to the postgres backend (its own slice
+    has landed): with no server listening, the port's runtime fails the
+    connect as the JAX package's does, through the libpq driver."""
+    from predictionio_tpu.data.storage import pq_driver as jax_pq
+    from predictionio_tpu.data.storage.config import StorageConfig as JaxConfig
+    from predictionio_tpu.data.storage.config import StorageRuntime as JaxRuntime
+    from predictionio_tpu_torch.data.storage import pq_driver
 
-    rt = StorageRuntime(StorageConfig.from_env({
+    if not pq_driver.available():
+        pytest.skip("libpq not present on this host")
+    env = {
         "PIO_HOME": str(tmp_path),
         "PIO_STORAGE_SOURCES_PG_TYPE": typ,
-        "PIO_STORAGE_SOURCES_PG_URL": "postgresql://localhost/pio",
+        "PIO_STORAGE_SOURCES_PG_URL":
+            "postgresql://nobody@127.0.0.1:1/pio?connect_timeout=2",
         "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "PG",
-    }))
-    with pytest.raises(StorageError, match="next slice"):
-        rt.apps()
-    rt.close()
+    }
+    errors = []
+    for runtime, config, err in ((StorageRuntime, StorageConfig, pq_driver.PQError),
+                                 (JaxRuntime, JaxConfig, jax_pq.PQError)):
+        rt = runtime(config.from_env(env))
+        with pytest.raises(err, match="connection failed") as info:
+            rt.apps()
+        errors.append(str(info.value).split(":")[0])
+        rt.close()
+    assert errors[0] == errors[1] == "connection failed"
 
 
 def test_remote_source_needs_a_url_and_exposes_its_breakers(tmp_path):
