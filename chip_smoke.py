@@ -68,7 +68,8 @@ calls:
   with the same result and an EVALCOMPLETED instance each; kernel 1 trains
   every fold, kernel 3 answers every fold wave of 512+ known test users;
 - the NCF template at the ML-20M shape (``ncf_train``): the defaults
-  (bpr, MLP (64, 32, 16), 5 epochs) with each epoch's seconds and loss, the
+  (bpr, MLP (64, 32, 16); 2 epochs, cut from the default 5) with
+  each epoch's seconds and loss, the
   step time and idle share of a steady window, one step held to the CPU's;
   then the pretraining recipe (implicit ALS at rank 32 through kernel 1, 40
   launches, then one full_softmax epoch), kernel 1 held and timed on that
@@ -136,7 +137,18 @@ calls:
   ``top``, ``capacity``, ``explain``, ``profile --stacks``) at once, and
   the daemon restarted (the alert resolved, ``status --url`` exiting 0);
   then an ML-100K train over a throwaway PostgreSQL server where the host
-  has one (kernel 1).
+  has one (kernel 1);
+- the fleet (``fleet``): ``pio fleet deploy --replicas 2 --autoscale`` as
+  a subprocess, two ``pio deploy`` replica daemons on the card behind the
+  consistent-hash router (only the replicas hold CUDA contexts), 16
+  clients' solo queries each answered by its home replica, one replica
+  SIGKILLed under traffic (no 5xx, its breaker open, ejected), ``pio fleet
+  scale 3`` respawning one, the fleet verbs and ``top``, ``capacity`` and
+  ``status`` through the router, then ``undeploy`` of the router stopping
+  every replica; two in-process replicas at ``max_batch`` 1,024 behind the
+  router, 1,024 routed queries each in one device wave (kernel 3, one
+  launch per replica); ``pio start-all`` / ``stop-all`` of the event
+  server, the admin API and the dashboard (no CUDA context in them).
 
 Every count of kernel launches is set to 0 just before each main-path
 phase and read just after it.  It prints one JSON line per phase (every
@@ -163,6 +175,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import uuid
 from datetime import datetime, timezone
@@ -882,12 +895,12 @@ def hold_answers(answers, users, U, V, num: int, item_name=None) -> int:
     return len(users)
 
 
-def drive_clients(port: int, bodies: list, clients: int, tls=None
-                  ) -> tuple[list, float]:
+def drive_clients(port: int, bodies: list, clients: int, tls=None,
+                  header: str = "X-Pio-Engine-Instance") -> tuple[list, float]:
     """``clients`` threads, each on one keep-alive ``http.client``
     connection (HTTPS with the client context ``tls``), POST ``bodies`` to
     ``/queries.json`` until none is left.  Returns (status, client seconds,
-    ``X-Pio-Engine-Instance``, body) per body, in order, and the wall
+    the response's ``header``, body) per body, in order, and the wall
     time."""
     import http.client
     import threading
@@ -914,7 +927,7 @@ def drive_clients(port: int, bodies: list, clients: int, tls=None
                 resp = conn.getresponse()
                 data = resp.read()
                 results[i] = (resp.status, time.perf_counter() - t1,
-                              resp.getheader("X-Pio-Engine-Instance"), data)
+                              resp.getheader(header), data)
         finally:
             conn.close()
 
@@ -3648,6 +3661,10 @@ def event_ingest_phase() -> dict:
 NCF_PRETRAIN = dict(embed_dim=32, mlp_layers=(), loss="full_softmax",
                     learning_rate=1e-4, weight_decay=1e-4, num_epochs=1,
                     pretrain="als")
+#: epochs of the defaults' train: the default 5 cut to 2 to make room for
+#: the fleet phase (each epoch runs the same ~960 steps; the loss must
+#: still fall from the first to the last)
+NCF_EPOCHS = 2
 #: steps of the steady window profiled for the device's idle share
 NCF_PROFILE_STEPS = 40
 #: solo queries per front end, and the queued burst / batch job's queries
@@ -3730,7 +3747,7 @@ def ncf_step_hold(params: dict, p, n_items: int, u, pos, rng) -> dict:
 def ncf_train_phase(storage, ratings) -> tuple[dict, dict]:
     """The ncf template's ``NCFAlgorithm.train`` on the card at the ML-20M
     shape (positives: ratings >= 4.0): (a) the defaults (embed 32, MLP
-    (64, 32, 16), bpr, one negative, batch 8,192, 5 epochs), each epoch's
+    (64, 32, 16), bpr, one negative, batch 8,192) for NCF_EPOCHS, each epoch's
     seconds and loss, the step time and the device's idle share over a
     steady window, one step held to the CPU's; (b) the pretraining recipe
     (NCF_PRETRAIN): implicit ALS at rank 32 through kernel 1 (40 launches),
@@ -3752,7 +3769,7 @@ def ncf_train_phase(storage, ratings) -> tuple[dict, dict]:
     ctx = EngineContext(storage=storage, device="cuda")
 
     # (a) the template's defaults
-    params = ncf_engine.NCFAlgorithmParams()
+    params = ncf_engine.NCFAlgorithmParams(num_epochs=NCF_EPOCHS)
     algo = ncf_engine.NCFAlgorithm(params)
     base = fresh_peak()
     # -- the main path, with every launch count at 0 just before it --
@@ -6660,13 +6677,14 @@ def held_http_burst(batcher, port: int, users, tenant: str,
     return results
 
 
-def post_tenant(port: int, user: str, tenant: str) -> int:
-    """The status of one query for ``tenant`` on a connection of its own."""
+def post_tenant(port: int, user: str, tenant: str | None) -> int:
+    """The status of one query for ``tenant`` (None: no tenant named) on a
+    connection of its own."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
         return http_call(conn, "POST", "/queries.json",
                          json.dumps({"user": user, "num": 10}).encode(),
-                         {"X-Pio-App": tenant})[0]
+                         {"X-Pio-App": tenant} if tenant else {})[0]
     finally:
         conn.close()
 
@@ -7206,6 +7224,544 @@ def watch_phase(device="cuda") -> dict:
     return out
 
 
+# -- the fleet: router, membership, autoscaler, the daemons -------------------
+
+#: the phase's expected seconds on the card (the replicas' boots lead)
+FLEET_EXPECTED_S = (45, 80)
+#: (a) the replicas `fleet deploy` starts, its clients, their solo queries,
+#: the seconds of traffic around the SIGKILL, the autoscaler's tick
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_SOLO = 2, 16, 512
+FLEET_KILL_TRAFFIC_S, FLEET_TICK_S = (0.5, 2.0), 0.5
+#: clients across the SIGKILL: the router's RetryBudget (the JAX package's:
+#: 10 tokens, 0.1 back per answered call) retries at most ~10 forwards that
+#: fail at once, and each client holds one forward in flight; 16 clients
+#: left 2 of 1,431 queries a 503 in a CPU run (budget exhausted), so the
+#: kill runs under 4, as the JAX package's chaos scenario does
+FLEET_KILL_CLIENTS = 4
+#: (b) each in-process replica's device wave (its max_batch)
+FLEET_WAVE = 1024
+
+
+def cuda_contexts(named: dict, before: list) -> dict:
+    """Which of the ``named`` pids hold a CUDA context, per nvidia-smi's
+    compute apps, and how many contexts appeared since ``before``.  Where
+    nvidia-smi lists pids of another namespace (this process not among
+    them), only the count can be read: ``holding`` is None."""
+    apps = compute_app_pids()
+    visible = os.getpid() in apps
+    return {"pids_visible": visible, "new_contexts": len(apps) - len(before),
+            "holding": {k: pid in apps for k, pid in named.items()} if visible else None}
+
+
+def fleet_homes(urls: list, want: int) -> dict:
+    """``want`` distinct known users (ML-20M rows) per replica URL whose
+    home the fleet's rendezvous order puts there, in row order."""
+    from predictionio_tpu_torch.fleet.membership import FleetState
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+
+    fleet = FleetState(urls, registry=MetricsRegistry())
+    homes: dict = {u.rstrip("/"): [] for u in urls}
+    for row in range(ML20M_USERS):
+        picked = homes[fleet.route_order(f"u{row}")[0].url]
+        if len(picked) < want:
+            picked.append(row)
+        if all(len(v) == want for v in homes.values()):
+            return homes
+    raise AssertionError("too few users for every replica")
+
+
+def held_router_burst(batcher, port: int, hold_user: int, users) -> list:
+    """``len(users)`` known-user queries through the router on ``port``,
+    one connection each, queued at the replica whose ``batcher`` is given
+    behind a held wave of one query (``hold_user``, itself routed there:
+    the host route), so the replica's next wave takes them all: one device
+    wave, one launch of kernel 3.  The connections open one after another
+    (the threaded router listens with a short backlog).  Returns (status,
+    lower-cased headers, body) per query, in order."""
+    import asyncio
+
+    real = batcher.batch_fn
+    gate, held = threading.Event(), threading.Event()
+
+    def gated(items):
+        if not held.is_set():
+            held.set()
+            gate.wait(120)
+        return real(items)
+
+    async def answer(reader, writer):
+        raw = await reader.read()
+        writer.close()
+        head, _, data = raw.partition(b"\r\n\r\n")
+        lines = head.decode("latin-1").split("\r\n")
+        hdrs = {k.strip().lower(): v.strip() for k, _, v in
+                (x.partition(":") for x in lines[1:] if x)}
+        return int(lines[0].split()[1]), hdrs, json.loads(data)
+
+    async def burst():
+        tasks = []
+        for u in users:
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            body = json.dumps({"user": f"u{u}", "num": 10}).encode()
+            writer.write((f"POST /queries.json HTTP/1.1\r\nHost: smoke\r\n"
+                          f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
+                          ).encode() + body)
+            await writer.drain()
+            tasks.append(asyncio.ensure_future(answer(reader, writer)))
+        for _ in range(1200):
+            if len(batcher._pending) >= len(users):
+                break
+            await asyncio.sleep(0.05)
+        assert len(batcher._pending) == len(users), len(batcher._pending)
+        gate.set()
+        return await asyncio.gather(*tasks)
+
+    batcher.batch_fn = gated
+    try:
+        hold = threading.Thread(target=post_tenant, args=(port, f"u{hold_user}", None))
+        hold.start()
+        assert held.wait(60), "the holding wave never started"
+        results = asyncio.run(asyncio.wait_for(burst(), timeout=300))
+        hold.join(120)
+    finally:
+        gate.set()
+        batcher.batch_fn = real
+    return results
+
+
+def fleet_phase(device="cuda") -> dict:
+    """``fleet``: the horizontal serving tier and the operator's daemons.
+
+    (a) ``pio fleet deploy --replicas 2 --autoscale`` as a subprocess of the
+    port's CLI on ``write_model``'s ML-20M model: two ``pio deploy`` replica
+    daemons on ``device`` (each its own CUDA context) behind the router,
+    which holds none (nvidia-smi's compute apps against the pidfiles).  16
+    clients send 512 solo known-user queries through the router: every
+    answer 200 from its ``route_order`` home (``X-Pio-Replica``), held to
+    the host answer.  One replica is SIGKILLed under 16 clients: no 5xx
+    (retries answered by the other), its breaker open and the replica
+    ejected, ``pio fleet status --url`` naming it with exit 0.  ``pio fleet
+    scale 3 --url`` respawns a routable replica; ``pio fleet watch``,
+    ``pio top --url <router> --once`` (federated), ``pio capacity --url``
+    and ``pio status --url`` (exit 1: the dead replica's ``breaker_open``,
+    critical) run together; ``pio undeploy --port <router>`` stops the
+    router and every replica, their pidfiles gone.  Each replica's
+    spawn-to-ready seconds are printed.
+
+    (b) Kernel 3 behind the router, through the phase's own
+    ``ReplicaSpawner`` (the public seam a k8s or Ray spawner implements):
+    two replicas in this process, each ``create_prediction_server(...,
+    max_batch=1024)`` on the card.  1,024 distinct known users homed on A
+    by the fleet's ``route_order``, then 1,024 homed on B, go as queued
+    HTTP queries through the port's router: exactly one kernel-3 launch
+    per replica, every answer ``als.device_topk`` from its home, held to
+    the host answer (near ties aside); each wave's kernel ms from its CUDA
+    events.
+
+    (c) ``pio start-all`` then ``pio stop-all`` on a throwaway
+    ``PIO_HOME``: the event server, ``adminserver`` and ``dashboard``
+    answer 200, the dashboard lists an evaluation, none holds a CUDA
+    context, and every pidfile is gone afterwards."""
+    from predictionio_tpu_torch.data.storage.base import EvaluationInstance
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.fleet.autoscaler import ReplicaSpawner
+    from predictionio_tpu_torch.fleet.membership import (
+        REPLICA_HEADER,
+        FleetState,
+        replica_id_of,
+    )
+    from predictionio_tpu_torch.fleet.router import create_router_app
+    from predictionio_tpu_torch.obs import device as device_obs
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+    from predictionio_tpu_torch.server.httpd import AppServer
+    from predictionio_tpu_torch.server.prediction_server import create_prediction_server
+    from predictionio_tpu_torch.tools import daemon as pio_daemon
+
+    import signal
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "fleet", "expected_s": FLEET_EXPECTED_S,
+                 "shape": [ML20M_USERS, ML20M_ITEMS, RANK],
+                 "replicas": FLEET_REPLICAS, "clients": FLEET_CLIENTS,
+                 "solo": FLEET_SOLO, "wave": FLEET_WAVE,
+                 "open_files": raise_open_files(4 * FLEET_WAVE + 1024),
+                 "nvidia_smi": nvidia_smi_line() if on_card else None}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    home, stack_home = tmp / "home", tmp / "stack_home"
+    storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(home)}))
+    instance_id, U, V = write_model(storage, tmp, seed=SEED + 40)
+    router_proc = router_b = None
+    stack_started = False
+    spawner = None
+    reset_launches()
+    try:
+        # (a) `pio fleet deploy` and its replica daemons
+        apps_before = compute_app_pids() if on_card else []
+        t0 = time.perf_counter()
+        router_proc, lines = spawn_cli(home, [
+            "fleet", "deploy", "--engine", "recommendation",
+            "--replicas", str(FLEET_REPLICAS), "--autoscale",
+            "--min-replicas", str(FLEET_REPLICAS), "--max-replicas", "3",
+            "--device", device, "--ip", "127.0.0.1", "--port", "0"],
+            FLEET_REPLICAS + 1, env={"PIO_FLEET_TICK_S": str(FLEET_TICK_S)})
+        out["deploy_s"] = time.perf_counter() - t0
+        urls = [line.split()[4] for line in lines[:FLEET_REPLICAS]]
+        out["spawn_to_ready_s"] = {
+            replica_id_of(u): float(line.rsplit("(", 1)[1].split()[0])
+            for u, line in zip(urls, lines)}
+        router_port = bound_port(lines[-1])
+        router = f"http://127.0.0.1:{router_port}"
+        pids = {replica_id_of(u): pio_daemon.read_pidfile(
+            home / "pids" / f"replica-{u.rsplit(':', 1)[1]}.pid") for u in urls}
+        assert all(pio_daemon.pid_alive(p) for p in pids.values()), pids
+        if on_card:
+            ctx = cuda_contexts({**pids, "router": router_proc.pid}, apps_before)
+            out["cuda_contexts"] = ctx
+            assert ctx["new_contexts"] == FLEET_REPLICAS, ctx
+            if ctx["holding"] is not None:
+                assert not ctx["holding"].pop("router"), ctx
+                assert all(ctx["holding"].values()), ctx
+
+        rng = np.random.default_rng(SEED + 41)
+        users = rng.choice(ML20M_USERS, FLEET_SOLO, replace=False)
+        bodies = [json.dumps({"user": f"u{u}", "num": 10}).encode() for u in users]
+        results, wall = drive_clients(router_port, bodies, FLEET_CLIENTS,
+                                      header=REPLICA_HEADER)
+        local = FleetState(urls, registry=MetricsRegistry())
+        homes = [local.route_order(f"u{u}")[0].replica_id for u in users]
+        out["solo"] = {
+            "statuses": sorted({r[0] for r in results}),
+            "queries_per_s": FLEET_SOLO / wall,
+            "p50_ms": 1e3 * float(np.percentile([r[1] for r in results], 50)),
+            "p99_ms": 1e3 * float(np.percentile([r[1] for r in results], 99)),
+            "per_replica": {rid: homes.count(rid) for rid in pids},
+            "answers_checked_vs_host": hold_answers(
+                [json.loads(r[3])["itemScores"] for r in results], users, U, V, 10),
+        }
+        assert out["solo"]["statuses"] == [200], out["solo"]
+        assert [r[2] for r in results] == homes, "an entity left its home"
+        assert all(out["solo"]["per_replica"].values()), out["solo"]
+
+        # SIGKILL one replica under 16 clients
+        victim = replica_id_of(urls[0])
+        kill: list = []
+        stop = threading.Event()
+
+        def hammer(seed: int) -> None:
+            r = np.random.default_rng(seed)
+            conn = http.client.HTTPConnection("127.0.0.1", router_port, timeout=60)
+            try:
+                while not stop.is_set():
+                    body = json.dumps({"user": f"u{int(r.integers(ML20M_USERS))}",
+                                       "num": 10}).encode()
+                    try:
+                        status, hdrs, _, ms = http_call(
+                            conn, "POST", "/queries.json", body, {"X-Pio-Deadline": "15"})
+                        kill.append((status, hdrs.get(REPLICA_HEADER), ms))
+                    except Exception as e:
+                        kill.append((-1, repr(e), 0.0))
+                        conn.close()
+                        conn = http.client.HTTPConnection("127.0.0.1", router_port,
+                                                          timeout=60)
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=hammer, args=(SEED + 50 + c,), daemon=True)
+                   for c in range(FLEET_KILL_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(FLEET_KILL_TRAFFIC_S[0])
+        os.kill(pids[victim], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        time.sleep(FLEET_KILL_TRAFFIC_S[1])
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads), "a client hung"
+        statuses = [k[0] for k in kill]
+        prom = parse_prometheus(obs_get(router_port, "/metrics?local=1", key=None)[1])
+        out["kill"] = {
+            "victim": victim,
+            "clients": FLEET_KILL_CLIENTS,
+            "requests": len(kill),
+            "non_200": sum(s != 200 for s in statuses),
+            "5xx": sum(s >= 500 for s in statuses),
+            "transport_errors": sum(s == -1 for s in statuses),
+            "answered_by": {rid: sum(k[1] == rid for k in kill) for rid in pids},
+            "p99_ms": float(np.percentile([k[2] for k in kill], 99)),
+            "retry_elsewhere": {
+                dict(k[1])["reason"]: v for k, v in prom.items()
+                if k[0] == "pio_router_retry_elsewhere_total"},
+        }
+        assert out["kill"]["non_200"] == 0, (out["kill"], [k for k in kill if k[0] != 200][:5])
+        deadline = time.monotonic() + 30
+        while True:
+            body = obs_get(router_port, "/fleet.json", key=None)[1]
+            row = next(r for r in body["replicas"] if r["replica"] == victim)
+            if not row["healthy"]:
+                break
+            assert time.monotonic() < deadline, row
+            time.sleep(0.1)
+        out["kill"]["kill_to_ejected_s"] = time.perf_counter() - t_kill
+        prom = parse_prometheus(obs_get(router_port, "/metrics?local=1", key=None)[1])
+        out["kill"]["breaker_state"] = prom[
+            ("pio_breaker_state", (("endpoint", f"replica:{victim}"),))]
+        assert out["kill"]["breaker_state"] == 2.0, out["kill"]  # open
+        assert out["kill"]["retry_elsewhere"].get("transport_error", 0) >= 1, out["kill"]
+        ((rc, text, err),) = cli_once(tmp / "cli_home", [["fleet", "status", "--url", router]])
+        out["fleet_status_after_kill"] = rc
+        assert rc == 0 and "1 healthy" in text and "EJECTED" in text, (text, err[-2000:])
+
+        # `fleet scale 3`: the autoscaler respawns a routable replica
+        t0 = time.perf_counter()
+        ((rc, text, err),) = cli_once(tmp / "cli_home", [["fleet", "scale", "3", "--url", router]])
+        assert rc == 0 and "fleet target: 3 (pinned)" in text, (text, err[-2000:])
+        deadline = time.monotonic() + 180
+        while True:
+            body = obs_get(router_port, "/fleet.json", key=None)[1]
+            if body["total"] == 3 and body["routable"] == 2:
+                break
+            assert time.monotonic() < deadline, body
+            time.sleep(0.2)
+        out["scale"] = {"to_routable_s": time.perf_counter() - t0,
+                        "total": body["total"], "routable": body["routable"],
+                        "last_event": body["autoscaler"]["last_event"]["event"]}
+        assert out["scale"]["last_event"] == "scale_up", body["autoscaler"]
+        new = [r["url"] for r in body["replicas"] if r["url"] not in urls]
+        assert len(new) == 1, body
+        new_pid = pio_daemon.read_pidfile(
+            home / "pids" / f"replica-{new[0].rsplit(':', 1)[1]}.pid")
+        assert pio_daemon.pid_alive(new_pid)
+        if on_card:
+            ctx = cuda_contexts({"respawned": new_pid, "router": router_proc.pid},
+                                apps_before)
+            out["cuda_contexts_after_scale"] = ctx
+            # the victim's context died with it; the respawn holds one
+            assert ctx["new_contexts"] == FLEET_REPLICAS, ctx
+            if ctx["holding"] is not None:
+                assert ctx["holding"] == {"respawned": True, "router": False}, ctx
+        status, _, body, _ = http_call(
+            http.client.HTTPConnection("127.0.0.1", router_port, timeout=60),
+            "POST", "/queries.json",
+            json.dumps({"user": f"u{users[0]}", "num": 10}).encode())
+        assert status == 200
+
+        def critical_firing() -> bool:
+            return any(a.get("state") == "firing" and a.get("severity") == "critical"
+                       for a in obs_get(router_port, "/alerts.json", key=None)[1]["alerts"])
+
+        critical = [critical_firing()]
+        verbs = [["fleet", "watch", "--url", router, "--watch", "0.2", "--watch-count", "2"],
+                 ["top", "--url", router, "--once"],
+                 ["capacity", "--url", router],
+                 ["status", "--url", router, "--no-quality"]]
+        got = cli_once(tmp / "cli_home", verbs)
+        critical.append(critical_firing())
+        out["verbs"] = {v[0] if v[0] != "fleet" else "fleet watch": rc
+                        for v, (rc, _, _) in zip(verbs, got)}
+        out["verbs"]["critical_alert_firing"] = critical
+        for v, (rc, text, err) in zip(verbs[:3], got):
+            assert rc == 0, (v, text[-2000:], err[-2000:])
+        # status --url: 0 with a healthy replica, unless a critical alert
+        # fires (read before and after it, where the two agree)
+        if critical[0] == critical[1]:
+            assert got[3][0] == int(critical[0]), (got[3][1][-2000:], got[3][2][-2000:])
+        assert got[0][1].count("3 replicas, 2 healthy, 2 routable") == 2, got[0][1]
+        assert got[1][1].startswith("fleet: 2 replica(s)"), got[1][1]
+        assert "fleet:" in got[2][1] and "3 replicas" in got[2][1], got[2][1]
+        assert f"WARNING: replica {victim} ejected" in got[3][2], got[3][2]
+        assert json.loads(got[3][1])["fleet"] == {"total": 3, "healthy": 2, "routable": 2}
+
+        # stop: POST /stop to the router (`pio undeploy`), every replica too
+        live = [p for p in (pio_daemon.read_pidfile(f)
+                            for f in (home / "pids").glob("replica-*.pid")) if p]
+        ((rc, text, err),) = cli_once(tmp / "cli_home", [
+            ["undeploy", "--ip", "127.0.0.1", "--port", str(router_port)]])
+        assert rc == 0, err[-2000:]
+        assert router_proc.wait(timeout=60) == 0, cli_stderr(router_proc)
+        out["stopped"] = {
+            "router_exit": router_proc.returncode,
+            "pidfiles_left": sorted(p.name for p in (home / "pids").glob("*.pid")),
+            "replicas_alive": sum(pio_daemon.pid_alive(p) for p in live),
+        }
+        assert not out["stopped"]["pidfiles_left"], out["stopped"]
+        assert out["stopped"]["replicas_alive"] == 0, out["stopped"]
+        router_proc = None
+
+        # (b) kernel 3 behind the router: the phase's own spawner
+        class CardSpawner(ReplicaSpawner):
+            """Replicas in this process: the port's prediction server at
+            max_batch 1,024 on the card, each its own DeployedEngine behind
+            its own HTTP server."""
+
+            def __init__(self):
+                self.live: dict = {}
+
+            def spawn(self) -> str:
+                server = create_prediction_server(
+                    "recommendation", host="127.0.0.1", port=0, storage=storage,
+                    engine_instance_id=instance_id, max_batch=FLEET_WAVE,
+                    max_queue=0, device=device).start_background()
+                url = f"http://127.0.0.1:{server.port}"
+                self.live[url] = server
+                return url
+
+            def drain(self, url: str) -> None:
+                # the generation refcounts and the batcher, as /status.json
+                # reports them, then the server goes
+                deadline = time.monotonic() + 60
+                while True:
+                    body = obs_get(int(url.rsplit(":", 1)[1]), "/status.json",
+                                   key=None)[1]
+                    if not body["inflightGenerations"] and not body["batcherBusy"]:
+                        break
+                    assert time.monotonic() < deadline, body
+                    time.sleep(0.05)
+                self.live.pop(url).shutdown()
+
+            def stop_all(self) -> None:
+                for url in list(self.live):
+                    self.drain(url)
+
+        t0 = time.perf_counter()
+        spawner = CardSpawner()
+        card_urls = [spawner.spawn() for _ in range(2)]
+        fleet_b = FleetState(card_urls, registry=MetricsRegistry())
+        fleet_b.probe_once()
+        assert len(fleet_b.routable()) == 2
+        router_b = AppServer(create_router_app(fleet_b, registry=MetricsRegistry(),
+                                               forward_timeout_s=300.0),
+                             "127.0.0.1", 0).start_background()
+        out["card_replicas_s"] = time.perf_counter() - t0
+        homes_b = fleet_homes(card_urls, FLEET_WAVE + 1)
+        waves = []
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        for url in card_urls:
+            server = spawner.live[url]
+            rid = replica_id_of(url)
+            hold_user, *wave_users = homes_b[url]
+            eff0 = device_obs.default_efficiency().snapshot()["functions"].get(
+                "als.fused_topk", {})
+            before = read_launches()["fused_topk"]
+            t0 = time.perf_counter()
+            answers = held_router_burst(server.app.microbatcher, router_b.port,
+                                        hold_user, wave_users)
+            wall = time.perf_counter() - t0
+            eff1 = device_obs.default_efficiency().snapshot()["functions"]["als.fused_topk"]
+            assert {a[0] for a in answers} == {200}, {a[0] for a in answers}
+            assert {a[1].get(REPLICA_HEADER.lower()) for a in answers} == {rid}
+            paths = {server.app.provenance.get(a[1]["x-pio-request-id"])["engine_path"]
+                     for a in answers}
+            assert paths == {"als.device_topk"}, paths
+            checked = hold_answers([a[2]["itemScores"] for a in answers],
+                                   wave_users, U, V, 10)
+            waves.append({
+                "replica": rid, "queries": len(answers), "wall_s": wall,
+                "launches": read_launches()["fused_topk"] - before,
+                "kernel_ms": 1e3 * (eff1["seconds_total"] - eff0.get("seconds_total", 0.0)),
+                "answers_checked_vs_host": checked, "engine_paths": sorted(paths),
+            })
+            # one launch per replica on the card (a CPU tensor takes the
+            # plain version, which counts none)
+            assert waves[-1]["launches"] == int(on_card), waves[-1]
+        out["launches"] = read_launches()
+        # -- end --
+        out["card_waves"] = waves
+        assert out["launches"]["fused_topk"] == 2 * int(on_card), out["launches"]
+        router_b.shutdown()
+        router_b = None
+        spawner.stop_all()
+        spawner = None
+
+        # (c) `pio start-all`, then `pio stop-all`
+        stack_store = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(stack_home)}))
+        now = datetime.now(tz=timezone.utc)
+        stack_store.evaluation_instances().insert(EvaluationInstance(
+            id="fleet-eval", status="EVALCOMPLETED", start_time=now, end_time=now,
+            evaluation_class="smoke.FleetEval", evaluator_results="best: 0.5",
+            evaluator_results_html="<p>0.5</p>", evaluator_results_json='{"best": 0.5}'))
+        stack_store.close()
+        apps_before = compute_app_pids() if on_card else []
+        ports = free_ports(3)
+        t0 = time.perf_counter()
+        stack_started = True
+        ((rc, text, err),) = cli_once(stack_home, [[
+            "start-all", "--ip", "127.0.0.1", "--event-port", str(ports[0]),
+            "--admin-port", str(ports[1]), "--dashboard-port", str(ports[2])]])
+        assert rc == 0, err[-2000:]
+        stack_pids = {p.stem: pio_daemon.read_pidfile(p)
+                      for p in (stack_home / "pids").glob("*.pid")}
+        assert set(stack_pids) == {"eventserver", "adminserver", "dashboard"}, stack_pids
+        pages = {name: wait_http(port, "/") for name, port in
+                 zip(("eventserver", "adminserver", "dashboard"), ports)}
+        out["stack"] = {"start_s": time.perf_counter() - t0,
+                        "statuses": {k: v[0] for k, v in pages.items()}}
+        assert set(out["stack"]["statuses"].values()) == {200}, out["stack"]
+        assert json.loads(pages["adminserver"][1]) == {"status": "alive"}
+        assert "fleet-eval" in pages["dashboard"][1] and "smoke.FleetEval" in pages[
+            "dashboard"][1]
+        if on_card:
+            ctx = cuda_contexts(stack_pids, apps_before)
+            out["stack"]["cuda_contexts"] = ctx
+            assert ctx["new_contexts"] == 0, ctx
+            assert ctx["holding"] is None or not any(ctx["holding"].values()), ctx
+        ((rc, text, err),) = cli_once(stack_home, [["stop-all"]])
+        stack_started = False
+        assert rc == 0, err[-2000:]
+        out["stack"]["stop_all"] = text.strip().splitlines()
+        out["stack"]["pidfiles_left"] = sorted(
+            p.name for p in (stack_home / "pids").glob("*.pid"))
+        assert not out["stack"]["pidfiles_left"], out["stack"]
+        assert not any(pio_daemon.pid_alive(p) for p in stack_pids.values())
+        assert read_launches() == out["launches"], "a launch outside the counted run"
+    finally:
+        if router_b is not None:
+            router_b.shutdown()
+        if spawner is not None:
+            spawner.stop_all()
+        if router_proc is not None:
+            stop_cli(router_proc)
+        if stack_started:
+            cli_once(stack_home, [["stop-all"]])
+        for pidfile in (home / "pids").glob("*.pid"):
+            pio_daemon.stop_pidfile(pidfile, timeout=5.0)
+        storage.close()
+        tmp_dir.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def free_ports(n: int) -> list[int]:
+    """``n`` ports free on the loopback now (bound together, then closed)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def wait_http(port: int, path: str, timeout: float = 120) -> tuple[int, str]:
+    """(status, body) of the first GET of ``path`` that answers."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+        except OSError:
+            assert time.monotonic() < deadline, f"port {port} never answered {path}"
+            time.sleep(0.2)
+
+
 def _swallow(fn):
     """``fn()``, or None when it raised (a request to a process killed
     under it)."""
@@ -7270,6 +7826,8 @@ def main() -> int:
     emit(storage)
     watch = watch_phase()
     emit(watch)
+    fleet = fleet_phase()
+    emit(fleet)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
     pretrain = ncf_train["pretrain"]
     rank32_t = pretrain["kernel1_rank32_implicit_user_half_step"]
@@ -7329,6 +7887,9 @@ def main() -> int:
                     # the watch loop's billed waves: four queued bursts of
                     # one tenant and the wave after the daemon's SIGKILL
                     "launches_watch": watch["launches"]["fused_topk"],
+                    # one device wave of 1,024 routed queries per replica
+                    # behind the fleet's router
+                    "launches_fleet": fleet["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),

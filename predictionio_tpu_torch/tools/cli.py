@@ -32,7 +32,10 @@ checksum-verified generation and diff it), and the watch loop's verbs:
 ``--from`` URLs and ``--file`` sets), ``explain`` (one answer's
 provenance joined with its flight entry, logs and trace) and ``profile``
 (the server's ``torch.profiler`` capture, or host stacks with
-``--stacks``), plus ``--device`` on the verbs
+``--stacks``); the fleet: ``fleet`` (``deploy|status|scale|watch``: a
+consistent-hash router in front of N ``deploy`` replica daemons, each on
+``--device``), ``adminserver``, ``dashboard``, ``daemon``, ``start-all``,
+``stop-all``, ``stop`` and ``undeploy --pidfile``; plus ``--device`` on the verbs
 that compute (default ``cuda``;
 ``cpu`` runs the plain versions on the host).  ``train``, ``deploy`` and
 ``batchpredict`` name an engine by ``--engine-id`` / ``--engine-version``
@@ -97,9 +100,10 @@ def _status_remote(
 ) -> int:
     """A running server's ``/healthz``, ``/readyz`` and ``/slo.json``,
     ``/quality.json``'s drift state unless ``no_quality``, and
-    ``/lifecycle.json``, ``/eventstore.json``, ``/tenants.json`` and
-    ``/alerts.json`` when they answer.  Exit 0 only when the server is
-    alive and ready, not drifting, and no critical alert fires; a readiness
+    ``/lifecycle.json``, ``/eventstore.json``, ``/tenants.json``,
+    ``/alerts.json`` and a router's ``/fleet.json`` when they answer.  Exit
+    0 only when the server is alive and ready, not drifting, no critical
+    alert fires, and (for a router) at least one replica is healthy; a readiness
     503 still prints its body, so the operator sees which check fails.  ``access_key`` rides as
     a Bearer header (a key-gated server answers 401 on every route but
     ``/healthz`` without it).  A server without a quality route (404/401)
@@ -221,12 +225,41 @@ def _status_remote(
             )
             if a.get("severity") == "critical":
                 critical_firing = True
+        for err in alerts_body.get("source_errors", []):
+            print(
+                f"note: alert federation source error: {err}",
+                file=sys.stderr,
+            )
+    # fleet surface (404/401-tolerant): when the probed server is a fleet
+    # router, fold the membership registry: an ejected replica is a
+    # WARNING, and a fleet with no healthy replica cannot serve at all
+    # (exit 1 even though the router process is alive)
+    fleet_dead = False
+    fl_status, fleet_body = fetch("/fleet.json")
+    if fl_status == 200 and isinstance(fleet_body.get("replicas"), list):
+        report["fleet"] = {
+            "total": fleet_body.get("total"),
+            "healthy": fleet_body.get("healthy"),
+            "routable": fleet_body.get("routable"),
+        }
+        for r in fleet_body["replicas"]:
+            if r.get("draining"):
+                continue
+            if not r.get("healthy") or r.get("breaker") == "open":
+                why = r.get("last_probe_error") or f"breaker {r.get('breaker')}"
+                print(
+                    f"WARNING: replica {r.get('replica')} ejected from "
+                    f"routing ({why})",
+                    file=sys.stderr,
+                )
+        if not fleet_body.get("healthy"):
+            fleet_dead = True
     _print(report)
     alive = health_status == 200 and health.get("status") == "alive"
     return (
         0
         if alive and ready_status == 200 and not drifting
-        and not critical_firing
+        and not fleet_dead and not critical_firing
         else 1
     )
 
@@ -495,13 +528,128 @@ def do_eventserver(args) -> int:
     server = create_event_server(
         host=args.ip, port=args.port, storage=get_storage(), stats=args.stats
     )
-    print(f"Event server on http://{args.ip}:{server.port}", flush=True)
+    return _serve_until_interrupted(
+        server, f"Event server on http://{args.ip}:{server.port}")
+
+
+def _serve_until_interrupted(server, banner: str) -> int:
+    """Print ``banner`` once bound, serve in the foreground until an
+    interrupt, then shut the server down."""
+    print(banner, flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.shutdown()
+    return 0
+
+
+def do_adminserver(args) -> int:
+    """`pio adminserver`: the admin REST API (app and access-key verbs
+    over HTTP); it never touches the card."""
+    from predictionio_tpu_torch.server.admin import create_admin_server
+
+    server = create_admin_server(
+        host=args.ip, port=args.port, storage=get_storage(),
+        access_key=args.access_key,
+    )
+    return _serve_until_interrupted(
+        server, f"Admin server on http://{args.ip}:{server.port}")
+
+
+def do_dashboard(args) -> int:
+    """`pio dashboard`: completed evaluations, traces and the watch
+    panels; it never touches the card."""
+    from predictionio_tpu_torch.server.dashboard import create_dashboard_server
+
+    server = create_dashboard_server(
+        host=args.ip, port=args.port, storage=get_storage(),
+        access_key=args.access_key,
+    )
+    return _serve_until_interrupted(
+        server, f"Dashboard on http://{args.ip}:{server.port}")
+
+
+def do_daemon(args) -> int:
+    """`pio daemon <pidfile> <verb...>`: detach any verb with a pidfile."""
+    from predictionio_tpu_torch.tools import daemon
+
+    cli_args = list(args.command)
+    if cli_args and cli_args[0] == "--":
+        cli_args = cli_args[1:]
+    if not cli_args:
+        print("daemon requires a command, e.g. pio daemon es.pid eventserver",
+              file=sys.stderr)
+        return 1
+    pid = daemon.spawn_daemon(cli_args, args.pidfile)
+    print(f"Started '{' '.join(cli_args)}' (pid {pid}, pidfile {args.pidfile})")
+    return 0
+
+
+def do_start_all(args) -> int:
+    """`pio start-all`: the event server, the admin API and the dashboard
+    as pidfile-tracked daemons, after the storage daemon when a repository
+    is bound to a loopback ``remote`` source."""
+    from predictionio_tpu_torch.tools import daemon
+
+    try:
+        pids = daemon.start_all(
+            ip=args.ip,
+            ports={
+                "eventserver": str(args.event_port),
+                "adminserver": str(args.admin_port),
+                "dashboard": str(args.dashboard_port),
+            },
+        )
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    for name, pid in pids.items():
+        print(f"{name}: pid {pid}")
+    return 0
+
+
+def _report_stop(name: str, won: str | None) -> None:
+    """One line per daemon naming WHICH signal won: a daemon that needed
+    SIGKILL was wedged, and the operator should know."""
+    if won == "TERM":
+        print(f"{name}: stopped (SIGTERM)")
+    elif won == "KILL":
+        print(f"{name}: ignored SIGTERM past the deadline; killed (SIGKILL)")
+    else:
+        print(f"{name}: was not running")
+
+
+def do_stop_all(args) -> int:
+    """`pio stop-all`: stop every pidfile-tracked daemon."""
+    from predictionio_tpu_torch.tools import daemon
+
+    stopped = daemon.stop_all()
+    if not stopped:
+        print("Nothing to stop.")
+    for name, won in stopped.items():
+        _report_stop(name, won)
+    return 0
+
+
+def do_stop(args) -> int:
+    """`pio stop <name-or-pidfile>`: stop ONE pidfile-tracked daemon,
+    escalating SIGTERM -> SIGKILL past ``--timeout``."""
+    from predictionio_tpu_torch.tools import daemon
+
+    # only an EXPLICIT pidfile spelling (.pid suffix or a path separator)
+    # is a path; bare names map to $PIO_HOME/pids/, so a stray file named
+    # `eventserver` in the cwd is never unlinked
+    if args.name.endswith(".pid") or os.sep in args.name:
+        target = Path(args.name)
+    else:
+        target = daemon.pio_home() / "pids" / f"{args.name}.pid"
+    if not target.is_file():
+        print(f"no pidfile at {target}", file=sys.stderr)
+        return 1
+    won = daemon.stop_pidfile(target, timeout=args.timeout)
+    _report_stop(target.stem, won)
     return 0
 
 
@@ -760,7 +908,9 @@ def do_deploy(args) -> int:
 
 
 def do_undeploy(args) -> int:
-    """`pio undeploy`: ``POST /stop`` to the deploy on ``--ip:--port``."""
+    """`pio undeploy`: ``POST /stop`` to the deploy on ``--ip:--port``;
+    when that fails and ``--pidfile`` names the deploy's pidfile, SIGTERM
+    escalating to SIGKILL through it."""
     import urllib.request
 
     url = f"http://{args.ip}:{args.port}/stop"
@@ -775,6 +925,16 @@ def do_undeploy(args) -> int:
         return 0
     except Exception as e:
         print(f"undeploy via POST /stop failed: {e}", file=sys.stderr)
+        if args.pidfile:
+            # the HTTP surface is wedged but we own a pidfile: escalate
+            # through signals and report which one won
+            from predictionio_tpu_torch.tools import daemon
+
+            won = daemon.stop_pidfile(args.pidfile)
+            _report_stop(Path(args.pidfile).stem, won)
+            # None = nothing was running: the desired end state (daemon
+            # down, pidfile gone) holds either way, as `stop` reports it
+            return 0
         return 1
 
 
@@ -1357,10 +1517,11 @@ def _render_top(
 
 
 def do_top(args) -> int:
-    """`top`: a live view of who costs what, from a running server with
-    ``--url`` or this process's ledger; refreshes every ``--watch``
-    seconds (default 2), ``--once`` renders one frame.  (A fleet router's
-    federated view waits for the port's ``fleet/``.)"""
+    """`top`: a live view of who costs what: fleet-federated when ``--url``
+    points at a router (its ``/costs.json`` and ``/alerts.json`` carry
+    replica-tagged rows), one server's with ``--url`` of a deploy, and
+    this process's ledger without one; refreshes every ``--watch`` seconds
+    (default 2), ``--once`` renders one frame."""
 
     def render_once() -> None:
         if args.url:
@@ -1506,6 +1667,221 @@ def do_incident(args) -> int:
     else:
         Path(out).write_text(body)
         print(f"wrote {bundle.get('id')} to {out}")
+    return 0
+
+
+def _render_fleet_text(body: dict) -> str:
+    """Human one-screen rendering of a /fleet.json body."""
+    lines = [
+        f"fleet: {body.get('name', 'fleet')} — "
+        f"{body.get('total', 0)} replicas, "
+        f"{body.get('healthy', 0)} healthy, "
+        f"{body.get('routable', 0)} routable",
+    ]
+    for r in body.get("replicas", []):
+        state = "ok"
+        if r.get("draining"):
+            state = "draining"
+        elif not r.get("healthy"):
+            state = "EJECTED"
+        elif r.get("breaker") == "open":
+            state = "BREAKER-OPEN"
+        cap = r.get("capacity") or {}
+        headroom = cap.get("headroom_frac")
+        lines.append(
+            f"  {r.get('replica'):<22} {state:<13} "
+            f"breaker={r.get('breaker', '?'):<9} "
+            f"inflight={r.get('inflight', 0):<3} "
+            f"headroom="
+            + (f"{headroom:.0%}" if isinstance(headroom, (int, float)) else "n/a")
+            + (
+                f"  ({r['last_probe_error']})"
+                if r.get("last_probe_error") and not r.get("healthy")
+                else ""
+            )
+        )
+    auto = body.get("autoscaler")
+    if auto:
+        pol = auto.get("policy", {})
+        lines.append(
+            "autoscaler: enabled "
+            f"[{pol.get('min_replicas')}..{pol.get('max_replicas')}] "
+            + (
+                f"pinned at {auto['target_override']}"
+                if auto.get("target_override") is not None
+                else "capacity-driven"
+            )
+        )
+        last = auto.get("last_event")
+        if last:
+            lines.append(
+                f"  last event: {last.get('event')} "
+                + " ".join(
+                    f"{k}={v}" for k, v in sorted(last.items())
+                    if k not in ("event", "at")
+                )
+            )
+    return "\n".join(lines)
+
+
+def _fleet_deploy(args) -> int:
+    """`pio fleet deploy`: spawn N replica daemons through `pio deploy`
+    (each on ``--device``, one CUDA context per replica), then run the
+    router in the foreground (an interrupt or ``POST /stop`` tears the
+    whole stack down).  The router holds no CUDA context."""
+    import dataclasses
+
+    from predictionio_tpu_torch.fleet.autoscaler import (
+        Autoscaler,
+        AutoscalerPolicy,
+        LocalProcessSpawner,
+    )
+    from predictionio_tpu_torch.fleet.membership import FleetState
+    from predictionio_tpu_torch.fleet.router import create_router_app
+    from predictionio_tpu_torch.obs.alerts import AlertEvaluator
+    from predictionio_tpu_torch.obs.incident import IncidentRecorder
+    from predictionio_tpu_torch.server.httpd import AppServer
+
+    if args.replicas < 1:
+        print("usage error: --replicas must be >= 1", file=sys.stderr)
+        return 2
+    deploy_args: list[str] = []
+    if args.engine:
+        deploy_args += ["--engine", args.engine]
+    if args.engine_json:
+        deploy_args += ["--engine-json", args.engine_json]
+    if args.accesskey:
+        deploy_args += ["--accesskey", args.accesskey]
+    if args.deadline_s is not None:
+        deploy_args += ["--deadline-s", str(args.deadline_s)]
+    spawner = LocalProcessSpawner(
+        deploy_args,
+        host=args.replica_ip,
+        base_port=args.replica_base_port,
+        device=args.device,
+    )
+    # no source_file: the spawner owns this fleet's membership, and an
+    # inherited PIO_FLEET_FILE would replace the spawned replicas
+    fleet = FleetState(name=args.name, access_key=args.accesskey or None)
+    # the router's own watch loop: its default breaker rule watches the
+    # per-replica breakers, and autoscaler actions land in the event ring
+    incidents = IncidentRecorder()
+    alerts = AlertEvaluator(incidents=incidents)
+    server = None
+    autoscaler = None
+    try:
+        for i in range(args.replicas):
+            url = spawner.spawn()
+            fleet.add(url)
+            print(f"replica {i + 1}/{args.replicas} ready at {url} "
+                  f"({spawner.ready_s[url]:.2f} s)", flush=True)
+        fleet.probe_once()
+        fleet.start()
+        if args.autoscale:
+            policy = AutoscalerPolicy.from_env()
+            if args.min_replicas is not None or args.max_replicas is not None:
+                policy = dataclasses.replace(
+                    policy,
+                    min_replicas=args.min_replicas or policy.min_replicas,
+                    max_replicas=args.max_replicas or policy.max_replicas,
+                )
+            autoscaler = Autoscaler(fleet, spawner, policy=policy, alerts=alerts)
+            autoscaler.start()
+        server_ref: list = []
+
+        def on_stop():
+            if server_ref:
+                server_ref[0].shutdown()
+
+        app = create_router_app(
+            fleet,
+            access_key=args.accesskey or None,
+            default_deadline_s=args.deadline_s,
+            max_inflight=args.max_inflight,
+            autoscaler=autoscaler,
+            on_stop=on_stop,
+            alerts=alerts,
+            incidents=incidents,
+        )
+        alerts.app = app
+        incidents.app = app
+        alerts.start()
+        server = AppServer(app, args.ip, args.port)
+        server_ref.append(server)
+        print(
+            f"Router on http://{args.ip}:{server.port} "
+            "(POST /queries.json; GET /fleet.json)",
+            flush=True,
+        )
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        alerts.stop()
+        if autoscaler is not None:
+            autoscaler.stop()
+        fleet.stop()
+        if server is not None:
+            server.shutdown()
+        spawner.stop_all()
+        print("fleet stopped", flush=True)
+    return 0
+
+
+def do_fleet(args) -> int:
+    """`pio fleet`: deploy/status/scale/watch a router + replica fleet."""
+    if args.fleet_command == "deploy":
+        return _fleet_deploy(args)
+
+    if args.fleet_command == "scale":
+        import urllib.error
+        import urllib.request
+
+        url = args.url.rstrip("/") + f"/fleet/scale?replicas={args.replicas}"
+        headers = {}
+        if args.access_key:
+            headers["Authorization"] = f"Bearer {args.access_key}"
+        try:
+            req = urllib.request.Request(url, headers=headers, method="POST")
+            with urllib.request.urlopen(req, timeout=10) as r:
+                body = json.loads(r.read().decode("utf-8"))
+        except urllib.error.HTTPError as e:
+            print(
+                f"scale refused ({e.code}): {e.read().decode('utf-8', 'replace')}",
+                file=sys.stderr,
+            )
+            return 1
+        except Exception as e:
+            print(f"router unreachable: {e}", file=sys.stderr)
+            return 1
+        mode = body.get("mode", "?")
+        print(
+            f"fleet target: {body.get('target') if mode == 'pinned' else 'auto'} "
+            f"({mode})"
+        )
+        return 0
+
+    # status / watch: read /fleet.json
+    last_body: dict = {}
+
+    def render_once() -> None:
+        body = json.loads(
+            _fetch_url(args.url.rstrip("/") + "/fleet.json", args.access_key)
+        )
+        last_body.clear()
+        last_body.update(body)
+        print(json.dumps(body, indent=2) if args.json else _render_fleet_text(body))
+
+    watch = args.watch if args.fleet_command == "watch" else None
+    rc = _run_watched(
+        "pio fleet", render_once, watch, getattr(args, "watch_count", None)
+    )
+    if rc != 0:
+        return rc
+    # one-shot status: exit 1 when the fleet cannot serve at all
+    if args.fleet_command == "status" and last_body.get("routable", 0) == 0:
+        print("error: zero routable replicas", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -2017,6 +2393,102 @@ def build_parser() -> argparse.ArgumentParser:
     es.add_argument("--stats", action="store_true")
     es.set_defaults(fn=do_eventserver)
 
+    ads = sub.add_parser("adminserver")
+    ads.add_argument("--ip", default="0.0.0.0")
+    ads.add_argument("--port", type=int, default=7071)
+    ads.add_argument("--access-key", default=None)
+    ads.set_defaults(fn=do_adminserver)
+
+    db = sub.add_parser("dashboard")
+    db.add_argument("--ip", default="0.0.0.0")
+    db.add_argument("--port", type=int, default=9000)
+    db.add_argument("--access-key", default=None)
+    db.set_defaults(fn=do_dashboard)
+
+    dm = sub.add_parser("daemon")
+    dm.add_argument("pidfile")
+    dm.add_argument("command", nargs=argparse.REMAINDER)
+    dm.set_defaults(fn=do_daemon)
+
+    sa = sub.add_parser("start-all")
+    sa.add_argument("--ip", default="0.0.0.0")
+    sa.add_argument("--event-port", type=int, default=7070)
+    sa.add_argument("--admin-port", type=int, default=7071)
+    sa.add_argument("--dashboard-port", type=int, default=9000)
+    sa.set_defaults(fn=do_start_all)
+
+    sub.add_parser("stop-all").set_defaults(fn=do_stop_all)
+
+    sp = sub.add_parser("stop")
+    sp.add_argument(
+        "name",
+        help="daemon name (eventserver, adminserver, dashboard, "
+        "storageserver) or a pidfile path",
+    )
+    sp.add_argument(
+        "--timeout",
+        type=float,
+        default=10.0,
+        help="seconds to wait for SIGTERM before escalating to SIGKILL",
+    )
+    sp.set_defaults(fn=do_stop)
+
+    fl = sub.add_parser(
+        "fleet",
+        help="router + replica fleet: deploy/status/scale/watch",
+        description="Deploy a consistent-hash router in front of N "
+        "prediction-server replica daemons, read the membership registry, "
+        "or pin the autoscaler target.",
+    )
+    flsub = fl.add_subparsers(dest="fleet_command", required=True)
+    fld = flsub.add_parser(
+        "deploy",
+        help="spawn N replica daemons and run the router in the foreground",
+    )
+    fld.add_argument("--engine")
+    fld.add_argument("--engine-json", default=None)
+    fld.add_argument("--replicas", type=int, default=2)
+    fld.add_argument("--ip", default="0.0.0.0", help="router bind address")
+    fld.add_argument("--port", type=int, default=8000, help="router port")
+    fld.add_argument(
+        "--replica-ip",
+        default="127.0.0.1",
+        help="address replicas bind (the internal tier; default loopback)",
+    )
+    fld.add_argument(
+        "--replica-base-port",
+        type=int,
+        default=None,
+        help="first replica port (consecutive from here; default ephemeral)",
+    )
+    fld.add_argument("--accesskey", default="")
+    fld.add_argument("--name", default="fleet", help="fleet label in /fleet.json")
+    fld.add_argument("--deadline-s", type=float, default=None)
+    fld.add_argument("--max-inflight", type=int, default=None)
+    fld.add_argument(
+        "--autoscale",
+        action="store_true",
+        help="run the capacity-driven autoscaler loop (PIO_FLEET_* knobs)",
+    )
+    fld.add_argument("--min-replicas", type=int, default=None)
+    fld.add_argument("--max-replicas", type=int, default=None)
+    device_flag(fld)
+    fls = flsub.add_parser("status", help="read a running router's /fleet.json")
+    fls.add_argument("--url", required=True)
+    fls.add_argument("--access-key", default=None)
+    fls.add_argument("--json", action="store_true")
+    flc = flsub.add_parser("scale", help="pin the autoscaler target (N or 'auto')")
+    flc.add_argument("replicas", help="replica count to pin, or 'auto'")
+    flc.add_argument("--url", required=True)
+    flc.add_argument("--access-key", default=None)
+    flw = flsub.add_parser("watch", help="re-render /fleet.json periodically")
+    flw.add_argument("--url", required=True)
+    flw.add_argument("--access-key", default=None)
+    flw.add_argument("--json", action="store_true")
+    flw.add_argument("--watch", type=float, default=2.0)
+    flw.add_argument("--watch-count", type=int, default=None, help=argparse.SUPPRESS)
+    fl.set_defaults(fn=do_fleet)
+
     tr = sub.add_parser("train")
     engine_flags(tr)
     tr.add_argument("--batch", default="")
@@ -2118,6 +2590,12 @@ def build_parser() -> argparse.ArgumentParser:
     ud.add_argument("--ip", default="127.0.0.1")
     ud.add_argument("--port", type=int, default=8000)
     ud.add_argument("--accesskey", default="")
+    ud.add_argument(
+        "--pidfile",
+        default=None,
+        help="fall back to SIGTERM->SIGKILL via this pidfile when the HTTP "
+        "/stop surface is wedged (reports which signal won)",
+    )
     ud.set_defaults(fn=do_undeploy)
 
     bp = sub.add_parser("batchpredict")

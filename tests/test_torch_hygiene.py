@@ -3,7 +3,9 @@
 1. The port stands alone: no module of it, nor ``chip_smoke.py`` or
    ``solo_latency.py``, imports ``jax`` or anything of the JAX package
    ``predictionio_tpu``; none imports ``pandas``, and only the parquet
-   event log and its compactor import ``pyarrow``.
+   event log and its compactor import ``pyarrow``; no subprocess command
+   line of them names a module of the JAX package (``-m
+   predictionio_tpu.tools.cli`` would start the JAX package's servers).
 2. Its entry points run on CUDA unless the caller asks for the CPU: without
    a card, ``deploy_engine``, ``create_prediction_server``,
    ``run_batch_predict``, the CLI and ``EngineContext`` raise unless given
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import ast
 import json
+import re
 import tomllib
 from datetime import datetime, timezone
 from pathlib import Path
@@ -94,6 +97,60 @@ def test_no_pandas_and_pyarrow_only_in_the_parquet_modules(path):
         assert "pyarrow" not in tops, f"{path.relative_to(REPO)} imports pyarrow"
 
 
+#: ``python -m <module>`` naming a module of the JAX package, in one string
+_SPAWN_TEXT = re.compile(r"-m\s+predictionio_tpu(\.|\s|$)")
+
+
+def _jax_module_spawns(source: str) -> list[str]:
+    """Every place ``source`` would start or name a module of the JAX
+    package: ``"-m"`` followed by a ``predictionio_tpu[.*]`` element in a
+    list or tuple (an argv), ``-m predictionio_tpu...`` inside one string,
+    or any string constant naming a JAX module (``predictionio_tpu.x``).
+    The JAX-naming pickler builds its one name from ``JAX_PACKAGE`` and a
+    suffix, so it needs no such constant."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, (ast.List, ast.Tuple)):
+            elts = node.elts
+            for first, second in zip(elts, elts[1:]):
+                if (isinstance(first, ast.Constant) and first.value == "-m"
+                        and isinstance(second, ast.Constant)
+                        and isinstance(second.value, str)
+                        and second.value.split(".")[0] == "predictionio_tpu"):
+                    found.append(f"argv -m {second.value}")
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if _SPAWN_TEXT.search(node.value):
+                found.append(f"string {node.value!r}")
+            elif node.value.startswith("predictionio_tpu."):
+                found.append(f"module name {node.value!r}")
+    return found
+
+
+@pytest.mark.parametrize(
+    "path",
+    PORT_FILES + [REPO / "chip_smoke.py", REPO / "solo_latency.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_subprocess_spawns_a_jax_module(path):
+    """A copied ``python -m predictionio_tpu.tools.cli`` would start the JAX
+    package's servers, and no import scan sees a string."""
+    bad = _jax_module_spawns(path.read_text())
+    assert not bad, f"{path.relative_to(REPO)}: {bad}"
+
+
+@pytest.mark.parametrize("source,caught", [
+    ('subprocess.Popen([sys.executable, "-m", "predictionio_tpu.tools.cli", "deploy"])', True),
+    ('cmd = ("-m", "predictionio_tpu")', True),
+    ('os.system(f"{py} -m predictionio_tpu.tools.cli eventserver")', True),
+    ('runpy.run_module("predictionio_tpu.tools.cli")', True),
+    ('subprocess.Popen([sys.executable, "-m", "predictionio_tpu_torch.tools.cli"])', False),
+    ('JAX_PACKAGE = "predictionio_tpu"; n = JAX_PACKAGE + ".core.persistent_model"', False),
+    ('ok = b"predictionio_tpu" in cmdline', False),
+])
+def test_spawn_scan_catches_a_jax_module(source, caught):
+    assert bool(_jax_module_spawns(source)) is caught
+
+
 def test_scan_sees_the_whole_package():
     rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for must in (
@@ -106,6 +163,8 @@ def test_scan_sees_the_whole_package():
         "predictionio_tpu_torch/server/aio.py",
         "predictionio_tpu_torch/server/microbatch.py",
         "predictionio_tpu_torch/resilience/deadline.py",
+        "predictionio_tpu_torch/fleet/router.py",
+        "predictionio_tpu_torch/tools/daemon.py",
     ):
         assert must in rel
     assert _forbidden("jax.numpy") and _forbidden("predictionio_tpu.ops.topk")

@@ -254,35 +254,121 @@ def test_flipped_byte_names_generation_bytes(storage, capsys):
     assert "generation.bytes" in err and "DIVERGED" in err
 
 
+def _one_wave_of(app, n):
+    """Hold the deploy's micro-batcher until ``n`` queries are queued, so
+    they form ONE wave whatever the threads' timing.  Returns a callable
+    that waits for the i-th submit to be queued."""
+    batcher = app.microbatcher
+    run = batcher._drain
+
+    def gated():
+        with batcher._cond:
+            batcher._cond.wait_for(
+                lambda: len(batcher._pending) >= n or batcher._closed,
+                timeout=4 * TIMEOUT)
+        run()
+
+    batcher._drain = gated  # the worker thread starts at the first submit
+
+    def queued(i):
+        with batcher._cond:
+            assert batcher._cond.wait_for(
+                lambda: len(batcher._pending) >= i or batcher._wave_seq,
+                timeout=TIMEOUT), i
+    return queued
+
+
+#: the pair of this data whose scores tie within 1e-5 at adjacent ranks:
+#: item n % 30 is rated by user n % 20, so i1 and i21 are rated by the same
+#: users and their factors nearly coincide; which users' answers hold the
+#: tie changes from train to train (the fixture's train is not bit for bit
+#: the same twice), and the host replica's replay may order the pair the
+#: other way than the device wave did
+NEAR_TIE = frozenset({"i1", "i21"})
+
+
+def _near_tie_swap(record: dict, divergences: list) -> bool:
+    """True when ``divergences`` are exactly the NEAR_TIE pair swapped at
+    adjacent ranks ``k`` and ``k + 1`` of ``record``, their recorded scores
+    within 1e-5 of each other (score divergences aside)."""
+    items = {d["field"]: (d["recorded"], d["replayed"]) for d in divergences
+             if d["field"].endswith(".item")}
+    if len(items) != 2:
+        return False
+    (fa, (ra, pa)), (fb, (rb, pb)) = sorted(
+        items.items(), key=lambda kv: int(kv[0].split("[")[1].split("]")[0]))
+    k = int(fa.split("[")[1].split("]")[0])
+    scores = record["items"]
+    return (fb == f"items[{k + 1}].item" and {ra, rb} == NEAR_TIE
+            and (ra, rb) == (pb, pa)
+            and abs(scores[k]["score"] - scores[k + 1]["score"]) <= 1e-5)
+
+
 def test_device_wave_answer_replays_within_tolerance(storage, monkeypatch):
     """A micro-batched answer of a device wave (the device floor patched
-    down to 1, so every wave takes the device route: the plain fused top-k
-    on the CPU) replayed through the host replica: exact or not, it must
-    match within 1e-5."""
+    down to 1, so the wave takes the device route: the plain fused top-k
+    on the CPU) replayed through the host replica.  The 24 queries form
+    ONE wave in a fixed order (the batcher is held until all are queued,
+    each sent after the one before it is queued), so the wave's size and
+    order no longer follow thread timing.  Within 1e-5 every answer
+    matches but, in some runs, one: the replay re-answers through the host
+    replica, which sums in another order than the wave, and ``i1`` and
+    ``i21`` tie within 1e-5 at adjacent ranks of a few users' answers.
+    Where that pair is swapped it is the whole divergence (a difference
+    the JAX package's replay shares); anything else fails."""
     monkeypatch.setattr(pt_rec.ALSAlgorithm, "DEVICE_BATCH_MIN", 1)
     _, app, server = _serve(storage, use_microbatch=True, max_batch=64)
     try:
+        queued = _one_wave_of(app, 24)
         got = [None] * 24
-        threads = [threading.Thread(
-            target=lambda i=i: got.__setitem__(i, _query(server.port, f"u{i % N_USERS}")),
-            daemon=True) for i in range(24)]
-        for t in threads:
-            t.start()
+        threads = []
+        for i in range(24):
+            threads.append(threading.Thread(
+                target=lambda i=i: got.__setitem__(
+                    i, _query(server.port, f"u{i % N_USERS}")),
+                daemon=True))
+            threads[-1].start()
+            queued(i + 1)
         for t in threads:
             t.join(timeout=4 * TIMEOUT)
         records = [app.provenance.get(rid) for _, rid, _ in got]
+        waves = app.microbatcher.wave_histogram()
     finally:
         server.shutdown()
+    assert waves == {24: 1}, waves
     assert all(r["engine_path"] == "als.device_topk" for r in records), records[0]
-    outcomes = []
     for rec in records:
         exact = pt_provenance.replay_request(rec, storage=storage, device="cpu")
         loose = pt_provenance.replay_request(rec, storage=storage, device="cpu",
                                              score_tolerance=1e-5)
-        assert loose["matched"], loose["divergences"]
-        assert {d["field"].split("]")[-1] for d in exact["divergences"]} <= {".score"}
-        outcomes.append(exact["matched"])
-    assert len(outcomes) == 24
+        swapped = not loose["matched"] and _near_tie_swap(rec, loose["divergences"])
+        assert loose["matched"] or swapped, loose["divergences"]
+        if swapped:
+            assert {d["field"].split("]")[-1] for d in loose["divergences"]} == {".item"}
+        fields = {d["field"].split("]")[-1] for d in exact["divergences"]}
+        assert fields <= ({".score", ".item"} if swapped else {".score"}), fields
+
+
+@pytest.mark.parametrize("divergences,swap", [
+    ([{"field": "items[1].item", "recorded": "i1", "replayed": "i21"},
+      {"field": "items[2].item", "recorded": "i21", "replayed": "i1"}], True),
+    ([{"field": "items[2].item", "recorded": "i21", "replayed": "i1"},
+      {"field": "items[1].item", "recorded": "i1", "replayed": "i21"}], True),
+    ([{"field": "items[1].item", "recorded": "i1", "replayed": "i21"},
+      {"field": "items[3].item", "recorded": "i21", "replayed": "i1"}], False),
+    ([{"field": "items[1].item", "recorded": "i1", "replayed": "i7"},
+      {"field": "items[2].item", "recorded": "i7", "replayed": "i1"}], False),
+    ([{"field": "items[1].item", "recorded": "i1", "replayed": "i21"}], False),
+    ([{"field": "items[0].item", "recorded": "i1", "replayed": "i21"},
+      {"field": "items[1].item", "recorded": "i21", "replayed": "i1"}], False),
+])
+def test_only_the_pinned_near_tie_counts_as_the_swap(divergences, swap):
+    """The swap the device-wave replay may show is that pair at adjacent
+    ranks with scores within 1e-5, and nothing else."""
+    record = {"items": [{"item": "i3", "score": 0.9}, {"item": "i1", "score": 0.5},
+                        {"item": "i21", "score": 0.5 - 4e-6},
+                        {"item": "i4", "score": 0.1}]}
+    assert _near_tie_swap(record, divergences) is swap
 
 
 def test_replay_needs_a_card_unless_asked_for_the_cpu(storage, monkeypatch):
