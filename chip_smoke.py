@@ -145,13 +145,31 @@ calls:
   SIGKILLed under traffic (no 5xx, its breaker open, ejected), ``pio fleet
   scale 3`` respawning one, the fleet verbs and ``top``, ``capacity`` and
   ``status`` through the router, then ``undeploy`` of the router stopping
-  every replica; two in-process replicas at ``max_batch`` 1,024 behind the
-  router, 1,024 routed queries each in one device wave (kernel 3, one
+  every replica; two in-process replicas at ``max_batch`` 512 behind the
+  router, 512 routed queries each in one device wave (kernel 3, one
   launch per replica); ``pio start-all`` / ``stop-all`` of the event
-  server, the admin API and the dashboard (no CUDA context in them).
+  server, the admin API and the dashboard (no CUDA context in them);
+- the production day (``day``): ``replay.day.seed_demo_home`` trained on
+  the card (kernel 1, 4 launches) and held to the CPU train from one
+  start, a deploy of it answering its 12 users; then ``pio day --device
+  cuda --replicas 2 --seed 7`` over an ML-20M home with ``ml20m-full-day``
+  (the JAX package's full scripted day at the ML-20M population: a replica
+  SIGKILLed, a storage stall, a canary flip over 46 s of open-loop
+  traffic), judged by the verdict engine: every clause passed, 768 of 768
+  answered, one ``breaker_open`` and one ``ingest_shed`` bundle.
 
-Every count of kernel launches is set to 0 just before each main-path
-phase and read just after it.  It prints one JSON line per phase (every
+To make room for ``day``: ``operator``, ``lifecycle`` and
+``als_family_cli`` hold the first 20,000 of their ML-100K-shaped stream
+(``CUT_ML100K_EVENTS``), ``event_ingest`` ingests 10,000 events,
+``als_family_train`` trains on the views of the ML-20M stream's first
+10,000,000 ratings (``FAMILY_RATINGS``), ``fleet`` routes 512-query waves,
+and ``storage`` takes ``train_ml20m``'s ratings rather than generating
+them again.
+
+``watch`` runs in a process of its own (``phase_in_own_process``), the
+rest in this one.  Every count of kernel launches is set to 0 just before
+each main-path phase and read just after it, in the process that drives
+the phase.  It prints one JSON line per phase (every
 correctness case, every timing and every main-path record), the ``kernels``
 line, the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Any failed phase raises and the script exits non-zero without
@@ -195,6 +213,12 @@ ML20M_RATINGS = 20_000_263
 #: CLI (the ML-1M shape's 1,000,209 events take too long to import within
 #: this script's time limit; PERF.md has that run)
 ML100K_USERS, ML100K_ITEMS, ML100K_EVENTS = 943, 1_682, 100_000
+#: the ML-100K-shaped stores of ``operator``, ``lifecycle`` and
+#: ``als_family_cli`` hold their stream's first CUT_ML100K_EVENTS events (cut
+#: from all 100,000 to make room for the day phase: their imports and the
+#: lifecycle retrain's read scale with it; the users, items and rates per
+#: event keep the ML-100K shape, and ``train_cli``/``eval`` keep all 100,000)
+CUT_ML100K_EVENTS = 20_000
 ITERATIONS = 20  # the template's numIterations
 WAVE = 4096
 SEED = 20
@@ -1897,15 +1921,16 @@ def check_wave_lines(lines, users, host, rows) -> int:
     return len(rows)
 
 
-def write_ml100k(path: Path):
+def write_ml100k(path: Path, events: int = ML100K_EVENTS):
     """``movielens_like`` at the ML-100K shape as rate events, one a second
-    from ML-100K's first rating time, in JSON lines for ``pio import``;
-    returns the (user, item, rating) columns."""
+    from ML-100K's first rating time, in JSON lines for ``pio import``: the
+    stream's first ``events``; returns their (user, item, rating) columns."""
     u, i, r = movielens_like(ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS,
                              SEED + 10, half_stars=False)
+    u, i, r = u[:events], i[:events], r[:events]
     t_base = 874_724_710  # ML-100K's first rating time, epoch seconds
     with open(path, "w") as f:
-        for j in range(ML100K_EVENTS):
+        for j in range(events):
             ts = datetime.fromtimestamp(t_base + j, tz=timezone.utc)
             f.write(
                 '{"event":"rate","entityType":"user","entityId":"u%d",'
@@ -2532,10 +2557,18 @@ def persist_instance(storage, factory: str, engine_id: str, params, blob) -> str
     return instance.id
 
 
+#: the ecommerce train's stream: the views (and buys) of the ML-20M stream's
+#: first FAMILY_RATINGS ratings, over all ML-20M users and items (cut from
+#: all 20,000,263 to make room for the day phase: the train's vocabulary and
+#: latest-pair passes over the events are host time)
+FAMILY_RATINGS = 10_000_000
+
+
 def als_family_train_phase(storage, ratings) -> tuple[dict, dict]:
     """``ECommAlgorithm.train`` on the card at the ML-20M shape: implicit
     ALS (alpha 1, rank 10, 20 iterations) over a view/buy stream built in
-    memory, under ``torch.profiler``; stage seconds, kernel 1's launches and
+    memory from ``FAMILY_RATINGS`` ratings, under ``torch.profiler``; stage
+    seconds, kernel 1's launches and
     the device's idle share; kernel 1 then held to its plain version on the
     implicit stream's first user half-step and timed there.  The model is
     persisted as an ``ecommerce`` engine instance.  ``ratings`` are
@@ -2547,10 +2580,12 @@ def als_family_train_phase(storage, ratings) -> tuple[dict, dict]:
     from predictionio_tpu_torch.ops import als
 
     out: dict = {"phase": "als_family_train", "factory": "ecommerce",
-                 "shape": [ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS],
+                 "shape": [ML20M_USERS, ML20M_ITEMS, FAMILY_RATINGS],
+                 "reduced": {"ratings": [ML20M_RATINGS, FAMILY_RATINGS]},
                  "rank": RANK, "iterations": ITERATIONS, "alpha": 1.0}
     t_phase = t0 = time.perf_counter()
-    ev_u, ev_i, is_buy, times = ecomm_stream(*ratings, SEED + 30)
+    ev_u, ev_i, is_buy, times = ecomm_stream(
+        *(x[:FAMILY_RATINGS] for x in ratings), SEED + 30)
     rng = np.random.default_rng(SEED + 31)
     cats = item_categories(ML20M_ITEMS, rng)
     users = [f"u{n}" for n in range(ML20M_USERS)]
@@ -2925,13 +2960,14 @@ def iso_ms(ms) -> str:
         "%Y-%m-%dT%H:%M:%S.000Z")
 
 
-def write_shop_events(path: Path) -> dict:
+def write_shop_events(path: Path, events: int = ML100K_EVENTS) -> dict:
     """An ecommerce app's events at the ML-100K shape, as JSON lines: 943
     user and 1,682 item ``$set`` events (1-3 categories each), the
-    ``view``/``buy`` stream of ``ecomm_stream`` and the unavailableItems
-    constraint.  Returns the count of views and buys."""
-    ev_u, ev_i, is_buy, times = ecomm_stream(*movielens_like(
-        ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS, SEED + 40, half_stars=False),
+    ``view``/``buy`` stream of ``ecomm_stream`` over the stream's first
+    ``events`` ratings and the unavailableItems constraint.  Returns the
+    count of views and buys."""
+    ev_u, ev_i, is_buy, times = ecomm_stream(*(x[:events] for x in movielens_like(
+        ML100K_EVENTS, ML100K_USERS, ML100K_ITEMS, SEED + 40, half_stars=False)),
         SEED + 40)
     cats = item_categories(ML100K_ITEMS, np.random.default_rng(SEED + 43))
     t_set = iso_ms(T_BASE_MS - 1000)
@@ -2956,8 +2992,8 @@ def write_shop_events(path: Path) -> dict:
 
 def als_family_cli_phase() -> dict:
     """The CLI at the ML-100K shape: one app with 943 user and 1,682 item
-    ``$set`` events (with categories), 100,000 ``view`` events, their
-    ``buy`` subset and the unavailableItems constraint; ``app new`` ->
+    ``$set`` events (with categories), CUT_ML100K_EVENTS ``view`` events,
+    their ``buy`` subset and the unavailableItems constraint; ``app new`` ->
     ``import`` -> ``train`` (CUDA) of an ecommerce and a similarproduct
     (``als`` + ``cooccurrence``) engine.json, each deployed for a few solo
     queries held to a CPU deploy of the same instance; then each
@@ -2973,7 +3009,8 @@ def als_family_cli_phase() -> dict:
     from predictionio_tpu_torch.tools import cli
 
     out: dict = {"phase": "als_family_cli",
-                 "shape": [ML100K_USERS, ML100K_ITEMS, ML100K_EVENTS],
+                 "shape": [ML100K_USERS, ML100K_ITEMS, CUT_ML100K_EVENTS],
+                 "reduced": {"events": [ML100K_EVENTS, CUT_ML100K_EVENTS]},
                  "rank": RANK, "iterations": ITERATIONS}
     engines = {
         "ecommerce": ("ecomm-cli", [{"name": "ecomm", "params": {
@@ -2990,7 +3027,7 @@ def als_family_cli_phase() -> dict:
         tmp = Path(tmp)
         storage = reset_storage(StorageConfig.from_env({"PIO_HOME": str(tmp / "pio_home")}))
         t_phase = t0 = time.perf_counter()
-        out["events"] = write_shop_events(tmp / "events.jsonl")
+        out["events"] = write_shop_events(tmp / "events.jsonl", CUT_ML100K_EVENTS)
         out["generate_s"] = time.perf_counter() - t0
         printed = io.StringIO()
         out["train_launches"], out["solo"] = {}, {}
@@ -3096,9 +3133,10 @@ def als_family_phases(ratings) -> list[dict]:
 #: connection to the event server, a subprocess of its own
 INGEST_CLIENTS, INGEST_BATCH, INGEST_SINGLES = 8, 50, 1_000
 #: the ingested stream: the first INGEST_EVENTS of the ML-100K-shaped
-#: stream (cut from all 100,000 to make room for the watch phase; the
-#: users, items and rates per event keep the ML-100K shape)
-INGEST_EVENTS = 20_000
+#: stream (cut from all 100,000 to 20,000 to make room for the watch phase,
+#: then to 10,000 for the day phase; the users, items and rates per event
+#: keep the ML-100K shape)
+INGEST_EVENTS = 10_000
 LIVE_USERS = 8  # the live loop's users, one view POSTed for each
 #: the tied slice: the stream's first TIED_EVENTS, TIED_PER_SECOND of them
 #: to one second, each second's events spread over 20 batches (cut from
@@ -5128,7 +5166,8 @@ def operator_phase(device="cuda") -> dict:
     from predictionio_tpu_torch.tools import commands as cmd
 
     on_card = torch.device(device).type == "cuda"
-    out: dict = {"phase": "operator", "shape": [ML20M_USERS, ML20M_ITEMS, RANK]}
+    out: dict = {"phase": "operator", "shape": [ML20M_USERS, ML20M_ITEMS, RANK],
+                 "reduced": {"ml100k_events": [ML100K_EVENTS, CUT_ML100K_EVENTS]}}
     t_phase = time.perf_counter()
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = Path(tmp_dir.name)
@@ -5202,7 +5241,7 @@ def operator_phase(device="cuda") -> dict:
         # under op100k: the latest COMPLETED instance is the wrong one
         instance_id, U, V = write_model(storage, home, seed=SEED + 111,
                                         coords=("op", "2", "tls"))
-        write_ml100k(tmp / "ratings.jsonl")
+        write_ml100k(tmp / "ratings.jsonl", CUT_ML100K_EVENTS)
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
             assert cli.main(["app", "new", "ml100k"]) == 0
@@ -5606,7 +5645,8 @@ def lifecycle_phase(device="cuda") -> dict:
 
     factor_bytes = (ML20M_USERS + ML20M_ITEMS) * RANK * 4
     out: dict = {"phase": "lifecycle", "shape": [ML20M_USERS, ML20M_ITEMS, RANK],
-                 "small_shape": [ML100K_USERS, ML100K_ITEMS, ML100K_EVENTS],
+                 "small_shape": [ML100K_USERS, ML100K_ITEMS, CUT_ML100K_EVENTS],
+                 "reduced": {"ml100k_events": [ML100K_EVENTS, CUT_ML100K_EVENTS]},
                  "factor_bytes": factor_bytes, "wave": LC_WAVE,
                  "fraction": LC_FRACTION}
     t_phase = time.perf_counter()
@@ -5626,7 +5666,7 @@ def lifecycle_phase(device="cuda") -> dict:
             gens[name] = write_model(storage, home, seed=SEED + salt)
         ids = {name: g[0] for name, g in gens.items()}
         key = cmd.app_new(storage, "ml100k").keys[0].key
-        write_ml100k(tmp / "ratings.jsonl")
+        small_u, _, _ = write_ml100k(tmp / "ratings.jsonl", CUT_ML100K_EVENTS)
         cmd.import_events(storage, "ml100k", tmp / "ratings.jsonl")
         engine = resolve_engine_factory("recommendation")()
         params = engine.params_from_json({
@@ -5876,7 +5916,7 @@ def lifecycle_phase(device="cuda") -> dict:
         servers.append(server)
         server.start_background()
         controller = server.app.lifecycle
-        small_users = np.arange(ML100K_USERS)
+        small_users = np.unique(small_u)
         stages = _Stages()
         wf_log = logging.getLogger("predictionio_tpu_torch.workflow")
         wf_log.setLevel(logging.INFO)
@@ -6164,7 +6204,8 @@ def entity_seeded_train(rec, init_u, init_v, captured: dict):
 
 
 def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
-                  n_users: int = ML20M_USERS, n_items: int = ML20M_ITEMS) -> dict:
+                  n_users: int = ML20M_USERS, n_items: int = ML20M_ITEMS,
+                  ratings=None) -> dict:
     """``storage``: the main path with all three repositories on a remote
     storage daemon (``pio storageserver`` as a subprocess, parquet events).
 
@@ -6185,7 +6226,8 @@ def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
     back every event acknowledged before the kill and after the restart.
     ``pio app compact`` folds that app; a second ``pio train`` of it with
     MODELDATA on ``TYPE=hdfs`` over ``file://`` and a deploy from it answer
-    one device wave (kernel 3)."""
+    one device wave (kernel 3).  ``ratings`` are ``train_ml20m``'s (the
+    same generator and seed), generated here when not given."""
     import signal
     from concurrent.futures import ThreadPoolExecutor
 
@@ -6230,8 +6272,11 @@ def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
 
     try:
         t0 = time.perf_counter()
-        u, i, r = movielens_like(n_events, n_users, n_items, SEED + 20,
-                                 half_stars=True)
+        if ratings is None:
+            ratings = movielens_like(n_events, n_users, n_items, SEED + 20,
+                                     half_stars=True)
+        u, i, r = ratings
+        assert len(r) == n_events, (len(r), n_events)
         out["generate_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         daemon, port = start_daemon(0)
@@ -7238,8 +7283,10 @@ FLEET_KILL_TRAFFIC_S, FLEET_TICK_S = (0.5, 2.0), 0.5
 #: left 2 of 1,431 queries a 503 in a CPU run (budget exhausted), so the
 #: kill runs under 4, as the JAX package's chaos scenario does
 FLEET_KILL_CLIENTS = 4
-#: (b) each in-process replica's device wave (its max_batch)
-FLEET_WAVE = 1024
+#: (b) each in-process replica's device wave (its max_batch): the engine's
+#: device floor, so one wave a replica still launches kernel 3 (cut from
+#: 1,024 to make room for the day phase: the routed burst is host time)
+FLEET_WAVE = 512
 
 
 def cuda_contexts(named: dict, before: list) -> dict:
@@ -7351,8 +7398,8 @@ def fleet_phase(device="cuda") -> dict:
     (b) Kernel 3 behind the router, through the phase's own
     ``ReplicaSpawner`` (the public seam a k8s or Ray spawner implements):
     two replicas in this process, each ``create_prediction_server(...,
-    max_batch=1024)`` on the card.  1,024 distinct known users homed on A
-    by the fleet's ``route_order``, then 1,024 homed on B, go as queued
+    max_batch=FLEET_WAVE)`` on the card.  512 distinct known users homed
+    on A by the fleet's ``route_order``, then 512 homed on B, go as queued
     HTTP queries through the port's router: exactly one kernel-3 launch
     per replica, every answer ``als.device_topk`` from its home, held to
     the host answer (near ties aside); each wave's kernel ms from its CUDA
@@ -7593,7 +7640,7 @@ def fleet_phase(device="cuda") -> dict:
         # (b) kernel 3 behind the router: the phase's own spawner
         class CardSpawner(ReplicaSpawner):
             """Replicas in this process: the port's prediction server at
-            max_batch 1,024 on the card, each its own DeployedEngine behind
+            max_batch FLEET_WAVE on the card, each its own DeployedEngine behind
             its own HTTP server."""
 
             def __init__(self):
@@ -7734,6 +7781,268 @@ def fleet_phase(device="cuda") -> dict:
     return out
 
 
+# -- the production day: the fixture on the card, then the scripted full day --
+
+#: the phase's expected seconds on the card: (a) 3-8 s (the fixture's
+#: train on the card and on the CPU, a deploy of it, 12 queries); (b) the
+#: day's 46 s of phases, 8-10 s of parallel replica boots, the flip, 2.5 s
+#: of tail, the CLI's start and the ML-20M model written: 60-85 s in all
+DAY_EXPECTED_S = (60, 85)
+#: the JAX package's FULL_DAY (its tests/test_production_day.py) with only
+#: the population widened to ML-20M: the shift's offset is half of it, as 6
+#: is half of 12; the rates, bounds, actions and read fractions unchanged
+ML20M_FULL_DAY = {
+    "name": "ml20m-full-day",
+    "num_entities": ML20M_USERS,
+    "num_items": ML20M_ITEMS,
+    "max_inflight": 48,
+    "ingest_max_inflight": 4,
+    "phases": [
+        {"name": "warm", "duration_s": 6, "qps": 8, "read_frac": 1.0,
+         "p99_ms": 5000},
+        {"name": "peak", "duration_s": 32, "qps": 20, "read_frac": 0.6,
+         "p99_ms": 5000},
+        {"name": "shift", "duration_s": 8, "qps": 10, "read_frac": 1.0,
+         "p99_ms": 5000, "entity_offset": ML20M_USERS // 2},
+    ],
+    "actions": [
+        {"at_s": 8, "kind": "kill_replica"},
+        {"at_s": 12, "kind": "storage_stall", "seconds": 18, "latency_s": 12},
+        {"at_s": 40, "kind": "canary_flip"},
+    ],
+    "slo": {"autoscaler_tolerance": 2},
+}
+DAY_SEED, DAY_REPLICAS = 7, 2
+#: what the day must show: requests scheduled (48 + 640 + 80), the clauses,
+#: one bundle per injected fault
+DAY_REQUESTS = 768
+DAY_CLAUSES = ("phase_p99_bounded", "exactly_once", "flip_coherence",
+               "autoscaler_converged", "fault_reconciliation")
+DAY_BUNDLES = {"breaker_open": 1, "ingest_shed": 1}
+#: the fixture (replay/day.seed_demo_home): 12 users, 2 ALS iterations
+DAY_DEMO_USERS, DAY_DEMO_ITERATIONS = 12, 2
+
+
+def day_fixture(tmp: Path, device: str) -> dict:
+    """(a) ``seed_demo_home`` on ``device``: kernel 1's launches (two
+    iterations of two half-steps), the train held to the same train on the
+    CPU from one start within ALS_RTOL of the factors' scale, and each of
+    the 12 users answered 200 by a deploy of it, held to the host answer."""
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.replay.day import seed_demo_home
+    from predictionio_tpu_torch.server.prediction_server import create_prediction_server
+
+    t0 = time.perf_counter()
+    homes = {"card": tmp / "demo", "cpu": tmp / "demo_cpu"}
+    # one start per entity (u<k>, m<k>) at the fixture's rank 4: the two
+    # homes store the same events, which may read back in another order
+    rng = np.random.default_rng(SEED + 42)
+    init_u, init_v = ((np.abs(rng.standard_normal((n, 4))) / 2.0).astype(np.float32)
+                      for n in (DAY_DEMO_USERS, 10))
+    with entity_seeded_train(rec, init_u, init_v, {}):
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        instance = seed_demo_home(homes["card"], device=device)
+        launches = read_launches()
+        # -- end --
+    with entity_seeded_train(rec, init_u, init_v, {}):
+        cpu_instance = seed_demo_home(homes["cpu"], device="cpu")
+    out: dict = {"train_s": time.perf_counter() - t0, "launches": launches}
+    want = 2 * DAY_DEMO_ITERATIONS if device == "cuda" else 0
+    assert launches["als_fused_accum"] == want, launches
+    runtimes = {k: StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(h)}))
+                for k, h in homes.items()}
+    try:
+        card = load_factors(runtimes["card"], instance)
+        cpu = load_factors(runtimes["cpu"], cpu_instance)
+        users, items = sorted(card["user_vocab"]), sorted(card["item_vocab"])
+        assert (users, items) == (sorted(cpu["user_vocab"]), sorted(cpu["item_vocab"]))
+        assert len(users) == DAY_DEMO_USERS, users
+        diff = factor_diff(card, cpu, users, items)
+        scale = max(float(np.abs(cpu["user_factors"]).max()),
+                    float(np.abs(cpu["item_factors"]).max()))
+        out.update(card_vs_cpu_max_abs_diff=diff, factor_scale=scale,
+                   tolerance=ALS_RTOL * scale)
+        assert diff <= ALS_RTOL * scale, f"fixture: card vs CPU factors differ by {diff}"
+        server = create_prediction_server(
+            "recommendation", host="127.0.0.1", port=0, storage=runtimes["card"],
+            engine_instance_id=instance, device=device).start_background()
+        try:
+            got = [post_query(server.port, {"user": u, "num": 4}) for u in users]
+        finally:
+            server.shutdown()
+        assert [g[0] for g in got] == [200] * len(users), [g[0] for g in got]
+        rows = {u: n for n, u in enumerate(card["user_vocab"])}
+        names = list(card["item_vocab"])
+        out["answers_checked_vs_host"] = hold_answers(
+            [g[1]["itemScores"] for g in got], [rows[u] for u in users],
+            card["user_factors"], card["item_factors"], 4,
+            item_name=lambda j: names[j])
+        out["statuses"] = sorted({g[0] for g in got})
+    finally:
+        for r in runtimes.values():
+            r.close()
+    out["fixture_s"] = time.perf_counter() - t0
+    return out
+
+
+def day_phase(device="cuda") -> dict:
+    """``day``: the production day on the card.
+
+    (a) The fixture (``day_fixture``): ``replay.day.seed_demo_home(...,
+    device=device)``, kernel 1's 4 launches, held to the CPU train from one
+    start, and a deploy of it answering all 12 users.
+
+    (b) ``pio day --device <device> --replicas 2 --seed 7`` as a subprocess
+    of the port's CLI over ``write_model``'s ML-20M home (an app row for the
+    day's writes) with ``ML20M_FULL_DAY``: two ``deploy`` replica daemons on
+    the card behind the router, a replica SIGKILLed at 8 s, a storage
+    stall on the event store's write seam from 12 s for 18 s, a canary
+    flip at 40 s, over 46 s of open-loop traffic.  Exit 0 with all five
+    clauses passed, 768 of 768 answered, exactly one ``breaker_open`` and
+    one ``ingest_shed`` bundle; 2 new CUDA contexts (the replicas: the day's
+    own process holds none) while it runs.  Printed: each phase's client
+    and telemetry p50/p99, sheds, retries and device seconds, each
+    replica's spawn-to-ready seconds, the schedule digest, each phase's
+    wall seconds against its stated seconds, SIGKILL to ejection and the
+    flip's seconds.  The day's reads are solo queries, answered by the
+    replicas' host replica (below the device floor of 512): the day itself
+    launches no kernel."""
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.replay.scenario import Scenario
+    from predictionio_tpu_torch.replay.workload import schedule_digest
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "day", "expected_s": DAY_EXPECTED_S,
+                 "scenario": ML20M_FULL_DAY["name"], "seed": DAY_SEED,
+                 "replicas": DAY_REPLICAS,
+                 "shape": [ML20M_USERS, ML20M_ITEMS, RANK],
+                 "nvidia_smi": nvidia_smi_line() if on_card else None}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    try:
+        out["fixture"] = day_fixture(tmp, device)
+
+        # (b) the scripted full day at the ML-20M width
+        home = tmp / "home"
+        storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(home)}))
+        instance_id, _, _ = write_model(storage, tmp, seed=SEED + 70)
+        storage.apps().insert(App(id=0, name="ml20m"))
+        storage.close()
+        scenario_path, report_path = tmp / "scenario.json", tmp / "report.json"
+        scenario_path.write_text(json.dumps(ML20M_FULL_DAY))
+        schedules = Scenario.from_dict(ML20M_FULL_DAY).build_schedules(DAY_SEED)
+        digest = schedule_digest(schedules)
+        apps_before = compute_app_pids() if on_card else []
+        peak_contexts = [0]
+        running = threading.Event()
+        running.set()
+
+        def census() -> None:
+            while running.is_set():
+                peak_contexts[0] = max(peak_contexts[0],
+                                       len(compute_app_pids()) - len(apps_before))
+                time.sleep(1.0)
+
+        sampler = threading.Thread(target=census, daemon=True)
+        if on_card:
+            sampler.start()
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "day",
+                 "--scenario", f"@{scenario_path}", "--replicas", str(DAY_REPLICAS),
+                 "--seed", str(DAY_SEED), "--report", str(report_path),
+                 "--incident-dir", str(tmp / "incidents"), "--device", device],
+                capture_output=True, text=True, timeout=420,
+                env=dict(os.environ, PIO_HOME=str(home)),
+                cwd=Path(__file__).resolve().parent,
+            )
+        finally:
+            running.clear()
+        out["day_s"] = time.perf_counter() - t0
+        if proc.returncode != 0 or not report_path.exists():
+            raise AssertionError(
+                f"pio day exited {proc.returncode}: {proc.stdout[-4000:]} "
+                f"{proc.stderr[-4000:]}")
+        report = json.loads(report_path.read_text())
+        verdict = report["verdict"]
+        clauses = {c["clause"]: c["passed"] for c in verdict["clauses"]}
+        recon = next(c for c in verdict["clauses"]
+                     if c["clause"] == "fault_reconciliation")
+        bundles = {r: len(p) for r, p in recon["evidence"]["bundles"].items()}
+        kill = next(a for a in report["actions_run"] if a["kind"] == "kill_replica")
+        flip = next(a for a in report["actions_run"] if a["kind"] == "canary_flip")
+        ejected = [json.loads(x) for x in proc.stderr.splitlines()
+                   if x.startswith("{") and " ejected" in x]
+        phases = []
+        for row, sched, wall in zip(verdict["phases"], schedules,
+                                    report["phase_wall_s"]):
+            phases.append({
+                "name": row["name"], "scheduled": row["scheduled"],
+                "answered": row["answered"], "errors": row["errors"],
+                "client_p50_ms": row["p50_ms"], "client_p99_ms": row["p99_ms"],
+                "telemetry_p50_ms": row["telemetry_p50_ms"],
+                "telemetry_p99_ms": row["telemetry_p99_ms"],
+                "p99_bound_ms": row["p99_bound_ms"], "shed": row["shed"],
+                "retry_elsewhere_rate": row["retry_elsewhere_rate"],
+                "device_s": row["device_s"],
+                "wall_s": wall, "expected_s": sched.duration_s})
+        out.update(
+            exit_code=proc.returncode, clauses=clauses, passed=verdict["pass"],
+            requests=verdict["requests"], bundles=bundles, phases=phases,
+            schedule_digest=report["schedule_digest"],
+            spawn_to_ready_s=report["replica_ready_s"],
+            kill_to_ejected_s=(ejected[0]["ts"] - kill["started_wall"]
+                               if ejected else None),
+            flip_s=flip["done_s"] - flip["started_s"],
+            stall_shed=sum(r["shed"] for r in verdict["phases"]),
+            actions_run=report["actions_run"],
+            new_cuda_contexts=peak_contexts[0] if on_card else None,
+        )
+        out["day_stdout_tail"] = proc.stdout.splitlines()[-12:]
+        assert report["schedule_digest"] == digest, (report["schedule_digest"], digest)
+        assert verdict["pass"] is True, out
+        assert clauses == {c: True for c in DAY_CLAUSES}, clauses
+        assert verdict["requests"] == {"scheduled": DAY_REQUESTS,
+                                       "answered": DAY_REQUESTS}, verdict["requests"]
+        assert bundles == DAY_BUNDLES, bundles
+        assert out["stall_shed"] > 0, phases
+        if on_card:
+            assert peak_contexts[0] == DAY_REPLICAS, peak_contexts
+    finally:
+        tmp_dir.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_in_own_process(name: str) -> dict:
+    """``name``'s line from a fresh ``python3`` process of this script (the
+    kernels already built load from the build directory).  Its stdout and
+    stderr pass through; it fails when the phase fails.  ``watch`` runs
+    so: on the card's hosts a ``torch.profiler`` CUDA capture in this
+    process, ten minutes and ten captures into the script, recorded no
+    device event at all in three of four runs (the unchanged parent's
+    too), while the same phase in a process of its own captured its
+    kernel."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke as c, torch; torch.backends.cuda.matmul.allow_tf32 = False; "
+         f"torch.backends.cudnn.allow_tf32 = False; c.emit(c.{name}())"],
+        capture_output=True, text=True, timeout=900,
+        cwd=Path(__file__).resolve().parent,
+    )
+    sys.stderr.write(proc.stderr)
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        sys.stdout.write(proc.stdout)
+        raise AssertionError(f"{name} exited {proc.returncode} in its own process")
+    return lines[-1]
+
+
 def free_ports(n: int) -> list[int]:
     """``n`` ports free on the loopback now (bound together, then closed)."""
     import socket
@@ -7812,7 +8121,6 @@ def main() -> int:
           "als_segment_accum": chunk_t})
     family_train, _, family_cli = als_family_phases(ratings)
     ncf_train, _ = ncf_phases(ratings)
-    del ratings
     ingest = event_ingest_phase()
     emit(ingest)
     emit(classification_phase())
@@ -7822,12 +8130,17 @@ def main() -> int:
     emit(operator)
     lifecycle = lifecycle_phase()
     emit(lifecycle)
-    storage = storage_phase()
+    # the storage daemon takes train_ml20m's ratings (the same generator
+    # and seed) rather than generating them again
+    storage = storage_phase(ratings=ratings)
+    del ratings
     emit(storage)
-    watch = watch_phase()
+    watch = phase_in_own_process("watch_phase")
     emit(watch)
     fleet = fleet_phase()
     emit(fleet)
+    day = day_phase()
+    emit(day)
     implicit_t = family_train["kernel1_implicit_user_half_step"]
     pretrain = ncf_train["pretrain"]
     rank32_t = pretrain["kernel1_rank32_implicit_user_half_step"]
@@ -7887,7 +8200,7 @@ def main() -> int:
                     # the watch loop's billed waves: four queued bursts of
                     # one tenant and the wave after the daemon's SIGKILL
                     "launches_watch": watch["launches"]["fused_topk"],
-                    # one device wave of 1,024 routed queries per replica
+                    # one device wave of FLEET_WAVE routed queries per replica
                     # behind the fleet's router
                     "launches_fleet": fleet["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -7943,6 +8256,8 @@ def main() -> int:
                     # where the host has one
                     **({"launches_watch": watch["launches"]["als_fused_accum"]}
                        if watch["postgres"]["server"] else {}),
+                    # the production day's fixture (seed_demo_home) on the card
+                    launches_day=day["fixture"]["launches"]["als_fused_accum"],
                     # rank 32, implicit, on the pretrain's ML-20M user half-step
                     rank32_shape=rank32_t["shape"],
                     rank32_ms=rank32_t["ms"],

@@ -35,7 +35,9 @@ provenance joined with its flight entry, logs and trace) and ``profile``
 ``--stacks``); the fleet: ``fleet`` (``deploy|status|scale|watch``: a
 consistent-hash router in front of N ``deploy`` replica daemons, each on
 ``--device``), ``adminserver``, ``dashboard``, ``daemon``, ``start-all``,
-``stop-all``, ``stop`` and ``undeploy --pidfile``; plus ``--device`` on the verbs
+``stop-all``, ``stop`` and ``undeploy --pidfile``; ``day`` (a scripted
+production day over the fleet, judged by the verdict engine: exit 0 PASS,
+1 FAIL, 2 a malformed scenario); plus ``--device`` on the verbs
 that compute (default ``cuda``;
 ``cpu`` runs the plain versions on the host).  ``train``, ``deploy`` and
 ``batchpredict`` name an engine by ``--engine-id`` / ``--engine-version``
@@ -1885,6 +1887,48 @@ def do_fleet(args) -> int:
     return 0
 
 
+def do_day(args) -> int:
+    """`pio day --scenario FILE [--replicas N] [--report OUT.json]
+    [--seed S] [--device D]`: run one scripted production day against the
+    real fleet topology (router + N ``deploy`` replica subprocesses on
+    ``--device`` + event ingest) and print the evidence-backed SLO verdict.
+
+    Exit contract: 0 = verdict PASS, 1 = verdict FAIL, 2 = malformed
+    scenario (the message names the offending field; checked before the
+    device is resolved, so on any host).  ``PIO_HOME`` must already hold
+    a trained engine (``train`` or ``replay.day.seed_demo_home``).  A
+    device that is not there raises ``DeviceUnavailable`` before any
+    replica spawns."""
+    from predictionio_tpu_torch.device import DeviceUnavailable
+    from predictionio_tpu_torch.replay.day import run_day
+    from predictionio_tpu_torch.replay.scenario import Scenario, ScenarioError
+
+    try:
+        scenario = Scenario.load_arg(args.scenario)
+    except ScenarioError as e:
+        print(f"malformed scenario: {e}", file=sys.stderr)
+        return 2
+    except OSError as e:
+        print(f"malformed scenario: cannot read file: {e}", file=sys.stderr)
+        return 2
+    try:
+        code, _report = run_day(
+            scenario,
+            replicas=args.replicas,
+            seed=args.seed,
+            engine=args.engine,
+            report_path=args.report,
+            incident_dir=args.incident_dir,
+            disable_incidents=args.no_incidents,
+            device=args.device,
+        )
+    except (cmd.CommandError, DeviceUnavailable):
+        raise
+    except RuntimeError as e:
+        raise cmd.CommandError(str(e)) from e
+    return code
+
+
 def do_profile(args) -> int:
     """`profile`: a profile of a running server (or this process).
 
@@ -2488,6 +2532,50 @@ def build_parser() -> argparse.ArgumentParser:
     flw.add_argument("--watch", type=float, default=2.0)
     flw.add_argument("--watch-count", type=int, default=None, help=argparse.SUPPRESS)
     fl.set_defaults(fn=do_fleet)
+
+    dy = sub.add_parser(
+        "day",
+        help="run a scripted production day and print the SLO verdict",
+        description="Drive the real fleet topology (router + N replica "
+        "subprocesses + event ingest) through a declarative scripted day "
+        "of traffic phases and timed faults, then join the generator's "
+        "outcome log, scraped telemetry and the incident-bundle "
+        "directory into an evidence-backed verdict.  Exit 0 PASS / "
+        "1 FAIL / 2 malformed scenario.",
+    )
+    dy.add_argument(
+        "--scenario",
+        required=True,
+        metavar="JSON|@FILE",
+        help="scenario document: inline JSON or @path",
+    )
+    dy.add_argument(
+        "--replicas", type=int, default=2, help="replica subprocesses (default 2)"
+    )
+    dy.add_argument(
+        "--seed", type=int, default=None,
+        help="override the scenario's schedule seed",
+    )
+    dy.add_argument(
+        "--engine", default="recommendation",
+        help="registered engine factory the replicas deploy (default "
+        "recommendation)",
+    )
+    dy.add_argument(
+        "--report", metavar="OUT.json", default=None,
+        help="write the machine-readable verdict report here",
+    )
+    dy.add_argument(
+        "--incident-dir", default=None,
+        help="incident-bundle directory for the run (default: fresh temp dir)",
+    )
+    dy.add_argument(
+        "--no-incidents", action="store_true",
+        help="disable the incident recorder (falsification runs: the "
+        "verdict must FAIL its fault-reconciliation clause)",
+    )
+    device_flag(dy)
+    dy.set_defaults(fn=do_day)
 
     tr = sub.add_parser("train")
     engine_flags(tr)

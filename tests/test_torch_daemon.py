@@ -85,7 +85,15 @@ def _wait_http(port, path="/", timeout=60):
 
 
 def _cmdline(pid: int) -> str:
-    return Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode()
+    """The process's command line once it has one: /proc's is empty while a
+    just-spawned child is still inside execve (a few ms, longer on a loaded
+    host)."""
+    deadline = time.monotonic() + 10
+    while True:
+        raw = Path(f"/proc/{pid}/cmdline").read_bytes()
+        if raw or time.monotonic() > deadline:
+            return raw.replace(b"\0", b" ").decode()
+        time.sleep(0.01)
 
 
 @pytest.fixture()
@@ -310,6 +318,7 @@ class TestStopEscalation:
 def test_pid_alive_equals_jax(tmp_path):
     proc = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(30)"])
     try:
+        assert "time.sleep(30)" in _cmdline(proc.pid)  # past its execve
         for pid in (None, 999999999, proc.pid):
             assert daemon.pid_alive(pid) == jax_daemon.pid_alive(pid)
         assert not daemon.pid_alive(proc.pid)  # alive, but not one of ours
@@ -447,11 +456,24 @@ def _sections(page: str) -> list[str]:
     return re.split(r"(?=<h2>)", page)
 
 
+def _fresh_registries(monkeypatch) -> None:
+    """Both dashboards read their package's process-wide ``REGISTRY``
+    (the Capacity and Model-quality panels).  Other test files that ran
+    earlier in this worker left samples in one package's registry and not
+    the other's, so each dashboard module gets a registry of its own."""
+    from predictionio_tpu.obs.metrics import MetricsRegistry as JaxMetricsRegistry
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+
+    monkeypatch.setattr(pt_dashboard, "REGISTRY", MetricsRegistry())
+    monkeypatch.setattr(jax_dashboard, "REGISTRY", JaxMetricsRegistry())
+
+
 def test_dashboard_pages_equal_jax_on_one_storage(shared, monkeypatch):
     pt_storage, jax_storage = shared
     _insert_evaluation(jax_storage)
     monkeypatch.delenv("PIO_FLEET_URL", raising=False)
     monkeypatch.delenv("PIO_SERVING_URL", raising=False)
+    _fresh_registries(monkeypatch)
     port = pt_dashboard.create_dashboard_app(pt_storage)
     ref = jax_dashboard.create_dashboard_app(jax_storage)
 
@@ -485,6 +507,25 @@ def test_dashboard_pages_equal_jax_on_one_storage(shared, monkeypatch):
     assert json.loads(both("/engine_instances/eval1/evaluator_results.json")[0]
                       .encoded()[0])["best"] == 0.5
     assert "0.5" in both("/engine_instances/eval1")[0].body
+
+
+def test_dashboard_pages_equal_jax_after_a_port_only_sample(shared, monkeypatch):
+    """A port-only wave's samples in the port's real registry
+    (``pio_microbatch_batch_size`` and the ``pio_microbatch_device_seconds``
+    a wave records beside it), as an earlier test file leaves them, would
+    give the port's Capacity panel a device ceiling the JAX one lacks; the
+    parity test above runs on fresh registries, so it still passes."""
+    from predictionio_tpu_torch.obs.metrics import REGISTRY, SIZE_BUCKETS
+
+    REGISTRY.histogram(
+        "pio_microbatch_batch_size", "Queries coalesced per dispatch wave",
+        buckets=SIZE_BUCKETS,
+    ).observe(32)
+    REGISTRY.histogram(
+        "pio_microbatch_device_seconds",
+        "Per-wave batch_fn (device dispatch) duration",
+    ).observe(0.004)
+    test_dashboard_pages_equal_jax_on_one_storage(shared, monkeypatch)
 
 
 def test_dashboard_key_auth_and_gated_links(shared):

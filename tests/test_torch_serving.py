@@ -268,9 +268,61 @@ def _slow_waves(deployed, monkeypatch, seconds):
     monkeypatch.setattr(deployed, "predict_batch_bound", slow)
 
 
+#: the pair of this data whose scores tie within 1e-5 at adjacent ranks: item
+#: n % 30 is rated by user n % 20, so i1 and i21 are rated by the same users
+#: and their factors nearly coincide (as in ``tests/test_torch_replay.py``)
+NEAR_TIE = frozenset({"i1", "i21"})
+
+
+def _near_tie_swap(got: list, want: list, solo: list) -> bool:
+    """True when ``got`` and ``want`` (item ids of one answer) differ by
+    exactly the NEAR_TIE pair swapped at adjacent ranks ``k`` and ``k + 1``,
+    their scores in ``solo`` (the answer of num+1, as (item, score)) within
+    1e-5 of each other.  At the last rank the pair's other member is
+    ``solo``'s extra item, outside both lists."""
+    diff = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+    n = len(got)
+    if len(got) != len(want) or not diff:
+        return False
+    k = diff[0]
+    if diff == [k, k + 1]:
+        pair_ok = (got[k], got[k + 1]) == (want[k + 1], want[k])
+    elif diff == [n - 1]:
+        k = n - 1
+        pair_ok = True
+    else:
+        return False
+    ids = [x for x, _ in solo]
+    return (pair_ok and {got[k], want[k]} == NEAR_TIE
+            and set(ids[k:k + 2]) == NEAR_TIE
+            and abs(solo[k][1] - solo[k + 1][1]) <= 1e-5)
+
+
+@pytest.mark.parametrize("got,want,swap", [
+    (["i3", "i1", "i21", "i4"], ["i3", "i21", "i1", "i4"], True),
+    (["i3", "i4", "i5", "i1"], ["i3", "i4", "i5", "i21"], True),
+    (["i3", "i1", "i4", "i21"], ["i3", "i21", "i4", "i1"], False),
+    (["i3", "i1", "i21", "i4"], ["i3", "i1", "i21", "i4"], False),
+    (["i3", "i4", "i5", "i1"], ["i3", "i4", "i5", "i7"], False),
+    (["i1", "i21", "i5", "i4"], ["i21", "i1", "i5", "i4"], False),
+])
+def test_only_the_near_tie_counts_as_the_swap(got, want, swap):
+    """The cross-package difference the concurrent answers may show is that
+    pair at adjacent ranks with scores within 1e-5, and nothing else."""
+    solos = {
+        1: [("i3", 0.9), ("i1", 0.5), ("i21", 0.5 - 4e-6), ("i4", 0.1), ("i5", 0.05)],
+        3: [("i3", 0.9), ("i4", 0.8), ("i5", 0.7), ("i21", 0.5), ("i1", 0.5 - 4e-6)],
+        0: [("i1", 0.9), ("i21", 0.5), ("i5", 0.4), ("i4", 0.1), ("i3", 0.05)],
+    }
+    diff = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+    solo = solos.get(diff[0] if diff else 1, solos[1])
+    assert _near_tie_swap(got, want, solo) is swap
+
+
 def test_concurrent_http_answers_equal_solo_answers(trained, monkeypatch):
     users = [f"u{i % N_USERS}" for i in range(48)]
     answers = {}
+    solos = {}
     servers = []
     try:
         for name, dep in (("jax", trained["jax"]), ("port", trained["port"])):
@@ -286,6 +338,7 @@ def test_concurrent_http_answers_equal_solo_answers(trained, monkeypatch):
                 assert headers["X-Pio-Engine-Instance"] == trained["instance"].id
                 _, solo = dep.predict(mod.Query(user=u, num=5))
                 solo = [(s.item, s.score) for s in solo.item_scores]
+                solos.setdefault(name, {})[u] = solo
                 _hold_to([(x["item"], x["score"]) for x in body["itemScores"]],
                          solo, (name, u))
             waves = server.app.microbatcher.wave_histogram()
@@ -295,7 +348,10 @@ def test_concurrent_http_answers_equal_solo_answers(trained, monkeypatch):
     finally:
         for _, server, _ in servers:
             server.shutdown()
-    assert answers["port"] == answers["jax"]
+    # each package forms its waves by thread timing: across the packages the
+    # ids are equal but for the adjacent swap of the near tie, and nothing else
+    for u, got, want in zip(users, answers["port"], answers["jax"]):
+        assert got == want or _near_tie_swap(got, want, solos["jax"][u]), (u, got, want)
 
 
 # -- status codes and headers ----------------------------------------------------
