@@ -16,6 +16,15 @@ calls:
   ``POST /queries.json`` requests; then
   a 4,096-query wave with num=200, past the fused menu, answered on the
   card by the full-row route;
+- factor-sharded serving (``sharded_serving``): a seeded ML-20M model's
+  recorded ``ShardPlan`` bound onto 4, then 3, slots of ``cuda:0`` (one
+  physical card), waves of 4,096 and 512 through ``batch_predict`` with
+  kernel 3 once per slot on the slot's own stream, equal to the unsharded
+  kernel-3 wave across a tie planted on the slot boundary; a deploy of the
+  4-slot model answering a queued burst of 1,024 HTTP queries with
+  ``/shards.json``; the straggler board quiet on balanced waves and naming
+  the slot the ``shard.settle`` seam defers; an NCF wave at the ML-20M
+  table shape over 4 slots; kernel 3 timed at one slot's shape;
 - the serving front end at the ML-20M shape: 64 keep-alive clients
   sending 4,096 queries to the default deploy (``serve_concurrent``), a
   4,096-query burst through a micro-batcher of 1,024-query device waves
@@ -116,7 +125,7 @@ calls:
   third refused by the stored-bytes budget, one wave partitioned by tenant
   (kernel 3 on each), and a tenant's quota shedding;
 - the storage plane (``storage``): ``pio storageserver`` as a subprocess
-  (parquet events), 5,000,000 ratings at the ML-20M width written to it
+  (parquet events), all 20,000,263 ratings at the ML-20M width written to it
   as bulk frames, ``pio eventstore status|compact --url``, ``pio train`` with every
   repository on the daemon (kernel 1), held to an in-memory train from one
   start per entity; the deploy bound through the daemon answering a
@@ -161,10 +170,11 @@ calls:
 To make room for ``day``: ``operator``, ``lifecycle`` and
 ``als_family_cli`` hold the first 20,000 of their ML-100K-shaped stream
 (``CUT_ML100K_EVENTS``), ``event_ingest`` ingests 10,000 events,
-``als_family_train`` trains on the views of the ML-20M stream's first
-10,000,000 ratings (``FAMILY_RATINGS``), ``fleet`` routes 512-query waves,
-and ``storage`` takes ``train_ml20m``'s ratings rather than generating
-them again.
+``fleet`` routes 512-query waves, and ``storage`` takes ``train_ml20m``'s
+ratings rather than generating them again.  ``als_family_train`` trains on
+the views of the ML-20M stream's first 7,500,000 ratings
+(``FAMILY_RATINGS``: 10,000,000 for ``day``, 7,500,000 for
+``sharded_serving``).
 
 ``watch`` runs in a process of its own (``phase_in_own_process``), the
 rest in this one.  Every count of kernel launches is set to 0 just before
@@ -2559,9 +2569,10 @@ def persist_instance(storage, factory: str, engine_id: str, params, blob) -> str
 
 #: the ecommerce train's stream: the views (and buys) of the ML-20M stream's
 #: first FAMILY_RATINGS ratings, over all ML-20M users and items (cut from
-#: all 20,000,263 to make room for the day phase: the train's vocabulary and
-#: latest-pair passes over the events are host time)
-FAMILY_RATINGS = 10_000_000
+#: all 20,000,263 to 10,000,000 to make room for the day phase, then to
+#: 7,500,000 for sharded_serving: the train's vocabulary and latest-pair
+#: passes over the events are host time)
+FAMILY_RATINGS = 7_500_000
 
 
 def als_family_train_phase(storage, ratings) -> tuple[dict, dict]:
@@ -6655,9 +6666,9 @@ def raise_open_files(want: int) -> dict:
 
 def held_http_burst(batcher, port: int, users, tenant: str,
                     second_headers: dict | None = None, before_release=None) -> list:
-    """``len(users)`` queries for ``tenant`` over HTTP, one connection each,
-    queued behind a held wave of one query, so the next wave takes them all
-    (kernel 3 at 512 known users or more).  The first, sent alone before
+    """``len(users)`` queries for ``tenant`` (None: no tenant named) over
+    HTTP, one connection each, queued behind a held wave of one query, so
+    the next wave takes them all (kernel 3 at 512 known users or more).  The first, sent alone before
     the rest, leads the wave: the wave's finalize (its feedback writes)
     runs under that query's request context.  The second carries
     ``second_headers``, so a trace it names holds its own spans and its
@@ -6679,8 +6690,9 @@ def held_http_burst(batcher, port: int, users, tenant: str,
         reader, writer = await asyncio.open_connection("127.0.0.1", port)
         body = json.dumps({"user": f"u{user}", "num": 10}).encode()
         head = "".join(f"{k}: {v}\r\n" for k, v in headers.items())
+        app = f"X-Pio-App: {tenant}\r\n" if tenant else ""
         writer.write((f"POST /queries.json HTTP/1.1\r\nHost: smoke\r\n"
-                      f"X-Pio-App: {tenant}\r\n{head}Content-Length: "
+                      f"{app}{head}Content-Length: "
                       f"{len(body)}\r\nConnection: close\r\n\r\n").encode() + body)
         await writer.drain()
         raw = await reader.read()
@@ -8019,6 +8031,355 @@ def day_phase(device="cuda") -> dict:
     return out
 
 
+#: ``sharded_serving``: the slot counts the ML-20M model binds onto (all on
+#: the one card), the waves of known users through ``batch_predict`` on each
+#: binding, and the planted tie straddling the 4-slot boundary (6,686 rows a
+#: slot: item 6,685 is slot 0's last row, 6,686 slot 1's first), both rows
+#: 1.2 times each column's largest entry, so that the answer of every user
+#: with positive factors starts with them
+SHARD_SLOTS = (4, 3)
+SHARD_WAVES = (4096, 512)
+SHARD_NUM = 10
+SHARD_TIE = (6685, 6686)
+#: users u0 .. u7 have their factor rows negated and open every wave and
+#: the burst: each of their scores is negative, so on the 3-slot binding
+#: (8,915 rows a slot, one row of zero padding past the catalog) a local
+#: top-k that ignored ``limit`` would rank the padding row first
+SHARD_NEGATED = 8
+#: the HTTP burst through the 4-slot deploy (one wave at max_batch)
+SHARD_BURST = 1024
+#: balanced waves, then waves with the settle seam deferring one slot
+SHARD_BALANCED_WAVES = 3
+SHARD_STRAGGLER, SHARD_STRAGGLER_S, SHARD_STRAGGLER_WAVES = "cuda:2", 0.05, 3
+SHARD_WAVE = 512
+#: the NCF table shape of NCF_PRETRAIN (pure GMF, embed 32) and one wave
+SHARD_NCF_WAVE = 32
+
+
+def sharded_serving_phase() -> dict:
+    """Factor-sharded serving on the card (``parallel/placement.py``): a
+    seeded ML-20M model (138,493 x 26,744, rank 10) with a recorded
+    ``ShardPlan``, both factor tables split over slots on ``cuda:0``, each
+    slot's top-k through kernel 3 on its own CUDA stream.
+
+    - Waves of 4,096 and 512 known users, num 10, through
+      ``ALSAlgorithm.batch_predict`` on the plan bound onto ``[cuda:0] *
+      4`` (6,686 rows a slot), then rebound onto ``[cuda:0] * 3``: kernel 3
+      launched once per slot per wave, ``LAST_KERNEL_SHAPES`` per slot
+      (``rows_local`` below 26,744, fused), every answer held to the host
+      top-k of ``U @ V.T`` (``hold_answers``: scores within RTOL, ids equal
+      outside near ties), the ids that differ from the unsharded kernel-3
+      wave's counted, every answer of a user with positive factors opening
+      with the planted tie in id order; the per-slot settle seconds and both
+      waves' CUDA-event device time.
+    - An in-process deploy binding the plan onto 4 slots
+      (``deploy_engine(mesh_devices=...)``), its micro-batcher at
+      ``max_batch`` 1,024: a queued burst of 1,024 HTTP queries, every one
+      200 and held to the host top-k, the wave meta carrying
+      ``wave_shards`` and ``wave_shard_seconds``, ``/shards.json`` naming 4
+      slots with bytes and ``/efficiency.json`` its ``shards``.
+    - The straggler board: balanced waves (their skews printed; a flag is
+      printed, not failed: a finding), then the ``shard.settle`` seam
+      deferring ``cuda:2`` by 0.05 s for 3 waves: ``cuda:2`` flagged, its
+      ``pio_shard_straggler_total`` 1.
+    - NCF at ``NCF_PRETRAIN``'s table shape from seeded parameters, bound
+      onto 4 slots: one wave of 32 held to the host top-k of its pure-GMF
+      scores (``user_emb @ item_emb.T + item_bias + out_b``).
+
+    Kernel 3 alone at one slot's shape (4,096, 6,686, 10, 10) is timed
+    beside its plain version, its bound and ``torch.topk(q @ t.T)``, after
+    the counted run."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import EngineParams
+    from predictionio_tpu_torch.data.storage.config import (
+        StorageConfig,
+        StorageRuntime,
+    )
+    from predictionio_tpu_torch.models.ncf import engine as ncf_engine
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.obs import device as device_obs
+    from predictionio_tpu_torch.obs.metrics import REGISTRY
+    from predictionio_tpu_torch.ops import ncf as ncf_ops
+    from predictionio_tpu_torch.ops import topk
+    from predictionio_tpu_torch.parallel import placement
+    from predictionio_tpu_torch.resilience import faults
+    from predictionio_tpu_torch.server.aio import AsyncAppServer
+    from predictionio_tpu_torch.server.prediction_server import (
+        create_prediction_server_app,
+        deploy_engine,
+    )
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 70)
+    U = (np.abs(rng.standard_normal((ML20M_USERS, RANK))) / np.sqrt(RANK)).astype(np.float32)
+    V = (np.abs(rng.standard_normal((ML20M_ITEMS, RANK))) / np.sqrt(RANK)).astype(np.float32)
+    V[list(SHARD_TIE)] = 1.2 * V.max(axis=0)
+    U[:SHARD_NEGATED] *= -1
+    algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(rank=RANK, shard_serving=True))
+    blob = algo.make_persistent_model(None, rec.ALSModel.from_jax_params({
+        "user_factors": U, "item_factors": V,
+        "user_vocab": np.array([f"u{i}" for i in range(ML20M_USERS)]),
+        "item_vocab": np.array([f"i{i}" for i in range(ML20M_ITEMS)]),
+    }, "cpu"))
+    plan = placement.ShardPlan.from_dict(blob["shard_plan"])
+    plain = algo.load_persistent_model(EngineContext(device="cuda"), blob)
+    assert plain.shards is None  # one card, default slots: unsharded
+    model = algo.load_persistent_model(
+        EngineContext(device="cuda", mesh_devices=[card] * SHARD_SLOTS[0]), blob)
+    assert model.shards.mesh.shape == {"model": SHARD_SLOTS[0]}
+    negated = np.arange(SHARD_NEGATED)
+
+    def draw(n):
+        return np.concatenate([negated, rng.integers(SHARD_NEGATED, ML20M_USERS,
+                                                     n - SHARD_NEGATED)])
+
+    wave_users = {n: draw(n) for n in SHARD_WAVES}
+    tie = [f"i{SHARD_TIE[0]}", f"i{SHARD_TIE[1]}"]
+
+    def queries(users, num=SHARD_NUM):
+        return [(j, rec.Query(user=f"u{u}", num=num)) for j, u in enumerate(users)]
+
+    def scores(answers):
+        return [[{"item": x.item, "score": x.score} for x in a.item_scores]
+                for _, a in answers]
+
+    def items(answers):
+        return np.array([[x.item for x in a.item_scores] for _, a in answers])
+
+    # the unsharded kernel-3 waves (outside the counted run)
+    want = {n: items(algo.batch_predict(plain, queries(u))) for n, u in wave_users.items()}
+    # the plan rebound onto 3 slots, and one wave of each size on each
+    # binding before the counted run (its first waves pay for the slots'
+    # new streams and the sorts' first allocations)
+    bindings = {SHARD_SLOTS[0]: model.shards, SHARD_SLOTS[1]: placement.bind_shards(
+        plan, {"user_factors": U, "item_factors": V}, devices=[card] * SHARD_SLOTS[1])}
+    for slots in SHARD_SLOTS:
+        model.shards = bindings[slots]
+        for users in wave_users.values():
+            algo.batch_predict(model, queries(users))
+    ms_plain = {}
+    for n, users in wave_users.items():
+        with device_obs.wave_timeline() as tl:
+            algo.batch_predict(plain, queries(users))
+        ms_plain[n] = 1e3 * tl.kernel_s
+
+    # the deploy of the same blob onto 4 slots
+    tmp = tempfile.TemporaryDirectory()
+    storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": tmp.name + "/pio_home"}))
+    instance_id = persist_instance(
+        storage, "recommendation", "sharded",
+        EngineParams(datasource=("", rec.DataSourceParams(app_name="ml20m")),
+                     algorithms=(("als", rec.ALSAlgorithmParams(
+                         rank=RANK, shard_serving=True)),),
+                     serving=("", None)),
+        blob)
+    deployed = deploy_engine("recommendation", storage=storage,
+                             engine_instance_id=instance_id, device=card,
+                             mesh_devices=[card] * SHARD_SLOTS[0])
+    binding = deployed.live_binding()
+    dep_algo, dep_model = binding.algorithms[0], binding.models[0]
+    assert dep_model.shards.n_shards == SHARD_SLOTS[0]
+    app = create_prediction_server_app(
+        deployed, use_microbatch=True, max_batch=SHARD_BURST,
+        max_queue=2 * SHARD_BURST)
+    batcher = app.microbatcher
+    metas: list = []
+    real_submit = batcher.submit
+
+    async def submit(item, meta=None):
+        if meta is not None:
+            metas.append(meta)
+        return await real_submit(item, meta)
+
+    batcher.submit = submit
+    server = AsyncAppServer(app, "127.0.0.1", 0).start_background()
+    burst_users = [int(u) for u in draw(SHARD_BURST)]
+    straggler_fam = REGISTRY.get("pio_shard_straggler_total")
+    out: dict = {"phase": "sharded_serving", "shape": [ML20M_USERS, ML20M_ITEMS, RANK],
+                 "physical_devices": len(model.shards.mesh.physical_devices),
+                 "tie": list(SHARD_TIE)}
+    try:
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        waves = []
+        for slots in SHARD_SLOTS:
+            model.shards = bindings[slots]
+            labels = [f"cuda:{i}" for i in range(slots)]
+            for n, users in wave_users.items():
+                before = topk.KERNEL_LAUNCHES["fused_topk"]
+                with device_obs.wave_timeline() as tl:
+                    t0 = time.perf_counter()
+                    answers = algo.batch_predict(model, queries(users))
+                    host_s = time.perf_counter() - t0
+                launched = topk.KERNEL_LAUNCHES["fused_topk"] - before
+                shapes = dict(placement.LAST_KERNEL_SHAPES["als.sharded_topk"])
+                assert launched == slots, (slots, n, launched)
+                assert shapes["fused"] == 1 and shapes["n_shards"] == slots, shapes
+                assert shapes["rows_local"] < ML20M_ITEMS, shapes
+                assert sorted(tl.shard_seconds) == labels, tl.shard_seconds
+                assert sorted(tl.shards) == labels, tl.shards
+                hold_answers(scores(answers), users, U, V, SHARD_NUM)
+                assert all([x.item for x in a.item_scores[:2]] == tie
+                           for _, a in answers[SHARD_NEGATED:]), "the tie across the boundary"
+                waves.append({
+                    "slots": slots, "queries": n, "launches": launched,
+                    "shapes": shapes,
+                    "near_tie_id_swaps_vs_unsharded": int((items(answers) != want[n]).sum()),
+                    "settle_s": tl.shard_seconds,
+                    "shard_bytes": {k: v["bytes"] for k, v in tl.shards.items()},
+                    "sharded_wave_device_ms": 1e3 * tl.kernel_s,
+                    "unsharded_wave_device_ms": ms_plain[n],
+                    "batch_predict_s": host_s,
+                })
+        waves_launched = topk.KERNEL_LAUNCHES["fused_topk"]
+
+        # the HTTP burst through the 4-slot deploy
+        t0 = time.perf_counter()
+        results = held_http_burst(batcher, server.port, burst_users, None)
+        out["burst_s"] = time.perf_counter() - t0
+        http_launched = topk.KERNEL_LAUNCHES["fused_topk"] - waves_launched
+
+        # the straggler board: balanced waves, then one slot deferred
+        device_obs.STRAGGLERS.clear()
+        wave_q = queries(wave_users[SHARD_WAVE])
+        balanced = []
+        for _ in range(SHARD_BALANCED_WAVES):
+            dep_algo.batch_predict(dep_model, wave_q)
+            board = device_obs.STRAGGLERS.snapshot()["functions"]["als.sharded_topk"]
+            balanced.append({"skew": board["last_skew"],
+                             "slowest": board["last_max_device"],
+                             "straggler": board["straggler"]})
+        faults.install([{"seam": "shard.settle", "kind": "latency",
+                         "latency_s": SHARD_STRAGGLER_S, "match": SHARD_STRAGGLER}])
+        injected = []
+        try:
+            for _ in range(SHARD_STRAGGLER_WAVES):
+                dep_algo.batch_predict(dep_model, wave_q)
+                board = device_obs.STRAGGLERS.snapshot()["functions"]["als.sharded_topk"]
+                injected.append({"skew": board["last_skew"],
+                                 "slowest": board["last_max_device"],
+                                 "straggler": board["straggler"]})
+        finally:
+            faults.clear()
+
+        # NCF: seeded parameters at NCF_PRETRAIN's table shape
+        ncf_algo = ncf_engine.NCFAlgorithm(ncf_engine.NCFAlgorithmParams(
+            embed_dim=NCF_PRETRAIN["embed_dim"], mlp_layers=(), shard_serving=True))
+        scale = 1.0 / np.sqrt(NCF_PRETRAIN["embed_dim"])
+        ncf_blob = {
+            "params": {
+                "user_emb": (rng.standard_normal((ML20M_USERS, NCF_PRETRAIN["embed_dim"]))
+                             * scale).astype(np.float32),
+                "item_emb": (rng.standard_normal((ML20M_ITEMS, NCF_PRETRAIN["embed_dim"]))
+                             * scale).astype(np.float32),
+                "mlp": [],
+                "out_b": np.zeros(1, np.float32),
+                "item_bias": (0.1 * rng.standard_normal(ML20M_ITEMS)).astype(np.float32),
+            },
+            "n_users": ML20M_USERS, "n_items": ML20M_ITEMS,
+            "config": dataclasses.asdict(ncf_ops.NCFParams(
+                embed_dim=NCF_PRETRAIN["embed_dim"], mlp_layers=())),
+            "user_vocab": blob["user_vocab"], "item_vocab": blob["item_vocab"],
+        }
+        ncf_plain = ncf_algo.load_persistent_model(EngineContext(device="cuda"), ncf_blob)
+        ncf_blob["shard_plan"] = ncf_algo.serving_shard_plan(ncf_plain).to_dict()
+        ncf_sharded = ncf_algo.load_persistent_model(
+            EngineContext(device="cuda", mesh_devices=[card] * SHARD_SLOTS[0]), ncf_blob)
+        ncf_users = wave_users[SHARD_WAVE][:SHARD_NCF_WAVE]
+        ncf_got = ncf_algo.batch_predict(ncf_sharded, queries(ncf_users))
+        ncf_shapes = dict(placement.LAST_KERNEL_SHAPES["ncf.sharded_topk"])
+        launches = read_launches()
+        # -- end --
+        # pure GMF is a product of tables with one more column: ones on the
+        # user side, item_bias + out_b on the item side
+        p = ncf_blob["params"]
+        ncf_U = np.hstack([p["user_emb"], np.ones((ML20M_USERS, 1), np.float32)])
+        ncf_V = np.hstack([p["item_emb"], (p["item_bias"] + p["out_b"][0])[:, None]])
+        ncf_want = items(ncf_algo.batch_predict(ncf_plain, queries(ncf_users)))
+        out["ncf"] = {"table": [ML20M_USERS, ML20M_ITEMS, NCF_PRETRAIN["embed_dim"]],
+                      "queries": len(ncf_users), "shapes": ncf_shapes,
+                      "answers_checked_vs_host": hold_answers(
+                          scores(ncf_got), ncf_users, ncf_U, ncf_V, SHARD_NUM),
+                      "near_tie_id_swaps_vs_unsharded": int((items(ncf_got) != ncf_want).sum())}
+        assert ncf_shapes["n_shards"] == SHARD_SLOTS[0] and ncf_shapes["fused"] == 0
+
+        statuses = [r[0] for r in results]
+        non200 = sum(1 for x in statuses if x != 200)
+        assert non200 == 0, statuses
+        burst_checked = hold_answers([json.loads(r[2])["itemScores"] for r in results],
+                                     burst_users, U, V, SHARD_NUM)
+        by_wave: dict = {}
+        for m in metas:
+            by_wave.setdefault(m.get("wave_seq"), m)
+        burst_wave = max(by_wave.values(), key=lambda m: m.get("wave_size", 0))
+        st, shards_body = obs_get(server.port, "/shards.json", None)
+        est, eff_body = obs_get(server.port, "/efficiency.json", None)
+    finally:
+        batcher.close()
+        server.shutdown()
+        storage.close()
+        tmp.cleanup()
+    slot_labels = [f"cuda:{i}" for i in range(SHARD_SLOTS[0])]
+    assert burst_wave["wave_size"] == SHARD_BURST, burst_wave
+    assert sorted(burst_wave["wave_shards"]) == slot_labels, burst_wave
+    assert sorted(burst_wave["wave_shard_seconds"]) == slot_labels, burst_wave
+    fn_shards = shards_body["shards"]["functions"]["als.sharded_topk"]
+    assert st == 200 and sorted(fn_shards) == slot_labels, shards_body
+    assert all(e["bytes"] > 0 for e in fn_shards.values()), fn_shards
+    assert est == 200 and set(slot_labels) <= set(eff_body["shards"]["devices"]), eff_body
+    assert injected[-1]["straggler"] == SHARD_STRAGGLER, injected
+    flagged = straggler_fam.labels("als.sharded_topk", SHARD_STRAGGLER).value
+    assert flagged == 1, flagged
+    # one launch per slot of every sharded wave of the counted run: the
+    # waves above, the burst's (its held first query's wave too), the
+    # balanced and the deferred ones; NCF's slots score with torch ops
+    http_waves = {m["wave_seq"] for m in metas if m.get("wave_fn") == "als.sharded_topk"}
+    assert http_launched == SHARD_SLOTS[0] * len(http_waves), (http_launched, http_waves)
+    want_launches = waves_launched + http_launched + (
+        SHARD_BALANCED_WAVES + SHARD_STRAGGLER_WAVES) * SHARD_SLOTS[0]
+    assert launches["fused_topk"] == want_launches, (launches, want_launches)
+
+    # kernel 3 alone at one slot's shape, and the sharded wave's device
+    # compute (the 4-slot binding's cached top-k, built by the waves above)
+    # beside the unsharded kernel's at the 4,096-query wave
+    rows_local = -(-ML20M_ITEMS // SHARD_SLOTS[0])
+    shard_t = time_case(WAVE, rows_local, RANK, SHARD_NUM, rng)
+    bound = bindings[SHARD_SLOTS[0]]
+    q_rows = torch.from_numpy(U[wave_users[WAVE]]).to(card)
+    k_pad = 16
+    fn = bound.kernel((WAVE, k_pad), None)
+    items_dev = bound.arrays["item_factors"]
+    V_dev = plain.item_factors
+    out.update({
+        "waves": waves,
+        "burst": {"queries": SHARD_BURST, "non_200": non200, "wall_s": out.pop("burst_s"),
+                  "answers_checked_vs_host": burst_checked, "waves": len(http_waves),
+                  "launches": http_launched,
+                  "wave": {k: burst_wave.get(k) for k in (
+                      "wave_size", "wave_fn", "wave_shards", "wave_shard_seconds",
+                      "wave_kernel_s", "device_s")}},
+        "shards_json": fn_shards,
+        "efficiency_shards_devices": eff_body["shards"]["devices"],
+        "stragglers": {"threshold": device_obs.STRAGGLERS.skew_threshold,
+                       "patience": device_obs.STRAGGLERS.patience,
+                       "balanced": balanced,
+                       "balanced_flagged": any(w["straggler"] for w in balanced),
+                       "injected": injected,
+                       "straggler_total": flagged},
+        "launches": launches,
+        "launches_sharded": launches["fused_topk"],
+        "shard_kernel": shard_t,
+        "sharded_compute_ms": time_ms(lambda: fn(items_dev, q_rows).packed),
+        "unsharded_kernel_ms": time_ms(
+            lambda: topk.fused_topk_batch(q_rows, V_dev, k_pad, name="chip_smoke")),
+        "compute_shape": [WAVE, ML20M_ITEMS, RANK, k_pad],
+    })
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["nvidia_smi"] = nvidia_smi_line()
+    return out
+
+
 def phase_in_own_process(name: str) -> dict:
     """``name``'s line from a fresh ``python3`` process of this script (the
     kernels already built load from the build directory).  Its stdout and
@@ -8098,6 +8459,8 @@ def main() -> int:
     main_path = main_path_phase()
     emit(main_path)
     emit(off_menu_phase())
+    sharded = sharded_serving_phase()
+    emit(sharded)
     front_end = front_end_phases()
     # what the serving paths cost with the observability layer in place:
     # solo queries on a warmed keep-alive connection, and serve_concurrent
@@ -8224,6 +8587,14 @@ def main() -> int:
                     "small_plain_ms": small_t["plain_ms"],
                     "small_library_ms": small_t["library_ms"],
                     "small_bound_ms": small_t["bound_ms"],
+                    # sharded_serving: one launch per slot per wave (4 and 3
+                    # slots on cuda:0), timed at one slot's shape
+                    "launches_sharded": sharded["launches_sharded"],
+                    "shard_shape": sharded["shard_kernel"]["shape"],
+                    "shard_ms": sharded["shard_kernel"]["kernel_ms"],
+                    "shard_plain_ms": sharded["shard_kernel"]["plain_ms"],
+                    "shard_bound_ms": sharded["shard_kernel"]["bound_ms"],
+                    "shard_library_ms": sharded["shard_kernel"]["library_ms"],
                 },
                 # launches: the ML-100K `pio train` through the CLI; times at
                 # the ML-20M user half-step, rank 10; no single PyTorch call

@@ -8,8 +8,10 @@ The same four stages as the JAX package (controller/Engine.scala:82):
   Serving.supplement(q) / .serve(q, [P]) -> P
 
 Where the JAX context carries a device mesh and a PRNG key, this one carries
-a ``torch.device`` and hands out seeded ``torch.Generator``s.  There is no
-mesh: the port serves on one device.
+a ``torch.device``, hands out seeded ``torch.Generator``s, and names the
+device slots a sharded model binds onto (``mesh_devices``, default the
+visible devices of ``device``'s type: one slot on the CPU or a one-card
+host, which serve unsharded).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from predictionio_tpu_torch.data.storage.config import StorageRuntime, get_storage
 from predictionio_tpu_torch.data.store import LEventStore, PEventStore
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.parallel.mesh import MeshConfig
 
 TD = TypeVar("TD")  # training data
 EI = TypeVar("EI")  # evaluation info
@@ -45,7 +48,14 @@ class SanityCheckError(AssertionError):
 class EngineContext:
     """Storage runtime, device, base seed and mode, passed to every DASE
     stage.  ``device=None`` means CUDA and raises on a host without a card;
-    pass ``device="cpu"`` to run on the CPU."""
+    pass ``device="cpu"`` to run on the CPU.
+
+    ``mesh_config`` is recorded into ``EngineInstance.mesh_conf``.
+    ``mesh_devices`` lists the slots a recorded ``ShardPlan`` binds onto at
+    load (``parallel.placement.bind_shards``); a device may repeat
+    (``[torch.device("cpu")] * 8``).  Its default is every visible device
+    of ``device``'s type, so a one-card host (or the CPU) has one slot and
+    serves unsharded, as the JAX package does on one device."""
 
     storage: StorageRuntime | None = None
     seed: int = 0
@@ -55,9 +65,18 @@ class EngineContext:
     #: ``run_train(warm_start_from=...)``); algorithms that understand the
     #: shape seed their init from it, everything else trains cold
     warm_start: Any = None
+    mesh_config: MeshConfig = field(default_factory=MeshConfig)
+    mesh_devices: list[torch.device] | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.mesh_devices is None:
+            self.mesh_devices = (
+                [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                if self.device.type == "cuda" else [self.device]
+            )
+        else:
+            self.mesh_devices = [torch.device(d) for d in self.mesh_devices]
 
     @property
     def storage_runtime(self) -> StorageRuntime:
@@ -135,6 +154,15 @@ class Algorithm(abc.ABC, Generic[PD, M, Q, PR]):
     ) -> list[tuple[int, PR]]:
         """Bulk predict: [(index, query)] -> [(index, prediction)]."""
         return [(i, self.predict(model, q)) for i, q in queries]
+
+    def serving_shard_plan(self, model: M) -> Any:
+        """The ShardPlan this model should serve under, or None for
+        single-device serving.  Algorithms with sharded serving paths
+        (ALS/NCF factor tables) return a ``parallel.placement.ShardPlan``;
+        ``run_train`` records it beside the checkpoint and the lifecycle
+        generation manifest embeds it, so ``deploy`` can re-bind the layout
+        onto the serving host's slots."""
+        return None
 
     def make_persistent_model(self, ctx: EngineContext, model: M) -> Any:
         """Convert the trained model into its checkpointable form."""

@@ -2,8 +2,10 @@
 runTrain:45, runEvaluation:101).
 
 The JAX package's ``run_train``: run the engine's train pipeline, persist
-the models into the MODELDATA store, and record an EngineInstance row whose
-status goes INIT -> COMPLETED, or FAILED when a stage raises.  The seconds
+the models into the MODELDATA store (with the serving ShardPlan, if an
+algorithm declares one, as the ``:shardplan`` sidecar), and record an
+EngineInstance row whose status goes INIT -> COMPLETED, or FAILED when a
+stage raises.  The seconds
 of each DASE stage and of the persist step, on the host clock, are logged
 as one JSON breakdown (the record's ``stages`` attribute).
 
@@ -107,6 +109,7 @@ def run_train(
         engine_variant=engine_variant,
         engine_factory=engine_factory,
         batch=wp.batch,
+        mesh_conf=ctx.mesh_config.to_dict(),
         **engine_params.to_json_fields(),
     )
     instances.insert(instance)
@@ -141,6 +144,10 @@ def run_train(
             else:
                 stored.append(m)
         save_models(storage.models(), instance.id, stored)
+        # the serving ShardPlan (if any algorithm declares one), as a tiny
+        # sidecar blob: GenerationStore.record embeds it in the manifest
+        # without unpickling the model, and deploy re-binds it
+        _record_shard_plan(storage, instance.id, algos, models)
         stages["persist.save_models"] = time.perf_counter() - t0
         done = instance.completed()
         instances.update(done)
@@ -158,6 +165,33 @@ def run_train(
         extra={"engine_instance": instance.id, "stages": stages},
     )
     return done
+
+
+def _record_shard_plan(storage, instance_id: str, algos, models) -> None:
+    """Persist the first algorithm-declared ShardPlan for this instance
+    under ``<id>:shardplan`` (``lifecycle.generations.SHARD_PLAN_SUFFIX``),
+    the JAX package's bytes.  Best-effort bookkeeping: a failure here must
+    never fail the train."""
+    from predictionio_tpu_torch.lifecycle.generations import SHARD_PLAN_SUFFIX
+
+    try:
+        plan = next(
+            (
+                p
+                for a, m in zip(algos, models)
+                for p in [getattr(a, "serving_shard_plan", lambda _m: None)(m)]
+                if p is not None
+            ),
+            None,
+        )
+        if plan is None:
+            return
+        storage.models().insert(
+            f"{instance_id}{SHARD_PLAN_SUFFIX}",
+            json.dumps(plan.to_dict(), sort_keys=True).encode("utf-8"),
+        )
+    except Exception as e:  # pragma: no cover - defensive
+        log.warning("could not record shard plan for %s: %s", instance_id, e)
 
 
 def run_evaluation(

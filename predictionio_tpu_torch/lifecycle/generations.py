@@ -108,16 +108,15 @@ class Generation:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
-#: storage-key suffix of the JAX package's serving-layout sidecar blob
+#: storage-key suffix of the serving-layout sidecar blob (kept OUTSIDE the
+#: checksummed model bytes: the manifest entry is the authoritative copy)
 SHARD_PLAN_SUFFIX = ":shardplan"
 
 
 def read_shard_plan(models_store: Models, instance_id: str) -> dict | None:
-    """The serving plan (dict form) that the JAX package's ``run_train``
-    stores beside a sharded model, or None.  The port trains and serves on
-    one device and writes no such sidecar; it reads one so that recording
-    a JAX-trained sharded instance gives the manifest entry the JAX package
-    would write."""
+    """The serving plan (dict form) that ``run_train`` (either package's)
+    stores beside a sharded model, or None when the model is unsharded or
+    predates plans."""
     raw = models_store.get(f"{instance_id}{SHARD_PLAN_SUFFIX}")
     if raw is None:
         return None

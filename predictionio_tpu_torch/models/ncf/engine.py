@@ -26,7 +26,12 @@ The persisted ``config`` is a plain dict of ``NCFParams`` fields, which the
 JAX package stores without reading; a JAX-written blob's ``NCFParams``
 loads as the port's (``core.persistence`` maps the JAX package's classes
 onto the port's).  A recorded ``shard_plan`` (``shard_serving=True``) is
-the JAX package's plan dict; one device ignores it.
+the JAX package's plan dict (``ShardPlan.model_parallel``: both embedding
+tables and the item bias row-sharded, the MLP head replicated).  A context
+with more than one slot (``EngineContext.mesh_devices``) binds it at load,
+and every wave then scores each slot's item rows alone and merges the k
+winners (``_sharded_packed_topk``, ``parallel.placement``; plain torch per
+slot, as the JAX package has no Pallas there); one slot ignores it.
 
 Observability, as the ALS engine places it: host stage marks on the wave
 timeline, the bytes that cross, the launch shape per wave
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -70,9 +76,14 @@ from predictionio_tpu_torch.ops.ncf import (
     tree_map,
 )
 from predictionio_tpu_torch.parallel import device_cache
-
-#: the JAX package's ``parallel/placement.PLAN_SCHEMA_VERSION``
-PLAN_SCHEMA_VERSION = 1
+from predictionio_tpu_torch.parallel.mesh import meter_shards
+from predictionio_tpu_torch.parallel.placement import (
+    ShardPlan,
+    bind_shards,
+    build_sharded_topk,
+    gather_rows,
+    run_observed_wave,
+)
 
 
 @dataclass(frozen=True)
@@ -92,8 +103,9 @@ class NCFAlgorithmParams:
     weight_decay: float = 0.0  # AdamW decoupled decay (0 = plain Adam)
     #: iALS confidence weight (loss="wals" and the "als" pretrainer)
     alpha: float = 2.0
-    #: record a factor-sharded serving plan in the persisted model; one
-    #: device ignores it, as the JAX package does on one device
+    #: record a factor-sharded serving plan in the persisted model; a
+    #: context with one slot ignores it, as the JAX package does on one
+    #: device
     shard_serving: bool = False
     #: "" (random init) or "als": pretrain the GMF tables with implicit
     #: ALS (rank = embed_dim) before SGD fine-tuning; needs mlp_layers=()
@@ -193,6 +205,9 @@ class NCFModel:
     state: NCFState
     user_vocab: BiMap
     item_vocab: BiMap
+    #: factor-sharded serving state (parallel.placement.BoundShards) when a
+    #: ShardPlan was re-bound at load; None = single-device serving
+    shards: Any = None
 
     def sanity_check(self):
         if not torch.isfinite(self.state.params["user_emb"]).all():
@@ -211,6 +226,7 @@ class NCFModel:
     def __getstate__(self):
         d = dict(self.__dict__)
         d.pop("_host_params", None)
+        d["shards"] = None  # device placement never rides in a pickle
         return d
 
 
@@ -361,7 +377,11 @@ class NCFAlgorithm(Algorithm):
         iq = list(indexed_queries)
         out = []
         for c0 in range(0, len(iq), self.MAX_WAVE):
-            out.extend(self._dispatch_wave(model, iq[c0 : c0 + self.MAX_WAVE])())
+            chunk = iq[c0 : c0 + self.MAX_WAVE]
+            if model.shards is not None:
+                out.extend(self._sharded_wave(model, chunk))
+            else:
+                out.extend(self._dispatch_wave(model, chunk)())
         return out
 
     def _render_wave(self, model: NCFModel, iq, uidx, top_s, top_i):
@@ -393,8 +413,12 @@ class NCFAlgorithm(Algorithm):
         without blocking; the returned finalize fences on the wave's own
         event, reads the packed winners back and renders.  Declines (None)
         a wave past ``MAX_WAVE`` unless ``force`` (a failed device wave's
-        retry), which runs it as ``batch_predict``'s chunks on the device."""
+        retry), which runs it as ``batch_predict``'s chunks on the device.
+        Declines every wave of a sharded model (the settle clock is
+        synchronous: the batcher then runs ``batch_predict``)."""
         iq = list(indexed_queries)
+        if model.shards is not None:
+            return None
         if not iq:
             return lambda: []
         if len(iq) > self.MAX_WAVE:
@@ -449,25 +473,105 @@ class NCFAlgorithm(Algorithm):
 
         return finalize
 
-    def serving_shard_plan(self, model: NCFModel) -> dict | None:
-        """The JAX package's plan dict (``ShardPlan.model_parallel``):
-        embedding tables and the per-item bias row-sharded over ``model``,
-        the MLP head replicated."""
+    # -- sharded serving (parallel.placement) --------------------------------
+
+    def serving_shard_plan(self, model: NCFModel) -> ShardPlan | None:
+        """Embedding tables (and the per-item bias) row-sharded over the
+        ``model`` axis; the MLP head replicates.  Recorded in the persisted
+        model and the generation manifest; a load onto several slots
+        re-binds it."""
         if not self.params.shard_serving:
             return None
-        specs = {"user_emb": ["model", None], "item_emb": ["model", None]}
+        sharded = ["user_emb", "item_emb"]
+        ndims = {}
         if model.state.params.get("item_bias") is not None:
-            specs["item_bias"] = ["model"]
-        return {
-            "schema": PLAN_SCHEMA_VERSION,
-            "axes": {"model": -1},
-            "specs": specs,
-            "rows": {
+            sharded.append("item_bias")
+            ndims["item_bias"] = 1
+        return ShardPlan.model_parallel(
+            sharded,
+            rows={
                 "user_emb": len(model.user_vocab),
                 "item_emb": len(model.item_vocab),
                 "item_bias": len(model.item_vocab),
             },
+            ndims=ndims,
+        )
+
+    def _sharded_packed_topk(self, model: NCFModel, padded, n_items, k, b):
+        """The sharded wave: the user rows gathered from their owning
+        slots, then each slot's tower over ONLY the item rows it owns and
+        the k-winner merge (no slot builds a [B, n_items] score row; the
+        per-shard shapes are in ``placement.LAST_KERNEL_SHAPES
+        ['ncf.sharded_topk']``)."""
+        bound = model.shards
+        sig = (b, k, n_items, bound.n_shards) + tuple(
+            bound.arrays["user_emb"].shape
+        )
+        has_bias = bound.arrays.get("item_bias") is not None
+        head = {
+            n: bound.arrays[n]
+            for n in ("mlp", "out_w", "out_b")
+            if n in bound.arrays
         }
+
+        def build():
+            if has_bias:
+                local = lambda item_emb, item_bias, h, q: (  # noqa: E731
+                    score_users_vs_items(h, q, item_emb, item_bias)
+                )
+            else:
+                local = lambda item_emb, h, q: (  # noqa: E731
+                    score_users_vs_items(h, q, item_emb, None)
+                )
+            return build_sharded_topk(
+                bound.mesh, local, n_items=n_items, k=k,
+                name="ncf.sharded_topk",
+            )
+
+        kernel = bound.kernel((b, k), build)
+        args = (bound.arrays["item_emb"],) + (
+            (bound.arrays["item_bias"],) if has_bias else ()
+        )
+
+        def compute(users_dev):
+            q_rows = gather_rows(
+                bound.mesh, bound.arrays["user_emb"], users_dev
+            )
+            return kernel(*args, head, q_rows)
+
+        hp = model.host_params
+        cost = ncf_wave_least_work(
+            b, n_items, int(bound.arrays["user_emb"].shape[1]),
+            [tuple(layer["w"].shape) for layer in hp["mlp"]], k, has_bias,
+        )
+        return run_observed_wave(
+            "ncf.sharded_topk",
+            device=bound.mesh.merge_device,
+            sig=sig,
+            cost=cost,
+            host_input=padded,
+            compute=compute,
+            shard_arrays={
+                n: bound.arrays[n] for n in bound.plan.specs
+                if bound.arrays.get(n) is not None
+            },
+        )
+
+    def _sharded_wave(self, model: NCFModel, iq):
+        """One wave of at most ``MAX_WAVE`` queries through the sharded
+        top-k, padded to the same power-of-two menu as the device wave."""
+        provenance.note(engine_path="ncf.sharded_topk")
+        n_items = _packable_n_items(model)
+        with device_obs.wave_stage("host_gather"):
+            uidx = np.array(
+                [model.user_vocab.get(q.user, -1) for _, q in iq], np.int32
+            )
+            b, k = _wave_shape(iq, n_items)
+            padded = np.zeros(b, np.int32)
+            padded[: len(iq)] = np.maximum(uidx, 0)
+        packed = self._sharded_packed_topk(model, padded, n_items, k, b)
+        return self._render_wave(model, iq, uidx, packed[0],
+                                 packed[1].astype(np.int64))
 
     def make_persistent_model(self, ctx: EngineContext, model: NCFModel):
         out = {
@@ -480,7 +584,7 @@ class NCFAlgorithm(Algorithm):
         }
         plan = self.serving_shard_plan(model)
         if plan is not None:
-            out["shard_plan"] = plan
+            out["shard_plan"] = plan.to_dict()
         return out
 
     def load_persistent_model(self, ctx: EngineContext, data) -> NCFModel:
@@ -504,10 +608,19 @@ class NCFAlgorithm(Algorithm):
             config = NCFParams(**{**config,
                                   "mlp_layers": tuple(config["mlp_layers"])})
         host = tree_map(lambda x: np.ascontiguousarray(x, np.float32), params)
-        # a recorded "shard_plan" is ignored: one device serves unsharded
+        plan = ShardPlan.from_dict(data.get("shard_plan"))
+        slots = ctx.mesh_devices
+        # a recorded plan binds onto several slots (the tables shard, the
+        # MLP head replicates; ``state.params`` then stays on the host for
+        # the solo path and sanity checks); one slot ignores it
+        sharded = plan is not None and len(slots) > 1
         model = NCFModel(
             state=NCFState(
-                params=tree_map(lambda x: torch.tensor(x, device=ctx.device), host),
+                params=tree_map(
+                    lambda x: torch.tensor(
+                        x, device="cpu" if sharded else ctx.device),
+                    host,
+                ),
                 n_users=data["n_users"],
                 n_items=data["n_items"],
                 config=config,
@@ -516,6 +629,13 @@ class NCFAlgorithm(Algorithm):
             item_vocab=BiMap.from_state(data["item_vocab"]),
         )
         model._host_params = host
+        if sharded:
+            model.shards = bind_shards(plan, host, devices=slots)
+            meter_shards(
+                "ncf.serving_tables",
+                {n: model.shards.arrays[n] for n in plan.specs
+                 if model.shards.arrays.get(n) is not None},
+            )
         return model
 
 

@@ -24,6 +24,16 @@ either package deploys on the other.
   the fused menu (k > 128) takes ``full_row_topk`` on the same device: a
   full score row and a stable sort, on the card as on the CPU, the JAX
   package's ``_device_score_topk`` route.
+- Factor-sharded serving (``shardServing``): the model records a
+  ``ShardPlan`` (both factor tables row-sharded over ``model``), and a
+  context with more than one slot (``EngineContext.mesh_devices``) binds
+  it at load.  Every wave of a bound model then runs
+  ``_sharded_topk``: the user rows gathered from their owning slots, each
+  slot's top-k over only its item rows (the fused kernel per slot, each
+  slot on its own CUDA stream on a card), and the k-winner merge
+  (``parallel.placement``), under the settle clock and the straggler
+  board.  ``dispatch_batch`` declines such waves, so the micro-batcher
+  runs them synchronously.  Solo queries stay on the host replica.
 
 Observability, as the JAX package places it: host stage marks on the wave
 timeline (``host_gather`` the vocabulary lookups, ``h2d`` the enqueue of
@@ -68,7 +78,16 @@ from predictionio_tpu_torch.ops.topk import (
     fused_topk_least_work,
     host_topk,
     host_topk_batch,
+    note_full_row_fallback,
     query_block,
+)
+from predictionio_tpu_torch.parallel.mesh import meter_shards
+from predictionio_tpu_torch.parallel.placement import (
+    ShardPlan,
+    bind_shards,
+    build_sharded_topk,
+    gather_rows,
+    run_observed_wave,
 )
 
 # ---------------------------------------------------------------------------
@@ -244,8 +263,9 @@ class ALSAlgorithmParams:
     reg: float = 0.01
     seed: int = 3
     chunk_size: int = 1 << 19
-    #: factor-sharded serving over a device mesh; a single device ignores
-    #: the recorded plan, as the JAX package does on one device
+    #: record a factor-sharded serving plan (both factor tables
+    #: row-sharded); a context with one slot ignores it, as the JAX
+    #: package does on one device
     shard_serving: bool = False
 
     # reference engine.json spellings (customize-serving/engine.json:14-21)
@@ -265,6 +285,9 @@ class ALSModel:
     item_factors: torch.Tensor  # [num_items, rank]
     user_vocab: BiMap
     item_vocab: BiMap
+    #: factor-sharded serving state (parallel.placement.BoundShards) when a
+    #: ShardPlan was re-bound at load; None = single-device serving
+    shards: Any = None
 
     def sanity_check(self):
         if not torch.isfinite(self.user_factors).all():
@@ -303,6 +326,7 @@ class ALSModel:
     def __getstate__(self):
         d = dict(self.__dict__)
         d.pop("_host_cache", None)
+        d["shards"] = None  # device placement never rides in a pickle
         return d
 
 
@@ -378,12 +402,6 @@ class ALSAlgorithm(Algorithm):
         )
         return U0, V0
 
-    def _sharded_topk(self, model: ALSModel, uidx: np.ndarray, k: int):
-        raise NotImplementedError(
-            "factor-sharded serving (parallel/placement.py) is ported with "
-            "the multi-device slice; one device serves unsharded"
-        )
-
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         """Solo-query path: host numpy replica (P2L local-model serving)."""
         provenance.note(engine_path="als.host_replica")
@@ -402,6 +420,84 @@ class ALSAlgorithm(Algorithm):
                 for i, s in zip(idx, scores)
             )
         )
+
+    # -- sharded serving (parallel.placement) --------------------------------
+
+    def serving_shard_plan(self, model: ALSModel):
+        """The declarative layout serving re-binds at load: both factor
+        tables row-sharded over the ``model`` axis (recorded in the
+        persisted model and the generation manifest)."""
+        if not self.params.shard_serving:
+            return None
+        return ShardPlan.model_parallel(
+            ["user_factors", "item_factors"],
+            rows={
+                "user_factors": len(model.user_vocab),
+                "item_factors": len(model.item_vocab),
+            },
+        )
+
+    def _sharded_topk(self, model: ALSModel, uidx: np.ndarray, k: int):
+        """One wave through the factor-sharded top-k: the user rows
+        gathered from their owning slots, each slot's top-k over its own
+        item rows, the k-winner merge.  Shapes are padded to a power-of-two
+        menu (b >= 8, k >= 16), as the JAX package pads them.  Each slot's
+        local top-k is the fused kernel when the shape is on its menu (no
+        slot holds its [B, rows_local] score block); off it, the masked
+        score block and a stable sort, counted as a full-row fallback."""
+        bound = model.shards
+        n_items = len(model.item_vocab)
+        with device_obs.wave_stage("host_gather"):
+            b = max(1 << (len(uidx) - 1).bit_length(), 8)
+            k_pad = min(max(1 << (k - 1).bit_length(), 16), n_items)
+            padded = np.zeros(b, np.int32)
+            padded[: len(uidx)] = uidx
+        items = bound.arrays["item_factors"]
+        sig = (b, k_pad, n_items, bound.n_shards) + tuple(items.shape)
+        rows_local = int(items.shape[0]) // max(bound.n_shards, 1)
+        use_fused = fused_supported(b, min(k_pad, rows_local), rows_local)
+        if not use_fused:
+            note_full_row_fallback(b, k_pad, n_items, "als.sharded_topk")
+
+        def _fused_local(item_local, q, kc, limit):
+            packed = fused_topk_batch(
+                q, item_local, kc, limit=limit, name="als.sharded_topk.fused",
+            )
+            return packed[0], packed[1]
+
+        kernel = bound.kernel(
+            (b, k_pad),
+            lambda: build_sharded_topk(
+                bound.mesh,
+                lambda item_local, q: q @ item_local.T,
+                n_items=n_items,
+                k=k_pad,
+                name="als.sharded_topk",
+                local_topk_fn=_fused_local if use_fused else None,
+            ),
+        )
+
+        def compute(uidx_dev):
+            q_rows = gather_rows(
+                bound.mesh, bound.arrays["user_factors"], uidx_dev
+            )
+            return kernel(items, q_rows)
+
+        packed = run_observed_wave(
+            "als.sharded_topk",
+            device=bound.mesh.merge_device,
+            sig=sig,
+            # the least work of the wave's top-k over the placed table
+            cost=fused_topk_least_work(
+                b, int(items.shape[1]), int(items.shape[0]), k_pad
+            ),
+            host_input=padded,
+            compute=compute,
+            shard_arrays={
+                n: bound.arrays[n] for n in ("user_factors", "item_factors")
+            },
+        )
+        return packed[0], packed[1].astype(np.int64)
 
     def _split_known(self, model: ALSModel, queries):
         known = [(i, model.user_vocab.get(q.user)) for i, q in queries]
@@ -516,12 +612,16 @@ class ALSAlgorithm(Algorithm):
         return np.asarray([u for _, u, _ in rows], np.int32)
 
     def batch_predict(self, model: ALSModel, queries):
-        """Vectorized path: the fused device top-k at or above
+        """Vectorized path: every wave of a sharded model through the
+        sharded top-k; else the fused device top-k at or above
         DEVICE_BATCH_MIN known users, the host replica below it."""
         rows, out = self._split_known(model, queries)
         if rows:
             k = max(min(q.num, len(model.item_vocab)) for _, _, q in rows)
-            if len(rows) >= self.DEVICE_BATCH_MIN:
+            if model.shards is not None:
+                provenance.note(engine_path="als.sharded_topk")
+                top_s, top_i = self._sharded_topk(model, self._uidx(rows), k)
+            elif len(rows) >= self.DEVICE_BATCH_MIN:
                 provenance.note(engine_path="als.device_topk")
                 top_s, top_i = self._device_topk(model, self._uidx(rows), k)()
             else:
@@ -533,11 +633,15 @@ class ALSAlgorithm(Algorithm):
     def dispatch_batch(self, model: ALSModel, indexed_queries, force: bool = False):
         """The async half of ``batch_predict`` for device waves: gather and
         dispatch now, return a finalize that fences, reads back and renders.
-        Declines (None) below DEVICE_BATCH_MIN known users unless ``force``:
+        Declines (None) every wave of a sharded model (the settle clock is
+        synchronous: the batcher then runs ``batch_predict``, which stays
+        sharded) and, unless ``force``, below DEVICE_BATCH_MIN known users:
         the bisected halves and solo retries of a failed device wave
         dispatch on the model's device at any size, never on the host
         replica."""
         iq = list(indexed_queries)
+        if model.shards is not None:
+            return None
         if len(iq) < self.DEVICE_BATCH_MIN and not force:
             return None
         with device_obs.wave_stage("host_gather"):
@@ -560,16 +664,35 @@ class ALSAlgorithm(Algorithm):
     # -- persistence ---------------------------------------------------------
     def make_persistent_model(self, ctx: EngineContext, model: ALSModel):
         Uh, Vh = model.host_factors()
-        return {
+        out = {
             "user_factors": Uh,
             "item_factors": Vh,
             "user_vocab": model.user_vocab.to_state(),
             "item_vocab": model.item_vocab.to_state(),
         }
+        plan = self.serving_shard_plan(model)
+        if plan is not None:
+            # the model carries its own layout: deploy re-binds this plan
+            # onto whatever slots the serving host has
+            out["shard_plan"] = plan.to_dict()
+        return out
 
     def load_persistent_model(self, ctx: EngineContext, data) -> ALSModel:
-        # a recorded "shard_plan" is ignored: one device serves unsharded
-        return ALSModel.from_jax_params(data, ctx.device)
+        """The model on ``ctx.device``; a recorded plan binds onto
+        ``ctx.mesh_devices`` when there is more than one slot (the factors
+        then stay on the host for the solo path), and is ignored on one
+        slot, as the JAX package ignores it on one device."""
+        plan = ShardPlan.from_dict(data.get("shard_plan"))
+        slots = ctx.mesh_devices if ctx is not None else None
+        if plan is None or not slots or len(slots) < 2:
+            return ALSModel.from_jax_params(data, ctx.device)
+        model = ALSModel.from_jax_params(data, "cpu")
+        Uh, Vh = model.host_factors()
+        model.shards = bind_shards(
+            plan, {"user_factors": Uh, "item_factors": Vh}, devices=slots
+        )
+        meter_shards("als.serving_factors", model.shards.arrays)
+        return model
 
 
 class RecommendationServing(FirstServing):

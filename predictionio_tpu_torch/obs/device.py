@@ -36,6 +36,11 @@ card whose work is asynchronous:
   wait in the fence, ``d2h`` the read of the pinned result.  On a card the
   split says where the host waited, not where the card worked; the card's
   own time rides beside it as the wave's ``kernel_s``.
+- a sharded wave adds its per-slot attribution and settle seconds to the
+  timeline (:func:`note_wave_shards`, :func:`note_shard_seconds`), and
+  :class:`StragglerBoard` turns the settle seconds into the skew gauge and
+  the straggler flag; :func:`shards_snapshot` is the ``/shards.json`` body
+  and :func:`shard_snapshot` the ``shards`` key of ``/efficiency.json``.
 
 Import-light: servers that never touch the card (the event server) import
 this module through ``obs.http``.  Nothing here imports torch at module
@@ -49,6 +54,7 @@ import contextlib
 import contextvars
 import logging
 import os
+import statistics
 import sys
 import threading
 import time
@@ -477,7 +483,7 @@ class WaveTimeline:
     __slots__ = (
         "stages", "device", "fn", "flops", "bytes", "transfers",
         "kernel_s", "cache_hits", "cache_misses", "cache_miss_bytes",
-        "storage_bytes",
+        "storage_bytes", "shards", "shard_seconds",
     )
 
     def __init__(self):
@@ -502,6 +508,13 @@ class WaveTimeline:
         #: lands here when no request record is bound; the wave's total is
         #: split back to its members through per-item meta)
         self.storage_bytes: float = 0.0
+        #: per-slot byte/part attribution of a SHARDED wave (filled by
+        #: note_wave_shards; flows into per-item meta -> flight entries)
+        self.shards: dict[str, dict[str, float]] = {}
+        #: per-slot settle seconds of a SHARDED wave (filled by
+        #: note_shard_seconds; the straggler board's and the distributed
+        #: timeline's per-shard signal)
+        self.shard_seconds: dict[str, float] = {}
 
     def merge(self, other: "WaveTimeline") -> None:
         """Fold another scope's marks into this one: a pipelined wave's
@@ -522,6 +535,10 @@ class WaveTimeline:
         self.cache_misses += other.cache_misses
         self.cache_miss_bytes += other.cache_miss_bytes
         self.storage_bytes += other.storage_bytes
+        if not self.shards:
+            self.shards = other.shards
+        if not self.shard_seconds:
+            self.shard_seconds = other.shard_seconds
 
 
 _timeline_var: contextvars.ContextVar[WaveTimeline | None] = (
@@ -616,6 +633,25 @@ def note_wave_cost(fn: str, cost: Mapping[str, float] | None) -> None:
             tl.bytes = float(cost.get("bytes", 0.0))
 
 
+def note_wave_shards(attribution: Mapping[str, Mapping[str, float]]) -> None:
+    """Attach a sharded wave's per-slot attribution (the
+    ``parallel.mesh.meter_shards`` map) to the current timeline: every
+    flight entry of a sharded wave answers "which slots participated and
+    how many bytes each held"."""
+    tl = _timeline_var.get()
+    if tl is not None and attribution:
+        tl.shards = {k: dict(v) for k, v in attribution.items()}
+
+
+def note_shard_seconds(shard_seconds: Mapping[str, float]) -> None:
+    """Attach a sharded wave's per-slot settle seconds to the current
+    timeline (flows into per-item meta as ``wave_shard_seconds`` and the
+    distributed timeline's per-shard device tracks)."""
+    tl = _timeline_var.get()
+    if tl is not None and shard_seconds:
+        tl.shard_seconds = {k: float(v) for k, v in shard_seconds.items()}
+
+
 def note_transfer(
     direction: str, nbytes: int, registry: MetricsRegistry | None = None
 ) -> None:
@@ -657,12 +693,184 @@ def split_breakdown(
 
 
 # ---------------------------------------------------------------------------
+# straggler & imbalance detection
+
+
+class StragglerBoard:
+    """Per-wave shard-time skew tracking and straggler attribution.
+
+    Every sharded wave reports its per-slot settle seconds
+    (``placement.run_observed_wave`` measures them slot by slot); the board
+    computes the wave's **skew fraction**, ``max / median - 1`` over the
+    participating slots (0.0 for a perfectly balanced wave), into
+    ``pio_shard_skew_frac{fn}``, keeps a rolling per-slot scoreboard
+    (waves participated, waves slowest, cumulative seconds), and flags a
+    **straggler** when ONE slot is the slowest with skew above
+    ``skew_threshold`` for ``patience`` consecutive waves.  Byte imbalance
+    (``max / mean - 1`` over per-slot bytes, from ``shard_attribution``)
+    rides along as ``pio_shard_bytes_imbalance_frac{fn}``.
+
+    Thresholds come from ``PIO_SHARD_SKEW_THRESHOLD`` (default 0.5: the
+    slowest slot runs 1.5x the median) and ``PIO_SHARD_SKEW_PATIENCE``
+    (default 3 consecutive waves).  ``snapshot`` is the ``/shards.json``
+    scoreboard body.
+    """
+
+    def __init__(
+        self,
+        registry: MetricsRegistry | None = None,
+        skew_threshold: float | None = None,
+        patience: int | None = None,
+    ):
+        if skew_threshold is None:
+            try:
+                skew_threshold = float(
+                    os.environ.get("PIO_SHARD_SKEW_THRESHOLD", "0.5")
+                )
+            except ValueError:
+                skew_threshold = 0.5
+        if patience is None:
+            try:
+                patience = int(os.environ.get("PIO_SHARD_SKEW_PATIENCE", "3"))
+            except ValueError:
+                patience = 3
+        self.skew_threshold = skew_threshold
+        self.patience = max(patience, 1)
+        self._lock = threading.Lock()
+        #: fn -> scoreboard state (all mutation under _lock)
+        self._fns: dict[str, dict[str, Any]] = {}
+        reg = registry or REGISTRY
+        self._g_skew = reg.gauge(
+            "pio_shard_skew_frac",
+            "Last sharded wave's max/median shard-time skew (0 = balanced)",
+            labelnames=("fn",),
+        )
+        self._g_bytes_imbalance = reg.gauge(
+            "pio_shard_bytes_imbalance_frac",
+            "Per-device bytes max/mean imbalance of a sharded array group",
+            labelnames=("fn",),
+        )
+        self._c_stragglers = reg.counter(
+            "pio_shard_straggler_total",
+            "Straggler flags raised (one device slowest past the skew "
+            "threshold for `patience` consecutive waves)",
+            labelnames=("fn", "device"),
+        )
+
+    def record_wave(
+        self,
+        fn: str,
+        shard_seconds: Mapping[str, float],
+        shard_bytes: Mapping[str, float] | None = None,
+    ) -> float:
+        """Record one sharded wave's per-slot seconds (and optionally the
+        per-slot byte attribution); returns the wave's skew fraction."""
+        secs = {str(k): float(v) for k, v in shard_seconds.items() if v >= 0}
+        if len(secs) < 2:
+            return 0.0
+        med = statistics.median(secs.values())
+        slowest = max(secs, key=secs.get)  # type: ignore[arg-type]
+        skew = (secs[slowest] / med - 1.0) if med > 0 else 0.0
+        breach = skew > self.skew_threshold
+        flagged = False
+        with self._lock:
+            entry = self._fns.setdefault(
+                fn,
+                {
+                    "waves": 0,
+                    "last_skew": 0.0,
+                    "last_max_device": None,
+                    "streak_device": None,
+                    "streak": 0,
+                    "straggler": None,
+                    "devices": {},
+                },
+            )
+            entry["waves"] += 1
+            entry["last_skew"] = round(skew, 6)
+            entry["last_max_device"] = slowest
+            for dev, s in secs.items():
+                d = entry["devices"].setdefault(
+                    dev, {"waves": 0, "slowest": 0, "seconds": 0.0}
+                )
+                d["waves"] += 1
+                d["seconds"] = round(d["seconds"] + s, 6)
+            entry["devices"][slowest]["slowest"] += 1
+            if breach:
+                if entry["streak_device"] == slowest:
+                    entry["streak"] += 1
+                else:
+                    entry["streak_device"] = slowest
+                    entry["streak"] = 1
+                if (
+                    entry["streak"] >= self.patience
+                    and entry["straggler"] != slowest
+                ):
+                    entry["straggler"] = slowest
+                    flagged = True
+            else:
+                entry["streak_device"] = None
+                entry["streak"] = 0
+                entry["straggler"] = None
+        self._g_skew.labels(fn).set(skew)
+        if shard_bytes:
+            vals = [float(v) for v in shard_bytes.values()]
+            mean = sum(vals) / len(vals) if vals else 0.0
+            imbalance = (max(vals) / mean - 1.0) if mean > 0 else 0.0
+            self._g_bytes_imbalance.labels(fn).set(imbalance)
+        if flagged:
+            self._c_stragglers.labels(fn, slowest).inc()
+            log.warning(
+                "shard straggler: device %s is the slowest shard of %s for "
+                "%d consecutive waves (skew %.0f%% over the median, "
+                "threshold %.0f%%) — check card health / co-tenancy / "
+                "placement balance (/shards.json has the scoreboard)",
+                slowest,
+                fn,
+                self.patience,
+                skew * 100.0,
+                self.skew_threshold * 100.0,
+                extra={
+                    "fn": fn,
+                    "device": slowest,
+                    "skew_frac": round(skew, 4),
+                    "patience": self.patience,
+                },
+            )
+        return skew
+
+    def snapshot(self) -> dict[str, Any]:
+        with self._lock:
+            fns = {
+                fn: {
+                    **{k: v for k, v in e.items() if k != "devices"},
+                    "devices": {d: dict(v) for d, v in e["devices"].items()},
+                }
+                for fn, e in self._fns.items()
+            }
+        return {
+            "skew_threshold": self.skew_threshold,
+            "patience": self.patience,
+            "functions": fns,
+        }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._fns.clear()
+
+
+# ---------------------------------------------------------------------------
 # process defaults + the /efficiency.json body
 
 #: process-global trackers: device telemetry is per-process like the
 #: kernel libraries — servers with isolated registries still share the card
 DEVICE_EFFICIENCY = EfficiencyTracker()
 RECOMPILES = RecompileTracker()
+STRAGGLERS = StragglerBoard()
+
+
+def default_stragglers() -> StragglerBoard:
+    return STRAGGLERS
 
 
 def default_efficiency() -> EfficiencyTracker:
@@ -673,19 +881,55 @@ def default_recompiles() -> RecompileTracker:
     return RECOMPILES
 
 
+def shard_snapshot(registry: MetricsRegistry | None = None) -> dict[str, Any]:
+    """Per-slot shard attribution as recorded by
+    ``parallel.mesh.meter_shards``: ``{fn: {slot: {bytes, waves,
+    seconds}}}`` plus the participating slot list (the mesh an operator
+    sees).  Empty when nothing sharded has run."""
+    reg = registry or REGISTRY
+    out: dict[str, dict[str, dict[str, float]]] = {}
+    fam_bytes = reg.get("pio_shard_bytes")
+    if fam_bytes is not None:
+        for (fn, device), child in fam_bytes.series():
+            out.setdefault(fn, {})[device] = {
+                "bytes": float(getattr(child, "value", 0.0))
+            }
+    fam_secs = reg.get("pio_shard_seconds")
+    if fam_secs is not None:
+        for (fn, device), child in fam_secs.series():
+            entry = out.setdefault(fn, {}).setdefault(device, {})
+            entry["waves"] = int(getattr(child, "count", 0))
+            entry["seconds"] = round(float(getattr(child, "sum", 0.0)), 6)
+    devices = sorted({d for per_fn in out.values() for d in per_fn})
+    return {"devices": devices, "functions": out}
+
+
+def shards_snapshot(
+    registry: MetricsRegistry | None = None,
+    stragglers: StragglerBoard | None = None,
+) -> dict[str, Any]:
+    """The ``GET /shards.json`` body: per-slot placement attribution
+    (bytes/waves/seconds per fn) plus the rolling straggler scoreboard."""
+    return {
+        "shards": shard_snapshot(registry),
+        "stragglers": (stragglers or STRAGGLERS).snapshot(),
+    }
+
+
 def device_snapshot(
     efficiency: EfficiencyTracker | None = None,
     recompiles: RecompileTracker | None = None,
 ) -> dict[str, Any]:
     """The ``GET /efficiency.json`` body: achieved-vs-peak per entry point
     (with the peak row used), launch-shape accounting (with any active
-    storm) and the transfer tallies.  The JAX package's per-device shard
-    attribution waits for the port's multi-device slice."""
+    storm), the transfer tallies, and the per-slot shard attribution of
+    any sharded model."""
     snap = (efficiency or DEVICE_EFFICIENCY).snapshot()
     snap["recompiles"] = (recompiles or RECOMPILES).snapshot()
     snap["transfers"] = {
         f"{k}_bytes": v for k, v in transfer_totals().items()
     }
+    snap["shards"] = shard_snapshot()
     return snap
 
 

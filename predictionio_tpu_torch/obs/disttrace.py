@@ -366,11 +366,10 @@ def note_wave_events(
     """Turn one MicroBatcher wave's per-item meta into device-track
     fragments: the stage breakdown laid end to end from the wave's
     dispatch timestamp (stages are measured as durations; the end-to-end
-    layout reflects their execution order, not sub-stage gaps).  Called by
-    the serving handler after the wave resolves, inside the request context
-    so the fragments key to the request's trace.  (The JAX package adds
-    one per-shard settle event per device of a sharded wave; the port
-    serves on one device.)"""
+    layout reflects their execution order, not sub-stage gaps) plus one
+    per-shard settle event per slot of a sharded wave.  Called by the
+    serving handler after the wave resolves, inside the request context so
+    the fragments key to the request's trace."""
     if not meta:
         return
     t0 = meta.get("wave_t0")
@@ -419,6 +418,15 @@ def _emit_wave_events(
         frags.append(_fragment(
             tid, "wave.device", cursor, other, proc, parent_id,
             track=f"device:{device}", tags={**wave_tags, "device": device},
+        ))
+    shard_seconds = meta.get("wave_shard_seconds") or {}
+    compute_start = float(t0) + sum(
+        float(breakdown.get(s) or 0.0) for s in ("host_gather", "h2d")
+    )
+    for dev, secs in sorted(shard_seconds.items()):
+        frags.append(_fragment(
+            tid, "wave.shard", compute_start, float(secs), proc, parent_id,
+            track=f"device:{dev}", tags={**wave_tags, "device": dev},
         ))
     if frags:
         (store or FRAGMENTS).add_many(tid, frags)

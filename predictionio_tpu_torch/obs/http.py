@@ -19,6 +19,8 @@ paths, status codes and JSON shapes:
                             entry point (CUDA-event kernel time over the
                             least-work cost), launch-shape accounting,
                             transfer tallies
+  GET  /shards.json         per-slot placement attribution of sharded
+                            models and the straggler scoreboard
   GET  /locks.json          runtime lock-order witness: executed lock-edge
                             set + observed inversions (PIO_LOCK_WITNESS=1;
                             {"enabled": false} otherwise)
@@ -48,8 +50,6 @@ paths, status codes and JSON shapes:
   GET  /incidents/<id>.json one full bundle (replayable by ``pio trace
                             --file``)
 
-Not here yet: ``/shards.json`` (multi-device).
-
 Auth: pass ``access_key`` to gate everything here except ``/healthz``; apps
 with an app-level ``HTTPApp(access_key=...)`` gate these like every other
 route, with ``/healthz`` registered as a public route that bypasses the
@@ -69,7 +69,7 @@ import json
 from typing import Any, Callable, Mapping
 
 from predictionio_tpu_torch.obs.capacity import capacity_snapshot
-from predictionio_tpu_torch.obs.device import device_snapshot
+from predictionio_tpu_torch.obs.device import device_snapshot, shards_snapshot
 from predictionio_tpu_torch.obs.disttrace import FRAGMENTS, set_process_name
 from predictionio_tpu_torch.obs.flight import FlightRecorder, current_annotations
 from predictionio_tpu_torch.obs.logging import get_log_ring
@@ -463,6 +463,13 @@ def add_observability_routes(
         from predictionio_tpu_torch.obs.contention import witness_snapshot
 
         return json_response(200, witness_snapshot())
+
+    # -- sharded-mesh straggler scoreboard -----------------------------------
+    # per-slot placement attribution + the rolling straggler board: the one
+    # scrape answering "which slot is dragging the mesh"
+    @route("GET", "/shards\\.json")
+    def shards_json(req: Request) -> Response:
+        return json_response(200, shards_snapshot(reg))
 
     # -- solo-path host-stage attribution ------------------------------------
     if hotpath is not None:

@@ -24,8 +24,9 @@ PyTorch on the tables' device (a card, or the CPU when asked).
 
 Nothing here is computed in Pallas in the JAX package, so nothing here is a
 hand-written kernel: the tower, the losses, Adam and the wave's top-k are
-torch ops.  The mesh paths (``param_shardings``, row-sharded tables) belong
-to the multi-device slice.
+torch ops.  The mesh training paths (``param_shardings``) belong to the
+multi-device training slice; sharded serving is the engine's
+(``parallel/placement.py``).
 """
 
 from __future__ import annotations

@@ -537,6 +537,12 @@ class MicroBatcher:
                 meta["wave_fn"] = timeline.fn
                 meta["wave_flops"] = timeline.flops
                 meta["wave_bytes"] = timeline.bytes
+            if timeline.shards:
+                # sharded wave: which slots held which bytes
+                meta["wave_shards"] = timeline.shards
+            if timeline.shard_seconds:
+                # ... and each slot's own settle clock
+                meta["wave_shard_seconds"] = timeline.shard_seconds
             if timeline.transfers:
                 meta["wave_transfers"] = dict(timeline.transfers)
             if timeline.cache_hits:

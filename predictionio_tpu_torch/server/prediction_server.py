@@ -293,10 +293,12 @@ class DeployedEngine:
         storage: StorageRuntime,
         generation_store: GenerationStore,
         device: torch.device | str | None = None,
+        mesh_devices: list | None = None,
     ):
         self.engine = engine
         self.storage = storage
-        self.ctx = EngineContext(storage=storage, mode="serving", device=device)
+        self.ctx = EngineContext(storage=storage, mode="serving", device=device,
+                                 mesh_devices=mesh_devices)
         #: the manifest every swap is verified against and commits through
         self.generation_store = generation_store
         self._lock = threading.RLock()
@@ -604,10 +606,13 @@ def deploy_engine(
     engine_version: str = "default",
     engine_variant: str = "default",
     device: torch.device | str | None = None,
+    mesh_devices: list | None = None,
 ) -> DeployedEngine:
     """Resolve factory + engine instance and materialize its models on
     ``device`` (default CUDA; raises without a card unless
-    ``device="cpu"``).
+    ``device="cpu"``).  ``mesh_devices`` are the slots a sharded model's
+    recorded plan binds onto (default: the visible devices of ``device``'s
+    type, see ``EngineContext``).
 
     The instance is, in this order (CreateServer.scala:193, the JAX
     package's ``deploy_engine``): the given id; else the generation
@@ -663,7 +668,8 @@ def deploy_engine(
         engine_factory_name or instance.engine_factory
     )
     return DeployedEngine(
-        factory(), instance, storage, gen_store, device=device
+        factory(), instance, storage, gen_store, device=device,
+        mesh_devices=mesh_devices
     )
 
 

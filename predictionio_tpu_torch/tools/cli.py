@@ -102,8 +102,10 @@ def _status_remote(
 ) -> int:
     """A running server's ``/healthz``, ``/readyz`` and ``/slo.json``,
     ``/quality.json``'s drift state unless ``no_quality``, and
-    ``/lifecycle.json``, ``/eventstore.json``, ``/tenants.json``,
-    ``/alerts.json`` and a router's ``/fleet.json`` when they answer.  Exit
+    ``/lifecycle.json`` (with a sharded generation's plan axes),
+    ``/efficiency.json`` (with a sharded model's slots), ``/eventstore.json``,
+    ``/tenants.json``, ``/alerts.json`` and a router's ``/fleet.json`` when
+    they answer.  Exit
     0 only when the server is alive and ready, not drifting, no critical
     alert fires, and (for a router) at least one replica is healthy; a readiness
     503 still prints its body, so the operator sees which check fails.  ``access_key`` rides as
@@ -151,6 +153,33 @@ def _status_remote(
             "canary_in_progress": lifecycle.get("canary_in_progress"),
             "rolled_back": manifest.get("rolled_back"),
         }
+        plan = manifest.get("shard_plan")
+        if plan:
+            # the live generation serves sharded: show the recorded layout
+            report["lifecycle"]["shard_plan_axes"] = plan.get("axes")
+    # device-efficiency surface (404/401-tolerant like quality): an ACTIVE
+    # recompile storm is an operator-actionable warning (traffic is
+    # churning launch shapes) but does not change the exit code
+    eff_status, efficiency = fetch("/efficiency.json")
+    if eff_status == 200:
+        storms = efficiency.get("recompiles", {}).get("active_storms", {})
+        report["efficiency"] = {
+            "active_recompile_storms": storms,
+            "peaks": efficiency.get("peaks"),
+        }
+        shards = efficiency.get("shards") or {}
+        if shards.get("devices"):
+            # sharded serving has run: the mesh's slots and the per-slot
+            # byte/wave attribution
+            report["efficiency"]["mesh_devices"] = shards["devices"]
+            report["efficiency"]["shards"] = shards.get("functions")
+        for fn, storm in storms.items():
+            print(
+                f"WARNING: recompile storm active for {fn} "
+                f"({storm.get('signatures', '?')} distinct shape "
+                "signatures)",
+                file=sys.stderr,
+            )
     # event-store surface (404/401-tolerant): a compaction backlog over
     # the watermark budget means scans are paying the write-hot head, an
     # operator-actionable WARNING; the exit code is unchanged (ingest

@@ -225,7 +225,8 @@ def test_wave_timeline_notes_and_merge():
     assert pt_device.device_label(torch.zeros(1)) == "cpu:0"
     assert pt_device.device_label(np.zeros(1)) == "host"
     snap = pt_device.device_snapshot()
-    assert set(snap) == {"platform", "peaks", "functions", "recompiles", "transfers"}
+    assert set(snap) == {"platform", "peaks", "functions", "recompiles", "transfers",
+                         "shards"}
     assert set(snap["transfers"]) == {"h2d_bytes", "d2h_bytes"}
 
 

@@ -1596,3 +1596,39 @@ def test_a_launch_made_as_the_capture_answers_is_captured(cuda, tmp_path):
     print([c["device_lead_us"] for c in captures])
     missed = [n for n, c in enumerate(captures) if c["error"] or not c["fused_topk"]]
     assert not missed, (missed, captures)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [3, 4])
+def test_sharded_kernel3_wave_matches_plain(cuda, n_slots):
+    """A factor-sharded top-k over ``n_slots`` slots on one card: kernel 3
+    once per slot, each on its slot's stream, merged to the plain version's
+    answer bit for bit (exact inputs; a tie planted across the boundary of
+    the first two slots)."""
+    from predictionio_tpu_torch.parallel import placement
+
+    rng = np.random.default_rng(n_slots)
+    q = (rng.integers(-8, 9, (64, 6)) / 8).astype(np.float32)
+    t = (rng.integers(-8, 9, (2003, 6)) / 8).astype(np.float32)
+    rows = -(-len(t) // n_slots)
+    t[rows] = t[rows - 1]
+    plan = placement.ShardPlan.model_parallel(["t"], rows={"t": len(t)})
+    bound = placement.bind_shards(plan, {"t": t}, devices=[cuda] * n_slots)
+
+    def local(tl, qq, kc, limit):
+        packed = topk.fused_topk_batch(qq, tl, kc, limit=limit, name="cuda.shard")
+        return packed[0], packed[1]
+
+    fn = placement.build_sharded_topk(
+        bound.mesh, None, n_items=len(t), k=16, name="cuda.sharded",
+        local_topk_fn=local)
+    before = topk.KERNEL_LAUNCHES["fused_topk"]
+    res = fn(bound.arrays["t"], torch.from_numpy(q).to(cuda))
+    settle = placement.settle_shards(res, time.perf_counter())
+    got = res.packed.cpu().numpy()
+    assert topk.KERNEL_LAUNCHES["fused_topk"] == before + n_slots
+    assert topk.LAST_KERNEL_SHAPES["cuda.shard"]["route"] == "cuda"
+    assert sorted(settle) == [f"cuda:{i}" for i in range(n_slots)]
+    want = topk.fused_topk_plain(torch.from_numpy(q), torch.from_numpy(t), 16, len(t))
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    np.testing.assert_array_equal(got[0].view(np.uint32), want[0].numpy().view(np.uint32))

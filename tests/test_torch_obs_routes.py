@@ -87,9 +87,7 @@ TIMEOUT = 10
 KEY = "obs-key"
 
 #: deploy routes of JAX modules the port leaves out (each with its module)
-LEFT_OUT_ROUTES = {
-    "/shards.json",     # StragglerBoard + shard attribution: multi-device
-}
+LEFT_OUT_ROUTES: set[str] = set()
 
 #: /metrics families of the JAX deploy that the port does not register,
 #: by the left-out module that registers them
@@ -107,7 +105,6 @@ LEFT_OUT_FAMILIES = {
 
 #: top-level JSON keys of JAX routes that the port leaves out
 LEFT_OUT_KEYS = {
-    "/efficiency.json": {"shards"},  # shard attribution: multi-device
     # each package's breakers are process-wide and show only once one
     # exists: another test file in this worker may have made a JAX one
     "/slo.json": {"breakers"},
@@ -221,7 +218,7 @@ GET_ROUTES = [
     "/efficiency.json", "/locks.json", "/hotpath.json", "/capacity.json",
     "/debug/stacks.json", "/explain.json", "/debug/flight.json",
     "/debug/profile", "/healthz", "/readyz", "/slo.json", "/quality.json",
-    "/tenants.json", "/costs.json",
+    "/tenants.json", "/costs.json", "/shards.json",
 ]
 
 

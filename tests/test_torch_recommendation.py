@@ -406,7 +406,8 @@ def test_from_jax_params_round_trip(trained):
 
 def test_training_is_the_next_slice():
     # the training slice has landed: train() returns a model on the
-    # context's device; factor-sharded serving still waits for its slice
+    # context's device; factor-sharded serving has landed too, and a model
+    # without bound shards serves unsharded (the JAX package's behaviour)
     algo = pt_rec.ALSAlgorithm(pt_rec.ALSAlgorithmParams(rank=3, num_iterations=2))
     ctx = EngineContext(device="cpu")
     td = pt_rec.TrainingData(
@@ -417,5 +418,7 @@ def test_training_is_the_next_slice():
     model = algo.train(ctx, pt_rec.RatingsPreparator().prepare(ctx, td))
     assert model.user_factors.shape == (2, 3)
     assert model.item_factors.device == ctx.device
-    with pytest.raises(NotImplementedError):
-        algo._sharded_topk(None, np.zeros(1, np.int32), 1)
+    assert model.shards is None and algo.serving_shard_plan(model) is None
+    [(_, res)] = algo.batch_predict(model, [(0, pt_rec.Query(user="u1", num=2))])
+    assert [s.item for s in res.item_scores] == [
+        s.item for s in algo.predict(model, pt_rec.Query(user="u1", num=2)).item_scores]
