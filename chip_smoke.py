@@ -49,6 +49,19 @@ calls:
   half-step split by kind of device work); then the OOM
   ladder (``auto`` under a cap of device memory between the two trains'
   peaks falls back from fused to chunked);
+- ALS over a mesh (``mesh_train``, between ``train_ml20m``'s fused and
+  chunked trains): ``train_als(mesh=)`` at the ML-20M shape on 4 data
+  slots of ``cuda:0``, kernel 1 once per slot per half-step on the slot's
+  stream, held to the one-slot train from one start, each slot's kernel-1
+  stats held to the plain version, kernel 1 timed at one slot's shape and
+  the iteration split into accumulation, cross-slot sum, solves and
+  gathers; the chunked rung over the same mesh (kernel 2, held to its
+  plain version per slot, the factors within 2e-3 of the fused mesh
+  train's); two processes on ``cuda:0`` joined over
+  ``torch.distributed`` (gloo: the ranks share the card) through
+  ``balance_local_chunks``, ``global_data_array`` and
+  ``train_als_global``, each rank reading half the users' ratings; and
+  ``run_train`` of the recommendation engine on a 4-slot context;
 - the ALS family: ``ECommAlgorithm.train`` (implicit ALS) on a view/buy
   stream at the ML-20M shape, kernel 1 held to its plain version on the
   implicit stream (``als_family_train``); that model through the default
@@ -174,7 +187,8 @@ To make room for ``day``: ``operator``, ``lifecycle`` and
 ratings rather than generating them again.  ``als_family_train`` trains on
 the views of the ML-20M stream's first 7,500,000 ratings
 (``FAMILY_RATINGS``: 10,000,000 for ``day``, 7,500,000 for
-``sharded_serving``).
+``sharded_serving``).  For ``mesh_train``, ``movielens_like`` looks its
+draws up on threads (the same arrays).
 
 ``watch`` runs in a process of its own (``phase_in_own_process``), the
 rest in this one.  Every count of kernel launches is set to 0 just before
@@ -1871,19 +1885,33 @@ def movielens_like(nnz: int, n_users: int, n_items: int, seed: int,
     """Seeded ML-shaped ratings: Zipf item popularity (i+10)^-0.8, lognormal
     user activity, a planted rank-8 taste plus noise; half stars in
     [0.5, 5] (ML-20M) or whole stars in [1, 5] (ML-100K)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     rng = np.random.default_rng(seed)
     item_cdf = np.cumsum((np.arange(n_items) + 10.0) ** -0.8)
     user_cdf = np.cumsum(rng.lognormal(0.0, 1.0, n_users))
-    u = np.searchsorted(user_cdf / user_cdf[-1], rng.random(nnz))
-    i = np.searchsorted(item_cdf / item_cdf[-1], rng.random(nnz))
-    u = np.minimum(u, n_users - 1).astype(np.int32)
-    i = np.minimum(i, n_items - 1).astype(np.int32)
+    draws = [(user_cdf / user_cdf[-1], rng.random(nnz), n_users),
+             (item_cdf / item_cdf[-1], rng.random(nnz), n_items)]
     uf = rng.standard_normal((n_users, 8)).astype(np.float32)
     vf = rng.standard_normal((n_items, 8)).astype(np.float32)
+    step = 1 << 22
+    # the draws are taken in order above; the lookups, independent slice by
+    # slice, run on threads (numpy releases the GIL in them): the same arrays
+    u, i = (np.empty(nnz, np.int32) for _ in range(2))
     raw = np.empty(nnz, np.float32)
-    for lo in range(0, nnz, 1 << 22):
-        sl = slice(lo, lo + (1 << 22))
+
+    def lookup(out, cdf, x, n, sl):
+        out[sl] = np.minimum(np.searchsorted(cdf, x[sl]), n - 1)
+
+    def taste(sl):
         raw[sl] = 3.5 + 0.9 * (uf[u[sl]] * vf[i[sl]]).sum(1) / np.sqrt(8.0)
+
+    slices = [slice(lo, lo + step) for lo in range(0, nnz, step)]
+    with ThreadPoolExecutor(8) as pool:
+        for out, (cdf, x, n) in zip((u, i), draws):
+            list(pool.map(lambda sl: lookup(out, cdf, x, n, sl), slices))
+        list(pool.map(taste, slices))
+    del draws
     raw += 0.4 * rng.standard_normal(nnz).astype(np.float32)
     if half_stars:
         r = np.clip(np.round(raw * 2.0) / 2.0, 0.5, 5.0)
@@ -2413,13 +2441,15 @@ def pallas_step_share(before: dict, iterations: int) -> dict:
             "flops_per_iteration": flops, "peak_row": peaks.source}
 
 
-def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
+def train_ml20m_phase() -> tuple[dict, dict, dict, tuple, dict]:
     """``train_als`` at the ML-20M shape: 20 iterations fused (cold, then
     warm under torch.profiler), then 3 forced chunked, each cold train's
     peak of device memory, then the OOM ladder between them; per half-step
     accumulate and solve times, staging, idle share, RMSE, and each
     kernel checked and timed at this shape.  Also returns the generated
-    ratings, which the ALS family's train reuses."""
+    ratings, which the ALS family's train reuses, and ``mesh_train``'s
+    line: it runs between the fused and the chunked trains, so that its
+    one-slot trains reuse the fused train's staged streams."""
     from predictionio_tpu_torch.obs import device as device_obs
     from predictionio_tpu_torch.ops import als
 
@@ -2477,6 +2507,7 @@ def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
           f"kernel 1 CUDA-event time x 40: "
           f"{out['pallas_step']['kernel1_user_half_step_ms_x40']:.3f} ms", flush=True)
     del su, si
+    mesh_train = mesh_train_phase((u, i, r))
 
     # -- the main path, chunked, with every launch count at 0 just before it --
     p3 = dataclasses.replace(p, num_iterations=3, pallas_mode="chunked")
@@ -2511,7 +2542,444 @@ def train_ml20m_phase() -> tuple[dict, dict, dict, tuple]:
     del cu, ci, wide
     out["oom_ladder"] = oom_ladder(u, i, r, p3, out["fused_peak"],
                                    out["chunked_peak"], st3)
-    return out, fused_t, chunk_t, (u, i, r)
+    return out, fused_t, chunk_t, (u, i, r), mesh_train
+
+
+# -- ALS over a mesh: slots of one card, then two processes on it -------------
+
+#: ``mesh_train``: 4 data slots of ``cuda:0``, 5 iterations at the ML-20M
+#: shape, rank 10, explicit
+MESH_SLOTS, MESH_ITERATIONS = 4, 5
+#: (b) the chunked rung over the same mesh: the stream's first ratings
+MESH_CHUNKED_RATINGS, MESH_CHUNKED_ITERATIONS = 1_000_000, 2
+#: (c) two processes on cuda:0, each reading half the users' ratings
+MESH_RANKS, MESH_RANK_ITERATIONS = 2, 3
+#: (d) the recommendation engine's run_train at the ML-100K cut
+MESH_ENGINE_ITERATIONS = 10
+#: the gate of a mesh train against the one-slot train from one start: the
+#: scores of MESH_GATE_USERS sampled users against every item within
+#: rtol 5e-2 / atol 5e-3 (the JAX two-process test's,
+#: tests/test_distributed.py:183), the top-10 ids in the same order for at
+#: least MESH_TOP10_AGREE of them
+MESH_GATE_USERS, MESH_TOP10_AGREE = 1024, 0.9
+#: (b)'s factors, the chunked mesh train against the fused one, within this
+#: of each other: the port's rule between a card train and a CPU train from
+#: one start (kernels 1 and 2 sum a slot's rows in other orders, and ALS
+#: carries the rounding on)
+MESH_FACTOR_ATOL = 2e-3
+MESH_WORKER_TIMEOUT_S = 300
+
+MESH_WORKER = r"""
+import json, os, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+from predictionio_tpu_torch.ops import als, als_accum
+from predictionio_tpu_torch.parallel import mesh as pm
+
+rank = int(os.environ["PIO_PROCESS_ID"])
+data = np.load(sys.argv[1])
+u = data["u"]
+keep = data["shard"][u] == rank
+u, i, r = u[keep], data["i"][keep], data["r"][keep]
+# the parent starts this process early and says when the card is free
+deadline = time.monotonic() + 600
+while not Path(sys.argv[8]).exists():
+    assert time.monotonic() < deadline, "no go from the parent"
+    time.sleep(0.05)
+t0 = time.perf_counter()
+pm.initialize_distributed(device=sys.argv[7])
+assert pm.process_index() == rank
+n_users, n_items, rank_k, iterations = (int(x) for x in sys.argv[3:7])
+mesh = pm.default_mesh()
+p = als.ALSParams(rank=rank_k, num_iterations=iterations)
+(u, i, r), valid = pm.balance_local_chunks(
+    [u, i, r], p.chunk_size * len(pm.local_devices()))
+parts = [pm.global_data_array(mesh, a) for a in (u, i, r, valid)]
+for name in als_accum.KERNEL_LAUNCHES:
+    als_accum.KERNEL_LAUNCHES[name] = 0
+pm.COLLECTIVE_STATS.clear()
+t1 = time.perf_counter()
+state = als.train_als_global(*parts, n_users, n_items, mesh, params=p)
+train_s = time.perf_counter() - t1
+if rank == 0:
+    np.savez(sys.argv[2], U=state.user_factors, V=state.item_factors)
+stats = pm.COLLECTIVE_STATS
+print(json.dumps({
+    "rank": rank, "rows": int(keep.sum()), "padded_rows": len(u),
+    "mesh": mesh.shape, "labels": mesh.labels, "local_slots": mesh.local_slots,
+    "backend": pm.collective_backend(),
+    "launches": dict(als_accum.KERNEL_LAUNCHES),
+    "train_s": train_s, "process_s": time.perf_counter() - t0,
+    "stage_s": als.LAST_PLAN_INFO["stage_s"],
+    "iteration_ms": 1e3 * als.LAST_PLAN_INFO["iterations_s"] / iterations,
+    "phase_ms_per_iteration": {k: v / iterations for k, v in
+                               als.LAST_PLAN_INFO["mesh_ms"].items()},
+    "all_reduce_ms_per_half_step": 1e3 * stats["all_reduce"]["seconds"]
+    / stats["all_reduce"]["calls"],
+    "all_reduce_mb": stats["all_reduce"]["bytes"] / stats["all_reduce"]["calls"] / 1e6,
+    "all_gather_ms_per_call": 1e3 * stats["all_gather"]["seconds"]
+    / stats["all_gather"]["calls"],
+    "collectives": stats,
+}), flush=True)
+"""
+
+
+def top10(scores: torch.Tensor) -> np.ndarray:
+    """Each row's 10 best columns by (score desc, column asc): a stable
+    descending sort on the scores' device."""
+    return torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :10].cpu().numpy()
+
+
+def mesh_gate(a, b, counts: tuple, what: str) -> dict:
+    """A mesh train's factors ``a`` against the one-slot train's ``b``
+    (ALSState each, on the card): MESH_GATE_USERS sampled users' scores
+    against every item, their top-10 order, and the largest factor
+    difference beside the rating count (``counts``: per user, per item)
+    of the entity that sets it."""
+    n_users, n_items = a.user_factors.shape[0], a.item_factors.shape[0]
+    rng = np.random.default_rng(SEED + 80)
+    users = torch.from_numpy(np.sort(rng.choice(
+        n_users, min(MESH_GATE_USERS, n_users), replace=False))).to(
+        a.user_factors.device)
+    sa_d = a.user_factors[users] @ a.item_factors.T
+    sb_d = b.user_factors[users] @ b.item_factors.T
+    sa, sb = sa_d.cpu().numpy(), sb_d.cpu().numpy()
+    np.testing.assert_allclose(sa, sb, rtol=5e-2, atol=5e-3, err_msg=what)
+    agree = float((top10(sa_d) == top10(sb_d)).all(axis=1).mean())
+    assert agree >= MESH_TOP10_AGREE, (what, agree)
+    worst = {}
+    for name, count in zip(("user", "item"), counts):
+        d = (getattr(a, f"{name}_factors") - getattr(b, f"{name}_factors")).abs()
+        per = d.max(dim=1).values.cpu().numpy()
+        j = int(per.argmax())
+        worst[name] = {"max_abs_diff": float(per[j]), "index": j,
+                       "ratings": int(count[j])}
+    return {"users": len(users), "top10_agree": agree,
+            "max_abs_score_diff": float(np.abs(sa - sb).max()),
+            "max_abs_factor_diff": worst}
+
+
+def chunked_hold(staged: dict, other: torch.Tensor, p, what: str) -> float:
+    """Kernel 2 over a chunked staged stream (every chunk, through
+    ``als.accumulate``) against ``segment_stats_chunked_plain``, within
+    ALS_RTOL of the absolute sums; returns the largest difference."""
+    from predictionio_tpu_torch.ops import als, als_accum
+
+    args = (staged["plan_args"], staged["oth"])
+    n_blocks = staged["plan"].n_blocks
+    got = als.accumulate(staged, other, p, "chunked")
+    want = als_accum.segment_stats_chunked_plain(
+        *args, staged["rat"], staged["val"], other, p.implicit_prefs, p.alpha,
+        n_blocks, p.pallas_precision)
+    scale = als_accum.segment_stats_chunked_plain(
+        *args, staged["rat"].abs(), staged["val"], other.abs(), p.implicit_prefs,
+        p.alpha, n_blocks, p.pallas_precision)
+    return hold(got, want, scale, False, what)
+
+
+def start_mesh_workers(tmp: Path, ratings, device: str) -> list:
+    """(c)'s two worker processes, started once (a)'s trains are timed:
+    each imports the port, reads the ``.npz`` written here once and keeps
+    its half of the users' ratings (by ``entity_shard``) while the rest of
+    (a), (b) and (d) run, then waits for ``go`` before it touches the
+    device."""
+    from predictionio_tpu_torch.data.storage.base import entity_shard
+
+    u, i, r = ratings
+    shard = np.array([entity_shard("user", f"u{x}", MESH_RANKS)
+                      for x in range(ML20M_USERS)], np.int8)
+    np.savez(tmp / "ratings.npz", u=u, i=i, r=r, shard=shard)
+    port = free_ports(1)[0]
+    procs = []
+    for rank in range(MESH_RANKS):
+        env = dict(os.environ, PIO_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   PIO_NUM_PROCESSES=str(MESH_RANKS), PIO_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MESH_WORKER, str(tmp / "ratings.npz"),
+             str(tmp / "factors.npz"), str(ML20M_USERS), str(ML20M_ITEMS),
+             str(RANK), str(MESH_RANK_ITERATIONS), device, str(tmp / "go")],
+            env=env, cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def finish_mesh_workers(tmp: Path, procs: list, device: str):
+    """Let (c)'s workers join the group and train; their lines, and rank
+    0's factors as an ALSState on ``device``.  A worker that fails or runs
+    past MESH_WORKER_TIMEOUT_S fails the phase."""
+    from predictionio_tpu_torch.ops import als
+
+    (tmp / "go").touch()
+    try:
+        results = [proc.communicate(timeout=MESH_WORKER_TIMEOUT_S) for proc in procs]
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a mesh_train worker ran past {MESH_WORKER_TIMEOUT_S} s")
+    for rank, (proc, (stdout, stderr)) in enumerate(zip(procs, results)):
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"mesh_train worker {rank} exited {proc.returncode}:\n{stderr[-4000:]}")
+    factors = np.load(tmp / "factors.npz")
+    two = als.ALSState(torch.from_numpy(factors["U"]).to(device),
+                       torch.from_numpy(factors["V"]).to(device))
+    return [json.loads(stdout.splitlines()[-1]) for stdout, _ in results], two
+
+
+def mesh_engine_train(device: str, slot: str) -> dict:
+    """(d): ``run_train`` of the recommendation engine on the ML-100K cut,
+    once on the context's one slot and once on MESH_SLOTS slots (counted),
+    the second's ``mesh_conf`` recorded, held to the first by the gate."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import resolve_engine_factory
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig
+    from predictionio_tpu_torch.tools import commands as cmd
+
+    on_card = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(tmp / "home")}))
+        try:
+            cmd.app_new(storage, "meshrec")
+            small_u, small_i, _ = write_ml100k(tmp / "ratings.jsonl", CUT_ML100K_EVENTS)
+            cmd.import_events(storage, "meshrec", tmp / "ratings.jsonl")
+            engine = resolve_engine_factory("recommendation")()
+            params = engine.params_from_json({
+                "datasource": {"params": {"appName": "meshrec"}},
+                "algorithms": [{"name": "als", "params": {
+                    "rank": RANK, "numIterations": MESH_ENGINE_ITERATIONS}}],
+            })
+            config = MeshConfig({"data": MESH_SLOTS})
+            single = run_train(engine, params,
+                               ctx=EngineContext(storage=storage, device=device),
+                               engine_id="meshrec", engine_factory="recommendation",
+                               storage=storage)
+            # -- the main path, with every launch count at 0 just before it --
+            reset_launches()
+            meshed = run_train(
+                engine, params,
+                ctx=EngineContext(storage=storage, device=device, mesh_config=config,
+                                  mesh_devices=[slot] * MESH_SLOTS),
+                engine_id="meshrec", engine_factory="recommendation", storage=storage)
+            launches = read_launches()
+            # -- end --
+            inst = storage.engine_instances().get(meshed.id)
+            blobs = [load_factors(storage, x.id) for x in (single, meshed)]
+        finally:
+            storage.close()
+    states = [als.ALSState(torch.as_tensor(b["user_factors"]).to(device),
+                           torch.as_tensor(b["item_factors"]).to(device))
+              for b in blobs]
+    assert [list(b["user_vocab"]) for b in blobs[1:]] == [list(blobs[0]["user_vocab"])]
+    # each vocabulary entry's rating count, in vocabulary order
+    counts = tuple(
+        np.bincount(raw, minlength=n)[[int(x[1:]) for x in blobs[0][vocab]]]
+        for raw, n, vocab in ((small_u, ML100K_USERS, "user_vocab"),
+                              (small_i, ML100K_ITEMS, "item_vocab")))
+    out = {
+        "events": CUT_ML100K_EVENTS, "iterations": MESH_ENGINE_ITERATIONS,
+        "mesh_conf": inst.mesh_conf, "launches": launches,
+        "gate": mesh_gate(states[1], states[0], counts,
+                          "run_train on 4 slots against one"),
+    }
+    assert inst.mesh_conf == config.to_dict(), inst.mesh_conf
+    assert not on_card or (
+        launches["als_fused_accum"] == 2 * MESH_SLOTS * MESH_ENGINE_ITERATIONS), out
+    return out
+
+
+def mesh_train_phase(ratings=None, device="cuda") -> dict:
+    """ALS over a mesh on the card (``train_als(mesh=)``,
+    ``train_als_global``): (a) 4 data slots of ``cuda:0`` at the ML-20M
+    shape, kernel 1 once per slot per half-step on the slot's stream (2 x 4
+    x 5 launches), held to the one-slot train from the same start, each
+    slot's stats at one half-step held to the plain version, kernel 1 timed
+    at one slot's shape and the iteration split into the slots'
+    accumulation, the cross-slot sum, the solves and the gathers; (b) the
+    chunked rung over the same mesh on the stream's first 1,000,000
+    ratings, kernel 2 once per slot per chunk, each slot's stats held to
+    the plain version and the factors to the fused mesh train within
+    MESH_FACTOR_ATOL and by (a)'s gate; (c) two processes on ``cuda:0`` joined over ``torch.distributed``
+    (the backend rule picks gloo: both ranks share the card), each with
+    half the users' ratings, through ``balance_local_chunks``,
+    ``global_data_array`` and ``train_als_global``, rank 0's factors held
+    to a one-process train (the workers start once (a)'s trains are timed
+    and wait, so their start-up overlaps the rest of (a), (b) and (d);
+    they touch the card only after (d): started before (a)'s trains, in
+    my chip call 4, they slowed the one-slot iteration from 9.3-10.8 ms
+    to 81.8); (d) ``run_train`` of the recommendation engine on the ML-100K
+    cut with a 4-slot context (``mesh_engine_train``).  Every count of
+    launches is set to 0 just before each mesh train and read just after
+    it.  ``device="cpu"`` rehearses the phase with the plain versions at
+    whatever shape the ML20M_* and ML100K_* constants give (launch counts
+    and timings are the card's only)."""
+    t_phase = time.perf_counter()
+    if ratings is None:
+        ratings = movielens_like(ML20M_RATINGS, ML20M_USERS, ML20M_ITEMS, SEED + 20,
+                                 half_stars=True)
+    u, i, r = ratings
+    out: dict = {"phase": "mesh_train",
+                 "shape": [ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS], "rank": RANK,
+                 "slots": MESH_SLOTS, "iterations": MESH_ITERATIONS}
+    part_s = out["part_s"] = {}
+    workers_dir = tempfile.TemporaryDirectory()
+    procs: list = []
+    try:
+        def start_workers() -> None:
+            t0 = time.perf_counter()
+            procs.extend(start_mesh_workers(Path(workers_dir.name), ratings, device))
+            part_s["c_start"] = time.perf_counter() - t0
+
+        out.update(mesh_on_slots(ratings, device, part_s, start_workers))
+        t_part = time.perf_counter()
+        out["engine"] = mesh_engine_train(device, out.pop("slot"))
+        part_s["d"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        workers, two = finish_mesh_workers(Path(workers_dir.name), procs, device)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        workers_dir.cleanup()
+    one3 = out.pop("one3")
+    out["two_process"] = {
+        "ranks": workers, "wall_s": max(w["process_s"] for w in workers),
+        "gate": mesh_gate(two, one3, out.pop("counts"), "two processes against one"),
+    }
+    for w in workers:
+        assert w["backend"] == "gloo" and w["mesh"] == {"data": MESH_RANKS}, w
+        assert torch.device(device).type != "cuda" or (
+            w["launches"]["als_fused_accum"] == 2 * MESH_RANK_ITERATIONS), w
+    assert sum(w["rows"] for w in workers) == len(u)
+    print(f"mesh_train (c): backend {workers[0]['backend']}, all_reduce "
+          f"{[round(w['all_reduce_ms_per_half_step'], 3) for w in workers]} ms "
+          "a half-step", flush=True)
+    part_s["c"] = time.perf_counter() - t_part
+    if torch.device(device).type == "cuda":
+        out["nvidia_smi"] = nvidia_smi_line()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def mesh_on_slots(ratings, device: str, part_s: dict, after_timed) -> dict:
+    """(a) and (b) of ``mesh_train`` on MESH_SLOTS slots of one device,
+    calling ``after_timed()`` once (a)'s trains are timed; also returns
+    (c)'s one-process reference (``one3``), the rating counts and the slot
+    device for the phase to pass on."""
+    from predictionio_tpu_torch.obs import device as device_obs
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    u, i, r = ratings
+    out: dict = {}
+    p = als.ALSParams(rank=RANK, num_iterations=MESH_ITERATIONS, pallas_mode="fused")
+    U0, V0 = als._init_factors(p, ML20M_USERS, ML20M_ITEMS, ML20M_USERS,
+                               ML20M_ITEMS, "cpu")
+    init = (U0.numpy(), V0.numpy())
+    on_card = torch.device(device).type == "cuda"
+    slot = "cuda:0" if on_card else "cpu"
+    mesh = make_mesh(MeshConfig({"data": MESH_SLOTS}), devices=[slot] * MESH_SLOTS)
+    counts = (np.bincount(u, minlength=ML20M_USERS),
+              np.bincount(i, minlength=ML20M_ITEMS))
+    t_part = time.perf_counter()
+    # -- (a) the one-slot train beside it, then 4 slots --
+    eff0 = device_obs.default_efficiency().snapshot()["functions"].get(
+        "als.pallas_step", {})
+    one = als.train_als(u, i, r, ML20M_USERS, ML20M_ITEMS, p, device=device,
+                        init_factors=init)
+    if on_card:
+        out["one_slot_iteration_ms"] = 1e3 * pallas_step_share(
+            eff0, MESH_ITERATIONS)["per_iteration_s"]
+    p3 = dataclasses.replace(p, num_iterations=MESH_RANK_ITERATIONS)
+    one3 = als.train_als(u, i, r, ML20M_USERS, ML20M_ITEMS, p3, device=device)
+    _sync(device)
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    t0 = time.perf_counter()
+    got = als.train_als(u, i, r, ML20M_USERS, ML20M_ITEMS, p, mesh=mesh,
+                        init_factors=init)
+    _sync(device)
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    # -- end --
+    after_timed()
+    info = als.LAST_PLAN_INFO
+    assert not on_card or (
+        out["launches"]["als_fused_accum"] == 2 * MESH_SLOTS * MESH_ITERATIONS), out
+    assert info["data_slots"] == MESH_SLOTS and info["mode"] == "fused", info
+    out["stage_s"] = info["stage_s"]
+    out["collective_backend"] = info["collective_backend"]
+    out["iteration_ms"] = 1e3 * info["iterations_s"] / MESH_ITERATIONS
+    out["phase_ms_per_iteration"] = {k: v / MESH_ITERATIONS
+                                     for k, v in info["mesh_ms"].items()}
+    out["sum_and_gather_share"] = (
+        (info["mesh_ms"]["sum"] + info["mesh_ms"]["gather"])
+        / (1e3 * info["iterations_s"]))
+    out["gate"] = mesh_gate(got, one, counts, "4 slots against one")
+    staged = next(iter(als._STAGE_CACHE.values()))
+    ni_pad = (ML20M_ITEMS + 127) // 128 * 128
+    Vp = pad_rows(got.item_factors, ni_pad)
+    out["slot_max_abs_err"] = [
+        fused_hold(staged[pos][0], Vp, p, f"slot {pos}'s user half-step")
+        for pos in sorted(staged)
+    ]
+    if on_card:
+        out["kernel1_one_slot"] = fused_timing(staged[0][0], Vp, p)
+        print(f"mesh_train (a): {MESH_SLOTS} slots {out['iteration_ms']:.2f} ms an "
+              f"iteration against {out['one_slot_iteration_ms']:.2f} ms on one; "
+              f"kernel 1 at one slot's shape {out['kernel1_one_slot']['ms']:.4f} ms",
+              flush=True)
+    del staged, Vp, got, one
+    als._STAGE_CACHE.clear()
+    part_s["a"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # -- (b) the chunked rung over the same mesh --
+    n_b = MESH_CHUNKED_RATINGS
+    pb = dataclasses.replace(p, num_iterations=MESH_CHUNKED_ITERATIONS)
+    fused_b = als.train_als(u[:n_b], i[:n_b], r[:n_b], ML20M_USERS, ML20M_ITEMS,
+                            pb, mesh=mesh)
+    # -- the main path, with every launch count at 0 just before it --
+    reset_launches()
+    chunked_b = als.train_als(u[:n_b], i[:n_b], r[:n_b], ML20M_USERS, ML20M_ITEMS,
+                              dataclasses.replace(pb, pallas_mode="chunked"),
+                              mesh=mesh)
+    _sync(device)
+    launches_b = read_launches()
+    # -- end --
+    out["chunked"] = {"ratings": n_b, "iterations": MESH_CHUNKED_ITERATIONS,
+                      "launches": launches_b, "chunks_user": info["chunks_user"],
+                      "chunks_item": info["chunks_item"]}
+    assert info["mode"] == "chunked" and (not on_card or launches_b[
+        "als_segment_accum"] == MESH_CHUNKED_ITERATIONS * (
+            info["chunks_user"] + info["chunks_item"])), out
+    assert launches_b["als_fused_accum"] == 0, out
+    # kernel 2 sums each slot's rows in another order than kernel 1, and
+    # ALS carries the rounding into the next half-step: the factors are
+    # held to the fused mesh train within MESH_FACTOR_ATOL and by (a)'s
+    # gate, and each slot's kernel-2 stats at one half-step to the plain
+    # version
+    counts_b = (np.bincount(u[:n_b], minlength=ML20M_USERS),
+                np.bincount(i[:n_b], minlength=ML20M_ITEMS))
+    gate_b = out["chunked"]["gate"] = mesh_gate(
+        chunked_b, fused_b, counts_b, "chunked mesh train against fused")
+    gap_b = max(w["max_abs_diff"] for w in gate_b["max_abs_factor_diff"].values())
+    assert gap_b <= MESH_FACTOR_ATOL, ("chunked mesh factors against fused", gate_b)
+    staged = next(iter(als._STAGE_CACHE.values()))
+    Vp = pad_rows(chunked_b.item_factors, ni_pad)
+    out["chunked"]["slot_max_abs_err"] = [
+        chunked_hold(staged[pos][0], Vp, pb, f"slot {pos}'s chunked user half-step")
+        for pos in sorted(staged)
+    ]
+    del fused_b, chunked_b, staged, Vp
+    part_s["b"] = time.perf_counter() - t_part
+    als._STAGE_CACHE.clear()
+    out.update(one3=one3, counts=counts, slot=slot)
+    return out
+
 
 
 # -- the ALS family (similarproduct, recommendeduser, ecommerce) --------------
@@ -4246,6 +4714,7 @@ def eval_phase(tmp: Path, storage) -> dict:
 #: the UCI Covertype shape (Blackard & Dean; its shape only, the data is a
 #: seeded generator): rows, integer-valued features, classes
 COVTYPE = (581_012, 54, 7)
+#: logistic-regression steps of the card trains held to the CPU's
 LOGREG_ITERATIONS, LOGREG_LR = 200, 0.1
 #: logistic regression's weights, card against CPU, of each tensor's largest
 LOGREG_RTOL = 1e-4
@@ -4321,7 +4790,7 @@ def logreg_poisson_hold(device) -> dict:
     """Logistic regression on unscaled Poisson counts at the Covertype
     shape, where ``lr x`` the top eigenvalue of ``x.T x / n`` lies far past
     2: the loss of 25-200 steps at lr 0.1 must fall at every reading, and
-    the card's weights after 200 steps are held to the CPU's within
+    the card's weights after LOGREG_ITERATIONS steps are held to the CPU's within
     LOGREG_RTOL of each tensor's largest value."""
     from predictionio_tpu_torch.ops import classifiers as cls
 
@@ -4367,7 +4836,7 @@ def first_max_or_near_tie(got: np.ndarray, scores: np.ndarray) -> int:
 
 def classification_ops(device="cuda") -> dict:
     """``ops/classifiers.py`` at the Covertype shape on ``device``: Naive
-    Bayes and 200 steps of logistic regression (lr 0.1), each trained twice
+    Bayes and LOGREG_ITERATIONS steps of logistic regression (lr 0.1), each trained twice
     (the same bits), held to the same functions on the CPU (pi and theta
     within 1e-5; w and b within 1e-4 of each tensor's largest value; the
     labels of 4,096 rows equal outside near ties), timed, the logreg window
@@ -8478,8 +8947,9 @@ def main() -> int:
     evaluation = cli_train.pop("eval")
     emit(cli_train)
     emit(evaluation)
-    ml20m, fused_t, chunk_t, ratings = train_ml20m_phase()
+    ml20m, fused_t, chunk_t, ratings, mesh_train = train_ml20m_phase()
     emit(ml20m)
+    emit(mesh_train)
     emit({"phase": "als_kernel_timing", "als_fused_accum": fused_t,
           "als_segment_accum": chunk_t})
     family_train, _, family_cli = als_family_phases(ratings)
@@ -8629,6 +9099,20 @@ def main() -> int:
                        if watch["postgres"]["server"] else {}),
                     # the production day's fixture (seed_demo_home) on the card
                     launches_day=day["fixture"]["launches"]["als_fused_accum"],
+                    # mesh_train: 4 data slots of cuda:0 (2 x 4 x 5), each
+                    # rank of the two-process train, the 4-slot run_train;
+                    # timed at one slot's shape (mesh_*)
+                    launches_mesh_train=mesh_train["launches"]["als_fused_accum"],
+                    launches_mesh_two_process=[
+                        w["launches"]["als_fused_accum"]
+                        for w in mesh_train["two_process"]["ranks"]],
+                    launches_mesh_engine=mesh_train["engine"]["launches"]["als_fused_accum"],
+                    mesh_shape=mesh_train["kernel1_one_slot"]["shape"],
+                    mesh_ms=mesh_train["kernel1_one_slot"]["ms"],
+                    mesh_plain_ms=mesh_train["kernel1_one_slot"]["plain_ms"],
+                    mesh_bound_ms=mesh_train["kernel1_one_slot"]["bound_ms"],
+                    mesh_bound_by=mesh_train["kernel1_one_slot"]["bound_by"],
+                    mesh_max_abs_err=max(mesh_train["slot_max_abs_err"]),
                     # rank 32, implicit, on the pretrain's ML-20M user half-step
                     rank32_shape=rank32_t["shape"],
                     rank32_ms=rank32_t["ms"],
@@ -8651,6 +9135,8 @@ def main() -> int:
                     launches_operator=operator["launches"]["als_segment_accum"],
                     launches_lifecycle=lifecycle["launches"]["als_segment_accum"],
                     launches_storage=storage["launches"]["als_segment_accum"],
+                    # mesh_train's chunked rung over 4 slots
+                    launches_mesh_train=mesh_train["chunked"]["launches"]["als_segment_accum"],
                     wide_shape=wide_c["shape"],
                     wide_ms=wide_c["ms"],
                     wide_plain_ms=wide_c["plain_ms"],

@@ -25,7 +25,7 @@ import torch
 from predictionio_tpu_torch.data.storage.config import StorageRuntime, get_storage
 from predictionio_tpu_torch.data.store import LEventStore, PEventStore
 from predictionio_tpu_torch.device import resolve_device
-from predictionio_tpu_torch.parallel.mesh import MeshConfig
+from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh, process_count
 
 TD = TypeVar("TD")  # training data
 EI = TypeVar("EI")  # evaluation info
@@ -55,7 +55,11 @@ class EngineContext:
     load (``parallel.placement.bind_shards``); a device may repeat
     (``[torch.device("cpu")] * 8``).  Its default is every visible device
     of ``device``'s type, so a one-card host (or the CPU) has one slot and
-    serves unsharded, as the JAX package does on one device."""
+    serves unsharded, as the JAX package does on one device.
+
+    ``mesh`` is ``make_mesh(mesh_config)`` over those slots, built at first
+    use (in a multi-process group without explicit ``mesh_devices``, over
+    every rank's slots): what the ALS family's trains run on."""
 
     storage: StorageRuntime | None = None
     seed: int = 0
@@ -67,16 +71,28 @@ class EngineContext:
     warm_start: Any = None
     mesh_config: MeshConfig = field(default_factory=MeshConfig)
     mesh_devices: list[torch.device] | None = None
+    _mesh: Any = field(default=None, repr=False, compare=False)
+    _global_mesh: bool = field(default=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         if self.mesh_devices is None:
+            self._global_mesh = process_count() > 1
             self.mesh_devices = (
                 [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
                 if self.device.type == "cuda" else [self.device]
             )
         else:
             self.mesh_devices = [torch.device(d) for d in self.mesh_devices]
+
+    @property
+    def mesh(self):
+        if self._mesh is None:
+            self._mesh = make_mesh(
+                self.mesh_config,
+                devices=None if self._global_mesh else self.mesh_devices,
+            )
+        return self._mesh
 
     @property
     def storage_runtime(self) -> StorageRuntime:

@@ -318,6 +318,7 @@ class ECommAlgorithm(Algorithm):
                 seed=p.seed,
             ),
             device=ctx.device,
+            mesh=ctx.mesh if ctx.mesh.devices.size > 1 else None,
         )
         lap("iterations")
         # staging is skipped when the streams are already staged

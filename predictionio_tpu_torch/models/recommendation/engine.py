@@ -367,6 +367,7 @@ class ALSAlgorithm(Algorithm):
             params=self._als_params(),
             device=ctx.device,
             init_factors=self._warm_start_init(ctx, pd),
+            mesh=ctx.mesh,
         )
         return ALSModel(
             user_factors=state.user_factors,

@@ -322,6 +322,7 @@ class ALSAlgorithm(Algorithm):
                 seed=p.seed,
             ),
             device=ctx.device,
+            mesh=ctx.mesh if ctx.mesh.devices.size > 1 else None,
         )
         return SimilarProductModel(
             item_factors=state.item_factors,

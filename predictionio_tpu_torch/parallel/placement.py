@@ -165,9 +165,9 @@ class ShardedTensor:
     """One array placed over a mesh: ``locals[i]`` is what slot ``i`` holds
     (its block of rows when ``axis`` names the sharding axis, the whole
     array when ``axis`` is None), ``shape`` the padded global shape.  Slots
-    on one physical device that hold the same block share one tensor.
-    ``slot_marks`` says when each slot's part was ready (see
-    :func:`settle_shards`)."""
+    on one physical device that hold the same block share one tensor; in a
+    multi-process mesh another rank's slots hold None.  ``slot_marks``
+    says when each slot's part was ready (see :func:`settle_shards`)."""
 
     def __init__(self, mesh: Mesh, axis: str | None, locals_: list,
                  shape: tuple, slot_marks: dict[str, Any] | None = None):
@@ -178,7 +178,8 @@ class ShardedTensor:
         self.slot_marks = slot_marks or {}
 
     def slot_shards(self) -> list[tuple[str, torch.Tensor]]:
-        return list(zip(self.mesh.labels, self.locals))
+        return [(label, t) for label, t in zip(self.mesh.labels, self.locals)
+                if t is not None]
 
 
 def _mark(device: torch.device) -> Any:

@@ -736,11 +736,23 @@ def do_build(args) -> int:
 def do_train(args) -> int:
     from predictionio_tpu_torch.core.base import EngineContext
     from predictionio_tpu_torch.core.workflow import WorkflowParams, run_train
+    from predictionio_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        initialize_distributed,
+    )
 
+    # join the process group (under PIO_COORDINATOR_ADDRESS) before
+    # anything else, as the JAX package's train does
+    initialize_distributed(device=args.device)
     factory_name, engine, variant = _resolve_engine(args)
     params = engine.params_from_json(variant)
     storage = get_storage()
-    ctx = EngineContext(storage=storage, mode="train", device=args.device)
+    ctx = EngineContext(
+        mesh_config=MeshConfig.from_dict(variant.get("mesh")),
+        storage=storage,
+        mode="train",
+        device=args.device,
+    )
     instance = run_train(
         engine,
         params,

@@ -458,14 +458,21 @@ def _sections(page: str) -> list[str]:
 
 def _fresh_registries(monkeypatch) -> None:
     """Both dashboards read their package's process-wide ``REGISTRY``
-    (the Capacity and Model-quality panels).  Other test files that ran
-    earlier in this worker left samples in one package's registry and not
-    the other's, so each dashboard module gets a registry of its own."""
+    (the Capacity and Model-quality panels) and process-default quality
+    monitor (the Model-quality panel's prediction log and drift).  Other
+    test files that ran earlier in this worker left samples and logged
+    predictions in one package's and not the other's, so each dashboard
+    module gets a registry of its own and each package a fresh default
+    monitor."""
+    from predictionio_tpu.obs import quality as jax_quality
     from predictionio_tpu.obs.metrics import MetricsRegistry as JaxMetricsRegistry
+    from predictionio_tpu_torch.obs import quality as pt_quality
     from predictionio_tpu_torch.obs.metrics import MetricsRegistry
 
     monkeypatch.setattr(pt_dashboard, "REGISTRY", MetricsRegistry())
     monkeypatch.setattr(jax_dashboard, "REGISTRY", JaxMetricsRegistry())
+    monkeypatch.setattr(pt_quality, "_default_monitor", None)
+    monkeypatch.setattr(jax_quality, "_default_monitor", None)
 
 
 def test_dashboard_pages_equal_jax_on_one_storage(shared, monkeypatch):

@@ -1632,3 +1632,56 @@ def test_sharded_kernel3_wave_matches_plain(cuda, n_slots):
     want = topk.fused_topk_plain(torch.from_numpy(q), torch.from_numpy(t), 16, len(t))
     np.testing.assert_array_equal(got[1], want[1].numpy())
     np.testing.assert_array_equal(got[0].view(np.uint32), want[0].numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "chunked"])
+def test_mesh_train_on_four_slots_of_the_card(cuda, mode):
+    """``train_als(mesh=)`` over 4 data slots of one card: kernel 1 (kernel
+    2 on the chunked rung) once per slot per half-step, each on its slot's
+    stream; the factors within 2e-3 of the one-slot train from the same
+    start; bit for bit on repeat; each slot's kernel-1 stats within 1e-4 of
+    the plain version's absolute sums."""
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    rng = np.random.default_rng(1)
+    nu, ni, k, n, iters, slots = 700, 300, 10, 20_000, 5, 4
+    U = np.abs(rng.normal(size=(nu, k)))
+    V = np.abs(rng.normal(size=(ni, k)))
+    ui = rng.integers(0, nu, n).astype(np.int32)
+    ii = rng.integers(0, ni, n).astype(np.int32)
+    r = (U[ui] * V[ii]).sum(1).astype(np.float32)
+    init = tuple((np.abs(rng.standard_normal((m, k))) / np.sqrt(k)).astype(np.float32)
+                 for m in (nu, ni))
+    p = als.ALSParams(rank=k, num_iterations=iters, pallas_mode=mode)
+    mesh = make_mesh(MeshConfig({"data": slots}), devices=[cuda] * slots)
+    one = als.train_als(ui, ii, r, nu, ni, p, device=cuda, init_factors=init)
+    name = "als_fused_accum" if mode == "fused" else "als_segment_accum"
+    before = dict(als_accum.KERNEL_LAUNCHES)
+    got = als.train_als(ui, ii, r, nu, ni, p, mesh=mesh, init_factors=init)
+    torch.cuda.synchronize()
+    launched = als_accum.KERNEL_LAUNCHES[name] - before[name]
+    if mode == "fused":
+        assert launched == 2 * slots * iters
+    else:
+        info = als.LAST_PLAN_INFO
+        assert launched == iters * (info["chunks_user"] + info["chunks_item"])
+    again = als.train_als(ui, ii, r, nu, ni, p, mesh=mesh, init_factors=init)
+    for a, b, c in ((got.user_factors, one.user_factors, again.user_factors),
+                    (got.item_factors, one.item_factors, again.item_factors)):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=2e-3)
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    if mode != "fused":
+        return
+    staged = next(iter(als._STAGE_CACHE.values()))
+    Vp = torch.zeros((384, k), device=cuda)
+    Vp[:ni] = got.item_factors
+    for pos in sorted(staged):
+        su = staged[pos][0]
+        args = (su["plan_args"], su["oth"], su["wrv"], Vp, su["plan"].n_blocks)
+        kernel = als_accum.segment_stats_fused(*args)
+        plain = als_accum.segment_stats_fused_plain(*args)
+        scale = als_accum.segment_stats_fused_plain(
+            su["plan_args"], su["oth"], su["wrv"].abs(), Vp.abs(), su["plan"].n_blocks)
+        _hold(kernel, plain, scale, False, f"slot {pos}'s stats")
