@@ -99,6 +99,15 @@ calls:
   solo queries per front end (the threaded server's host replica held to
   the numpy answer exactly), a 4,096-query burst in device waves of 32 and
   a 4,096-query ``run_batch_predict``, held to the host answer;
+- NCF over a mesh (``ncf_mesh_train``, after ``ncf_serving``, on its
+  positives; 4 slots of ``cuda:0`` as ``{data: 2, model: 2}``): a bpr
+  epoch of the defaults beside the one-slot train from the same tree and
+  draws (the gate, the block copies bit for bit), the pretrain's
+  ``train_als(mesh=)`` at rank 32 (kernel 1 once per data slot per
+  half-step, each slot's stats held, timed at one slot's shape) and a
+  full_softmax epoch, two processes on the card over gloo held to the
+  one-process mesh train, and the template's ``run_train`` with an
+  engine.json mesh;
 - the classification template (``classification``): ``ops/classifiers.py``
   at the UCI Covertype shape (581,012 x 54, 7 classes, a seeded generator)
   on the card, Naive Bayes and 200 logistic-regression steps each trained
@@ -4379,6 +4388,551 @@ def ncf_train_phase(storage, ratings) -> tuple[dict, dict]:
     return out, served
 
 
+# -- NCF over a mesh: slots of one card, then two processes on it -------------
+
+#: ``ncf_mesh_train``'s mesh: 4 slots of cuda:0
+NCF_MESH_AXES = {"data": 2, "model": 2}
+#: (a) the defaults' bpr epoch, and (b)'s full_softmax epoch: the phase's
+#: first positives
+NCF_MESH_POSITIVES = 1_000_000
+#: (b) the pretrain's ALS iterations over the mesh (every positive)
+NCF_MESH_ALS_ITERATIONS = 2
+#: (c) two processes on cuda:0, 2 slots each, on the first positives
+NCF_MESH_RANKS, NCF_MESH_RANK_POSITIVES = 2, 200_000
+NCF_MESH_WORKER_TIMEOUT_S = 300
+#: the chunk of users scored at once by the gate (the tower's activations
+#: are [chunk, items, 64] floats)
+NCF_GATE_CHUNK = 32
+#: an NCF train over the mesh against the one-slot (or one-process) train
+#: after an epoch: at most this many times the largest score gap of the
+#: reference train from a start one ulp away, and a top-10 agreement at
+#: most NCF_BAND_TOP10 below that train's (``ncf_band_gate``).  The ALS
+#: gate (rtol 5e-2 / atol 5e-3, top-10 >= 90%) cannot hold here: on an
+#: H100 the one-slot train of (a) against itself from a 1-ulp start parted
+#: by 0.112 with 66.9% of top-10 equal after one epoch
+NCF_BAND_FACTOR, NCF_BAND_TOP10 = 2.0, 0.15
+
+NCF_MESH_WORKER = r"""
+import json, os, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+from predictionio_tpu_torch.ops import ncf
+from predictionio_tpu_torch.parallel import mesh as pm
+
+rank = int(os.environ["PIO_PROCESS_ID"])
+data = np.load(sys.argv[1])
+u, i = data["u"], data["i"]
+n_users, n_items = int(sys.argv[3]), int(sys.argv[4])
+device, go = sys.argv[5], Path(sys.argv[6])
+# the parent starts this process early: it joins the group and makes its
+# CUDA context now, and runs nothing on the card until the parent says
+# the card is free
+t0 = time.perf_counter()
+pm.initialize_distributed(device=device, local_devices=[device, device])
+assert pm.process_index() == rank
+# torch imports much of itself at the first optimizer step: take it now
+w = torch.zeros(1, device=device, requires_grad=True)
+w.grad = torch.zeros_like(w)
+torch.optim.Adam([w]).step()
+join_s = time.perf_counter() - t0
+deadline = time.monotonic() + 600
+while not go.exists():
+    assert time.monotonic() < deadline, "no go from the parent"
+    time.sleep(0.05)
+t0 = time.perf_counter()
+mesh = pm.make_mesh(pm.MeshConfig(json.loads(sys.argv[7])))
+p = ncf.NCFParams(num_epochs=1)
+pm.COLLECTIVE_STATS.clear()
+t1 = time.perf_counter()
+state = ncf.train_ncf(u, i, n_users, n_items, p, mesh=mesh)
+train_s = time.perf_counter() - t1
+if rank == 0:
+    np.savez(sys.argv[2], *ncf.tree_leaves(ncf.host_params(state.params)))
+stats = pm.COLLECTIVE_STATS
+info = ncf.LAST_MESH_INFO
+steps = info["steps_per_epoch"]
+print(json.dumps({
+    "rank": rank, "mesh": mesh.shape, "labels": mesh.labels,
+    "local_slots": mesh.local_slots, "local_positions": info["local_positions"],
+    "backend": pm.collective_backend(), "join_s": join_s, "train_s": train_s,
+    "setup_s": info["setup_s"], "process_s": time.perf_counter() - t0,
+    "epoch_s": state.epoch_seconds,
+    "epoch_loss": state.epoch_losses, "steps": steps,
+    "step_ms": 1e3 * state.epoch_seconds[0] / steps,
+    "phase_ms_per_step": {k: v / steps for k, v in info["mesh_ms"].items()},
+    "all_reduce_ms_per_call": 1e3 * stats["all_reduce"]["seconds"]
+    / stats["all_reduce"]["calls"],
+    "all_reduce_mb_per_call": stats["all_reduce"]["bytes"]
+    / stats["all_reduce"]["calls"] / 1e6,
+    "status_ms_per_call": 1e3 * stats["status"]["seconds"] / stats["status"]["calls"],
+    "collectives": stats,
+}), flush=True)
+"""
+
+
+def ncf_scores(params: dict, users: torch.Tensor, n_items: int) -> torch.Tensor:
+    """``users``' scores against every real item ([len(users), n_items]),
+    NCF_GATE_CHUNK users at a time through ``score_users_vs_items``."""
+    from predictionio_tpu_torch.ops import ncf
+
+    head = {k: v for k, v in params.items() if k in ("mlp", "out_w", "out_b")}
+    bias = params.get("item_bias")
+    bias = None if bias is None else bias[:n_items]
+    return torch.cat([
+        ncf.score_users_vs_items(head, params["user_emb"][chunk],
+                                 params["item_emb"][:n_items], bias)
+        for chunk in users.split(NCF_GATE_CHUNK)])
+
+
+def ncf_compare(a: dict, b: dict, n_users: int, n_items: int) -> dict:
+    """Tree ``a`` against tree ``b``: MESH_GATE_USERS sampled users' scores
+    against every real item (the largest gap, the share of scores outside
+    the ALS mesh gate's rtol 5e-2 / atol 5e-3, and the share of users
+    whose top-10 order is equal), and the largest parameter gap per
+    leaf."""
+    from predictionio_tpu_torch.ops import ncf
+
+    rng = np.random.default_rng(SEED + 81)
+    users = torch.from_numpy(np.sort(rng.choice(
+        n_users, min(MESH_GATE_USERS, n_users), replace=False))).to(
+        a["user_emb"].device)
+    with torch.no_grad():
+        sa, sb = (ncf_scores(t, users, n_items) for t in (a, b))
+        gap = (sa - sb.to(sa.device)).abs()
+        outside = float((gap > 5e-3 + 5e-2 * sb.abs()).float().mean())
+    return {
+        "users": len(users),
+        "top10_agree": float((top10(sa) == top10(sb)).all(axis=1).mean()),
+        "max_abs_score_diff": float(gap.max()),
+        "scores_outside_als_gate": outside,
+        "max_abs_param_diff": {
+            name: max(float((x.detach() - y.detach().to(x.device)).abs().max())
+                      for x, y in zip(ncf.tree_leaves(a[name]), ncf.tree_leaves(b[name])))
+            for name in a if ncf.tree_leaves(a[name])},
+    }
+
+
+def ncf_band_gate(got: dict, want: dict, nudged: dict, n_users: int,
+                  n_items: int, what: str) -> dict:
+    """``got`` held to ``want`` within the band that ``want``'s own train
+    moves when its start moves by one ulp (``nudged``: the same train from
+    every start value's next float up): the largest score gap at most
+    NCF_BAND_FACTOR times the nudged train's, the top-10 agreement at
+    least the nudged train's less NCF_BAND_TOP10.  Adam turns the rounding
+    of gradients near zero into steps of up to the learning rate
+    (``lr * g / (|g| + eps)``), so two trains whose sums differ only in
+    order part within an epoch; the band measures how far, in this run."""
+    g = ncf_compare(got, want, n_users, n_items)
+    n = ncf_compare(nudged, want, n_users, n_items)
+    assert g["max_abs_score_diff"] <= NCF_BAND_FACTOR * n["max_abs_score_diff"], (what, g, n)
+    assert g["top10_agree"] >= n["top10_agree"] - NCF_BAND_TOP10, (what, g, n)
+    return {"got": g, "one_ulp_start": n}
+
+
+def nudge(tree: dict) -> dict:
+    """Every value of ``tree`` moved to its next float up."""
+    from predictionio_tpu_torch.ops import ncf
+
+    return ncf.tree_map(
+        lambda x: torch.nextafter(x, torch.full_like(x, float("inf"))), tree)
+
+
+def ncf_mesh_step_hold(mesh, tree: dict, p, batch: tuple, n_items: int) -> dict:
+    """One ``MeshNCF.step`` against one ``train_step`` on one slot from the
+    same tree and batch: the loss within NCF_STEP_RTOL, the gradient the
+    mesh applied within NCF_GRAD_RTOL of each leaf's largest one-slot
+    entry, and the mesh's parameters after the step against the one-slot
+    Adam replayed from the mesh's gradient within NCF_STEP_ATOL +
+    NCF_STEP_ATOL * |parameter| (the rule of ``ncf_step_hold``); every
+    slot copy equal bit for bit."""
+    from predictionio_tpu_torch.ops import ncf
+
+    dev = mesh.merge_device
+
+    def fresh():
+        leaves = ncf.tree_map(
+            lambda x: x.to(dev, copy=True).requires_grad_(True), tree)
+        return leaves, ncf.make_optimizer(leaves, p)
+
+    one, opt = fresh()
+    l_one = float(ncf.train_step(one, opt, *batch, p, n_items))
+    st = ncf.MeshNCF(mesh, tree, p)
+    l_mesh = float(st.step(*batch, n_items))
+    assert abs(l_mesh - l_one) <= NCF_STEP_RTOL * abs(l_one), (l_mesh, l_one)
+    g_mesh = st.gathered(grads=True)
+    replay, ropt = fresh()
+    for leaf, g in zip(ncf.tree_leaves(replay), ncf.tree_leaves(g_mesh)):
+        leaf.grad = g.clone()
+    ropt.step()
+    out = {"loss_one_slot": l_one, "loss_mesh": l_mesh, "grad_max_rel_err": 0.0,
+           "param_max_abs_err": 0.0, "copy_pairs_equal": copies_equal(st)}
+    for go, gm, pr, pm in zip(*(ncf.tree_leaves(t) for t in (
+            ncf.tree_map(lambda x: x.grad, one), g_mesh, replay, st.gathered()))):
+        top = float(go.abs().max()) or 1.0
+        rel = float((gm - go).abs().max()) / top
+        assert rel <= NCF_GRAD_RTOL, (tuple(go.shape), rel)
+        diff = (pm - pr.detach()).abs()
+        assert bool((diff <= NCF_STEP_ATOL * (1.0 + pr.detach().abs())).all()), (
+            tuple(go.shape), float(diff.max()))
+        out["grad_max_rel_err"] = max(out["grad_max_rel_err"], rel)
+        out["param_max_abs_err"] = max(out["param_max_abs_err"], float(diff.max()))
+    return out
+
+
+def copies_equal(st) -> int:
+    """Asserts that every slot copy of a leaf, and of its Adam moments, is
+    equal bit for bit; returns the number of copy pairs compared."""
+    from predictionio_tpu_torch.ops import ncf
+
+    pairs = 0
+    slots = st.mesh.local_slots
+    for a in slots:
+        for b in slots:
+            if a >= b or st.layout.m_of[a] != st.layout.m_of[b]:
+                continue
+            for x, y in zip(ncf.tree_leaves(st.trees[a]), ncf.tree_leaves(st.trees[b])):
+                assert torch.equal(x, y), (a, b)
+                for key in ("exp_avg", "exp_avg_sq"):
+                    assert torch.equal(st.optimizers[a].state[x][key],
+                                       st.optimizers[b].state[y][key]), (a, b, key)
+                pairs += 1
+    return pairs
+
+
+def start_ncf_mesh_workers(tmp: Path, pos_u, pos_i, device: str) -> list:
+    """(c)'s two workers, started once (a)'s trains are timed: each reads
+    the first NCF_MESH_RANK_POSITIVES positives (every rank the identical
+    full arrays), joins the group and makes its CUDA context, and waits
+    for ``go`` before it runs anything on the card."""
+    n = NCF_MESH_RANK_POSITIVES
+    np.savez(tmp / "positives.npz", u=pos_u[:n], i=pos_i[:n])
+    port = free_ports(1)[0]
+    procs = []
+    for rank in range(NCF_MESH_RANKS):
+        env = dict(os.environ, PIO_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   PIO_NUM_PROCESSES=str(NCF_MESH_RANKS), PIO_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", NCF_MESH_WORKER, str(tmp / "positives.npz"),
+             str(tmp / "tree.npz"), str(ML20M_USERS), str(ML20M_ITEMS),
+             "cuda:0" if torch.device(device).type == "cuda" else "cpu",
+             str(tmp / "go"), json.dumps(NCF_MESH_AXES)],
+            env=env, cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def ncf_mesh_engine_train(device: str, slot: str) -> dict:
+    """(d): ``run_train`` of the ncf template (the pretrain recipe) on the
+    ML-100K cut with an engine.json ``"mesh"`` of NCF_MESH_AXES over 4
+    slots; its ``mesh_conf``, kernel 1's launches (2 data slots x 2
+    half-steps x 20 iterations) and one answered query."""
+    from predictionio_tpu_torch.core.base import EngineContext
+    from predictionio_tpu_torch.core.engine import resolve_engine_factory
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig
+    from predictionio_tpu_torch.server.prediction_server import deploy_engine
+    from predictionio_tpu_torch.tools import commands as cmd
+
+    on_card = torch.device(device).type == "cuda"
+    variant = {
+        "id": "ncfmesh", "engineFactory": "ncf",
+        "mesh": {"axes": dict(NCF_MESH_AXES)},
+        "datasource": {"params": {"appName": "ncfmesh"}},
+        "algorithms": [{"name": "ncf", "params": {
+            "embedDim": NCF_PRETRAIN["embed_dim"], "mlpLayers": [],
+            "loss": NCF_PRETRAIN["loss"], "learningRate": NCF_PRETRAIN["learning_rate"],
+            "weightDecay": NCF_PRETRAIN["weight_decay"], "numEpochs": 1,
+            "pretrain": "als"}}],
+    }
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        storage = StorageRuntime(StorageConfig.from_env({"PIO_HOME": str(tmp / "home")}))
+        try:
+            cmd.app_new(storage, "ncfmesh")
+            write_ml100k(tmp / "ratings.jsonl", CUT_ML100K_EVENTS)
+            cmd.import_events(storage, "ncfmesh", tmp / "ratings.jsonl")
+            engine = resolve_engine_factory("ncf")()
+            ctx = EngineContext(storage=storage, device=device,
+                                mesh_config=MeshConfig.from_dict(variant["mesh"]),
+                                mesh_devices=[slot] * 4)
+            # -- the main path, with every launch count at 0 just before it --
+            reset_launches()
+            t0 = time.perf_counter()
+            inst = run_train(engine, engine.params_from_json(variant), ctx=ctx,
+                             engine_id="ncfmesh", engine_factory="ncf", storage=storage)
+            train_s = time.perf_counter() - t0
+            launches = read_launches()
+            # -- end --
+            mesh_conf = storage.engine_instances().get(inst.id).mesh_conf
+            dep = deploy_engine("ncf", storage=storage, engine_instance_id=inst.id,
+                                device=device)
+            _, answer = dep.predict(dep.extract_query({"user": "u1", "num": 10}))
+            n_items = len(dep.models[0].item_vocab)
+            table_rows = int(dep.models[0].state.params["item_emb"].shape[0])
+        finally:
+            storage.close()
+    items = [x.item for x in answer.item_scores]
+    assert len(items) == 10 and all(int(x[1:]) < ML100K_ITEMS for x in items), items
+    assert mesh_conf == variant["mesh"], mesh_conf
+    assert not on_card or launches["als_fused_accum"] == 2 * 2 * ITERATIONS, launches
+    return {"events": CUT_ML100K_EVENTS, "train_s": train_s, "mesh_conf": mesh_conf,
+            "launches": launches, "items": n_items, "item_table_rows": table_rows,
+            "answer_u1": [[x.item, x.score] for x in answer.item_scores]}
+
+
+def ncf_mesh_train_phase(ratings, device="cuda") -> dict:
+    """NCF over a mesh on the card (``train_ncf(mesh=)``, ``MeshNCF``), on
+    ``ncf_train``'s ML-20M positives and 4 slots of ``cuda:0`` as
+    NCF_MESH_AXES: (a) one epoch of the template's defaults (embed 32, MLP
+    (64, 32, 16), bpr, batch 8,192) over the first NCF_MESH_POSITIVES
+    positives, the mesh beside the one-slot train from the same tree
+    (drawn at the padded shape, 138,494 x 26,744) and the same draws, both
+    step times; the first step held strictly (``ncf_mesh_step_hold``), the
+    epoch within the one-slot train's own 1-ulp band (``ncf_band_gate``),
+    the block copies bit for bit, the loss on the first batch falling;
+    (b) the pretrain recipe over the mesh:
+    ``train_als(mesh=)`` at rank 32, implicit, NCF_MESH_ALS_ITERATIONS
+    iterations over every positive (kernel 1 once per data slot per
+    half-step: 8), each data slot's stats held to the plain version and
+    kernel 1 timed at one slot's shape, then one full_softmax epoch of
+    ``train_ncf(mesh=)`` from those tables; (c) two processes on
+    ``cuda:0`` over gloo, 2 slots each, on the first
+    NCF_MESH_RANK_POSITIVES positives, rank 0's tree held to the
+    one-process mesh train within that train's 1-ulp band; (d)
+    ``run_train`` of the template
+    with an engine.json mesh (``ncf_mesh_engine_train``).  ``device="cpu"``
+    rehearses it with the plain versions at whatever shape the ML20M_*
+    constants give."""
+    from predictionio_tpu_torch.models.ncf import engine as ncf_engine
+    from predictionio_tpu_torch.ops import als, ncf
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    slot = "cuda:0" if on_card else "cpu"
+    u, i, r = ratings
+    positives = r >= 4.0
+    pos_u, pos_i = u[positives], i[positives]
+    out: dict = {"phase": "ncf_mesh_train", "mesh": dict(NCF_MESH_AXES),
+                 "slots": 4, "positives": int(positives.sum())}
+    part_s = out["part_s"] = {}
+    mesh = make_mesh(MeshConfig(dict(NCF_MESH_AXES)), devices=[slot] * 4)
+    m = NCF_MESH_AXES["model"]
+    nu_pad, ni_pad = -(-ML20M_USERS // m) * m, -(-ML20M_ITEMS // m) * m
+    workers_dir = tempfile.TemporaryDirectory()
+    procs: list = []
+    try:
+        # -- (a) the defaults' epoch, one slot then the mesh --
+        t_part = time.perf_counter()
+        n_a = NCF_MESH_POSITIVES
+        u_a, i_a = pos_u[:n_a], pos_i[:n_a]
+        p = ncf.NCFParams(num_epochs=1)
+        tree = ncf.init_ncf(torch.Generator().manual_seed(p.seed), nu_pad, ni_pad, p)
+        stream = ncf.stage_stream(u_a, i_a, p, dev, multiple=NCF_MESH_AXES["data"])
+        cdf = torch.from_numpy(ncf.negative_sampling_cdf(i_a, ML20M_ITEMS, p.neg_power)).to(dev)
+        b = stream.batch
+        first = (stream.u[:b], stream.i[:b],
+                 torch.from_numpy(np.random.default_rng(SEED + 82).integers(
+                     0, ML20M_ITEMS, (b, 1))).to(dev),
+                 stream.valid[:b], stream.w[:b])
+        step_hold = ncf_mesh_step_hold(mesh, tree, p, first, ML20M_ITEMS)
+
+        def one_slot(start):
+            leaves = ncf.tree_map(
+                lambda x: x.to(dev, copy=True).requires_grad_(True), start)
+            opt = ncf.make_optimizer(leaves, p)
+            ncf.train_epoch(leaves, opt, stream, p, ML20M_ITEMS,
+                            torch.Generator(device=dev).manual_seed(p.seed), cdf)
+            return ncf.tree_map(lambda x: x.detach(), leaves)
+
+        with torch.no_grad():
+            loss0 = float(ncf.bpr_loss(ncf.tree_map(lambda x: x.to(dev), tree),
+                                       *first[:4]))
+        _sync(device)
+        t0 = time.perf_counter()
+        one = one_slot(tree)
+        _sync(device)
+        one_s = time.perf_counter() - t0
+        nudged = one_slot(nudge(tree))
+        st = ncf.MeshNCF(mesh, tree, p)
+        del tree
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        t0 = time.perf_counter()
+        epoch_loss = float(st.train_epoch(
+            stream, ML20M_ITEMS, torch.Generator(device=dev).manual_seed(p.seed), cdf))
+        _sync(device)
+        mesh_s = time.perf_counter() - t0
+        launches_a = read_launches()
+        # -- end --
+        t_workers = time.perf_counter()
+        procs.extend(start_ncf_mesh_workers(Path(workers_dir.name), pos_u, pos_i, device))
+        part_s["c_start"] = time.perf_counter() - t_workers
+        meshed = st.gathered()
+        with torch.no_grad():
+            loss1 = float(ncf.bpr_loss(meshed, *first[:4]))
+        assert loss1 < loss0, (loss0, loss1)
+        steps = stream.n_steps
+        out["a"] = {
+            "positives": n_a, "steps": steps, "batch": stream.batch,
+            "padded": [nu_pad, ni_pad], "epoch_loss": epoch_loss,
+            "first_batch_loss": [loss0, loss1],
+            "one_slot_step_ms": 1e3 * one_s / steps, "mesh_step_ms": 1e3 * mesh_s / steps,
+            "mesh_phase_ms_per_step": {k: v / steps for k, v in st.clock.ms().items()},
+            "launches": launches_a, "copy_pairs_equal": copies_equal(st),
+            "first_step": step_hold,
+            "gate": ncf_band_gate(meshed, one, nudged, ML20M_USERS, ML20M_ITEMS,
+                                  "4 slots against one"),
+        }
+        if on_card:
+            print(f"ncf_mesh_train (a): {steps} steps, mesh "
+                  f"{out['a']['mesh_step_ms']:.2f} ms a step against "
+                  f"{out['a']['one_slot_step_ms']:.2f} ms on one slot", flush=True)
+        del st, one, nudged, meshed, stream
+        part_s["a"] = time.perf_counter() - t_part
+
+        # -- (b) the pretrain recipe over the mesh --
+        t_part = time.perf_counter()
+        pre = ncf_engine.NCFAlgorithmParams(**NCF_PRETRAIN)
+        p32 = als.ALSParams(rank=pre.embed_dim, num_iterations=NCF_MESH_ALS_ITERATIONS,
+                            reg=0.01, seed=pre.seed, implicit_prefs=True, alpha=pre.alpha)
+        p_ft = dataclasses.replace(ncf_engine.NCFAlgorithm(pre)._ncf_params(),
+                                   num_epochs=1)
+        _sync(device)
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        t0 = time.perf_counter()
+        als_state = als.train_als(pos_u, pos_i, np.ones(len(pos_u), np.float32),
+                                  ML20M_USERS, ML20M_ITEMS, p32, mesh=mesh)
+        _sync(device)
+        als_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fine = ncf.train_ncf(u_a, i_a, ML20M_USERS, ML20M_ITEMS, p_ft, mesh=mesh,
+                             initial_params={"user_emb": als_state.user_factors,
+                                             "item_emb": als_state.item_factors})
+        _sync(device)
+        ft_s = time.perf_counter() - t0
+        launches_b = read_launches()
+        # -- end --
+        info = dict(ncf.LAST_MESH_INFO)
+        assert not on_card or launches_b["als_fused_accum"] == (
+            2 * NCF_MESH_AXES["data"] * NCF_MESH_ALS_ITERATIONS), launches_b
+        assert np.isfinite(fine.epoch_losses).all(), fine.epoch_losses
+        staged = next(iter(als._STAGE_CACHE.values()))
+        assert sorted(staged) == list(range(NCF_MESH_AXES["data"])), sorted(staged)
+        Vp = pad_rows(als_state.item_factors, (ML20M_ITEMS + 127) // 128 * 128)
+        out["b"] = {
+            "als_iterations": NCF_MESH_ALS_ITERATIONS, "als_s": als_s,
+            "als_stage_s": als.LAST_PLAN_INFO["stage_s"],
+            "als_phase_ms_per_iteration": {
+                k: v / NCF_MESH_ALS_ITERATIONS
+                for k, v in als.LAST_PLAN_INFO["mesh_ms"].items()},
+            "launches": launches_b,
+            "slot_max_abs_err": [
+                fused_hold(staged[pos][0], Vp, p32, f"data slot {pos}'s user half-step")
+                for pos in sorted(staged)],
+            "full_softmax_epoch_s": ft_s, "full_softmax_epoch_loss": fine.epoch_losses,
+            "full_softmax_step_ms": 1e3 * fine.epoch_seconds[0] / info["steps_per_epoch"],
+            "full_softmax_phase_ms_per_step": {
+                k: v / info["steps_per_epoch"] for k, v in info["mesh_ms"].items()},
+            "catalog_gather_mb_per_step": info["gather_bytes_per_step"] / 1e6,
+            "route_mb_per_step": info["route_bytes_per_step"] / 1e6,
+            "shards": info["shards"],
+        }
+        if on_card:
+            out["b"]["kernel1_one_slot"] = fused_timing(staged[0][0], Vp, p32)
+            print(f"ncf_mesh_train (b): kernel 1 at one data slot's shape "
+                  f"{out['b']['kernel1_one_slot']['ms']:.4f} ms, "
+                  f"{launches_b['als_fused_accum']} launches", flush=True)
+        del staged, Vp, als_state, fine
+        als._STAGE_CACHE.clear()
+        part_s["b"] = time.perf_counter() - t_part
+
+        # -- (d) run_train of the template over the mesh --
+        t_part = time.perf_counter()
+        out["d"] = ncf_mesh_engine_train(device, slot)
+        part_s["d"] = time.perf_counter() - t_part
+        print(f"ncf_mesh_train (d): mesh_conf {out['d']['mesh_conf']}, kernel 1 "
+              f"{out['d']['launches']['als_fused_accum']} launches, u1 -> "
+              f"{out['d']['answer_u1'][:3]}", flush=True)
+
+        # -- (c) two processes, held to the one-process mesh train --
+        t_part = time.perf_counter()
+        n_c = NCF_MESH_RANK_POSITIVES
+        p_c = ncf.NCFParams(num_epochs=1)
+        ref = ncf.train_ncf(pos_u[:n_c], pos_i[:n_c], ML20M_USERS, ML20M_ITEMS,
+                            p_c, mesh=mesh)
+        # the same train from a start one ulp away, for the band
+        st_c = ncf.MeshNCF(mesh, nudge(ncf.init_ncf(
+            torch.Generator().manual_seed(p_c.seed), nu_pad, ni_pad, p_c)), p_c)
+        st_c.train_epoch(
+            ncf.stage_stream(pos_u[:n_c], pos_i[:n_c], p_c, dev,
+                             multiple=NCF_MESH_AXES["data"]),
+            ML20M_ITEMS, torch.Generator(device=dev).manual_seed(p_c.seed),
+            torch.from_numpy(ncf.negative_sampling_cdf(
+                pos_i[:n_c], ML20M_ITEMS, p_c.neg_power)).to(dev))
+        nudged_c = st_c.gathered()
+        del st_c
+        tmp = Path(workers_dir.name)
+        (tmp / "go").touch()
+        try:
+            results = [proc.communicate(timeout=NCF_MESH_WORKER_TIMEOUT_S)
+                       for proc in procs]
+        except subprocess.TimeoutExpired:
+            raise AssertionError(
+                f"an ncf_mesh_train worker ran past {NCF_MESH_WORKER_TIMEOUT_S} s")
+        for rank, (proc, (_, stderr)) in enumerate(zip(procs, results)):
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"ncf_mesh_train worker {rank} exited {proc.returncode}:\n"
+                    f"{stderr[-4000:]}")
+        workers = [json.loads(stdout.splitlines()[-1]) for stdout, _ in results]
+        saved = np.load(tmp / "tree.npz")
+        two = tree_from_leaves(ref.params, [torch.from_numpy(saved[f"arr_{j}"]).to(dev)
+                                            for j in range(len(saved.files))])
+        for w in workers:
+            assert w["backend"] == "gloo" and w["mesh"] == NCF_MESH_AXES, w
+            assert w["local_positions"] == [w["rank"]], w
+        out["c"] = {"positives": n_c, "ranks": workers,
+                    "wall_s": max(w["process_s"] for w in workers),
+                    "one_process_epoch_loss": ref.epoch_losses,
+                    "gate": ncf_band_gate(two, ref.params, nudged_c, ML20M_USERS,
+                                          ML20M_ITEMS, "two processes against one")}
+        print(f"ncf_mesh_train (c): backend {workers[0]['backend']}, all_reduce "
+              f"{[round(w['all_reduce_ms_per_call'], 3) for w in workers]} ms a call "
+              f"({workers[0]['all_reduce_mb_per_call']:.1f} MB), status "
+              f"{[round(w['status_ms_per_call'], 3) for w in workers]} ms", flush=True)
+        part_s["c"] = time.perf_counter() - t_part
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        workers_dir.cleanup()
+    if on_card:
+        out["nvidia_smi"] = nvidia_smi_line()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def tree_from_leaves(like: dict, leaves: list) -> dict:
+    """The tree of ``like``'s structure holding ``leaves`` in
+    ``ops.ncf.tree_leaves`` order (dict keys sorted)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(like)
+
+
 def ncf_host_answer(hp: dict, uidx: int, num: int) -> tuple[list, list]:
     """The numpy host replica's num + 1 best (``_host_score_topk``)."""
     from predictionio_tpu_torch.models.ncf.engine import _host_score_topk
@@ -4511,8 +5065,9 @@ def ncf_serving_phase(storage, served) -> dict:
     return out
 
 
-def ncf_phases(ratings) -> tuple[dict, dict]:
-    """The ncf template on the card: ``ncf_train`` then ``ncf_serving``."""
+def ncf_phases(ratings) -> tuple[dict, dict, dict]:
+    """The ncf template on the card: ``ncf_train``, ``ncf_serving``, then
+    ``ncf_mesh_train`` on the same positives."""
     from predictionio_tpu_torch.data.storage.config import (
         StorageConfig,
         StorageRuntime,
@@ -4528,7 +5083,9 @@ def ncf_phases(ratings) -> tuple[dict, dict]:
             emit(serving)
         finally:
             storage.close()
-    return train, serving
+    mesh = ncf_mesh_train_phase(ratings)
+    emit(mesh)
+    return train, serving, mesh
 
 
 #: the evaluation a user writes for ``pio eval``: the recommendation
@@ -8953,7 +9510,7 @@ def main() -> int:
     emit({"phase": "als_kernel_timing", "als_fused_accum": fused_t,
           "als_segment_accum": chunk_t})
     family_train, _, family_cli = als_family_phases(ratings)
-    ncf_train, _ = ncf_phases(ratings)
+    ncf_train, _, ncf_mesh = ncf_phases(ratings)
     ingest = event_ingest_phase()
     emit(ingest)
     emit(classification_phase())
@@ -9113,6 +9670,20 @@ def main() -> int:
                     mesh_bound_ms=mesh_train["kernel1_one_slot"]["bound_ms"],
                     mesh_bound_by=mesh_train["kernel1_one_slot"]["bound_by"],
                     mesh_max_abs_err=max(mesh_train["slot_max_abs_err"]),
+                    # ncf_mesh_train: the NCF pretrain over {data: 2, model:
+                    # 2} slots of cuda:0 (2 data slots x 2 x 2 iterations)
+                    # and the ncf template's 4-slot run_train (2 x 2 x 20);
+                    # timed at one data slot's share of the rank-32
+                    # implicit stream (ncf_mesh_*)
+                    launches_ncf_mesh=ncf_mesh["b"]["launches"]["als_fused_accum"],
+                    launches_ncf_mesh_engine=ncf_mesh["d"]["launches"]["als_fused_accum"],
+                    ncf_mesh_shape=ncf_mesh["b"]["kernel1_one_slot"]["shape"],
+                    ncf_mesh_ms=ncf_mesh["b"]["kernel1_one_slot"]["ms"],
+                    ncf_mesh_plain_ms=ncf_mesh["b"]["kernel1_one_slot"]["plain_ms"],
+                    ncf_mesh_bound_ms=ncf_mesh["b"]["kernel1_one_slot"]["bound_ms"],
+                    ncf_mesh_bound_by=ncf_mesh["b"]["kernel1_one_slot"]["bound_by"],
+                    ncf_mesh_library_ms=None,
+                    ncf_mesh_max_abs_err=max(ncf_mesh["b"]["slot_max_abs_err"]),
                     # rank 32, implicit, on the pretrain's ML-20M user half-step
                     rank32_shape=rank32_t["shape"],
                     rank32_ms=rank32_t["ms"],

@@ -11,7 +11,11 @@ package deploys on the other.
   ``pretrain="als"`` the pure-GMF tables start from implicit ALS at rank
   ``embed_dim`` (``ops.als.train_als``: the hand-written accumulator kernel
   on a card); a previous generation's tables (``run_train(
-  warm_start_from=...)``) take precedence over both.
+  warm_start_from=...)``) take precedence over both.  A context whose mesh
+  has more than one slot runs both over it (``train_als(mesh=)``, kernel 1
+  once per data slot; ``train_ncf(mesh=)``, the tables split over
+  ``model``), as the JAX package does; the model then holds the tables
+  padded to the ``model`` axis, and no answer reaches a padded row.
 - Solo queries (``predict``) are answered from the host numpy replica
   (``_host_score_topk``, the JAX package's code), repeat users from the
   model's factor cache.
@@ -276,6 +280,8 @@ class NCFAlgorithm(Algorithm):
             raise SanityCheckError(
                 f"no positive interactions (rating >= {p.positive_threshold})"
             )
+        # more than one slot: the pretrain and the train run over the mesh
+        mesh = ctx.mesh if ctx.mesh.devices.size > 1 else None
         # a previous generation's tables take precedence over re-running
         # the ALS pretrainer
         initial = self._warm_start_initial(ctx, pd)
@@ -293,6 +299,7 @@ class NCFAlgorithm(Algorithm):
                     seed=p.seed, implicit_prefs=True, alpha=p.alpha,
                 ),
                 device=ctx.device,
+                mesh=mesh,
             )
             initial = {"user_emb": als.user_factors, "item_emb": als.item_factors}
         state = train_ncf(
@@ -303,6 +310,7 @@ class NCFAlgorithm(Algorithm):
             params=self._ncf_params(),
             initial_params=initial,
             device=ctx.device,
+            mesh=mesh,
         )
         return NCFModel(
             state=state, user_vocab=pd.user_vocab, item_vocab=pd.item_vocab

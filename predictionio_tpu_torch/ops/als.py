@@ -582,13 +582,26 @@ class _PhaseClock:
         return out
 
 
+def _tensors(tree):
+    """The tensors of a result: a tensor, or lists, tuples and dicts of
+    them (anything else holds none)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 def _on_slots(mesh, work: dict, owners: list, uses) -> dict:
     """``{pos: fn()}`` for ``work = {pos: fn}``, each on its owner slot: a
     CUDA slot's work on the slot's stream after everything queued so far
     on its device's current stream, the current streams then waiting on
     every slot (``uses(pos)`` names the tensors of the current stream that
-    the slot reads; the results cross the other way).  On the CPU, one
-    after another."""
+    the slot reads; the results, tensors or lists, tuples and dicts of
+    them, cross the other way).  On the CPU, one after another."""
     out, streams = {}, {}
     for pos, fn in work.items():
         slot = owners[pos]
@@ -600,15 +613,16 @@ def _on_slots(mesh, work: dict, owners: list, uses) -> dict:
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             out[pos] = fn()
-        for t in uses(pos):
+        for t in _tensors(uses(pos)):
             t.record_stream(stream)
         streams[slot] = (stream, dev)
     for stream, dev in streams.values():
         torch.cuda.current_stream(dev).wait_stream(stream)
-    for pos, t in out.items():
+    for pos, result in out.items():
         dev = mesh.slots[owners[pos]]
         if dev.type == "cuda":
-            t.record_stream(torch.cuda.current_stream(dev))
+            for t in _tensors(result):
+                t.record_stream(torch.cuda.current_stream(t.device))
     return out
 
 
@@ -635,8 +649,8 @@ def _gather_table(mesh, parts: dict, n_data: int, owners: list) -> dict:
             for dev in mesh.physical_devices}
 
 
-def _together(mesh, fn):
-    """``fn()``, this rank's part of a step.  In a multi-process mesh every
+def _together(mesh, fn, what: str = "train_als"):
+    """``fn()``, this rank's part of a step of ``what``.  In a multi-process mesh every
     rank then learns whether any rank's part raised (after its queued
     device work ran, so that a failed launch counts), and if one did,
     every rank raises: the one that failed its own error, its peers a
@@ -657,7 +671,7 @@ def _together(mesh, fn):
     failed = failed_ranks(False)
     if failed:
         raise RuntimeError(
-            f"train_als: rank(s) {failed} failed their part of the step; "
+            f"{what}: rank(s) {failed} failed their part of the step; "
             f"rank {mesh.process_index} stops with them"
         )
     return out

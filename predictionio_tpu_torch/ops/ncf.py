@@ -1,4 +1,5 @@
-"""Neural Collaborative Filtering (two-tower GMF + MLP) on one device.
+"""Neural Collaborative Filtering (two-tower GMF + MLP), on one device or
+over a mesh.
 
 The port of the JAX package's ``ops/ncf.py``: the same parameter tree, the
 same forward, the same four losses and the same Adam/AdamW epoch, in eager
@@ -22,10 +23,21 @@ PyTorch on the tables' device (a card, or the CPU when asked).
   step reads a value back to the host: an epoch's loss stays on the
   device until the train ends.
 
+- Over a mesh (``train_ncf(mesh=)``, JAX ``param_shardings`` and the
+  GSPMD epoch): the tables are padded to a multiple of the ``model`` axis
+  and row-split over it, their Adam moments with them, every other leaf
+  replicated (:func:`param_shardings`, :class:`MeshNCF`); each batch is
+  split over ``data``.  Each data position's slot gathers the rows its
+  share reads (the whole-catalog losses: every item block), computes its
+  loss terms over the whole batch's valid count and their gradients on
+  the slot's stream; the gradients are summed in slot order (across ranks
+  by one ``all_reduce`` a step) and every copy of a leaf takes the same
+  update.  The draws are the one-slot train's, from one generator on the
+  merge device.
+
 Nothing here is computed in Pallas in the JAX package, so nothing here is a
-hand-written kernel: the tower, the losses, Adam and the wave's top-k are
-torch ops.  The mesh training paths (``param_shardings``) belong to the
-multi-device training slice; sharded serving is the engine's
+hand-written kernel: the tower, the losses, Adam, the gradient routing and
+the wave's top-k are torch ops.  Sharded serving is the engine's
 (``parallel/placement.py``).
 """
 
@@ -34,7 +46,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -225,9 +237,14 @@ def score_users_vs_items(
     return scores
 
 
-def _mean_valid(losses: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    # the count clamps on the device: no host read inside a step
-    return (losses * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+def _mean_valid(losses: torch.Tensor, valid: torch.Tensor,
+                count: torch.Tensor | None = None) -> torch.Tensor:
+    # the count clamps on the device: no host read inside a step.  A mesh
+    # passes the whole batch's count, so each data position's partial sum
+    # is its share of the global mean
+    if count is None:
+        count = torch.clamp(valid.sum(), min=1.0)
+    return (losses * valid).sum() / count
 
 
 def _pos_neg(params, user_idx, pos_idx, neg_idx):
@@ -239,19 +256,24 @@ def _pos_neg(params, user_idx, pos_idx, neg_idx):
     return pos, neg
 
 
-def bpr_loss(params: dict, user_idx, pos_idx, neg_idx, valid) -> torch.Tensor:
+def bpr_loss(params: dict, user_idx, pos_idx, neg_idx, valid,
+             count=None) -> torch.Tensor:
     """Bayesian Personalized Ranking over K negatives: mean over pairs of
-    -log sigmoid(s_pos - s_neg).  ``neg_idx`` is [b, K]."""
+    -log sigmoid(s_pos - s_neg).  ``neg_idx`` is [b, K].  ``count``, when
+    given, is the mean's denominator (every loss here takes it: a mesh's
+    global valid count); by default ``valid``'s sum, at least 1."""
     pos, neg = _pos_neg(params, user_idx, pos_idx, neg_idx)
-    return _mean_valid(-F.logsigmoid(pos[:, None] - neg).mean(dim=1), valid)
+    return _mean_valid(-F.logsigmoid(pos[:, None] - neg).mean(dim=1), valid,
+                       count)
 
 
-def sampled_softmax_loss(params: dict, user_idx, pos_idx, neg_idx, valid):
+def sampled_softmax_loss(params: dict, user_idx, pos_idx, neg_idx, valid,
+                         count=None):
     """(1+K)-way sampled softmax: the positive against all K sampled
     negatives jointly.  ``neg_idx`` is [b, K]."""
     pos, neg = _pos_neg(params, user_idx, pos_idx, neg_idx)
     logits = torch.cat([pos[:, None], neg], dim=1)  # [b, 1+K]
-    return _mean_valid(-torch.log_softmax(logits, dim=1)[:, 0], valid)
+    return _mean_valid(-torch.log_softmax(logits, dim=1)[:, 0], valid, count)
 
 
 def _catalog_logits(params: dict, user_idx) -> torch.Tensor:
@@ -263,7 +285,7 @@ def _catalog_logits(params: dict, user_idx) -> torch.Tensor:
 
 
 def full_softmax_loss(params: dict, user_idx, pos_idx, valid,
-                      n_items: int | None = None):
+                      n_items: int | None = None, count=None):
     """Exact softmax cross-entropy over the WHOLE catalog per positive; the
     logits are one [b, d] @ [d, n_items] matmul.  Needs the pure-GMF head;
     table rows at or past ``n_items`` take no part."""
@@ -277,11 +299,11 @@ def full_softmax_loss(params: dict, user_idx, pos_idx, valid,
         logits = torch.where(keep[None, :], logits, float("-inf"))
     logp = torch.log_softmax(logits, dim=1)
     picked = torch.gather(logp, 1, pos_idx[:, None].long())[:, 0]
-    return _mean_valid(-picked, valid)
+    return _mean_valid(-picked, valid, count)
 
 
 def wals_loss(params: dict, user_idx, pos_idx, valid, inv_count,
-              alpha: float, n_items: int):
+              alpha: float, n_items: int, count=None):
     """The implicit-ALS objective as a stream loss:
 
         L = sum_u [ sum_{i in P_u} ((1+a)(1 - s_ui)^2 - s_ui^2)
@@ -300,7 +322,7 @@ def wals_loss(params: dict, user_idx, pos_idx, valid, inv_count,
         - s_pos**2
         + inv_count * (s * s).sum(dim=1)
     )
-    return _mean_valid(per_row, valid)
+    return _mean_valid(per_row, valid, count)
 
 
 _SAMPLED_LOSSES = {"bpr": bpr_loss, "softmax": sampled_softmax_loss}
@@ -378,11 +400,14 @@ class Stream:
 
 
 def stage_stream(user_idx: np.ndarray, item_idx: np.ndarray, p: NCFParams,
-                 device: torch.device) -> Stream:
+                 device: torch.device, multiple: int = 1) -> Stream:
     """Pad the positives to ``n_steps * batch`` rows (``valid`` masks the
-    padding) and upload them once."""
+    padding) and upload them once.  ``multiple`` rounds the batch up to a
+    multiple of it (a mesh's ``data`` axis size, as the JAX package
+    rounds it)."""
     n_pos = len(user_idx)
     bs = min(p.batch_size, max(n_pos, 1))
+    bs = -(-bs // multiple) * multiple
     n_steps = max((n_pos + bs - 1) // bs, 1)
     total = n_steps * bs
     u_all = np.zeros(total, np.int64)
@@ -402,6 +427,42 @@ def stage_stream(user_idx: np.ndarray, item_idx: np.ndarray, p: NCFParams,
                   n_steps, bs)
 
 
+def epoch_batches(
+    stream: Stream,
+    p: NCFParams,
+    n_items: int,
+    generator: torch.Generator | None = None,
+    neg_cdf: torch.Tensor | None = None,
+    perm: torch.Tensor | None = None,
+    negatives: Callable[[int], torch.Tensor] | None = None,
+) -> Iterator[tuple]:
+    """One epoch's batches ``(u, pos, neg, valid, w)``: the stream in
+    permuted order, ``stream.n_steps`` of them.  The permutation and each
+    step's negatives (``None`` for the whole-catalog losses) are drawn from
+    ``generator`` (over ``neg_cdf``) unless given: ``perm`` a permutation
+    of the padded stream, ``negatives(step)`` the step's [batch, K] ids.
+    One-slot and mesh epochs draw through here, so both take the same
+    draws from one seed."""
+    if perm is None:
+        perm = torch.randperm(
+            stream.u.shape[0], generator=generator, device=stream.u.device
+        )
+    us, ps, vs, ws = (
+        x[perm].view(stream.n_steps, stream.batch)
+        for x in (stream.u, stream.i, stream.valid, stream.w)
+    )
+    k_neg = max(p.negatives_per_positive, 1)
+    for s in range(stream.n_steps):
+        neg = None
+        if p.loss in _SAMPLED_LOSSES:
+            neg = (
+                negatives(s) if negatives is not None
+                else sample_negatives(neg_cdf, stream.batch, k_neg, n_items,
+                                      generator)
+            )
+        yield us[s], ps[s], neg, vs[s], ws[s]
+
+
 def train_epoch(
     params: dict,
     optimizer: torch.optim.Optimizer,
@@ -413,31 +474,13 @@ def train_epoch(
     perm: torch.Tensor | None = None,
     negatives: Callable[[int], torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """One epoch: the stream in permuted order, ``stream.n_steps`` steps.
-    The permutation and each step's negatives are drawn from
-    ``generator`` (over ``neg_cdf``) unless given: ``perm`` a permutation
-    of the padded stream, ``negatives(step)`` the step's [batch, K] ids.
+    """One epoch over :func:`epoch_batches` (which see for the draws).
     Returns the mean step loss, a 0-d tensor on the device."""
-    if perm is None:
-        perm = torch.randperm(
-            stream.u.shape[0], generator=generator, device=stream.u.device
-        )
-    us, ps, vs, ws = (
-        x[perm].view(stream.n_steps, stream.batch)
-        for x in (stream.u, stream.i, stream.valid, stream.w)
-    )
-    k_neg = max(p.negatives_per_positive, 1)
     total = torch.zeros((), device=stream.u.device)
-    for s in range(stream.n_steps):
-        neg = None
-        if p.loss in _SAMPLED_LOSSES:
-            neg = (
-                negatives(s) if negatives is not None
-                else sample_negatives(neg_cdf, stream.batch, k_neg, n_items,
-                                      generator)
-            )
+    for u, pos, neg, valid, w in epoch_batches(
+            stream, p, n_items, generator, neg_cdf, perm, negatives):
         total = total + train_step(
-            params, optimizer, us[s], ps[s], neg, vs[s], ws[s], p, n_items
+            params, optimizer, u, pos, neg, valid, w, p, n_items
         )
     return total / stream.n_steps
 
@@ -482,10 +525,22 @@ def train_ncf(
     params: NCFParams | None = None,
     initial_params: dict | None = None,
     device: torch.device | str | None = None,
+    mesh=None,
 ) -> NCFState:
     """Train from positive (user, item) interactions on ``device``
     (``None`` means CUDA, and raises without a card unless
     ``device="cpu"``).
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` of ``data`` and ``model`` axes) of
+    more than one slot trains over its slots, which then name the devices
+    (``device`` is not read): the tables are padded to a multiple of the
+    ``model`` axis and drawn at that shape, split over ``model`` with
+    their Adam moments (:class:`MeshNCF`), and each batch, rounded up to a
+    multiple of the ``data`` axis, split over ``data``.  In a
+    multi-process mesh every rank passes the identical full arrays (the
+    JAX package's contract) and computes only its own data positions.  The
+    state then holds the whole tree, padded rows kept, on the merge device.
+    A mesh of one slot, or None, trains on ``device``.
 
     The init is drawn on the host from a generator seeded with ``p.seed``
     (so a CPU and a CUDA train start from the same tables), then overlaid
@@ -494,6 +549,9 @@ def train_ncf(
     ``p.seed``.  The train ends with one read of the epochs' losses, which
     also waits for the card."""
     p = params or NCFParams()
+    if mesh is not None and mesh.devices.size > 1:
+        return _train_mesh(user_idx, item_idx, n_users, n_items, p,
+                           initial_params, mesh)
     dev = resolve_device(device)
     g_init = torch.Generator(device="cpu")
     g_init.manual_seed(p.seed)
@@ -595,3 +653,424 @@ def ncf_wave_least_work(
             + (n_items if item_bias else 0) + 2 * batch * k
         ),
     }
+
+
+# -- over a mesh -------------------------------------------------------------
+
+#: the leaves a mesh's ``model`` axis splits by rows
+TABLES = ("user_emb", "item_emb")
+
+#: diagnostics of the most recent mesh train: the layout, the bytes one
+#: step gathers and routes, and each phase's milliseconds
+LAST_MESH_INFO: dict = {}
+
+
+@dataclass(frozen=True)
+class Placement:
+    """One leaf's place on a mesh: ``blocks`` row blocks of ``rows`` rows,
+    block ``m`` held whole by every slot at position ``m`` of the ``model``
+    axis (the JAX package's ``PSpec("model", None)``).  One block is the
+    whole leaf on every slot (``PSpec()``)."""
+
+    blocks: int = 1
+    rows: int = 0
+
+    def block(self, m: int) -> slice:
+        return slice(m * self.rows, (m + 1) * self.rows)
+
+
+def param_shardings(mesh, params: dict) -> dict:
+    """Where each leaf of ``params`` lives on ``mesh``, as the JAX package
+    places it: the two embedding tables row-split over ``model`` when the
+    mesh has that axis, every other leaf (the item bias, the MLP,
+    ``out_w``/``out_b``) replicated.  A tree of :class:`Placement` in the
+    tree's shape; a mesh without a ``model`` axis replicates the tables
+    too.  Table rows must divide by the axis size (``train_ncf`` pads
+    them first)."""
+    n_model = int(mesh.shape.get("model", 1))
+
+    def table(name, leaf):
+        n = int(leaf.shape[0])
+        if n % n_model:
+            raise ValueError(
+                f"param_shardings: {name} has {n} rows, which the model axis "
+                f"of {n_model} does not divide"
+            )
+        return Placement(n_model, n // n_model)
+
+    return {
+        name: table(name, leaf) if name in TABLES
+        else tree_map(lambda _: Placement(), leaf)
+        for name, leaf in params.items()
+    }
+
+
+class _Layout:
+    """Which slot holds and computes what on a mesh of ``{data: D, model:
+    M}`` slots (either axis may be absent, size 1).  Slot ``(d, m)`` holds
+    block ``m`` of each table and every replicated leaf whole; data
+    position ``d`` computes on slot ``(d, 0)``, reading the blocks of the
+    slots ``(d, m)``.  Across processes a rank computes the data positions
+    whose slot ``(d, 0)`` is its own, and must hold every ``(d, m)`` of
+    them."""
+
+    def __init__(self, mesh):
+        extra = set(mesh.shape) - {"data", "model"}
+        if extra:
+            raise ValueError(
+                f"train_ncf: mesh axes {sorted(extra)} are neither 'data' nor "
+                f"'model': {mesh.shape}"
+            )
+        n = len(mesh.slots)
+        self.n_data = int(mesh.shape.get("data", 1))
+        self.n_model = int(mesh.shape.get("model", 1))
+        self.d_of = mesh.positions("data") if "data" in mesh.shape else [0] * n
+        self.m_of = mesh.positions("model") if "model" in mesh.shape else [0] * n
+        self.at = {}
+        for slot in range(n):  # the first slot of each (d, m)
+            self.at.setdefault((self.d_of[slot], self.m_of[slot]), slot)
+        self.owner = [self.at[(d, 0)] for d in range(self.n_data)]
+        local = set(mesh.local_slots)
+        self.mine = [d for d in range(self.n_data) if self.owner[d] in local]
+        for d in self.mine:
+            far = [self.at[(d, m)] for m in range(self.n_model)
+                   if self.at[(d, m)] not in local]
+            if far:
+                raise ValueError(
+                    f"train_ncf: rank {mesh.process_index} computes data "
+                    f"position {d} but slots {far} of its blocks are another "
+                    "rank's; lay the mesh out so that a rank holds every "
+                    "model block of its data positions"
+                )
+
+
+def _leaf_names(tree: dict) -> list[str]:
+    """The top-level name of each leaf, in :func:`tree_leaves` order."""
+    return [name for name in sorted(tree) for _ in tree_leaves(tree[name])]
+
+
+class MeshNCF:
+    """A parameter tree and its Adam state placed on a mesh
+    (:func:`param_shardings`): each local slot holds its own copy of its
+    leaves, block ``m`` of each table at model position ``m`` and every
+    other leaf whole, and an optimizer of its own over them (so the Adam
+    moments of a table are split as the table is).  Copies of one leaf
+    take the same update, so they stay equal bit for bit.
+
+    :meth:`step` is one optimization step on one global batch: data
+    position ``d`` gathers the table rows its share of the batch reads
+    from the slots ``(d, m)`` (the whole-catalog losses gather every item
+    block), computes its loss terms over the whole batch's valid count and
+    their gradients on its slot's stream, and routes each table row's
+    gradient into dense per-block buffers.  The partials are summed in slot
+    order on the merge device (across ranks, then ``all_reduce``d: one
+    flat buffer a step), and each slot applies the sums to its leaves on
+    its stream.  No float atomics cross slots."""
+
+    def __init__(self, mesh, tree: dict, p: NCFParams):
+        from predictionio_tpu_torch.ops.als import _PhaseClock
+
+        self.mesh, self.p = mesh, p
+        self.layout = _Layout(mesh)
+        self.placement = param_shardings(mesh, tree)
+        self.names = _leaf_names(tree)
+        self.merge = mesh.merge_device
+        #: milliseconds per phase of the steps so far (``clock.ms()``)
+        self.clock = _PhaseClock(self.merge)
+        self.trees: dict[int, dict] = {}
+        self.optimizers: dict[int, torch.optim.Optimizer] = {}
+        for slot in mesh.local_slots:
+            m, dev = self.layout.m_of[slot], mesh.slots[slot]
+
+            def place(name, leaf, m=m, dev=dev):
+                if name in TABLES:
+                    leaf = leaf[self.placement[name].block(m)]
+                return tree_map(
+                    lambda x: torch.as_tensor(x).detach().to(
+                        dev, torch.float32, copy=True).requires_grad_(True),
+                    leaf)
+
+            self.trees[slot] = {k: place(k, v) for k, v in tree.items()}
+            self.optimizers[slot] = make_optimizer(self.trees[slot], p)
+        # the flat gradient's parts: each table block, then each other leaf
+        self.keys = [
+            (j, m)
+            for j, name in enumerate(self.names)
+            for m in (range(self.layout.n_model) if name in TABLES else (None,))
+        ]
+
+    def _holders(self, d: int) -> list[dict]:
+        return [self.trees[self.layout.at[(d, m)]]
+                for m in range(self.layout.n_model)]
+
+    def _rows(self, name: str, holders: list[dict], ids: torch.Tensor,
+              dev: torch.device) -> torch.Tensor:
+        """Table rows ``ids`` gathered from their blocks, exactly."""
+        rows = self.placement[name].rows
+        blk, local = ids // rows, ids % rows
+        out = None
+        for m, held in enumerate(holders):
+            t = held[name].detach()
+            part = t[local.to(t.device)].to(dev)
+            out = part if out is None else torch.where(
+                (blk == m)[:, None], part, out)
+        return out
+
+    def _route(self, name: str, grad_rows: torch.Tensor,
+               ids: torch.Tensor) -> list[torch.Tensor]:
+        """Each block's gradient from per-row gradients: rows of other
+        blocks go to a spare row past the block, which is dropped."""
+        rows = self.placement[name].rows
+        blk, local = ids // rows, ids % rows
+        out = []
+        for m in range(self.layout.n_model):
+            buf = torch.zeros((rows + 1,) + grad_rows.shape[1:],
+                              device=grad_rows.device, dtype=grad_rows.dtype)
+            buf.index_put_((torch.where(blk == m, local, rows),), grad_rows,
+                           accumulate=True)
+            out.append(buf[:rows])
+        return out
+
+    def _position(self, d: int, u, pos, neg, valid, w, count,
+                  n_items: int) -> list:
+        """Data position ``d``'s loss partial and gradient parts (in
+        ``self.keys`` order, the loss first), on its slot."""
+        p, L = self.p, self.layout
+        slot = L.owner[d]
+        dev = self.mesh.slots[slot]
+        u, pos, valid, w, count = (x.to(dev) for x in (u, pos, valid, w, count))
+        holders = self._holders(d)
+        head = {k: tree_map(lambda x: x.detach().requires_grad_(True), v)
+                for k, v in self.trees[slot].items() if k not in TABLES}
+        b = u.shape[0]
+        local_u = torch.arange(b, device=dev)
+        ue = self._rows("user_emb", holders, u, dev).requires_grad_(True)
+        if p.loss in _SAMPLED_LOSSES:
+            neg = neg.to(dev)
+            k = neg.shape[1]
+            item_ids = torch.cat([pos, neg.reshape(-1)])
+            ie = self._rows("item_emb", holders, item_ids, dev).requires_grad_(True)
+            compact = {**head, "user_emb": ue, "item_emb": ie}
+            if "item_bias" in head:
+                compact["item_bias"] = head["item_bias"][item_ids]
+            loss = _SAMPLED_LOSSES[p.loss](
+                compact, local_u, local_u,
+                b + torch.arange(b * k, device=dev).view(b, k), valid, count)
+        else:
+            # the whole-catalog logits need every item block on this slot
+            ie = torch.cat([h["item_emb"].detach().to(dev)
+                            for h in holders]).requires_grad_(True)
+            compact = {**head, "user_emb": ue, "item_emb": ie}
+            if p.loss == "wals":
+                loss = wals_loss(compact, local_u, pos, valid, w, p.alpha,
+                                 n_items, count)
+            else:
+                loss = full_softmax_loss(compact, local_u, pos, valid, n_items,
+                                         count)
+        loss.backward()
+        grads = {"user_emb": self._route("user_emb", ue.grad, u)}
+        if p.loss in _SAMPLED_LOSSES:
+            grads["item_emb"] = self._route("item_emb", ie.grad, item_ids)
+        else:
+            pl = self.placement["item_emb"]
+            grads["item_emb"] = [ie.grad[pl.block(m)]
+                                 for m in range(L.n_model)]
+        head_grads = [x.grad if x.grad is not None else torch.zeros_like(x)
+                      for x in tree_leaves(head)]
+        out, rest = [loss.detach()], iter(head_grads)
+        for j, m in self.keys:
+            out.append(grads[self.names[j]][m] if m is not None else next(rest))
+        return out
+
+    def step(self, u, pos, neg, valid, w, n_items: int) -> torch.Tensor:
+        """One optimization step on one global batch (tensors on the merge
+        device, ``neg`` None for the whole-catalog losses); returns the
+        step's loss before the update, a 0-d tensor on the merge device."""
+        from predictionio_tpu_torch.ops.als import _on_slots, _together
+        from predictionio_tpu_torch.parallel.mesh import all_reduce_sum
+
+        L, mesh = self.layout, self.mesh
+        count = torch.clamp(valid.sum(), min=1.0)
+        share = u.shape[0] // L.n_data
+        batch = (u, pos, neg, valid, w)
+
+        def position(d):
+            rows = slice(d * share, (d + 1) * share)
+            return self._position(
+                d, u[rows], pos[rows], None if neg is None else neg[rows],
+                valid[rows], w[rows], count, n_items)
+
+        def partials():
+            with self.clock("position"):
+                parts = _on_slots(
+                    mesh, {d: (lambda d=d: position(d)) for d in L.mine},
+                    L.owner, lambda d: (*batch, count))
+            with self.clock("sum"):
+                total = None
+                for d in sorted(parts):  # slot order
+                    part = [x.to(self.merge) for x in parts[d]]
+                    total = part if total is None else [
+                        a.add_(b) for a, b in zip(total, part)]
+            return total
+
+        total = _together(mesh, partials, "train_ncf")
+        if mesh.is_multiprocess:
+            with self.clock("collective"):
+                flat = all_reduce_sum(torch.cat([x.reshape(-1) for x in total]))
+                total = [piece.view(x.shape) for piece, x in zip(
+                    flat.split([x.numel() for x in total]), total)]
+        loss, grads = total[0], dict(zip(self.keys, total[1:]))
+
+        def update(slot):
+            m = L.m_of[slot]
+            for j, leaf in enumerate(tree_leaves(self.trees[slot])):
+                key = (j, m) if self.names[j] in TABLES else (j, None)
+                leaf.grad.copy_(grads[key])
+            self.optimizers[slot].step()
+
+        def apply():
+            with self.clock("update"):
+                _on_slots(mesh, {s: (lambda s=s: update(s)) for s in mesh.local_slots},
+                          list(range(len(mesh.slots))), lambda s: total)
+
+        _together(mesh, apply, "train_ncf")
+        return loss
+
+    def train_epoch(self, stream: Stream, n_items: int,
+                    generator: torch.Generator | None = None,
+                    neg_cdf: torch.Tensor | None = None,
+                    perm: torch.Tensor | None = None,
+                    negatives: Callable[[int], torch.Tensor] | None = None,
+                    ) -> torch.Tensor:
+        """One epoch over :func:`epoch_batches` (the same draws as the
+        one-slot :func:`train_epoch`); the mean step loss."""
+        total = torch.zeros((), device=self.merge)
+        for batch in epoch_batches(stream, self.p, n_items, generator,
+                                   neg_cdf, perm, negatives):
+            total = total + self.step(*batch, n_items)
+        return total / stream.n_steps
+
+    def gathered(self, grads: bool = False) -> dict:
+        """The whole tree in the JAX package's layout (padded rows kept)
+        on the merge device: each table's blocks in order, every other
+        leaf from the first local slot.  ``grads`` gathers the gradient
+        the last step applied instead."""
+        def get(x):
+            return (x.grad if grads else x).detach()
+
+        first = self.trees[self.mesh.local_slots[0]]
+        d = self.layout.d_of[self.mesh.local_slots[0]]
+        tree = {k: tree_map(lambda x: get(x).to(self.merge, copy=True), v)
+                for k, v in first.items() if k not in TABLES}
+        for name in TABLES:
+            tree[name] = torch.cat([get(h[name]).to(self.merge)
+                                    for h in self._holders(d)])
+        return tree
+
+    def placed(self):
+        """``(params, table moments)`` as ``placement.ShardedTensor``s for
+        ``parallel.mesh.shard_attribution``: each top-level name's leaves
+        with each local slot's copy, and the Adam moments of the two
+        tables (``exp_avg`` and ``exp_avg_sq`` of each, once the first step
+        made them)."""
+        from predictionio_tpu_torch.parallel.placement import ShardedTensor
+
+        n = len(self.mesh.slots)
+
+        def sharded(pick, name, shape):
+            locals_ = [None] * n
+            for slot in self.mesh.local_slots:
+                locals_[slot] = pick(slot)
+            axis = "model" if name in TABLES and self.layout.n_model > 1 else None
+            return ShardedTensor(self.mesh, axis, locals_, shape)
+
+        slot0 = self.mesh.local_slots[0]
+        params: dict[str, list] = {}
+        moments: list = []
+        for j, (name, leaf) in enumerate(
+                zip(self.names, tree_leaves(self.trees[slot0]))):
+            shape = tuple(leaf.shape)
+            if name in TABLES:
+                shape = (self.placement[name].blocks * shape[0],) + shape[1:]
+            params.setdefault(name, []).append(sharded(
+                lambda s, j=j: tree_leaves(self.trees[s])[j], name, shape))
+            if name in TABLES and self.optimizers[slot0].state:
+                for moment in ("exp_avg", "exp_avg_sq"):
+                    moments.append(sharded(
+                        lambda s, j=j, moment=moment: self.optimizers[s].state[
+                            tree_leaves(self.trees[s])[j]][moment],
+                        name, shape))
+        return params, moments
+
+
+def _train_mesh(user_idx, item_idx, n_users: int, n_items: int, p: NCFParams,
+                initial_params, mesh) -> NCFState:
+    """``train_ncf`` over a mesh of more than one slot."""
+    from predictionio_tpu_torch.parallel.mesh import collective_backend, meter_shards
+
+    t_setup = time.perf_counter()
+    layout = _Layout(mesh)
+    n_model = layout.n_model
+    nu_pad = -(-n_users // n_model) * n_model
+    ni_pad = -(-n_items // n_model) * n_model
+    # the init at the padded shape, as the JAX package draws it; every rank
+    # draws the same tree and places only its own slots' parts
+    g_init = torch.Generator(device="cpu")
+    g_init.manual_seed(p.seed)
+    net = init_ncf(g_init, nu_pad, ni_pad, p)
+    if initial_params is not None:
+        net = _overlay(net, initial_params)
+    merge = mesh.merge_device
+    state = MeshNCF(mesh, net, p)
+    del net
+    stream = stage_stream(user_idx, item_idx, p, merge, multiple=layout.n_data)
+    neg_cdf = torch.from_numpy(
+        negative_sampling_cdf(item_idx, n_items, p.neg_power)).to(merge)
+    generator = torch.Generator(device=merge)
+    generator.manual_seed(p.seed)
+    setup_s = time.perf_counter() - t_setup
+    marks = [_mark(merge)]
+    losses = []
+    for _ in range(p.num_epochs):
+        losses.append(state.train_epoch(stream, n_items, generator, neg_cdf))
+        marks.append(_mark(merge))
+    epoch_losses = torch.stack(losses).tolist() if losses else []
+    tree = state.gathered()
+    params_placed, moments = state.placed()
+    width = int(tree["item_emb"].shape[1])
+    share = stream.batch // layout.n_data
+    k = max(p.negatives_per_positive, 1)
+    whole_catalog = p.loss not in _SAMPLED_LOSSES
+    LAST_MESH_INFO.clear()
+    LAST_MESH_INFO.update(
+        mesh=dict(mesh.shape),
+        data_slots=layout.n_data,
+        model_blocks=n_model,
+        local_positions=list(layout.mine),
+        padded=[nu_pad, ni_pad],
+        # host seconds from the call to the first epoch: the init at the
+        # padded shape, its placement on the slots, the stream's upload
+        setup_s=setup_s,
+        batch=stream.batch,
+        steps_per_epoch=stream.n_steps,
+        # per step and local data position: the table rows gathered from
+        # the blocks (every item block under a whole-catalog loss), and the
+        # dense per-block gradient buffers the rows are routed into
+        gather_bytes_per_step=4.0 * width * len(layout.mine) * (
+            share + (ni_pad if whole_catalog else share * (1 + k))),
+        route_bytes_per_step=4.0 * width * len(layout.mine) * (nu_pad + ni_pad),
+        collective_backend=collective_backend() or "in-process",
+        mesh_ms=state.clock.ms(),
+        shards={
+            "params": meter_shards("ncf.params", params_placed),
+            "table_moments": meter_shards("ncf.table_moments", moments),
+        },
+    )
+    return NCFState(
+        params=tree,
+        n_users=n_users,
+        n_items=n_items,
+        config=p,
+        epoch_losses=epoch_losses,
+        epoch_seconds=[_elapsed_s(a, b) for a, b in zip(marks, marks[1:])],
+    )

@@ -372,3 +372,165 @@ def test_two_process_train_stops_every_rank_when_one_runs_out_of_memory(tmp_path
     assert str(ranks[0]["error_type"]) == "RuntimeError", ranks[0]
     assert "rank(s) [1]" in str(ranks[0]["error"]), ranks[0]
     assert [list(x["attempts"]) for x in ranks] == [["fused"], ["fused"]]
+
+
+# -- NCF over a mesh across two processes ------------------------------------
+
+#: the JAX two-process NCF tests' trains (tests/test_distributed.py:411 and
+#: :576), both on {data: 2, model: 2}: one data position and both model
+#: blocks a rank
+NCF_PARAMS = {
+    "bpr": dict(embed_dim=8, mlp_layers=(16, 8), num_epochs=150,
+                batch_size=64, learning_rate=5e-3),
+    "wals": dict(embed_dim=8, mlp_layers=(), loss="wals", num_epochs=120,
+                 batch_size=64, learning_rate=5e-3),
+}
+
+_NCF_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+
+from predictionio_tpu_torch.parallel.mesh import (
+    COLLECTIVE_STATS, MeshConfig, collective_backend, initialize_distributed,
+    make_mesh, process_count,
+)
+
+initialize_distributed(device="cpu", local_devices=["cpu", "cpu"])
+assert process_count() == 2, process_count()
+
+from predictionio_tpu_torch.ops import ncf
+
+data_path, kwargs, fail, out_path = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3], sys.argv[4]
+rank = int(os.environ["PIO_PROCESS_ID"])
+data = np.load(data_path)
+kwargs["mlp_layers"] = tuple(kwargs["mlp_layers"])
+mesh = make_mesh(MeshConfig({"data": 2, "model": 2}))
+out = {}
+if fail == "fail" and rank == 1:
+    # rank 1's part of the third step raises
+    real = ncf.MeshNCF._position
+    calls = []
+
+    def failing(self, *args, **kw):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("injected failure")
+        return real(self, *args, **kw)
+
+    ncf.MeshNCF._position = failing
+leaves = []
+try:
+    state = ncf.train_ncf(data["u"], data["i"], 40, 30, ncf.NCFParams(**kwargs),
+                          mesh=mesh)
+    leaves = ncf.tree_leaves(ncf.host_params(state.params))
+    out.update(losses=np.array(state.epoch_losses),
+               positions=np.array(ncf.LAST_MESH_INFO["local_positions"]),
+               info_backend=np.array(ncf.LAST_MESH_INFO["collective_backend"]),
+               all_reduce_calls=COLLECTIVE_STATS["all_reduce"]["calls"],
+               all_reduce_bytes=COLLECTIVE_STATS["all_reduce"]["bytes"])
+except Exception as e:
+    out.update(error_type=type(e).__name__, error=str(e))
+np.savez(out_path + f".{rank}.npz", labels=np.array(mesh.labels),
+         local_slots=np.array(mesh.local_slots),
+         backend=np.array(collective_backend()),
+         **{f"leaf{j}": x for j, x in enumerate(leaves)}, **out)
+print("done", rank, file=sys.stderr)
+"""
+
+
+def run_two_ncf_workers(tmp_path: Path, loss: str,
+                        fail: bool = False) -> tuple[list[dict], dict]:
+    """Both ranks of ``_NCF_WORKER`` on the cluster data (identical full
+    arrays on each rank, the JAX package's contract)."""
+    import json
+
+    rng = np.random.default_rng(11)
+    users, items = [], []
+    for u in range(40):
+        lo, hi = (0, 15) if u % 2 == 0 else (15, 30)
+        for i in rng.choice(np.arange(lo, hi), 6, replace=False):
+            users.append(u)
+            items.append(int(i))
+    np.savez(tmp_path / "pos.npz", u=np.array(users), i=np.array(items))
+    kwargs = dict(NCF_PARAMS[loss], mlp_layers=list(NCF_PARAMS[loss]["mlp_layers"]))
+    port = free_port()
+    procs = []
+    for rank in (0, 1):
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   PIO_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   PIO_NUM_PROCESSES="2", PIO_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _NCF_WORKER, str(tmp_path / "pos.npz"),
+             json.dumps(kwargs), "fail" if fail else "ok", str(tmp_path / "ncf")],
+            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        ))
+    try:
+        results = [p.communicate(timeout=WORKER_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail(f"an ncf worker did not finish in {WORKER_TIMEOUT_S} s")
+    for rank, (p, (_, err)) in enumerate(zip(procs, results)):
+        assert p.returncode == 0, f"ncf worker {rank} failed:\n{err[-3000:]}"
+    data = np.load(tmp_path / "pos.npz")
+    return [dict(np.load(f"{tmp_path / 'ncf'}.{rank}.npz")) for rank in (0, 1)], data
+
+
+@pytest.mark.parametrize("loss", sorted(NCF_PARAMS))
+def test_two_process_ncf_train_matches_the_one_process_mesh_train(tmp_path, loss):
+    """JAX ``tests/test_distributed.py:411`` (bpr on the MLP head) and
+    ``:576`` (wals) on ``{data: 2, model: 2}`` across two processes: rank
+    0's gathered tree within 1e-5 of the one-process mesh train on 4 CPU
+    slots, both ranks' trees equal bit for bit, one ``all_reduce`` a step,
+    and the clusters learnt."""
+    from predictionio_tpu_torch.ops import ncf
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    ranks, data = run_two_ncf_workers(tmp_path, loss)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = ncf.train_ncf(data["u"], data["i"], 40, 30,
+                             ncf.NCFParams(**NCF_PARAMS[loss]),
+                             mesh=make_mesh(MeshConfig({"data": 2, "model": 2}),
+                                            devices=["cpu"] * 4))
+    finally:
+        torch.set_num_threads(threads)
+    want_leaves = ncf.tree_leaves(ncf.host_params(want.params))
+    got_leaves = [ranks[0][f"leaf{j}"] for j in range(len(want_leaves))]
+    for g, w in zip(got_leaves, want_leaves):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
+    for j in range(len(want_leaves)):
+        np.testing.assert_array_equal(ranks[0][f"leaf{j}"], ranks[1][f"leaf{j}"])
+    np.testing.assert_allclose(ranks[0]["losses"], want.epoch_losses, rtol=1e-5)
+    steps = NCF_PARAMS[loss]["num_epochs"] * 4  # 240 positives, batches of 64
+    for rank, out in enumerate(ranks):
+        assert list(out["labels"]) == ["cpu:0", "cpu:1", "cpu:2", "cpu:3"]
+        assert list(out["local_slots"]) == [2 * rank, 2 * rank + 1]
+        assert str(out["backend"]) == "gloo" and str(out["info_backend"]) == "gloo"
+        assert list(out["positions"]) == [rank]
+        assert int(out["all_reduce_calls"]) == steps
+    # tables padded to nothing here (40 x 30 over 2): one flat buffer a
+    # step of the loss, every table block and every other leaf
+    n_values = 1 + sum(x.size for x in want_leaves)
+    assert float(ranks[0]["all_reduce_bytes"]) == 4.0 * n_values * steps
+    tree = ncf.params_from_jax(want.params, "cpu")
+    for user, good, bad in ((0, slice(0, 15), slice(15, 30)),
+                            (1, slice(15, 30), slice(0, 15))):
+        scores = ncf.score_all_items(tree, user).numpy()
+        assert np.isfinite(scores).all()
+        assert scores[good].mean() > scores[bad].mean()
+
+
+def test_two_process_ncf_train_stops_every_rank_when_one_fails(tmp_path):
+    """Rank 1's part of the third step raises: it raises its own error,
+    and rank 0 raises naming it, instead of waiting in the step's
+    all-reduce."""
+    ranks, _ = run_two_ncf_workers(tmp_path, "bpr", fail=True)
+    assert str(ranks[1]["error"]) == "injected failure", ranks[1]
+    assert str(ranks[0]["error_type"]) == "RuntimeError", ranks[0]
+    assert "train_ncf: rank(s) [1]" in str(ranks[0]["error"]), ranks[0]

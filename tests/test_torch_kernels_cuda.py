@@ -1685,3 +1685,135 @@ def test_mesh_train_on_four_slots_of_the_card(cuda, mode):
         scale = als_accum.segment_stats_fused_plain(
             su["plan_args"], su["oth"], su["wrv"].abs(), Vp.abs(), su["plan"].n_blocks)
         _hold(kernel, plain, scale, False, f"slot {pos}'s stats")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,mlp", [("bpr", (64, 32, 16)), ("full_softmax", ())])
+def test_ncf_mesh_epoch_on_card_slots_matches_the_one_slot_train(cuda, loss, mlp):
+    """``MeshNCF`` on ``{data: 2, model: 2}`` slots of one card against the
+    one-slot card train from one tree (1,001 x 501, padded to 1,002 x 502)
+    and one seed, the same draws.  The first step: the loss within 1e-5,
+    the applied gradient within 1e-4 of each leaf's largest entry, the
+    parameters within 1e-6 (1 + |p|) of the one-slot Adam replayed from
+    that gradient.  After two epochs: the same bits on repeat, every copy
+    of a leaf and of its Adam moments equal bit for bit, and the mesh no
+    further from the one-slot
+    train than twice what that train moves when its start moves by one
+    ulp (Adam turns the rounding of near-zero gradients into steps of up
+    to the learning rate, so trains that sum in another order part; on
+    the CPU, where they do not, ``tests/test_torch_ncf_mesh.py`` holds
+    them within 1e-5)."""
+    from predictionio_tpu_torch.ops import ncf
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    rng = np.random.default_rng(3)
+    n_users, n_items, n = 1001, 501, 20_000
+    users = rng.integers(0, n_users, n)
+    items = rng.integers(0, n_items, n)
+    p = ncf.NCFParams(embed_dim=32, mlp_layers=mlp, loss=loss, batch_size=2048,
+                      learning_rate=1e-3)
+    tree = ncf.init_ncf(torch.Generator().manual_seed(5), 1002, 502, p)
+    tree = ncf.tree_map(lambda x: x.to(cuda), tree)
+    mesh = make_mesh(MeshConfig({"data": 2, "model": 2}), devices=[cuda] * 4)
+    stream = ncf.stage_stream(users, items, p, cuda, multiple=2)
+    cdf = torch.from_numpy(ncf.negative_sampling_cdf(items, n_items, 0.0)).to(cuda)
+
+    def one_slot(start):
+        leaves = ncf.tree_map(lambda x: x.clone().requires_grad_(True), start)
+        return leaves, ncf.make_optimizer(leaves, p)
+
+    # the first step
+    b = stream.batch
+    batch = (stream.u[:b], stream.i[:b],
+             torch.from_numpy(rng.integers(0, n_items, (b, 1))).to(cuda),
+             stream.valid[:b], stream.w[:b])
+    one, opt = one_slot(tree)
+    want_loss = float(ncf.train_step(one, opt, *batch, p, n_items))
+    st = ncf.MeshNCF(mesh, tree, p)
+    got_loss = float(st.step(*batch, n_items))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    g_mesh = st.gathered(grads=True)
+    replay, ropt = one_slot(tree)
+    for leaf, g in zip(ncf.tree_leaves(replay), ncf.tree_leaves(g_mesh)):
+        leaf.grad = g.clone()
+    ropt.step()
+    for go, gm, pr, pm in zip(*(ncf.tree_leaves(t) for t in (
+            ncf.tree_map(lambda x: x.grad, one), g_mesh, replay, st.gathered()))):
+        assert float((gm - go).abs().max()) <= 1e-4 * (float(go.abs().max()) or 1.0)
+        assert bool(((pm - pr.detach()).abs() <= 1e-6 * (1 + pr.detach().abs())).all())
+
+    # two epochs
+    def epochs(train_epoch):
+        g = torch.Generator(device=cuda).manual_seed(p.seed)
+        for _ in range(2):
+            train_epoch(g)
+
+    one, opt = one_slot(tree)
+    epochs(lambda g: ncf.train_epoch(one, opt, stream, p, n_items, g, cdf))
+    nudged, nopt = one_slot(ncf.tree_map(
+        lambda x: torch.nextafter(x, torch.full_like(x, float("inf"))), tree))
+    epochs(lambda g: ncf.train_epoch(nudged, nopt, stream, p, n_items, g, cdf))
+    st = ncf.MeshNCF(mesh, tree, p)
+    epochs(lambda g: st.train_epoch(stream, n_items, g, cdf))
+    again = ncf.MeshNCF(mesh, tree, p)
+    epochs(lambda g: again.train_epoch(stream, n_items, g, cdf))
+    for x, y in zip(ncf.tree_leaves(st.gathered()), ncf.tree_leaves(again.gathered())):
+        assert torch.equal(x, y)  # a mesh train repeats bit for bit
+
+    def gap(a, b):
+        return max(float((x.detach() - y.detach()).abs().max())
+                   for x, y in zip(ncf.tree_leaves(a), ncf.tree_leaves(b)))
+
+    got = st.gathered()
+    assert [x.shape for x in ncf.tree_leaves(got)] == [
+        x.shape for x in ncf.tree_leaves(one)]
+    assert gap(got, one) <= max(2 * gap(nudged, one), 1e-6), (gap(got, one),
+                                                              gap(nudged, one))
+    slots = st.mesh.local_slots
+    for a in slots:
+        for b in slots:
+            if st.layout.m_of[a] != st.layout.m_of[b]:
+                continue
+            for x, y in zip(ncf.tree_leaves(st.trees[a]), ncf.tree_leaves(st.trees[b])):
+                assert torch.equal(x, y)
+                for key in ("exp_avg", "exp_avg_sq"):
+                    assert torch.equal(st.optimizers[a].state[x][key],
+                                       st.optimizers[b].state[y][key])
+
+
+@pytest.mark.cuda
+def test_ncf_mesh_pretrain_runs_kernel_1_once_per_data_slot(cuda):
+    """The NCF pretrain (implicit ALS at rank 32) over ``{data: 2, model:
+    2}`` slots of one card: kernel 1 once per data slot per half-step, the
+    factors within 2e-3 of the one-slot train, and each data slot's stats
+    within 1e-4 of the plain version's absolute sums."""
+    from predictionio_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    rng = np.random.default_rng(4)
+    nu, ni, n, iters = 900, 400, 30_000, 2
+    ui = rng.integers(0, nu, n).astype(np.int32)
+    ii = rng.integers(0, ni, n).astype(np.int32)
+    r = np.ones(n, np.float32)
+    p = als.ALSParams(rank=32, num_iterations=iters, reg=0.01, implicit_prefs=True,
+                      alpha=2.0, pallas_mode="fused")
+    mesh = make_mesh(MeshConfig({"data": 2, "model": 2}), devices=[cuda] * 4)
+    one = als.train_als(ui, ii, r, nu, ni, p, device=cuda)
+    before = als_accum.KERNEL_LAUNCHES["als_fused_accum"]
+    got = als.train_als(ui, ii, r, nu, ni, p, mesh=mesh)
+    torch.cuda.synchronize()
+    assert als_accum.KERNEL_LAUNCHES["als_fused_accum"] - before == 2 * 2 * iters
+    for a, b in ((got.user_factors, one.user_factors),
+                 (got.item_factors, one.item_factors)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=2e-3)
+    staged = next(iter(als._STAGE_CACHE.values()))
+    assert sorted(staged) == [0, 1]
+    Vp = torch.zeros((512, 32), device=cuda)
+    Vp[:ni] = got.item_factors
+    for pos in sorted(staged):
+        su = staged[pos][0]
+        args = (su["plan_args"], su["oth"], su["wrv"], Vp, su["plan"].n_blocks)
+        kernel = als_accum.segment_stats_fused(*args)
+        plain = als_accum.segment_stats_fused_plain(*args)
+        scale = als_accum.segment_stats_fused_plain(
+            su["plan_args"], su["oth"], su["wrv"].abs(), Vp.abs(), su["plan"].n_blocks)
+        _hold(kernel, plain, scale, False, f"data slot {pos}'s stats")
