@@ -62,6 +62,17 @@ calls:
   ``balance_local_chunks``, ``global_data_array`` and
   ``train_als_global``, each rank reading half the users' ratings; and
   ``run_train`` of the recommendation engine on a 4-slot context;
+- ``pio check`` (``check``, after ``train_ml20m``): in a process of its
+  own, ``pio train`` of a miswired copy of the recommendation template
+  exits 1 with the DASE pre-flight's message, no CUDA context made and no
+  kernel launched; ``pio check predictionio_tpu_torch`` against the port's
+  baseline exits 0 cold, then warm from the check cache, and ``pio check
+  --engine all`` exits 0, CUDA still untouched; then ``pio train`` of the
+  template at the ML-100K cut with ``PIO_PREFLIGHT_LINT=1`` (kernel 1, 40
+  launches).  In this process, ``train_ml20m``'s instance persisted through
+  ``S3Models`` (``TYPE=s3`` over an in-memory boto3-shaped client) and
+  deployed from it: one 4,096-query wave through kernel 3 (1 launch), held
+  to the host top-k and equal bit for bit to the sqlite-loaded deploy;
 - the ALS family: ``ECommAlgorithm.train`` (implicit ALS) on a view/buy
   stream at the ML-20M shape, kernel 1 held to its plain version on the
   implicit stream (``als_family_train``); that model through the default
@@ -191,16 +202,16 @@ calls:
 
 To make room for ``day``: ``operator``, ``lifecycle`` and
 ``als_family_cli`` hold the first 20,000 of their ML-100K-shaped stream
-(``CUT_ML100K_EVENTS``), ``event_ingest`` ingests 10,000 events,
-``fleet`` routes 512-query waves, and ``storage`` takes ``train_ml20m``'s
-ratings rather than generating them again.  ``als_family_train`` trains on
-the views of the ML-20M stream's first 7,500,000 ratings
-(``FAMILY_RATINGS``: 10,000,000 for ``day``, 7,500,000 for
-``sharded_serving``).  For ``mesh_train``, ``movielens_like`` looks its
+(``CUT_ML100K_EVENTS``), ``event_ingest`` ingests 5,000 events (10,000
+for ``day``, 5,000 for ``check``), ``fleet`` routes 512-query waves, and
+``storage`` takes ``train_ml20m``'s ratings rather than generating them
+again.  ``als_family_train`` trains on the views of the ML-20M stream's
+first 5,000,000 ratings (``FAMILY_RATINGS``: 10,000,000 for ``day``,
+7,500,000 for ``sharded_serving``, 5,000,000 for ``check``).  For ``mesh_train``, ``movielens_like`` looks its
 draws up on threads (the same arrays).
 
-``watch`` runs in a process of its own (``phase_in_own_process``), the
-rest in this one.  Every count of kernel launches is set to 0 just before
+``watch`` and ``check``'s pre-flight half run in a process of their own
+(``phase_in_own_process``), the rest in this one.  Every count of kernel launches is set to 0 just before
 each main-path phase and read just after it, in the process that drives
 the phase.  It prints one JSON line per phase (every
 correctness case, every timing and every main-path record), the ``kernels``
@@ -2450,15 +2461,16 @@ def pallas_step_share(before: dict, iterations: int) -> dict:
             "flops_per_iteration": flops, "peak_row": peaks.source}
 
 
-def train_ml20m_phase() -> tuple[dict, dict, dict, tuple, dict]:
+def train_ml20m_phase() -> tuple[dict, dict, dict, tuple, dict, tuple]:
     """``train_als`` at the ML-20M shape: 20 iterations fused (cold, then
     warm under torch.profiler), then 3 forced chunked, each cold train's
     peak of device memory, then the OOM ladder between them; per half-step
     accumulate and solve times, staging, idle share, RMSE, and each
     kernel checked and timed at this shape.  Also returns the generated
-    ratings, which the ALS family's train reuses, and ``mesh_train``'s
-    line: it runs between the fused and the chunked trains, so that its
-    one-slot trains reuse the fused train's staged streams."""
+    ratings, which the ALS family's train reuses, ``mesh_train``'s
+    line (it runs between the fused and the chunked trains, so that its
+    one-slot trains reuse the fused train's staged streams) and the fused
+    train's factors on the host, which ``check`` persists through S3."""
     from predictionio_tpu_torch.obs import device as device_obs
     from predictionio_tpu_torch.ops import als
 
@@ -2551,7 +2563,8 @@ def train_ml20m_phase() -> tuple[dict, dict, dict, tuple, dict]:
     del cu, ci, wide
     out["oom_ladder"] = oom_ladder(u, i, r, p3, out["fused_peak"],
                                    out["chunked_peak"], st3)
-    return out, fused_t, chunk_t, (u, i, r), mesh_train
+    factors = (st.user_factors.cpu().numpy(), st.item_factors.cpu().numpy())
+    return out, fused_t, chunk_t, (u, i, r), mesh_train, factors
 
 
 # -- ALS over a mesh: slots of one card, then two processes on it -------------
@@ -3046,10 +3059,10 @@ def persist_instance(storage, factory: str, engine_id: str, params, blob) -> str
 
 #: the ecommerce train's stream: the views (and buys) of the ML-20M stream's
 #: first FAMILY_RATINGS ratings, over all ML-20M users and items (cut from
-#: all 20,000,263 to 10,000,000 to make room for the day phase, then to
-#: 7,500,000 for sharded_serving: the train's vocabulary and latest-pair
-#: passes over the events are host time)
-FAMILY_RATINGS = 7_500_000
+#: all 20,000,263 to 10,000,000 to make room for the day phase, to
+#: 7,500,000 for sharded_serving, then to 5,000,000 for check: the train's
+#: vocabulary and latest-pair passes over the events are host time)
+FAMILY_RATINGS = 5_000_000
 
 
 def als_family_train_phase(storage, ratings) -> tuple[dict, dict]:
@@ -3622,9 +3635,9 @@ def als_family_phases(ratings) -> list[dict]:
 INGEST_CLIENTS, INGEST_BATCH, INGEST_SINGLES = 8, 50, 1_000
 #: the ingested stream: the first INGEST_EVENTS of the ML-100K-shaped
 #: stream (cut from all 100,000 to 20,000 to make room for the watch phase,
-#: then to 10,000 for the day phase; the users, items and rates per event
-#: keep the ML-100K shape)
-INGEST_EVENTS = 10_000
+#: to 10,000 for the day phase, then to 5,000 for check; the users, items
+#: and rates per event keep the ML-100K shape)
+INGEST_EVENTS = 5_000
 LIVE_USERS = 8  # the live loop's users, one view POSTed for each
 #: the tied slice: the stream's first TIED_EVENTS, TIED_PER_SECOND of them
 #: to one second, each second's events spread over 20 batches (cut from
@@ -9406,6 +9419,315 @@ def sharded_serving_phase() -> dict:
     return out
 
 
+# -- pio check and the S3 model store ------------------------------------------
+
+#: the recommendation template with one miswiring, as a user's engine
+#: module would carry it: its ALS params alias ``numIterations`` to a field
+#: that does not exist
+MISWIRED_MODULE = """\
+import dataclasses
+
+from predictionio_tpu_torch.core.engine import Engine
+from predictionio_tpu_torch.models.recommendation import engine as rec
+
+
+@dataclasses.dataclass(frozen=True)
+class TypoParams(rec.ALSAlgorithmParams):
+    params_aliases = {**rec.ALSAlgorithmParams.params_aliases,
+                      "numIterations": "num_iteration"}
+
+
+class TypoALS(rec.ALSAlgorithm):
+    params_class = TypoParams
+
+
+def factory():
+    e = rec.recommendation_engine()
+    return Engine(e.datasource_classes, e.preparator_classes, {"als": TypoALS},
+                  e.serving_classes)
+"""
+CHECK_BASELINE = "predictionio_tpu_torch/.pio-check-baseline.json"
+
+
+def check_cli(cli, argv: list) -> tuple[int, str, str, float]:
+    """(exit code, stdout, stderr, seconds) of one in-process CLI call."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def check_phase() -> dict:
+    """``pio check`` and the DASE pre-flight, in a process of its own: a
+    ``pio train`` of a miswired copy of the recommendation template exits 1
+    with the DASE message before any device is resolved (no CUDA context,
+    no launch); the port's self-gate (``pio check predictionio_tpu_torch``
+    against its baseline) exits 0 cold, then warm from the check cache;
+    ``pio check --engine all`` exits 0; and CUDA is still untouched.  Then
+    ``pio train`` of the well-wired template at the ML-100K cut with
+    ``PIO_PREFLIGHT_LINT=1``: the pre-flight's time and kernel 1's 40
+    launches."""
+    from predictionio_tpu_torch.core.persistence import load_models
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, reset_storage
+    from predictionio_tpu_torch.tools import cli
+
+    out: dict = {"phase": "check", "shape": [ML100K_USERS, ML100K_ITEMS,
+                                             CUT_ML100K_EVENTS],
+                 "reduced": {"ml100k_events": [ML100K_EVENTS, CUT_ML100K_EVENTS]},
+                 "nvidia_smi": nvidia_smi_line()}
+    assert not torch.cuda.is_initialized()
+    repo = Path(__file__).resolve().parent
+    os.environ.pop("PIO_PREFLIGHT_LINT", None)  # the miswired train: no lint
+    with tempfile.TemporaryDirectory() as tmp, scoped_env(
+        PIO_HOME=str(Path(tmp) / "pio_home")
+    ):
+        tmp = Path(tmp)
+        storage = reset_storage(
+            StorageConfig.from_env({"PIO_HOME": str(tmp / "pio_home")})
+        )
+        (tmp / "chip_miswired_rec.py").write_text(MISWIRED_MODULE)
+        sys.path.insert(0, str(tmp))
+        try:
+            # -- the miswired train, with every launch count at 0 before it --
+            reset_launches()
+            rc, _, err, secs = check_cli(
+                cli, ["train", "--engine", "chip_miswired_rec:factory"])
+            launches = read_launches()
+            # -- end --
+        finally:
+            sys.path.remove(str(tmp))
+        assert rc == 1, (rc, err)
+        assert "PIO-DASE003" in err and "'num_iteration'" in err, err
+        assert "DASE pre-flight failed for engine 'chip_miswired_rec:factory'" in err
+        assert not torch.cuda.is_initialized(), "the pre-flight touched CUDA"
+        assert not any(launches.values()), launches
+        out["miswired_train"] = {"exit": rc, "s": secs, "launches": launches,
+                                 "message": err.strip().splitlines()[-1]}
+
+        gate = ["check", "predictionio_tpu_torch", "--baseline", CHECK_BASELINE,
+                "--format", "json", "--stats"]
+        cwd = os.getcwd()
+        os.chdir(repo)
+        try:
+            runs = [check_cli(cli, gate) for _ in range(2)]
+            rc_all, all_out, _, all_s = check_cli(cli, ["check", "--engine", "all"])
+        finally:
+            os.chdir(cwd)
+        for (rc, text, err, _), what in zip(runs, ("cold", "warm")):
+            assert rc == 0, (what, rc, text[-2000:])
+        cold, warm = (json.loads(r[1])["summary"] for r in runs)
+        n = cold["files_scanned"]
+        assert cold == warm and cold["total"] == 0 and cold["errors"] == 0, cold
+        assert f"cache: 0 hit(s), {n} miss(es)" in runs[0][2], runs[0][2]
+        assert f"cache: {n} hit(s), 0 miss(es)" in runs[1][2], runs[1][2]
+        assert rc_all == 0 and "0 finding(s)" in all_out, all_out[-2000:]
+        assert not torch.cuda.is_initialized(), "pio check touched CUDA"
+        out["self_gate"] = {
+            "files_scanned": n, "baseline_suppressed": cold["baseline_suppressed"],
+            "pragma_suppressed": cold["pragma_suppressed"],
+            "cold_s": runs[0][3], "warm_s": runs[1][3],
+            "cache_cold": runs[0][2].strip(), "cache_warm": runs[1][2].strip(),
+            "engine_all_s": all_s,
+        }
+        print(f"pio check predictionio_tpu_torch: {n} files, cold "
+              f"{runs[0][3]:.3f} s, warm {runs[1][3]:.3f} s ({nvidia_smi_line()})",
+              flush=True)
+
+        # the well-wired template at the ML-100K cut, the advisory lint on
+        write_ml100k(tmp / "ratings.jsonl", CUT_ML100K_EVENTS)
+        (tmp / "engine.json").write_text(json.dumps({
+            "id": "default", "engineFactory": "recommendation",
+            "datasource": {"params": {"appName": "ml100k"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "numIterations": ITERATIONS, "lambda": 0.01,
+                "seed": 3}}],
+        }))
+        timed: list = []
+        real = cli._dase_preflight
+
+        def preflight(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                timed.append(time.perf_counter() - t0)
+
+        assert check_cli(cli, ["app", "new", "ml100k"])[0] == 0
+        assert check_cli(cli, ["import", "--app", "ml100k", "--input",
+                               str(tmp / "ratings.jsonl")])[0] == 0
+        cli._dase_preflight = preflight
+        os.environ["PIO_PREFLIGHT_LINT"] = "1"
+        try:
+            # -- the main path, with every launch count at 0 just before it --
+            reset_launches()
+            rc, text, err, secs = check_cli(
+                cli, ["train", "--engine-json", str(tmp / "engine.json")])
+            launches = read_launches()
+            # -- end of the main path --
+        finally:
+            cli._dase_preflight = real
+            os.environ.pop("PIO_PREFLIGHT_LINT", None)
+        assert rc == 0, (rc, err[-2000:])
+        assert "pre-flight lint (advisory):" in err, err[-2000:]
+        assert launches["als_fused_accum"] == 2 * ITERATIONS, launches
+        instance_id = text.split("Engine instance: ")[1].split()[0]
+        (blob,) = load_models(storage.models(), instance_id)
+        assert np.isfinite(blob["user_factors"]).all()
+        assert np.isfinite(blob["item_factors"]).all()
+        storage.close()
+        out["train"] = {"s": secs, "preflight_ms": 1e3 * timed[0],
+                        "advisory": [x for x in err.splitlines()
+                                     if x.startswith("pre-flight lint")][0],
+                        "launches": launches, "instance": instance_id}
+        print(f"train pre-flight (DASE + cached advisory lint): "
+              f"{1e3 * timed[0]:.3f} ms; kernel 1 launches "
+              f"{launches['als_fused_accum']} ({nvidia_smi_line()})", flush=True)
+    return out
+
+
+class MemoryS3:
+    """An in-memory object store with boto3's S3 client shape
+    (put/get/delete_object and ``exceptions.NoSuchKey``), injected as the
+    S3 model store's client: the card's host has no network."""
+
+    class exceptions:
+        class NoSuchKey(Exception):
+            pass
+
+    def __init__(self):
+        self.objects: dict[str, bytes] = {}
+
+    def put_object(self, Bucket, Key, Body):
+        self.objects[f"{Bucket}/{Key}"] = bytes(Body)
+
+    def get_object(self, Bucket, Key, Range=None):
+        k = f"{Bucket}/{Key}"
+        if k not in self.objects:
+            raise self.exceptions.NoSuchKey(k)
+        body = self.objects[k]
+        if Range:
+            a, b = Range.removeprefix("bytes=").split("-")
+            body = body[int(a):int(b) + 1]
+        return {"Body": body}
+
+    def delete_object(self, Bucket, Key):
+        self.objects.pop(f"{Bucket}/{Key}", None)
+
+
+def s3_serving_phase(U: np.ndarray, V: np.ndarray) -> dict:
+    """The ML-20M instance ``train_ml20m`` trained, persisted through the
+    port's ``S3Models`` (``TYPE=s3`` over ``MemoryS3``) and through sqlite
+    under one engine instance; deployed from S3, one WAVE-query wave of
+    known users through kernel 3 (one launch), held to the host top-k, and
+    equal bit for bit to the same instance deployed from sqlite."""
+    from predictionio_tpu_torch.core.engine import EngineParams
+    from predictionio_tpu_torch.core.persistence import save_models
+    from predictionio_tpu_torch.data.storage import s3_models
+    from predictionio_tpu_torch.data.storage.base import EngineInstance
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.server.prediction_server import deploy_engine
+
+    out: dict = {"phase": "check_s3", "shape": [WAVE, ML20M_ITEMS, RANK, 10],
+                 "nvidia_smi": nvidia_smi_line()}
+    client = MemoryS3()
+    real_client = s3_models._make_boto3_client
+    s3_models._make_boto3_client = lambda region, endpoint: client
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {
+            "PIO_HOME": str(Path(tmp) / "pio_home"),
+            "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_DB_PATH": str(Path(tmp) / "pio.sqlite"),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
+        }
+        s3_env = {**env, "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "S3",
+                  "PIO_STORAGE_SOURCES_S3_TYPE": "s3",
+                  "PIO_STORAGE_SOURCES_S3_BUCKET": "pio-models",
+                  "PIO_STORAGE_SOURCES_S3_PREFIX": "ml20m/"}
+        sql = StorageRuntime(StorageConfig.from_env(env))
+        s3 = StorageRuntime(StorageConfig.from_env(s3_env))
+        try:
+            assert isinstance(s3.models(), s3_models.S3Models)
+            blob = {
+                "user_factors": U, "item_factors": V,
+                "user_vocab": np.array([f"u{i}" for i in range(len(U))]),
+                "item_vocab": np.array([f"i{i}" for i in range(len(V))]),
+            }
+            params = EngineParams(
+                datasource=("", rec.DataSourceParams(app_name="ml20m")),
+                algorithms=(("als", rec.ALSAlgorithmParams(rank=RANK)),),
+                serving=("", None),
+            )
+            now = datetime.now(tz=timezone.utc)
+            instance = EngineInstance(
+                id=uuid.uuid4().hex, status="COMPLETED", start_time=now,
+                end_time=now, engine_id="default", engine_version="default",
+                engine_variant="default", engine_factory="recommendation",
+                **params.to_json_fields(),
+            )
+            sql.engine_instances().insert(instance)
+            t0 = time.perf_counter()
+            save_models(s3.models(), instance.id, [blob])
+            out["s3_save_s"] = time.perf_counter() - t0
+            save_models(sql.models(), instance.id, [blob])
+            out["objects"] = len(client.objects)
+            out["bytes"] = sum(len(b) for b in client.objects.values())
+            out["keys"] = sorted(k.split("/", 1)[1] for k in client.objects)[:4]
+            print(f"S3Models: {out['objects']} objects, {out['bytes']} bytes, "
+                  f"saved in {out['s3_save_s']:.3f} s ({nvidia_smi_line()})",
+                  flush=True)
+            users = np.random.default_rng(SEED + 30).integers(0, len(U), WAVE)
+            queries = [(j, rec.Query(user=f"u{u}", num=10))
+                       for j, u in enumerate(users)]
+
+            # -- the main path, with every launch count at 0 just before it --
+            reset_launches()
+            t0 = time.perf_counter()
+            from_s3 = deploy_engine("recommendation", storage=s3,
+                                    engine_instance_id=instance.id)
+            torch.cuda.synchronize()
+            out["s3_deploy_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = from_s3.algorithms[0].batch_predict(from_s3.models[0], queries)
+            torch.cuda.synchronize()
+            out["wave_s"] = time.perf_counter() - t0
+            launches = read_launches()
+            # -- end of the main path --
+            assert launches["fused_topk"] == 1, launches
+            out["launches"] = launches
+            from_sql = deploy_engine("recommendation", storage=sql,
+                                     engine_instance_id=instance.id)
+            for name in ("user_factors", "item_factors"):
+                a = getattr(from_s3.models[0], name)
+                b = getattr(from_sql.models[0], name)
+                assert a.is_cuda and torch.equal(
+                    a.view(torch.int32), b.view(torch.int32)), name
+            want = from_sql.algorithms[0].batch_predict(from_sql.models[0], queries)
+            assert [j for j, _ in got] == [j for j, _ in want] == list(range(WAVE))
+            for (_, a), (_, b) in zip(got, want):
+                assert [(x.item, x.score) for x in a.item_scores] == [
+                    (x.item, x.score) for x in b.item_scores]
+            out["bit_equal_to_sqlite"] = WAVE
+
+            def host(user):
+                return host_answer(U, V, int(user[1:]), 10)
+
+            lines = [{"prediction": {"itemScores": [
+                {"item": x.item, "score": x.score} for x in r.item_scores]}}
+                for _, r in got]
+            rows = np.random.default_rng(SEED + 31).choice(WAVE, 64, replace=False)
+            out["rows_checked_vs_host"] = check_wave_lines(
+                lines, [f"u{u}" for u in users], host, rows)
+        finally:
+            s3_models._make_boto3_client = real_client
+            s3.close()
+            sql.close()
+    return out
+
+
 def phase_in_own_process(name: str) -> dict:
     """``name``'s line from a fresh ``python3`` process of this script (the
     kernels already built load from the build directory).  Its stdout and
@@ -9504,9 +9826,18 @@ def main() -> int:
     evaluation = cli_train.pop("eval")
     emit(cli_train)
     emit(evaluation)
-    ml20m, fused_t, chunk_t, ratings, mesh_train = train_ml20m_phase()
+    ml20m, fused_t, chunk_t, ratings, mesh_train, factors = train_ml20m_phase()
     emit(ml20m)
     emit(mesh_train)
+    # pio check and the DASE pre-flight in a process of its own (no CUDA
+    # there before its train), then the trained ML-20M instance from S3
+    t0 = time.perf_counter()
+    check = phase_in_own_process("check_phase")
+    check["own_process_s"] = time.perf_counter() - t0
+    check["s3"] = s3_serving_phase(*factors)
+    del factors
+    check["phase_s"] = time.perf_counter() - t0
+    emit(check)
     emit({"phase": "als_kernel_timing", "als_fused_accum": fused_t,
           "als_segment_accum": chunk_t})
     family_train, _, family_cli = als_family_phases(ratings)
@@ -9593,6 +9924,8 @@ def main() -> int:
                     # one device wave of FLEET_WAVE routed queries per replica
                     # behind the fleet's router
                     "launches_fleet": fleet["launches"]["fused_topk"],
+                    # the ML-20M instance deployed from S3Models: one wave
+                    "launches_check": check["s3"]["launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),
@@ -9656,6 +9989,9 @@ def main() -> int:
                        if watch["postgres"]["server"] else {}),
                     # the production day's fixture (seed_demo_home) on the card
                     launches_day=day["fixture"]["launches"]["als_fused_accum"],
+                    # pio train at the ML-100K cut behind the DASE pre-flight
+                    # and the advisory lint (check, in its own process)
+                    launches_check=check["train"]["launches"]["als_fused_accum"],
                     # mesh_train: 4 data slots of cuda:0 (2 x 4 x 5), each
                     # rank of the two-process train, the 4-slot run_train;
                     # timed at one slot's shape (mesh_*)

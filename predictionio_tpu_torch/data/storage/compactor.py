@@ -91,7 +91,12 @@ class Compactor:
         self.store = ParquetEventStore(client)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        # guards _pass_running only: one pass at a time (a manual compact
+        # against the daemon) without holding a lock across the folds,
+        # whose shard futures the store awaits
         self._lock = threading.Lock()
+        self._pass_ended = threading.Condition(self._lock)
+        self._pass_running = False
         self.last_tick: dict[str, Any] = {}
 
     # -- discovery -----------------------------------------------------------
@@ -123,29 +128,40 @@ class Compactor:
             "backlog_segments": 0,
             "errors": [],
         }
-        with self._lock:  # one pass at a time (manual compact vs daemon)
-            for app_id, channel_id in self.app_keys():
-                summary["apps_seen"] += 1
-                try:
-                    st = self.store.status(app_id, channel_id)
-                    deepest = max(
-                        (s["hot"] for s in st["shards"]), default=0
-                    )
-                    if deepest < self.policy.min_hot_segments:
-                        summary["backlog_segments"] += st["backlog_segments"]
-                        continue
-                    rows = self.store.compact(app_id, channel_id)
-                    summary["apps_compacted"] += 1
-                    summary["rows_folded"] += rows
-                    after = self.store.status(app_id, channel_id)
-                    summary["backlog_segments"] += after["backlog_segments"]
-                except Exception as e:  # keep the daemon alive
-                    log.warning(
-                        "compaction of app %s failed", app_id, exc_info=True
-                    )
-                    summary["errors"].append(f"app {app_id}: {e}")
+        with self._lock:
+            while self._pass_running:
+                self._pass_ended.wait()
+            self._pass_running = True
+        try:
+            self._fold_all(summary)
+        finally:
+            with self._lock:
+                self._pass_running = False
+                self._pass_ended.notify_all()
         self.last_tick = summary
         return summary
+
+    def _fold_all(self, summary: dict[str, Any]) -> None:
+        for app_id, channel_id in self.app_keys():
+            summary["apps_seen"] += 1
+            try:
+                st = self.store.status(app_id, channel_id)
+                deepest = max(
+                    (s["hot"] for s in st["shards"]), default=0
+                )
+                if deepest < self.policy.min_hot_segments:
+                    summary["backlog_segments"] += st["backlog_segments"]
+                    continue
+                rows = self.store.compact(app_id, channel_id)
+                summary["apps_compacted"] += 1
+                summary["rows_folded"] += rows
+                after = self.store.status(app_id, channel_id)
+                summary["backlog_segments"] += after["backlog_segments"]
+            except Exception as e:  # keep the daemon alive
+                log.warning(
+                    "compaction of app %s failed", app_id, exc_info=True
+                )
+                summary["errors"].append(f"app {app_id}: {e}")
 
     def start(self) -> "Compactor":
         if self._thread is None or not self._thread.is_alive():

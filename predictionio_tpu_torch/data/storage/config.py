@@ -259,6 +259,15 @@ class StorageRuntime:
             return LocalFSModels(
                 props.get("PATH", str(self.config.home / "models"))
             )
+        if typ == "s3":
+            from predictionio_tpu_torch.data.storage.s3_models import S3Models
+
+            return S3Models(
+                bucket=props.get("BUCKET", ""),
+                prefix=props.get("PREFIX", ""),
+                region=props.get("REGION"),
+                endpoint=props.get("ENDPOINT"),
+            )
         if typ == "hdfs":
             from predictionio_tpu_torch.data.storage.fsspec_models import (
                 FsspecModels,

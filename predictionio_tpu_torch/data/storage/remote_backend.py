@@ -383,6 +383,7 @@ class RemoteClient:
         # the time.sleep below is jittered retry BACKOFF between bounded
         # attempts (the whole point is to wait), not a busy-wait poll —
         # there is no event a producer could signal across processes
+        # pio: ignore[PIO-CONC002]
         while True:
             conn = self._connection()
             self._cap_timeout(conn)

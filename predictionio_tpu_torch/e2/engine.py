@@ -160,7 +160,7 @@ class MarkovChainModel:
         probs = torch.as_tensor(self.probs)
         indices = torch.as_tensor(self.indices, device=probs.device)
         cur = torch.as_tensor(
-            np.asarray(current_state, np.float32), device=probs.device
+            current_state, dtype=torch.float32, device=probs.device
         )
         n_states = len(current_state)
         weighted = (probs * cur[:, None]).reshape(-1)

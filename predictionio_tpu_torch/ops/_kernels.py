@@ -8,8 +8,11 @@ and the flags, into
 :func:`build_dir`: ``$PIO_KERNEL_BUILD_DIR`` when set, else the git-ignored
 ``build/kernels/`` when the package runs from a checkout, else a per-user
 cache.  A failed build raises :class:`KernelBuildError` with the
-compiler's output.  A build is a recorded ``kernel.build`` span, and each
-source's ``nvcc`` time lands under the compile metrics
+compiler's output.  No compiler runs under a lock: the first thread that
+wants a source builds it, others that want the same source wait for that
+build outside the lock, and a thread that wants a source already built
+never waits on another's build.  A build is a recorded ``kernel.build``
+span, and each source's ``nvcc`` time lands under the compile metrics
 (``obs.tracing.observe_kernel_build``): the port's counterpart of the JAX
 package's compile listener.
 """
@@ -65,6 +68,9 @@ KERNELS: dict[str, tuple[str, str, list]] = {
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+#: source -> set when the build of that source in flight has ended
+_building: dict[str, threading.Event] = {}
+#: guards ``_loaded`` and ``_building`` only; never held across a build
 _lock = threading.Lock()
 
 
@@ -126,7 +132,11 @@ def build(names=None) -> dict[str, float]:
         out = library_path(name)
         if source in started or out.exists():
             continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        # unique per process and per thread: two threads building one source
+        # never share a temporary file, and os.replace publishes atomically
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp"
+        )
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -153,14 +163,33 @@ def build(names=None) -> dict[str, float]:
 
 def load(name: str):
     """The C entry point ``name`` of :data:`KERNELS`, its library built
-    first if needed."""
-    with _lock:
-        fn = _loaded.get(name)
-        if fn is None:
+    first if needed.  Exactly one thread builds a given source; the others
+    that want it wait for that build with no lock held."""
+    source = KERNELS[name][0]
+    while True:
+        with _lock:
+            fn = _loaded.get(name)
+            if fn is not None:
+                return fn
+            pending = _building.get(source)
+            mine = pending is None
+            if mine:
+                pending = _building[source] = threading.Event()
+        if not mine:
+            # another thread is building this source; if its build failed,
+            # the next pass builds again and raises this thread's own error
+            pending.wait()
+            continue
+        try:
             build([name])
-            _, entry, argtypes = KERNELS[name]
-            fn = getattr(ctypes.CDLL(str(library_path(name))), entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _loaded[name] = fn
-        return fn
+        finally:
+            with _lock:
+                del _building[source]
+            pending.set()
+        break
+    _, entry, argtypes = KERNELS[name]
+    fn = getattr(ctypes.CDLL(str(library_path(name))), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    with _lock:
+        return _loaded.setdefault(name, fn)

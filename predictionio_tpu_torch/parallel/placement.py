@@ -486,6 +486,7 @@ def settle_shards(result: Any, t0: float) -> dict[str, float]:
     give_up = t0 + _SETTLE_MAX_WAIT_S
     # this poll IS the measurement: sampling every slot's event on one
     # cadence is what clocks each slot independently of slot order
+    # pio: ignore[PIO-CONC002]
     while pending:
         now = time.perf_counter()
         for label in list(pending):

@@ -37,7 +37,10 @@ consistent-hash router in front of N ``deploy`` replica daemons, each on
 ``--device``), ``adminserver``, ``dashboard``, ``daemon``, ``start-all``,
 ``stop-all``, ``stop`` and ``undeploy --pidfile``; ``day`` (a scripted
 production day over the fleet, judged by the verdict engine: exit 0 PASS,
-1 FAIL, 2 a malformed scenario); plus ``--device`` on the verbs
+1 FAIL, 2 a malformed scenario); ``check`` (the static analyzer, PIO-TORCH
+rules in place of PIO-JAX, and the DASE contract checks with ``--engine``;
+``train`` and ``deploy`` run the DASE pre-flight unless ``--no-check``);
+plus ``--device`` on the verbs
 that compute (default ``cuda``;
 ``cpu`` runs the plain versions on the host).  ``train``, ``deploy`` and
 ``batchpredict`` name an engine by ``--engine-id`` / ``--engine-version``
@@ -733,6 +736,75 @@ def do_build(args) -> int:
     return 0
 
 
+def _dase_preflight(factory_name: str, engine=None, skip: bool = False) -> int:
+    """Static DASE contract check before any device work (the scalac role).
+
+    Returns 0 when clean/skipped, 1 when the wiring is broken — the caller
+    aborts before touching storage or devices.  ``--no-check`` skips.
+
+    With ``PIO_PREFLIGHT_LINT=1`` a full-package `pio check` scan rides
+    along as an advisory (never blocks the launch) — cheap to leave on
+    because it runs through the check-result cache: an unchanged package
+    is a pure cache hit, no re-parsing per launch.
+    """
+    if skip or not factory_name:
+        return 0
+    _preflight_lint_advisory()
+    from predictionio_tpu_torch.analysis.contract import (
+        check_engine,
+        check_engine_contract,
+    )
+
+    root = Path.cwd()  # repo-relative paths in the printed findings
+    findings = (
+        check_engine(engine, factory_name, root=root)
+        if engine is not None
+        else check_engine_contract(factory_name, root=root)
+    )
+    if not findings:
+        return 0
+    for f in findings:
+        print(f.text(), file=sys.stderr)
+    print(
+        f"DASE pre-flight failed for engine {factory_name!r}: "
+        f"{len(findings)} contract violation(s) — fix the wiring or pass "
+        "--no-check to skip",
+        file=sys.stderr,
+    )
+    return 1
+
+
+def _preflight_lint_advisory() -> None:
+    """Cached advisory lint of the deployed package (PIO_PREFLIGHT_LINT=1)."""
+    if os.environ.get("PIO_PREFLIGHT_LINT") != "1":
+        return
+    try:
+        from predictionio_tpu_torch.analysis import analyze_paths
+        from predictionio_tpu_torch.analysis.cache import (
+            DEFAULT_CACHE_NAME,
+            CheckCache,
+        )
+        from predictionio_tpu_torch.tools.daemon import pio_home
+
+        import predictionio_tpu_torch as _pkg
+
+        pkg_root = Path(_pkg.__file__).parent
+        cache = CheckCache(Path(pio_home()) / DEFAULT_CACHE_NAME)
+        report = analyze_paths(
+            [pkg_root], root=pkg_root.parent, cache=cache
+        )
+        if report.findings:
+            print(
+                f"pre-flight lint (advisory): {len(report.findings)} "
+                f"finding(s) in {report.files_scanned} file(s); run "
+                "`pio check` for details "
+                f"[{cache.stats_line()}]",
+                file=sys.stderr,
+            )
+    except Exception as e:  # advisory: a lint crash must not block launch
+        print(f"pre-flight lint skipped: {e}", file=sys.stderr)
+
+
 def do_train(args) -> int:
     from predictionio_tpu_torch.core.base import EngineContext
     from predictionio_tpu_torch.core.workflow import WorkflowParams, run_train
@@ -745,6 +817,10 @@ def do_train(args) -> int:
     # anything else, as the JAX package's train does
     initialize_distributed(device=args.device)
     factory_name, engine, variant = _resolve_engine(args)
+    # before EngineContext resolves the device: a miswired engine exits 1
+    # on a host with or without a card, and no CUDA context is made
+    if _dase_preflight(factory_name, engine, skip=args.no_check):
+        return 1
     params = engine.params_from_json(variant)
     storage = get_storage()
     ctx = EngineContext(
@@ -902,6 +978,8 @@ def do_deploy(args) -> int:
     if args.app_specs:
         return _deploy_multi_tenant(args)
     factory, engine_id, engine_version, engine_variant = _engine_coords(args)
+    if _dase_preflight(factory, skip=args.no_check):
+        return 1
     server = create_prediction_server(
         factory,
         host=args.ip,
@@ -2299,6 +2377,168 @@ def do_explain(args) -> int:
     return 0
 
 
+def do_check(args) -> int:
+    """`pio check`: PyTorch-aware static analysis + DASE contract pre-flight.
+
+    Exit-code contract (same in text and --format json): 0 = clean,
+    1 = findings at/above --severity, 2 = usage or parse error.
+    """
+    from predictionio_tpu_torch.analysis import (
+        DEFAULT_BASELINE_NAME,
+        Baseline,
+        BaselineError,
+        Severity,
+        analyze_paths,
+        filter_severity,
+        render_json,
+        render_sarif,
+        render_text,
+    )
+
+    try:
+        threshold = Severity.parse(args.severity)
+    except ValueError as e:
+        print(f"usage error: {e}", file=sys.stderr)
+        return 2
+
+    engines = list(args.engine or [])
+    paths = list(args.paths)
+    if not paths and not engines:
+        paths = ["."]
+
+    if args.graph:
+        return _check_graph_dump(paths)
+
+    cache = None
+    if not args.no_cache:
+        from predictionio_tpu_torch.analysis.cache import (
+            DEFAULT_CACHE_NAME,
+            CheckCache,
+        )
+        from predictionio_tpu_torch.tools.daemon import pio_home
+
+        cache = CheckCache(Path(pio_home()) / DEFAULT_CACHE_NAME)
+
+    try:
+        # [] (engine-only run) => empty report
+        report = analyze_paths(paths, cache=cache)
+    except FileNotFoundError as e:
+        print(f"usage error: {e}", file=sys.stderr)
+        return 2
+    if args.stats:
+        stats = (
+            cache.stats_line() if cache is not None else "cache: disabled"
+        )
+        print(stats, file=sys.stderr)
+
+    # DASE contract checks (import the named engine factories)
+    if engines:
+        from predictionio_tpu_torch.analysis.contract import (
+            check_engine_contract,
+        )
+        from predictionio_tpu_torch.core.engine import engine_registry
+
+        import predictionio_tpu_torch.models  # noqa: F401  (registers them)
+
+        if "all" in engines:
+            bundled = engine_registry.names()
+            extra = [e for e in engines if e != "all" and e not in bundled]
+            engines = bundled + extra
+        for name in engines:
+            report.findings.extend(check_engine_contract(name, root=Path.cwd()))
+        # keep the file:line ordering contract across both finding sources
+        report.findings.sort(key=lambda f: (f.file, f.line, f.col, f.rule))
+
+    if args.write_baseline:
+        # the baseline must be complete: unfiltered by --severity, and
+        # refused outright when a file failed to parse (its findings would
+        # be silently missing from the snapshot)
+        if report.errors:
+            for e in report.errors:
+                print(f"error: {e}", file=sys.stderr)
+            print(
+                "refusing to write a baseline while files fail to parse",
+                file=sys.stderr,
+            )
+            return 2
+        target = args.baseline or DEFAULT_BASELINE_NAME
+        n = Baseline.write(target, report.findings)
+        print(f"Wrote {n} baseline entr{'y' if n == 1 else 'ies'} to {target}")
+        # a fresh snapshot is not yet an acceptable baseline: placeholder
+        # justifications fail the self-gate, so exit 1 naming every entry
+        # still to edit (an operator cannot silently ship TODOs)
+        todo = [
+            e
+            for e in Baseline.load(target).entries
+            if e.justification.strip().lower().startswith("todo")
+        ]
+        if todo:
+            print(
+                f"{len(todo)} entr{'y' if len(todo) == 1 else 'ies'} still "
+                "need a justification (the self-gate rejects TODO "
+                "placeholders):",
+                file=sys.stderr,
+            )
+            for e in todo:
+                print(f"  {e.rule}  {e.file}:{e.line}", file=sys.stderr)
+            return 1
+        return 0
+
+    report.findings = filter_severity(report.findings, threshold)
+
+    baseline_path = args.baseline
+    if baseline_path is None and Path(DEFAULT_BASELINE_NAME).exists():
+        baseline_path = DEFAULT_BASELINE_NAME
+    if baseline_path is not None:
+        try:
+            baseline = Baseline.load(baseline_path)
+        except BaselineError as e:
+            print(f"usage error: {e}", file=sys.stderr)
+            return 2
+        report.findings, report.baseline_suppressed = baseline.filter(
+            report.findings
+        )
+
+    if args.format == "json":
+        _print(render_json(report))
+    elif args.format == "sarif":
+        _print(render_sarif(report))
+    else:
+        print(render_text(report))
+    if report.errors:
+        return 2
+    return 1 if report.findings else 0
+
+
+def _check_graph_dump(paths) -> int:
+    """`pio check --graph`: whole-program call/lock graphs as JSON."""
+    from predictionio_tpu_torch.analysis.analyzer import (
+        _relpath,
+        iter_python_files,
+    )
+    from predictionio_tpu_torch.analysis.callgraph import build_program
+    from predictionio_tpu_torch.analysis.rules import parse_module
+
+    root = Path.cwd()
+    mods = []
+    errors = []
+    try:
+        files = iter_python_files(paths)
+    except FileNotFoundError as e:
+        print(f"usage error: {e}", file=sys.stderr)
+        return 2
+    for path in files:
+        rel = _relpath(path, root)
+        try:
+            mods.append(parse_module(path, rel, path.read_text("utf-8")))
+        except (OSError, SyntaxError, ValueError) as e:
+            errors.append(f"{rel}: {type(e).__name__}: {e}")
+    _print(build_program(mods).to_json())
+    for e in errors:
+        print(f"error: {e}", file=sys.stderr)
+    return 2 if errors else 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.tools.cli",
@@ -2311,6 +2551,13 @@ def build_parser() -> argparse.ArgumentParser:
             "--device",
             default="cuda",
             help="cuda (default; fails without a card) or cpu",
+        )
+
+    def no_check_flag(sp):
+        sp.add_argument(
+            "--no-check",
+            action="store_true",
+            help="skip the static DASE contract pre-flight",
         )
 
     def watch_flags(sp):
@@ -2624,6 +2871,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--skip-sanity-check", action="store_true")
     tr.add_argument("--stop-after-read", action="store_true")
     tr.add_argument("--stop-after-prepare", action="store_true")
+    no_check_flag(tr)
     device_flag(tr)
     tr.set_defaults(fn=do_train)
 
@@ -2646,6 +2894,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     dp = sub.add_parser("deploy")
     instance_flags(dp)
+    no_check_flag(dp)
     dp.add_argument("--ip", default="0.0.0.0")
     dp.add_argument("--port", type=int, default=8000)
     dp.add_argument(
@@ -3035,6 +3284,67 @@ def build_parser() -> argparse.ArgumentParser:
         help="skip the cross-process trace join",
     )
     ex.set_defaults(fn=do_explain)
+
+    ck = sub.add_parser(
+        "check",
+        description=(
+            "PyTorch-aware static analysis: hot-path device-sync lints "
+            "(PIO-TORCH*), concurrency lints (PIO-CONC*), and DASE contract "
+            "checks (PIO-DASE*, via --engine).  Exit codes: 0 = clean, "
+            "1 = findings at/above --severity, 2 = usage or parse error.  "
+            "Suppress inline with '# pio: ignore[RULE]' or via a baseline "
+            "file (.pio-check-baseline.json is auto-discovered in the "
+            "working directory)."
+        ),
+    )
+    ck.add_argument(
+        "paths",
+        nargs="*",
+        help="files/directories to analyze (default: current directory)",
+    )
+    ck.add_argument(
+        "--engine",
+        action="append",
+        help="also run DASE contract checks for this engine factory "
+        "(repeatable; 'all' = every bundled engine)",
+    )
+    ck.add_argument(
+        "--format", choices=["text", "json", "sarif"], default="text"
+    )
+    ck.add_argument(
+        "--graph",
+        action="store_true",
+        help="dump the whole-program call graph + lock acquisition graph "
+        "as JSON and exit (0, or 2 on parse errors)",
+    )
+    ck.add_argument(
+        "--no-cache",
+        action="store_true",
+        help="bypass the check-result cache ($PIO_HOME/check-cache.json)",
+    )
+    ck.add_argument(
+        "--stats",
+        action="store_true",
+        help="print cache hit/miss counts to stderr",
+    )
+    ck.add_argument(
+        "--severity",
+        default="low",
+        help="minimum severity reported and counted toward the exit code "
+        "(low/medium/high; default low)",
+    )
+    ck.add_argument(
+        "--baseline",
+        default=None,
+        help="baseline file of suppressed findings (default: "
+        ".pio-check-baseline.json if present)",
+    )
+    ck.add_argument(
+        "--write-baseline",
+        action="store_true",
+        help="write the current findings to the baseline file and exit 0",
+    )
+    ck.set_defaults(fn=do_check)
 
     pf = sub.add_parser(
         "profile",

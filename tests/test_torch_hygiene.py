@@ -3,7 +3,8 @@
 1. The port stands alone: no module of it, nor ``chip_smoke.py`` or
    ``solo_latency.py``, imports ``jax`` or anything of the JAX package
    ``predictionio_tpu``; none imports ``pandas``, and only the parquet
-   event log and its compactor import ``pyarrow``; no subprocess command
+   event log and its compactor import ``pyarrow``, and only the S3 model
+   store's default client imports ``boto3``; no subprocess command
    line of them names a module of the JAX package (``-m
    predictionio_tpu.tools.cli`` would start the JAX package's servers).
 2. Its entry points run on CUDA unless the caller asks for the CPU: without
@@ -95,6 +96,24 @@ def test_no_pandas_and_pyarrow_only_in_the_parquet_modules(path):
     assert "pandas" not in tops, f"{path.relative_to(REPO)} imports pandas"
     if str(path.relative_to(REPO)) not in PYARROW_HOMES:
         assert "pyarrow" not in tops, f"{path.relative_to(REPO)} imports pyarrow"
+
+
+#: the only port module that may import boto3 (the S3 model store's default
+#: client; tests and chip_smoke.py inject a client of the same shape)
+BOTO3_HOMES = {"predictionio_tpu_torch/data/storage/s3_models.py"}
+
+
+@pytest.mark.parametrize(
+    "path",
+    PORT_FILES + [REPO / "chip_smoke.py", REPO / "solo_latency.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_boto3_only_in_the_s3_model_store(path):
+    tops = {m.split(".")[0] for m in _imported_modules(path)}
+    if str(path.relative_to(REPO)) not in BOTO3_HOMES:
+        assert "boto3" not in tops, f"{path.relative_to(REPO)} imports boto3"
+    else:
+        assert "boto3" in tops
 
 
 #: ``python -m <module>`` naming a module of the JAX package, in one string

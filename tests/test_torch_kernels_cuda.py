@@ -1817,3 +1817,152 @@ def test_ncf_mesh_pretrain_runs_kernel_1_once_per_data_slot(cuda):
         scale = als_accum.segment_stats_fused_plain(
             su["plan_args"], su["oth"], su["wrv"].abs(), Vp.abs(), su["plan"].n_blocks)
         _hold(kernel, plain, scale, False, f"data slot {pos}'s stats")
+
+
+class _MemoryS3:
+    """An in-memory boto3-shaped S3 client (put/get/delete_object)."""
+
+    class exceptions:
+        class NoSuchKey(Exception):
+            pass
+
+    def __init__(self):
+        self.objects: dict[str, bytes] = {}
+
+    def put_object(self, Bucket, Key, Body):
+        self.objects[f"{Bucket}/{Key}"] = bytes(Body)
+
+    def get_object(self, Bucket, Key, Range=None):
+        k = f"{Bucket}/{Key}"
+        if k not in self.objects:
+            raise self.exceptions.NoSuchKey(k)
+        body = self.objects[k]
+        if Range:
+            a, b = Range.removeprefix("bytes=").split("-")
+            body = body[int(a):int(b) + 1]
+        return {"Body": body}
+
+    def delete_object(self, Bucket, Key):
+        self.objects.pop(f"{Bucket}/{Key}", None)
+
+
+@pytest.mark.cuda
+def test_s3_loaded_model_wave_equals_the_sqlite_loaded_one(cuda, tmp_path, monkeypatch):
+    """A seeded model at the ML-20M shape saved through ``S3Models``
+    (``TYPE=s3``) and through sqlite under one instance: the kernel-3 wave
+    of 4,096 known users from the S3 deploy equals the sqlite deploy's bit
+    for bit, with one launch."""
+    from datetime import datetime, timezone
+
+    from predictionio_tpu_torch.core.engine import EngineParams
+    from predictionio_tpu_torch.core.persistence import save_models
+    from predictionio_tpu_torch.data.storage import s3_models
+    from predictionio_tpu_torch.data.storage.base import EngineInstance
+    from predictionio_tpu_torch.data.storage.config import StorageConfig, StorageRuntime
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.server.prediction_server import deploy_engine
+
+    client = _MemoryS3()
+    monkeypatch.setattr(s3_models, "_make_boto3_client", lambda r, e: client)
+    env = {
+        "PIO_HOME": str(tmp_path / "home"),
+        "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_DB_PATH": str(tmp_path / "pio.sqlite"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
+    }
+    sql = StorageRuntime(StorageConfig.from_env(env))
+    s3 = StorageRuntime(StorageConfig.from_env({
+        **env, "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "S3",
+        "PIO_STORAGE_SOURCES_S3_TYPE": "s3", "PIO_STORAGE_SOURCES_S3_BUCKET": "m",
+    }))
+    rng = np.random.default_rng(20)
+    nu, ni, rank = 138_493, 26_744, 10
+    blob = {
+        "user_factors": (np.abs(rng.standard_normal((nu, rank))) / np.sqrt(rank)).astype(np.float32),
+        "item_factors": (np.abs(rng.standard_normal((ni, rank))) / np.sqrt(rank)).astype(np.float32),
+        "user_vocab": np.array([f"u{i}" for i in range(nu)]),
+        "item_vocab": np.array([f"i{i}" for i in range(ni)]),
+    }
+    params = EngineParams(
+        datasource=("", rec.DataSourceParams(app_name="ml20m")),
+        algorithms=(("als", rec.ALSAlgorithmParams(rank=rank)),), serving=("", None),
+    )
+    now = datetime.now(tz=timezone.utc)
+    inst = EngineInstance(
+        id="s3inst", status="COMPLETED", start_time=now, end_time=now,
+        engine_id="default", engine_version="default", engine_variant="default",
+        engine_factory="recommendation", **params.to_json_fields(),
+    )
+    try:
+        sql.engine_instances().insert(inst)
+        save_models(s3.models(), inst.id, [blob])
+        save_models(sql.models(), inst.id, [blob])
+        assert any(":part:" in k for k in client.objects)
+        queries = [(j, rec.Query(user=f"u{u}", num=10))
+                   for j, u in enumerate(rng.integers(0, nu, 4096))]
+        answers = []
+        for rt in (s3, sql):
+            d = deploy_engine("recommendation", storage=rt, engine_instance_id=inst.id)
+            before = topk.KERNEL_LAUNCHES["fused_topk"]
+            answers.append(d.algorithms[0].batch_predict(d.models[0], queries))
+            torch.cuda.synchronize()
+            assert topk.KERNEL_LAUNCHES["fused_topk"] - before == 1
+        for (_, a), (_, b) in zip(*answers):
+            assert [(x.item, x.score) for x in a.item_scores] == [
+                (x.item, x.score) for x in b.item_scores]
+    finally:
+        s3.close()
+        sql.close()
+
+
+@pytest.mark.cuda
+def test_two_threads_first_loads_build_each_source_once(cuda, tmp_path, monkeypatch):
+    """Four threads' first ``load()`` of kernel 1 and kernel 3 (two each)
+    into an empty build directory: one ``nvcc`` per source, and the two
+    compilers run side by side (neither thread waits on the other's
+    build)."""
+    import subprocess
+    import threading
+
+    from predictionio_tpu_torch.ops import _kernels
+
+    monkeypatch.setenv("PIO_KERNEL_BUILD_DIR", str(tmp_path / "kernels"))
+    monkeypatch.setattr(_kernels, "_loaded", {})
+    monkeypatch.setattr(_kernels, "_building", {})
+    spans, real_popen = [], subprocess.Popen
+
+    class TimedPopen(real_popen):
+        def communicate(self, *a, **k):
+            out = super().communicate(*a, **k)
+            spans.append((self.t0, time.perf_counter(), self.args[-1]))
+            return out
+
+        def __init__(self, *a, **k):
+            self.t0 = time.perf_counter()
+            super().__init__(*a, **k)
+
+    monkeypatch.setattr(_kernels.subprocess, "Popen", TimedPopen)
+    got, errors = {}, []
+
+    def load(name, slot):
+        try:
+            got[slot] = _kernels.load(name)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=load, args=(name, f"{name}-{j}"))
+               for j in range(2) for name in ("als_fused_accum", "fused_topk")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert errors == []
+    assert sorted(s[2].rsplit("/", 1)[1] for s in spans) == [
+        "als_accum.cu", "fused_topk.cu"]
+    assert got["fused_topk-0"] is got["fused_topk-1"]
+    assert got["als_fused_accum-0"] is got["als_fused_accum-1"]
+    (a0, a1, _), (b0, b1, _) = spans
+    assert max(a0, b0) < min(a1, b1), "the two nvcc processes did not overlap"
+    assert list((tmp_path / "kernels").glob("*.tmp")) == []
