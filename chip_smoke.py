@@ -69,7 +69,14 @@ calls:
   baseline exits 0 cold, then warm from the check cache, and ``pio check
   --engine all`` exits 0, CUDA still untouched; then ``pio train`` of the
   template at the ML-100K cut with ``PIO_PREFLIGHT_LINT=1`` (kernel 1, 40
-  launches).  In this process, ``train_ml20m``'s instance persisted through
+  launches); then a user's engine module built from the port's exported
+  names (``core.Engine``, ``EngineFactory``, ``IdentityPreparator``,
+  ``FirstServing`` and the template's data source and ALS) trained by
+  ``pio train --engine chip_custom_rec:Factory`` (40 launches, factors
+  equal bit for bit to the template's) and answering ``pio batchpredict``
+  of every known user in one kernel-3 wave, each answer held to the host
+  top-k; and ``pio bench --compare`` on three synthetic BENCH lines and
+  stdin (exits 0, 1, 2).  In this process, ``train_ml20m``'s instance persisted through
   ``S3Models`` (``TYPE=s3`` over an in-memory boto3-shaped client) and
   deployed from it: one 4,096-query wave through kernel 3 (1 launch), held
   to the host top-k and equal bit for bit to the sqlite-loaded deploy;
@@ -158,8 +165,8 @@ calls:
   third refused by the stored-bytes budget, one wave partitioned by tenant
   (kernel 3 on each), and a tenant's quota shedding;
 - the storage plane (``storage``): ``pio storageserver`` as a subprocess
-  (parquet events), all 20,000,263 ratings at the ML-20M width written to it
-  as bulk frames, ``pio eventstore status|compact --url``, ``pio train`` with every
+  (parquet events), the first 15,000,000 of the ML-20M-shaped ratings
+  written to it as bulk frames, ``pio eventstore status|compact --url``, ``pio train`` with every
   repository on the daemon (kernel 1), held to an in-memory train from one
   start per entity; the deploy bound through the daemon answering a
   queued wave (kernel 3), solo queries and ``pio batchpredict``; the
@@ -204,7 +211,8 @@ To make room for ``day``: ``operator``, ``lifecycle`` and
 ``als_family_cli`` hold the first 20,000 of their ML-100K-shaped stream
 (``CUT_ML100K_EVENTS``), ``event_ingest`` ingests 5,000 events (10,000
 for ``day``, 5,000 for ``check``), ``fleet`` routes 512-query waves, and
-``storage`` takes ``train_ml20m``'s ratings rather than generating them
+``storage`` takes the first 15,000,000 of ``train_ml20m``'s ratings
+(``STORE_RATINGS``, for ``custom_engine``) rather than generating them
 again.  ``als_family_train`` trains on the views of the ML-20M stream's
 first 5,000,000 ratings (``FAMILY_RATINGS``: 10,000,000 for ``day``,
 7,500,000 for ``sharded_serving``, 5,000,000 for ``check``).  For ``mesh_train``, ``movielens_like`` looks its
@@ -273,7 +281,14 @@ RTOL = 1e-5  # random-normal inputs: cuBLAS sums in another order
 ALS_RTOL = 1e-4
 
 
+#: the script's start on the host's clock: each phase line carries
+#: ``script_s``, the seconds from here to its print
+SCRIPT_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - SCRIPT_T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -3641,7 +3656,8 @@ INGEST_EVENTS = 5_000
 LIVE_USERS = 8  # the live loop's users, one view POSTed for each
 #: the tied slice: the stream's first TIED_EVENTS, TIED_PER_SECOND of them
 #: to one second, each second's events spread over 20 batches (cut from
-#: 20,000 with the stream)
+#: 20,000 with the stream; taken from the whole stream, so INGEST_EVENTS'
+#: later cuts leave it whole)
 TIED_EVENTS, TIED_PER_SECOND = 6_000, 1_000
 
 
@@ -3808,8 +3824,10 @@ def tied_stream(rates: list) -> list:
     """The first TIED_EVENTS rate events, each taking the time of the first
     event of its group of TIED_PER_SECOND, as SDK clients with clocks of
     one second send them."""
-    return [{**e, "eventTime": rates[j - j % TIED_PER_SECOND]["eventTime"]}
+    tied = [{**e, "eventTime": rates[j - j % TIED_PER_SECOND]["eventTime"]}
             for j, e in enumerate(rates[:TIED_EVENTS])]
+    assert len(tied) == TIED_EVENTS, (len(tied), TIED_EVENTS)
+    return tied
 
 
 def factor_diff(a: dict, b: dict, users: list, items: list) -> float:
@@ -4102,7 +4120,8 @@ def event_ingest_phase() -> dict:
             out["stats_counted"] = counted
             out["eventserver_obs"] = eventserver_obs(port, proc.pid, len(sent))
             out["shed"] = shed_probe()
-            tied = tied_stream(rates)
+            tied = tied_stream(ingest_streams(u[:TIED_EVENTS], i[:TIED_EVENTS],
+                                              r[:TIED_EVENTS])[0])
             res, wall = run_clients(port, [
                 ("POST", f"/batch/events.json?accessKey={tied_key}",
                  json.dumps(tied[lo:lo + INGEST_BATCH]).encode(),
@@ -7143,8 +7162,10 @@ def lifecycle_phase(device="cuda") -> dict:
 
 # -- the storage plane ---------------------------------------------------------
 
-#: the storage phase writes the ML-20M ratings to the daemon in frames of
-#: about a million rows, from this many writer threads
+#: the storage phase writes the first STORE_RATINGS of the ML-20M ratings
+#: (cut from 20,000,263 to keep the script near 950 s) to the daemon in
+#: frames of about a million rows, from this many writer threads
+STORE_RATINGS = 15_000_000
 STORE_FRAME_ROWS = 1 << 20
 STORE_WRITERS = 2
 #: the phase's expected seconds at the full ML-20M stream (stated before
@@ -7259,7 +7280,8 @@ def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
     """``storage``: the main path with all three repositories on a remote
     storage daemon (``pio storageserver`` as a subprocess, parquet events).
 
-    The ML-20M ratings go to the daemon as id-less bulk frames of about a
+    The ML-20M-shaped ratings (``main`` passes the first STORE_RATINGS of
+    ``train_ml20m``'s) go to the daemon as id-less bulk frames of about a
     million rows (``RemotePEvents.write``, two writer threads); ``pio
     eventstore status --url`` shows the hot segments and ``compact --url``
     folds them.  ``pio train`` (rank 10, 20 iterations) reads them back
@@ -9448,6 +9470,46 @@ def factory():
 """
 CHECK_BASELINE = "predictionio_tpu_torch/.pio-check-baseline.json"
 
+#: a user's engine module built from the port's exported names: the
+#: recommendation template's data source (indexing its ratings at read, so
+#: the identity preparator passes them on) and ALS, with the core's first
+#: serving, behind an ``EngineFactory`` that ``pio train --engine
+#: chip_custom_rec:Factory`` resolves to its ``apply``
+CUSTOM_ENGINE_MODULE = """\
+from predictionio_tpu_torch.core import (
+    Engine,
+    EngineFactory,
+    FirstServing,
+    IdentityPreparator,
+)
+from predictionio_tpu_torch.models.recommendation.engine import (
+    ALSAlgorithm,
+    RatingsDataSource,
+    RatingsPreparator,
+)
+
+
+class IndexedRatings(RatingsDataSource):
+    def read_training(self, ctx):
+        return RatingsPreparator().prepare(ctx, super().read_training(ctx))
+
+
+class Factory(EngineFactory):
+    @classmethod
+    def apply(cls):
+        return Engine({"": IndexedRatings}, {"": IdentityPreparator},
+                      {"als": ALSAlgorithm}, {"": FirstServing})
+"""
+
+#: synthetic BENCH lines for ``pio bench --compare``: the previous run, one
+#: within the 10 % tolerance, one past it, and one at an older schema
+BENCH_PREVIOUS = {"metric": "chip_smoke", "value": 100.0,
+                  "serving_p50_ms": 2.0, "map_at_10": 0.2}
+BENCH_CURRENT = {
+    "within": {"value": 104.0, "serving_p50_ms": 1.9, "map_at_10": 0.21},
+    "regressed": {"value": 125.0, "serving_p50_ms": 2.0, "map_at_10": 0.2},
+}
+
 
 def check_cli(cli, argv: list) -> tuple[int, str, str, float]:
     """(exit code, stdout, stderr, seconds) of one in-process CLI call."""
@@ -9575,7 +9637,6 @@ def check_phase() -> dict:
         (blob,) = load_models(storage.models(), instance_id)
         assert np.isfinite(blob["user_factors"]).all()
         assert np.isfinite(blob["item_factors"]).all()
-        storage.close()
         out["train"] = {"s": secs, "preflight_ms": 1e3 * timed[0],
                         "advisory": [x for x in err.splitlines()
                                      if x.startswith("pre-flight lint")][0],
@@ -9583,7 +9644,117 @@ def check_phase() -> dict:
         print(f"train pre-flight (DASE + cached advisory lint): "
               f"{1e3 * timed[0]:.3f} ms; kernel 1 launches "
               f"{launches['als_fused_accum']} ({nvidia_smi_line()})", flush=True)
+        out["custom_engine"] = custom_engine_hold(cli, tmp, storage, blob)
+        out["custom_engine"]["bench_compare"] = bench_compare_hold(cli, tmp)
+        storage.close()
     return out
+
+
+def custom_engine_hold(cli, tmp: Path, storage, blob: dict) -> dict:
+    """``CUSTOM_ENGINE_MODULE`` through the CLI on ``check``'s ML-100K app:
+    ``pio train --engine chip_custom_rec:Factory`` with the template
+    train's engine params, its factors equal bit for bit to ``blob`` (the
+    template's), then ``pio batchpredict`` of every known user through that
+    instance, every answer held to the host top-k.  Kernel 1 runs
+    2 x ITERATIONS times and kernel 3 once, over a wave of at least
+    ``DEVICE_BATCH_MIN`` users."""
+    from predictionio_tpu_torch.core.persistence import load_models
+    from predictionio_tpu_torch.models.recommendation.engine import ALSAlgorithm
+    from predictionio_tpu_torch.ops.topk import host_topk_batch
+
+    factory = "chip_custom_rec:Factory"
+    (tmp / "chip_custom_rec.py").write_text(CUSTOM_ENGINE_MODULE)
+    variant = json.loads((tmp / "engine.json").read_text())
+    (tmp / "custom.json").write_text(json.dumps(
+        {**variant, "id": "custom", "engineFactory": factory}))
+    users = sorted(blob["user_vocab"], key=lambda s: int(s[1:]))
+    (tmp / "custom_q.jsonl").write_text("".join(
+        json.dumps({"user": str(x), "num": 10}) + "\n" for x in users))
+    out: dict = {"factory": factory, "wave": len(users)}
+    assert len(users) >= ALSAlgorithm.DEVICE_BATCH_MIN, len(users)
+    sys.path.insert(0, str(tmp))
+    try:
+        # -- the main path, with every launch count at 0 just before it --
+        reset_launches()
+        rc, text, err, out["train_s"] = check_cli(
+            cli, ["train", "--engine", factory, "--engine-json",
+                  str(tmp / "custom.json")])
+        train_launches = read_launches()
+        assert rc == 0, (rc, err[-2000:])
+        instance_id = text.split("Engine instance: ")[1].split()[0]
+        reset_launches()
+        rc, _, err, out["batchpredict_s"] = check_cli(
+            cli, ["batchpredict", "--engine", factory, "--engine-instance-id",
+                  instance_id, "--input", str(tmp / "custom_q.jsonl"),
+                  "--output", str(tmp / "custom_p.jsonl")])
+        wave_launches = read_launches()
+        # -- end of the main path --
+        assert rc == 0, (rc, err[-2000:])
+    finally:
+        sys.path.remove(str(tmp))
+    record = storage.engine_instances().get(instance_id)
+    assert record.engine_factory == factory, record.engine_factory
+    (custom,) = load_models(storage.models(), instance_id)
+    for key in ("user_factors", "item_factors", "user_vocab", "item_vocab"):
+        assert np.array_equal(custom[key], blob[key]), f"{key} differs"
+    U, V = custom["user_factors"], custom["item_factors"]
+    uvocab = {k: n for n, k in enumerate(custom["user_vocab"])}
+    ivocab = list(custom["item_vocab"])
+
+    def host(user):  # a wave of one, as the micro-batched server answers
+        s, idx = host_topk_batch(U[[uvocab[str(user)]]] @ V.T, 10)
+        return [ivocab[j] for j in idx[0]], [float(x) for x in s[0]]
+
+    lines = [json.loads(x) for x in
+             (tmp / "custom_p.jsonl").read_text().splitlines()]
+    assert len(lines) == len(users), (len(lines), len(users))
+    out["rows_checked_vs_host"] = check_wave_lines(
+        lines, users, host, range(len(users)))
+    out["train_launches"] = train_launches
+    out["wave_launches"] = wave_launches
+    out["instance"] = instance_id
+    out["factors_bit_equal"] = True
+    assert train_launches["als_fused_accum"] == 2 * ITERATIONS, train_launches
+    assert wave_launches["fused_topk"] == 1, wave_launches
+    print(f"custom engine {factory}: train {out['train_s']:.3f} s, kernel 1 "
+          f"launches {train_launches['als_fused_accum']}; batchpredict of "
+          f"{len(users)} users {out['batchpredict_s']:.3f} s, kernel 3 "
+          f"launches {wave_launches['fused_topk']} ({nvidia_smi_line()})",
+          flush=True)
+    return out
+
+
+def bench_compare_hold(cli, tmp: Path) -> dict:
+    """``pio bench --compare`` over ``BENCH_PREVIOUS`` and each current
+    line of ``BENCH_CURRENT``, one read from stdin, and an old schema:
+    exits 0 within tolerance, 1 past it, 2 on the old schema."""
+    from predictionio_tpu_torch.obs.device import BENCH_SCHEMA_VERSION
+
+    def line(d: dict, version: int = BENCH_SCHEMA_VERSION) -> str:
+        return json.dumps({**BENCH_PREVIOUS, **d, "schema_version": version})
+
+    prev = tmp / "bench_prev.json"
+    prev.write_text(line({}) + "\n")
+    files = {name: tmp / f"bench_{name}.json" for name in BENCH_CURRENT}
+    for name, path in files.items():
+        # a captured run: stray text first, the last JSON object line wins
+        path.write_text("bench: done\n" + line(BENCH_CURRENT[name]) + "\n")
+    old = tmp / "bench_old.json"
+    old.write_text(line(BENCH_CURRENT["within"], BENCH_SCHEMA_VERSION - 1) + "\n")
+    exits = {name: check_cli(cli, ["bench", "--compare", str(prev), str(path)])[0]
+             for name, path in files.items()}
+    exits["old_schema"] = check_cli(cli, ["bench", "--compare", str(prev), str(old)])[0]
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(line(BENCH_CURRENT["regressed"]))
+    try:
+        rc, text, _, _ = check_cli(cli, ["bench", "--compare", str(prev)])
+    finally:
+        sys.stdin = stdin
+    exits["regressed_stdin"] = rc
+    assert exits == {"within": 0, "regressed": 1, "old_schema": 2,
+                     "regressed_stdin": 1}, exits
+    assert json.loads(text)["regressions"][0]["metric"] == "value", text
+    return exits
 
 
 class MemoryS3:
@@ -9851,9 +10022,10 @@ def main() -> int:
     emit(operator)
     lifecycle = lifecycle_phase()
     emit(lifecycle)
-    # the storage daemon takes train_ml20m's ratings (the same generator
-    # and seed) rather than generating them again
-    storage = storage_phase(ratings=ratings)
+    # the storage daemon takes the first STORE_RATINGS of train_ml20m's
+    # ratings (the same generator and seed) rather than generating them again
+    storage = storage_phase(n_events=STORE_RATINGS,
+                            ratings=tuple(x[:STORE_RATINGS] for x in ratings))
     del ratings
     emit(storage)
     watch = phase_in_own_process("watch_phase")
@@ -9926,6 +10098,9 @@ def main() -> int:
                     "launches_fleet": fleet["launches"]["fused_topk"],
                     # the ML-20M instance deployed from S3Models: one wave
                     "launches_check": check["s3"]["launches"]["fused_topk"],
+                    # pio batchpredict of every known user through a user's
+                    # EngineFactory module (check): one wave
+                    "launches_custom_engine": check["custom_engine"]["wave_launches"]["fused_topk"],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ids_equal": all(c["ids_equal"] for c in cases if c["kind"] != "normal"),
                     "near_tie_id_swaps": sum(c["near_tie_id_swaps"] for c in normal),
@@ -9992,6 +10167,8 @@ def main() -> int:
                     # pio train at the ML-100K cut behind the DASE pre-flight
                     # and the advisory lint (check, in its own process)
                     launches_check=check["train"]["launches"]["als_fused_accum"],
+                    # pio train of a user's EngineFactory module (check)
+                    launches_custom_engine=check["custom_engine"]["train_launches"]["als_fused_accum"],
                     # mesh_train: 4 data slots of cuda:0 (2 x 4 x 5), each
                     # rank of the two-process train, the 4-slot run_train;
                     # timed at one slot's shape (mesh_*)

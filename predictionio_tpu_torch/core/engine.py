@@ -298,6 +298,18 @@ class SimpleEngine(Engine):
         )
 
 
+class EngineFactory:
+    """Marker/registration base for engine factories (EngineFactory.scala:31).
+
+    Subclasses implement ``apply() -> Engine``; ``engine_factory("name")``
+    registers a plain function.
+    """
+
+    @classmethod
+    def apply(cls) -> Engine:
+        raise NotImplementedError
+
+
 def engine_factory(name: str):
     """Decorator registering a zero-arg engine factory under ``name``."""
 
@@ -323,4 +335,6 @@ def resolve_engine_factory(name: str) -> Callable[[], Engine]:
             f"engine factory {name!r} not found (registered: "
             f"{engine_registry.names()}; import paths 'pkg.mod:attr' also work)"
         )
+    if isinstance(obj, type) and issubclass(obj, EngineFactory):
+        return obj.apply
     return obj

@@ -150,6 +150,21 @@ class _ShardingUnpickler(_PortUnpickler):
         return self._loaded[name]
 
 
+def serialize_models(models: list[Any]) -> bytes:
+    """Single-blob format (legacy/small models): one pickle of the model
+    list, every tensor copied to host numpy first."""
+    buf = io.BytesIO()
+    pickle.Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(
+        [_to_host(m) for m in models]
+    )
+    return buf.getvalue()
+
+
+def deserialize_models(blob: bytes) -> list[Any]:
+    """Inverse of either package's ``serialize_models``."""
+    return _PortUnpickler(io.BytesIO(blob)).load()
+
+
 def serialize_models_sharded(
     models: list[Any], threshold: int = PART_THRESHOLD
 ) -> tuple[bytes, dict[str, bytes]]:
@@ -195,7 +210,7 @@ def load_models(models_store, instance_id: str) -> list[Any] | None:
     blob = models_store.get(instance_id)
     if blob is None:
         return None
-    return _PortUnpickler(io.BytesIO(blob)).load()
+    return deserialize_models(blob)
 
 
 def _tensor_from_spill(array: np.ndarray, device: str) -> torch.Tensor:

@@ -40,6 +40,13 @@ from predictionio_tpu_torch.data.storage.base import (
 )
 from predictionio_tpu_torch.data.storage.config import StorageRuntime, get_storage
 
+# the serving-layout sidecar's key suffix and reader: defined in
+# lifecycle.generations, importable from here as in the JAX package
+from predictionio_tpu_torch.lifecycle.generations import (  # noqa: F401
+    SHARD_PLAN_SUFFIX,
+    read_shard_plan,
+)
+
 log = logging.getLogger("predictionio_tpu_torch.workflow")
 
 
@@ -172,8 +179,6 @@ def _record_shard_plan(storage, instance_id: str, algos, models) -> None:
     under ``<id>:shardplan`` (``lifecycle.generations.SHARD_PLAN_SUFFIX``),
     the JAX package's bytes.  Best-effort bookkeeping: a failure here must
     never fail the train."""
-    from predictionio_tpu_torch.lifecycle.generations import SHARD_PLAN_SUFFIX
-
     try:
         plan = next(
             (

@@ -4,9 +4,15 @@ sqlite, localfs, the parquet event log, fsspec model stores and the remote
 storage daemon (see ``config`` for the env vars)."""
 
 from predictionio_tpu_torch.data.storage.base import (
+    AccessKey,
+    App,
+    Channel,
     EngineInstance,
     EvaluationInstance,
+    EventFrame,
+    LEvents,
     Models,
+    PEvents,
 )
 from predictionio_tpu_torch.data.storage.config import (
     StorageConfig,
@@ -16,9 +22,15 @@ from predictionio_tpu_torch.data.storage.config import (
 )
 
 __all__ = [
+    "AccessKey",
+    "App",
+    "Channel",
     "EngineInstance",
     "EvaluationInstance",
+    "EventFrame",
+    "LEvents",
     "Models",
+    "PEvents",
     "StorageConfig",
     "StorageRuntime",
     "get_storage",

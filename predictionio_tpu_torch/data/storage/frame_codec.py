@@ -55,6 +55,33 @@ from predictionio_tpu_torch.data.storage.base import (
 
 MAGIC = b"PIOF1\n"
 
+
+def dictionary_to_objects(arr, null_value=None, transform=None) -> np.ndarray:
+    """Arrow DictionaryArray -> numpy object column, decoding (and
+    optionally ``transform``-ing) each unique dictionary value once and
+    broadcasting through the int32 codes; null rows become ``null_value``.
+    The interned output keeps downstream pointer fast paths hot.  It reads
+    only the array's own methods, so this module imports no pyarrow; the
+    parquet backend's scan decoders use it from here."""
+    n = len(arr)
+    if transform is None:
+        uniq = np.asarray(
+            arr.dictionary.to_numpy(zero_copy_only=False), object
+        )
+    else:
+        vals = arr.dictionary.to_pylist()
+        uniq = np.empty(len(vals), object)
+        for j, v in enumerate(vals):
+            uniq[j] = transform(v)
+    if not len(uniq):  # all-null column dictionary-encodes to 0 values
+        return np.full(n, null_value, object)
+    codes = arr.indices.fill_null(0).to_numpy(zero_copy_only=False)
+    out = uniq[codes]
+    if arr.null_count:
+        out[arr.is_null().to_numpy(zero_copy_only=False)] = null_value
+    return out
+
+
 _I64_COLS = ("event_time_ms", "creation_time_ms")
 _JSON_COLS = ("properties", "tags")
 _COLUMN_ORDER = (

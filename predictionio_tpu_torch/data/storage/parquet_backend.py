@@ -88,6 +88,7 @@ from predictionio_tpu_torch.data.storage.base import (
     run_concurrent,
 )
 from predictionio_tpu_torch.data.storage.base import value_factorize
+from predictionio_tpu_torch.data.storage.frame_codec import dictionary_to_objects
 from predictionio_tpu_torch.obs.costs import note_storage_read
 from predictionio_tpu_torch.resilience import faults
 
@@ -119,6 +120,9 @@ _SCHEMA = pa.schema(
 )
 
 _ALL_COLS = tuple(f.name for f in _SCHEMA)
+
+#: EventFrame-facing columns (``seq`` is storage-internal)
+FRAME_COLS = tuple(c for c in _ALL_COLS if c != "seq")
 
 #: columns dictionary-encoded on disk when repetitive (entity vocabularies
 #: are ~100x smaller than event counts at ML scale); ``event_id``/``pr_id``
@@ -481,30 +485,6 @@ def _codes_any(col: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         return f
     f = _arrow_factorize(col)
     return f if f is not None else value_factorize(col)
-
-
-def dictionary_to_objects(arr, null_value=None, transform=None) -> np.ndarray:
-    """Arrow DictionaryArray -> numpy object column, decoding (and
-    optionally ``transform``-ing) each unique dictionary value once and
-    broadcasting through the int32 codes; null rows become ``null_value``.
-    The interned output keeps downstream pointer fast paths hot."""
-    n = len(arr)
-    if transform is None:
-        uniq = np.asarray(
-            arr.dictionary.to_numpy(zero_copy_only=False), object
-        )
-    else:
-        vals = arr.dictionary.to_pylist()
-        uniq = np.empty(len(vals), object)
-        for j, v in enumerate(vals):
-            uniq[j] = transform(v)
-    if not len(uniq):  # all-null column dictionary-encodes to 0 values
-        return np.full(n, null_value, object)
-    codes = arr.indices.fill_null(0).to_numpy(zero_copy_only=False)
-    out = uniq[codes]
-    if arr.null_count:
-        out[arr.is_null().to_numpy(zero_copy_only=False)] = null_value
-    return out
 
 
 def _dict_from_codes(codes: np.ndarray, uniq: np.ndarray) -> pa.Array:

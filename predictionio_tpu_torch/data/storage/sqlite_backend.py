@@ -82,43 +82,48 @@ class SQLiteClient:
             self.conn.close()
 
 
+#: the metadata and model tables, with the JAX package's DDL byte for byte
+#: (its ``SQLiteMetadata``), so ``sqlite_master`` reads the same whichever
+#: package made the database
+_METADATA_DDL = (
+    """CREATE TABLE IF NOT EXISTS pio_apps (
+               id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT UNIQUE NOT NULL,
+               description TEXT)""",
+    """CREATE TABLE IF NOT EXISTS pio_access_keys (
+               accesskey TEXT PRIMARY KEY, appid INTEGER NOT NULL, events TEXT)""",
+    """CREATE TABLE IF NOT EXISTS pio_channels (
+               id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT NOT NULL,
+               appid INTEGER NOT NULL)""",
+    """CREATE TABLE IF NOT EXISTS pio_engine_instances (
+               id TEXT PRIMARY KEY, status TEXT, startTime INTEGER,
+               endTime INTEGER, engineId TEXT, engineVersion TEXT,
+               engineVariant TEXT, engineFactory TEXT, batch TEXT,
+               env TEXT, meshConf TEXT, dataSourceParams TEXT,
+               preparatorParams TEXT, algorithmsParams TEXT, servingParams TEXT)""",
+    """CREATE TABLE IF NOT EXISTS pio_evaluation_instances (
+               id TEXT PRIMARY KEY, status TEXT, startTime INTEGER,
+               endTime INTEGER, evaluationClass TEXT,
+               engineParamsGeneratorClass TEXT, batch TEXT, env TEXT,
+               evaluatorResults TEXT, evaluatorResultsHTML TEXT,
+               evaluatorResultsJSON TEXT)""",
+    """CREATE TABLE IF NOT EXISTS pio_models (
+               id TEXT PRIMARY KEY, models BLOB NOT NULL)""",
+)
+
+
 def create_tables(client: SQLiteClient) -> None:
-    """The metadata and model tables, with the JAX package's exact DDL (its
-    ``SQLiteMetadata``)."""
-    client.execute(
-        """CREATE TABLE IF NOT EXISTS pio_apps (
-           id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT UNIQUE NOT NULL,
-           description TEXT)"""
-    )
-    client.execute(
-        """CREATE TABLE IF NOT EXISTS pio_access_keys (
-           accesskey TEXT PRIMARY KEY, appid INTEGER NOT NULL, events TEXT)"""
-    )
-    client.execute(
-        """CREATE TABLE IF NOT EXISTS pio_channels (
-           id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT NOT NULL,
-           appid INTEGER NOT NULL)"""
-    )
-    client.execute(
-        """CREATE TABLE IF NOT EXISTS pio_engine_instances (
-           id TEXT PRIMARY KEY, status TEXT, startTime INTEGER,
-           endTime INTEGER, engineId TEXT, engineVersion TEXT,
-           engineVariant TEXT, engineFactory TEXT, batch TEXT,
-           env TEXT, meshConf TEXT, dataSourceParams TEXT,
-           preparatorParams TEXT, algorithmsParams TEXT, servingParams TEXT)"""
-    )
-    client.execute(
-        """CREATE TABLE IF NOT EXISTS pio_evaluation_instances (
-           id TEXT PRIMARY KEY, status TEXT, startTime INTEGER,
-           endTime INTEGER, evaluationClass TEXT,
-           engineParamsGeneratorClass TEXT, batch TEXT, env TEXT,
-           evaluatorResults TEXT, evaluatorResultsHTML TEXT,
-           evaluatorResultsJSON TEXT)"""
-    )
-    client.execute(
-        """CREATE TABLE IF NOT EXISTS pio_models (
-           id TEXT PRIMARY KEY, models BLOB NOT NULL)"""
-    )
+    """Create the metadata and model tables (:data:`_METADATA_DDL`)."""
+    for ddl in _METADATA_DDL:
+        client.execute(ddl)
+
+
+class SQLiteMetadata:
+    """Creates the metadata tables once per client (the JAX package's
+    class of that name)."""
+
+    def __init__(self, client: SQLiteClient):
+        self.client = client
+        create_tables(client)
 
 
 def _ei_to_row(i: EngineInstance) -> tuple:

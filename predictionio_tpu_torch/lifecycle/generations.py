@@ -108,6 +108,17 @@ class Generation:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+def shard_axes(shard_plan: dict[str, Any] | None) -> dict[str, int] | None:
+    """The mesh axes of a recorded serving plan (axis name -> size; -1 =
+    all devices at bind time), or None for unsharded generations.  The
+    compact identity a per-answer provenance record carries — the full
+    plan (specs + real row counts) stays in the manifest."""
+    if not shard_plan:
+        return None
+    axes = shard_plan.get("axes")
+    return dict(axes) if axes else None
+
+
 #: storage-key suffix of the serving-layout sidecar blob (kept OUTSIDE the
 #: checksummed model bytes: the manifest entry is the authoritative copy)
 SHARD_PLAN_SUFFIX = ":shardplan"

@@ -254,3 +254,20 @@ class HotPathTracker:
             },
             "stages": stages,
         }
+
+
+def render_hotpath_text(snap: Mapping[str, Any]) -> str:
+    """One-screen stage table over a ``/hotpath.json`` body."""
+    lines = [
+        f"requests: {snap.get('requests', 0)}   "
+        f"coverage: {snap.get('coverage_frac', 0.0):.1%}   "
+        f"total p50 {snap.get('total', {}).get('p50_s', 0.0) * 1e3:.3f} ms / "
+        f"p99 {snap.get('total', {}).get('p99_s', 0.0) * 1e3:.3f} ms",
+        f"{'stage':<18} {'share':>7} {'p50 ms':>10} {'p99 ms':>10}",
+    ]
+    for name, row in snap.get("stages", {}).items():
+        lines.append(
+            f"{name:<18} {row['share_frac']:>6.1%} "
+            f"{row['p50_s'] * 1e3:>10.3f} {row['p99_s'] * 1e3:>10.3f}"
+        )
+    return "\n".join(lines)

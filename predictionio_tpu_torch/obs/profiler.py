@@ -253,6 +253,13 @@ class ProfilerController:
             }
 
 
+#: The JAX package skips its per-device ``memory_stats`` walk when the last
+#: walk was under this many seconds ago.  The port reads one card's
+#: allocator (two calls) on every scrape, so its interval is 0: each
+#: scrape's memory gauges are the allocator's at that scrape.  Kept for the
+#: JAX package's name: nothing in the port reads it.
+MEMSTATS_MIN_INTERVAL_S = 0.0
+
 #: the process-wide controller — the profiler is global to the process
 PROFILER = ProfilerController()
 

@@ -177,18 +177,19 @@ def generation_info(gen_store: Any, instance_id: str) -> dict[str, Any] | None:
         hit = _GEN_MEMO.get(memo_key)
     if hit is not None:
         return hit
+    from predictionio_tpu_torch.lifecycle.generations import shard_axes
+
     try:
         gen = gen_store.get(instance_id)
     except Exception:
         return None
     if gen is None:
         return None
-    axes = (gen.shard_plan or {}).get("axes")
     info = {
         "instance": instance_id,
         "checksum": gen.checksum,
         "status": gen.status,
-        "shard_axes": dict(axes) if axes else None,
+        "shard_axes": shard_axes(gen.shard_plan),
         "engine": {
             "id": gen_store.engine_id,
             "version": gen_store.engine_version,

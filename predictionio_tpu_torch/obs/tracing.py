@@ -168,18 +168,26 @@ class trace:
                 except Exception:
                     pass  # telemetry must never break the traced block
         if self._record:
-            self._registry.histogram(
-                "pio_span_seconds",
-                "Duration of named stages (trace spans)",
-                labelnames=("span",),
-                buckets=TRAIN_BUCKETS,
-            ).labels(self.span.name).observe(self.span.duration_s)
+            observe_span(self.span.name, self.span.duration_s, self._registry)
         return None
 
 
 def current_span() -> Span | None:
     stack = _stack_var.get()
     return stack[-1] if stack else None
+
+
+def observe_span(
+    name: str, seconds: float, registry: MetricsRegistry | None = None
+) -> None:
+    """Record an externally-timed duration as if it were a span: the
+    ``pio_span_seconds{span=name}`` histogram a finished span feeds."""
+    (registry or REGISTRY).histogram(
+        "pio_span_seconds",
+        "Duration of named stages (trace spans)",
+        labelnames=("span",),
+        buckets=TRAIN_BUCKETS,
+    ).labels(name).observe(seconds)
 
 
 def recent_traces(n: int = 20) -> list[dict[str, Any]]:

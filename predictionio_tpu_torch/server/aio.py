@@ -24,6 +24,7 @@ import asyncio
 import contextvars
 import http
 import inspect
+import logging
 import threading
 import time
 from urllib.parse import parse_qs, urlsplit
@@ -58,6 +59,8 @@ _m_http = REGISTRY.histogram(
 _KNOWN_METHODS = frozenset(
     ("GET", "POST", "PUT", "DELETE", "HEAD", "OPTIONS", "PATCH")
 )
+
+log = logging.getLogger("predictionio_tpu_torch.aio")
 
 
 async def _handle_app_request(app: HTTPApp, req: Request) -> Response:

@@ -40,6 +40,9 @@ production day over the fleet, judged by the verdict engine: exit 0 PASS,
 1 FAIL, 2 a malformed scenario); ``check`` (the static analyzer, PIO-TORCH
 rules in place of PIO-JAX, and the DASE contract checks with ``--engine``;
 ``train`` and ``deploy`` run the DASE pre-flight unless ``--no-check``);
+``bench --compare`` (the perf-regression gate over two BENCH JSON lines:
+exit 0 within ``--tolerance``, 1 on a regression, 2 on a usage error or an
+old ``schema_version``; it runs nothing and touches no device);
 plus ``--device`` on the verbs
 that compute (default ``cuda``;
 ``cpu`` runs the plain versions on the host).  ``train``, ``deploy`` and
@@ -2377,6 +2380,71 @@ def do_explain(args) -> int:
     return 0
 
 
+def do_bench(args) -> int:
+    """`pio bench --compare PREV.json [CURRENT.json]`: the perf-regression
+    gate over two BENCH json lines (bench.py output).
+
+    Exit contract: 0 = every gateable metric within --tolerance, 1 = a
+    regression beyond tolerance (the CI gate trips), 2 = usage error or a
+    file missing/old ``schema_version``.  CURRENT defaults to stdin so the
+    gate pipelines directly: ``python bench.py | pio bench --compare
+    BENCH_prev.json``.  It reads two JSON lines and runs nothing: no
+    benchmark, no ``BENCHMARK.json``, no device.
+    """
+    from predictionio_tpu_torch.obs.device import compare_bench
+
+    def load(path: str, label: str) -> dict | None:
+        try:
+            text = Path(path).read_text()
+        except OSError as e:
+            print(f"usage error: cannot read {label}: {e}", file=sys.stderr)
+            return None
+        return parse(text, label)
+
+    def parse(text: str, label: str) -> dict | None:
+        # bench.py logs to stderr and prints ONE json line to stdout, but a
+        # captured file may carry stray lines: the LAST parseable json
+        # object wins
+        for line in reversed([l for l in text.splitlines() if l.strip()]):
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(obj, dict):
+                return obj
+        print(f"usage error: no JSON object in {label}", file=sys.stderr)
+        return None
+
+    previous = load(args.compare, "--compare file")
+    if previous is None:
+        return 2
+    if args.current:
+        current = load(args.current, "current file")
+    else:
+        current = parse(sys.stdin.read(), "stdin")
+    if current is None:
+        return 2
+    code, report = compare_bench(
+        current, previous, tolerance_pct=args.tolerance
+    )
+    _print(report)
+    if "error" in report:
+        print(f"usage error: {report['error']}", file=sys.stderr)
+    elif report["regressions"]:
+        names = ", ".join(r["metric"] for r in report["regressions"])
+        print(
+            f"PERF REGRESSION beyond {args.tolerance:g}%: {names}",
+            file=sys.stderr,
+        )
+    else:
+        print(
+            f"bench within tolerance ({report['checked']} metrics checked, "
+            f"{len(report['improvements'])} improved)",
+            file=sys.stderr,
+        )
+    return code
+
+
 def do_check(args) -> int:
     """`pio check`: PyTorch-aware static analysis + DASE contract pre-flight.
 
@@ -3345,6 +3413,35 @@ def build_parser() -> argparse.ArgumentParser:
         help="write the current findings to the baseline file and exit 0",
     )
     ck.set_defaults(fn=do_check)
+
+    bn = sub.add_parser(
+        "bench",
+        help="perf-regression gate over two bench.py JSON lines",
+        description="Compare a current BENCH json against a previous one "
+        "and exit 1 on regression beyond tolerance (2 on missing/old "
+        "schema_version) — the CI gate for perf work.",
+    )
+    bn.add_argument(
+        "--compare",
+        required=True,
+        metavar="PREV.json",
+        help="previous BENCH json line/file to gate against",
+    )
+    bn.add_argument(
+        "current",
+        nargs="?",
+        default=None,
+        help="current BENCH json file (default: read stdin, so "
+        "`python bench.py | pio bench --compare PREV.json` works)",
+    )
+    bn.add_argument(
+        "--tolerance",
+        type=float,
+        default=10.0,
+        metavar="PCT",
+        help="allowed regression per metric in percent (default 10)",
+    )
+    bn.set_defaults(fn=do_bench)
 
     pf = sub.add_parser(
         "profile",

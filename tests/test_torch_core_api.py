@@ -291,3 +291,51 @@ def test_deadline_check_and_expired(monkeypatch):
     finally:
         pt_deadline.reset_deadline(tokens[0])
         jax_deadline.reset_deadline(tokens[1])
+
+
+# -- the single-blob model format --------------------------------------------------
+
+
+def _models_equal(a, b):
+    assert type(a) is type(b) or (isinstance(a, dict) and isinstance(b, dict))
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _models_equal(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _models_equal(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    else:
+        assert a == b
+
+
+def test_serialize_models_reads_the_jax_blob_and_round_trips():
+    from predictionio_tpu.core import persistence as jax_persistence
+    from predictionio_tpu_torch.core import persistence as pt_persistence
+
+    rng = np.random.default_rng(22)
+    models = [
+        {"user_factors": rng.standard_normal((7, 4)).astype(np.float32),
+         "item_vocab": np.array(["i0", "i1", "i2"]), "rank": 4},
+        [np.arange(5, dtype=np.int64), ("a", 1.5)],
+        None,
+    ]
+    jax_blob = jax_persistence.serialize_models(models)
+    _models_equal(pt_persistence.deserialize_models(jax_blob), models)
+    # the port's own blob: tensors leave as host numpy, the JAX package reads it
+    with_tensors = [{**models[0], "user_factors": torch.from_numpy(
+        models[0]["user_factors"])}, *models[1:]]
+    pt_blob = pt_persistence.serialize_models(with_tensors)
+    _models_equal(pt_persistence.deserialize_models(pt_blob), models)
+    _models_equal(jax_persistence.deserialize_models(pt_blob), models)
+
+
+def test_load_models_reads_a_single_blob(storage):
+    from predictionio_tpu_torch.core.persistence import serialize_models
+
+    models = [{"w": np.linspace(0, 1, 6, dtype=np.float32)}]
+    storage.models().insert("legacy", serialize_models(models))
+    _models_equal(load_models(storage.models(), "legacy"), models)

@@ -560,3 +560,18 @@ def test_wave_sizes_trip_no_launch_shape_storm(monkeypatch):
     # one signature per query block the sizes used (8 up to 1,024 rows)
     blocks = {query_block(b, k) for b in sizes}
     assert len(tracker._seen["als.fused_topk"]) == len(blocks)
+
+
+@pytest.mark.parametrize("args", [
+    (),
+    (np.zeros((3, 4), np.float32), 7, "x"),
+    (np.arange(5, dtype=np.int64), None, (1, 2), {"k": 1}),
+    (np.float32(2.5), np.ones((0, 2), np.float16), 1.5, True),
+])
+def test_signature_of_equals_the_jax_function(args):
+    assert pt_device.signature_of(*args) == jax_device.signature_of(*args)
+
+
+def test_signature_of_a_tensor_is_its_shape_and_dtype():
+    t = torch.zeros((4, 2), dtype=torch.float32)
+    assert pt_device.signature_of(t, 3) == (((4, 2), "torch.float32"), "3")

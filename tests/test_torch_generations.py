@@ -821,3 +821,27 @@ def test_sigkill_mid_swap_restarts_on_last_good(tmp_path):
             proc.kill()
             proc.wait(timeout=10)
         storage.close()
+
+
+@pytest.mark.parametrize("plan", [
+    None, {}, {"axes": {}}, {"axes": {"model": 4}},
+    {"axes": {"data": 2, "model": -1}, "specs": {"user_factors": ["model"]}},
+    {"specs": {"user_factors": ["model"]}},
+])
+def test_shard_axes_equals_the_jax_function(plan):
+    assert pt_generations.shard_axes(plan) == jax_generations.shard_axes(plan)
+
+
+def test_workflow_reexports_the_shard_plan_reader(models):
+    from predictionio_tpu.core import workflow as jax_workflow
+    from predictionio_tpu_torch.core import workflow as pt_workflow
+
+    assert pt_workflow.read_shard_plan is pt_generations.read_shard_plan
+    assert pt_workflow.SHARD_PLAN_SUFFIX == jax_workflow.SHARD_PLAN_SUFFIX
+    plan = {"axes": {"model": 2}, "specs": {"item_factors": ["model", None]}}
+    models.insert(f"i1{pt_workflow.SHARD_PLAN_SUFFIX}", json.dumps(plan).encode())
+    models.insert(f"i2{pt_workflow.SHARD_PLAN_SUFFIX}", b"\xff not json")
+    for iid in ("i1", "i2", "i3"):
+        assert pt_workflow.read_shard_plan(models, iid) == \
+            jax_workflow.read_shard_plan(models, iid)
+    assert pt_workflow.read_shard_plan(models, "i1") == plan

@@ -568,28 +568,61 @@ def test_contended_condition_waits_notifies_and_reenters():
 # hot path + capacity
 
 
-def test_hotpath_snapshots_equal(clock):
+def _hotpath_snapshot(mod, mmod, clock) -> dict:
     rng = np.random.default_rng(6)
-    outs = []
-    for mod, mmod in ((jax_hotpath, jax_metrics), (pt_hotpath, pt_metrics)):
-        rng = np.random.default_rng(6)
-        tracker = mod.HotPathTracker(mmod.MetricsRegistry())
-        for _ in range(200):
-            c = mod.StageClock()
-            clock.advance(float(rng.uniform(1e-5, 1e-3)))
-            c.lap("parse")
-            c.add("queue_wait", float(rng.uniform(0, 1e-3)))
-            clock.advance(float(rng.uniform(1e-5, 2e-3)))
-            c.split({mod.WAVE_STAGE_MAP["host_gather"]: 1e-4,
-                     mod.WAVE_STAGE_MAP["compute"]: float(rng.uniform(0, 3e-3))},
-                    remainder="block_until_ready")
-            clock.advance(float(rng.uniform(1e-5, 1e-4)))
-            c.lap("serialize")
-            tracker.observe_clock(c)
-        tracker.observe(0.0, {"parse": 1.0})  # ignored
-        outs.append(tracker.snapshot())
+    tracker = mod.HotPathTracker(mmod.MetricsRegistry())
+    for _ in range(200):
+        c = mod.StageClock()
+        clock.advance(float(rng.uniform(1e-5, 1e-3)))
+        c.lap("parse")
+        c.add("queue_wait", float(rng.uniform(0, 1e-3)))
+        clock.advance(float(rng.uniform(1e-5, 2e-3)))
+        c.split({mod.WAVE_STAGE_MAP["host_gather"]: 1e-4,
+                 mod.WAVE_STAGE_MAP["compute"]: float(rng.uniform(0, 3e-3))},
+                remainder="block_until_ready")
+        clock.advance(float(rng.uniform(1e-5, 1e-4)))
+        c.lap("serialize")
+        tracker.observe_clock(c)
+    tracker.observe(0.0, {"parse": 1.0})  # ignored
+    return tracker.snapshot()
+
+
+def test_hotpath_snapshots_equal(clock):
+    outs = [_hotpath_snapshot(mod, mmod, clock)
+            for mod, mmod in ((jax_hotpath, jax_metrics), (pt_hotpath, pt_metrics))]
     assert outs[0] == outs[1]
     assert pt_hotpath.STAGE_ORDER == jax_hotpath.STAGE_ORDER
+
+
+def test_render_hotpath_text_equals_the_jax_table(clock):
+    snap = _hotpath_snapshot(pt_hotpath, pt_metrics, clock)
+    text = pt_hotpath.render_hotpath_text(snap)
+    assert text == jax_hotpath.render_hotpath_text(snap)
+    assert text.splitlines()[0].startswith("requests: 200")
+    empty = pt_hotpath.HotPathTracker(pt_metrics.MetricsRegistry()).snapshot()
+    assert pt_hotpath.render_hotpath_text(empty) == jax_hotpath.render_hotpath_text(empty)
+    assert pt_hotpath.render_hotpath_text({}) == jax_hotpath.render_hotpath_text({})
+
+
+@pytest.mark.parametrize("samples", [[0.25], [1e-4, 3.5, 0.02, 120.0]])
+def test_observe_span_feeds_the_span_histogram_as_jax(samples):
+    regs = []
+    for tmod, mmod in ((jax_tracing, jax_metrics), (pt_tracing, pt_metrics)):
+        reg = mmod.MetricsRegistry()
+        for i, s in enumerate(samples):
+            tmod.observe_span(f"stage{i % 2}", s, registry=reg)
+        regs.append(reg.render_prometheus())
+    assert regs[0] == regs[1]
+    assert 'pio_span_seconds_count{span="stage0"}' in regs[1]
+
+
+def test_memstats_interval_and_aio_logger():
+    from predictionio_tpu_torch.obs import profiler as pt_profiler
+    from predictionio_tpu_torch.server import aio as pt_aio
+
+    # the port reads the allocator on every scrape: no throttle window
+    assert pt_profiler.MEMSTATS_MIN_INTERVAL_S == 0.0
+    assert pt_aio.log.name == "predictionio_tpu_torch.aio"
 
 
 def _capacity_app(slo_mod, clock, inflight_cap: bool):

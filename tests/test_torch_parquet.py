@@ -991,3 +991,9 @@ def test_app_compact_verb_on_both_clis(tmp_path, capsys):
         0, "Compacted app shop: 7 live events.\n",
         0, "Compacted app shop: 7 live events.\n",
     ]
+
+
+def test_frame_cols_equal_the_jax_backend():
+    assert pt_pq.FRAME_COLS == jax_pq.FRAME_COLS
+    # every EventFrame column, and not the storage-internal ``seq``
+    assert set(pt_pq.FRAME_COLS) == set(EventFrame.__dataclass_fields__)

@@ -359,3 +359,21 @@ def test_a_postgres_source_builds_the_postgres_daos(tmp_path, monkeypatch):
     assert any("MOD(('x' || substr(md5(entityType || '-' || entityId)" in s
                for s in sent)
     rt.close()
+
+
+def test_sqlite_metadata_ddl_equals_the_jax_package(tmp_path):
+    """``SQLiteMetadata`` on a fresh database leaves the same
+    ``sqlite_master`` SQL as the JAX package's class of that name."""
+    got = {}
+    for name, mod in (("jax", j_sb), ("port", p_sb)):
+        client = mod.SQLiteClient(str(tmp_path / f"{name}.sqlite"))
+        meta = mod.SQLiteMetadata(client)
+        assert meta.client is client
+        mod.SQLiteMetadata(client)  # idempotent
+        got[name] = client.query(
+            "SELECT type, name, tbl_name, sql FROM sqlite_master ORDER BY name")
+        client.close()
+    assert got["port"] == got["jax"]
+    assert {row[1] for row in got["port"]} >= {
+        "pio_apps", "pio_access_keys", "pio_channels", "pio_engine_instances",
+        "pio_evaluation_instances", "pio_models"}

@@ -1006,3 +1006,28 @@ def test_remote_source_needs_a_url_and_exposes_its_breakers(tmp_path):
         assert {b.failure_threshold for b in rt.breakers()} == {3}
     finally:
         rt.close()
+
+
+@pytest.mark.parametrize("values,null_value,transform", [
+    (["a", "b", "a", None, "c", "b"], None, None),
+    ([None, None, None], "", None),
+    ([], None, None),
+    (['{"k": 1}', "{}", '{"k": 1}', None], {}, json.loads),
+    (["x"] * 5, None, str.upper),
+])
+def test_dictionary_to_objects_equals_the_jax_codec(values, null_value, transform):
+    import pyarrow as pa
+
+    from predictionio_tpu.data.storage import parquet_backend as jax_pq
+    from predictionio_tpu_torch.data.storage import frame_codec as pt_codec
+    from predictionio_tpu_torch.data.storage import parquet_backend as pt_pq
+
+    arr = pa.array(values, pa.string()).dictionary_encode()
+    got = pt_codec.dictionary_to_objects(arr, null_value, transform)
+    want = jax_codec.dictionary_to_objects(arr, null_value, transform)
+    assert got.dtype == want.dtype == object
+    assert got.tolist() == want.tolist()
+    # one definition, importable from both of the port's modules (as the
+    # JAX package's parquet backend imports it too)
+    assert pt_pq.dictionary_to_objects is pt_codec.dictionary_to_objects
+    assert jax_pq.dictionary_to_objects is jax_codec.dictionary_to_objects
