@@ -2159,11 +2159,11 @@ def train_cli_phase() -> dict:
         ratings_read=int(len(td.ratings)),
         stage_s={
             "import": out["import_s"],
-            "read": st["datasource.read"],
-            "prepare": st["preparator.prepare"],
+            "read": st["train.datasource.read"],
+            "prepare": st["train.preparator.prepare"],
             "staging": staging_s,
-            "train_iterations": st["algorithm.als"] - staging_s,
-            "persist": st["persist.save_models"],
+            "train_iterations": st["train.algorithm.als"] - staging_s,
+            "persist": st["train.persist.save_models"],
             "total": st["total"],
         },
         launches=launches,
@@ -7441,11 +7441,11 @@ def storage_phase(device="cuda", n_events: int = ML20M_RATINGS,
             staging_s = als.LAST_PLAN_INFO["stage_s"]
             out["train"] = {
                 "instance": instance_id,
-                "read_s": st["datasource.read"],
-                "prepare_s": st["preparator.prepare"],
+                "read_s": st["train.datasource.read"],
+                "prepare_s": st["train.preparator.prepare"],
                 "staging_s": staging_s,
-                "iterations_s": st["algorithm.als"] - staging_s,
-                "persist_s": st["persist.save_models"],
+                "iterations_s": st["train.algorithm.als"] - staging_s,
+                "persist_s": st["train.persist.save_models"],
                 "total_s": st["total"],
                 "launches": train_launches,
             }

@@ -13,9 +13,10 @@ wait or its enqueue gaps, is what the roofline observes.  On the CPU the
 compute runs inline and its device time is the host span.
 
 The host stages land on the wave timeline (``h2d`` the ids' enqueue,
-``compute`` the wait in the fence or the inline compute, ``d2h`` the read
-of the result), with the bytes that cross (none on the CPU, where no copy
-happens).
+``launch`` the enqueue of the compute and the result's copy on a card,
+``compute`` the wait in the fence or the inline compute, ``observe`` the
+caller's bookkeeping of the device time, ``d2h`` the read of the result),
+with the bytes that cross (none on the CPU, where no copy happens).
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ def dispatch_wave(
         t0 = time.perf_counter()
         with device_obs.wave_stage("compute"):
             packed = compute(ids_t, None)
-        observe(time.perf_counter() - t0)
+        kernel_s = time.perf_counter() - t0
+        with device_obs.wave_stage("observe"):
+            observe(kernel_s)
 
         def fence_cpu() -> np.ndarray:
             with device_obs.wave_stage("d2h"):
@@ -56,20 +59,23 @@ def dispatch_wave(
         stream = torch.cuda.current_stream(device)
         with device_obs.wave_stage("h2d"):
             ids_t = ids_t.pin_memory().to(device, non_blocking=True)
-        timing = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        packed = compute(ids_t, timing)
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+        with device_obs.wave_stage("launch"):
+            timing = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            packed = compute(ids_t, timing)
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
     device_obs.note_transfer("h2d", ids_t.numel() * ids_t.element_size())
 
     def fence() -> np.ndarray:
         with device_obs.wave_stage("compute"):
             done.synchronize()
-        # both timing events precede ``done`` on the stream: complete
-        observe(timing[0].elapsed_time(timing[1]) / 1e3)
+        with device_obs.wave_stage("observe"):
+            # both timing events precede ``done`` on the stream: complete
+            observe(timing[0].elapsed_time(timing[1]) / 1e3)
         with device_obs.wave_stage("d2h"):
             out = host.numpy()
         device_obs.note_transfer("d2h", host.numel() * host.element_size())

@@ -11,7 +11,6 @@ serve) and prepareDeploy:198, as the JAX package's ``core/engine.py`` does.
 from __future__ import annotations
 
 import json
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping, Sequence, Type
 
@@ -164,38 +163,34 @@ class Engine:
         skip_sanity_check: bool = False,
         stop_after_read: bool = False,
         stop_after_prepare: bool = False,
-        stages: dict[str, float] | None = None,
     ) -> tuple[list[Algorithm], list[Any]]:
         """Run the train pipeline; returns (algorithm instances, models).
 
         The instances that trained are returned so that train-time state
         reaches make_persistent_model.  Models are empty when stopped early
-        by the flags.  ``stages``, when given, receives the seconds of each
-        DASE stage (``datasource.read``, ``preparator.prepare``,
-        ``algorithm.<name>``) on the host clock."""
-        stages = {} if stages is None else stages
+        by the flags.  Each DASE stage runs inside a span
+        (``train.datasource.read``, ``train.preparator.prepare``,
+        ``train.algorithm.<name>``), as in the JAX package: children of the
+        caller's span (``run_train``'s root) and ``pio_span_seconds``."""
+        from predictionio_tpu_torch.obs.tracing import trace
+
         ds, prep, algos, _ = self.instantiate(params)
-        t0 = time.perf_counter()
-        td = ds.read_training(ctx)
-        stages["datasource.read"] = time.perf_counter() - t0
+        with trace("train.datasource.read"):
+            td = ds.read_training(ctx)
         if not skip_sanity_check:
             run_sanity_check(td)
         if stop_after_read:
             return algos, []
-        t0 = time.perf_counter()
-        pd = prep.prepare(ctx, td)
-        stages["preparator.prepare"] = time.perf_counter() - t0
+        with trace("train.preparator.prepare"):
+            pd = prep.prepare(ctx, td)
         if not skip_sanity_check:
             run_sanity_check(pd)
         if stop_after_prepare:
             return algos, []
         models = []
         for (name, _), algo in zip(params.algorithms, algos):
-            t0 = time.perf_counter()
-            model = algo.train(ctx, pd)
-            stages[f"algorithm.{name or type(algo).__name__}"] = (
-                time.perf_counter() - t0
-            )
+            with trace(f"train.algorithm.{name or type(algo).__name__}"):
+                model = algo.train(ctx, pd)
             if not skip_sanity_check:
                 run_sanity_check(model)
             models.append(model)

@@ -21,7 +21,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
-import time
 import uuid
 from dataclasses import dataclass
 from datetime import datetime, timezone
@@ -65,6 +64,15 @@ def _now() -> datetime:
     return datetime.now(tz=timezone.utc)
 
 
+def _stage_breakdown(root) -> dict[str, float]:
+    """Seconds of each stage of the run's span tree, and its ``total``
+    (the JAX package's breakdown without its XLA compile split: the
+    port's kernel builds are ``kernel.build`` spans of their own)."""
+    out = {name: round(secs, 4) for name, secs in root.breakdown().items()}
+    out["total"] = round(root.duration_s, 4)
+    return out
+
+
 def run_train(
     engine: Engine,
     engine_params: EngineParams,
@@ -88,7 +96,11 @@ def run_train(
     ``warm_start_from`` names a previous engine instance whose persisted
     models seed this run (``ctx.warm_start``); a missing or unreadable
     previous model degrades to a cold start (logged), never a failed
-    retrain."""
+    retrain.  The run is the span ``workflow.run_train`` over the DASE
+    stages' spans and ``train.persist.save_models``; the log's "DASE stage
+    breakdown" is its breakdown."""
+    from predictionio_tpu_torch.obs.tracing import trace
+
     storage = storage or (ctx.storage if ctx is not None else None) or get_storage()
     ctx = ctx or EngineContext(storage=storage)
     if warm_start_from is not None and ctx.warm_start is None:
@@ -120,42 +132,43 @@ def run_train(
         **engine_params.to_json_fields(),
     )
     instances.insert(instance)
-    stages: dict[str, float] = {}
-    t_run = time.perf_counter()
     try:
-        algos, models = engine.train_full(
-            ctx,
-            engine_params,
-            skip_sanity_check=wp.skip_sanity_check,
-            stop_after_read=wp.stop_after_read,
-            stop_after_prepare=wp.stop_after_prepare,
-            stages=stages,
-        )
-        if wp.stop_after_read or wp.stop_after_prepare:
-            log.info("training stopped early by workflow params")
-            instances.delete(instance.id)
-            return None
-        t0 = time.perf_counter()
-        persistable = engine.make_persistent_models(
-            ctx, engine_params, models, algos=algos
-        )
-        # PersistentModel flavors save themselves; only a manifest is
-        # stored (Engine.makeSerializableModels:284 +
-        # PersistentModelManifest)
-        stored = []
-        for a, m in zip(algos, persistable):
-            if isinstance(m, PersistentModel) and m.save(
-                instance.id, getattr(a, "params", None)
-            ):
-                stored.append(PersistentModelManifest(type(m).class_path()))
-            else:
-                stored.append(m)
-        save_models(storage.models(), instance.id, stored)
-        # the serving ShardPlan (if any algorithm declares one), as a tiny
-        # sidecar blob: GenerationStore.record embeds it in the manifest
-        # without unpickling the model, and deploy re-binds it
-        _record_shard_plan(storage, instance.id, algos, models)
-        stages["persist.save_models"] = time.perf_counter() - t0
+        with trace("workflow.run_train") as root:
+            algos, models = engine.train_full(
+                ctx,
+                engine_params,
+                skip_sanity_check=wp.skip_sanity_check,
+                stop_after_read=wp.stop_after_read,
+                stop_after_prepare=wp.stop_after_prepare,
+            )
+            if wp.stop_after_read or wp.stop_after_prepare:
+                log.info("training stopped early by workflow params")
+                instances.delete(instance.id)
+                return None
+            # the persisted form, the saves and the shard plan's sidecar
+            with trace("train.persist.save_models"):
+                persistable = engine.make_persistent_models(
+                    ctx, engine_params, models, algos=algos
+                )
+                # PersistentModel flavors save themselves; only a manifest
+                # is stored (Engine.makeSerializableModels:284 +
+                # PersistentModelManifest)
+                stored = []
+                for a, m in zip(algos, persistable):
+                    if isinstance(m, PersistentModel) and m.save(
+                        instance.id, getattr(a, "params", None)
+                    ):
+                        stored.append(
+                            PersistentModelManifest(type(m).class_path())
+                        )
+                    else:
+                        stored.append(m)
+                save_models(storage.models(), instance.id, stored)
+                # the serving ShardPlan (if any algorithm declares one), as
+                # a tiny sidecar blob: GenerationStore.record embeds it in
+                # the manifest without unpickling the model, and deploy
+                # re-binds it
+                _record_shard_plan(storage, instance.id, algos, models)
         done = instance.completed()
         instances.update(done)
     except Exception:
@@ -164,7 +177,7 @@ def run_train(
         )
         log.error("training FAILED: engine instance %s", instance.id)
         raise
-    stages["total"] = time.perf_counter() - t_run
+    stages = _stage_breakdown(root)
     log.info("training finished: engine instance %s", instance.id)
     log.info(
         "DASE stage breakdown: %s",

@@ -394,25 +394,27 @@ class NCFAlgorithm(Algorithm):
 
     def _render_wave(self, model: NCFModel, iq, uidx, top_s, top_i):
         out = []
-        for row, (i, q) in enumerate(iq):
-            if uidx[row] < 0:
-                out.append((i, PredictedResult()))
-                continue
-            out.append(
-                (
-                    i,
-                    PredictedResult(
-                        item_scores=tuple(
-                            ItemScore(
-                                item=model.item_vocab.inverse(int(ii)),
-                                score=float(ss),
+        with device_obs.wave_stage("render"):
+            for row, (i, q) in enumerate(iq):
+                if uidx[row] < 0:
+                    out.append((i, PredictedResult()))
+                    continue
+                out.append(
+                    (
+                        i,
+                        PredictedResult(
+                            item_scores=tuple(
+                                ItemScore(
+                                    item=model.item_vocab.inverse(int(ii)),
+                                    score=float(ss),
+                                )
+                                for ss, ii in zip(top_s[row][: q.num],
+                                                  top_i[row][: q.num])
+                                if np.isfinite(ss)
                             )
-                            for ss, ii in zip(top_s[row][: q.num], top_i[row][: q.num])
-                            if np.isfinite(ss)
-                        )
-                    ),
+                        ),
+                    )
                 )
-            )
         return out
 
     def dispatch_batch(self, model: NCFModel, indexed_queries, force: bool = False):
@@ -436,7 +438,6 @@ class NCFAlgorithm(Algorithm):
         return self._dispatch_wave(model, iq)
 
     def _dispatch_wave(self, model: NCFModel, iq):
-        provenance.note(engine_path="ncf.device_wave")
         n_items = _packable_n_items(model)
         params = model.state.params
         with device_obs.wave_stage("host_gather"):
@@ -447,20 +448,23 @@ class NCFAlgorithm(Algorithm):
             padded = np.zeros(b, np.int64)
             padded[: len(iq)] = np.maximum(uidx, 0)
         table = params["user_emb"]
-        shapes = (n_items,) + tuple(table.shape)
-        # the launch shape (what a new shape costs): the padded b and k
-        device_obs.default_recompiles().note_signature(
-            "ncf.batch_predict", (b, k) + shapes)
-        # the wave's work, which the cost is keyed on: its rows, not the
-        # padding the menu adds
-        sig = (len(iq), k) + shapes
-        mlp = [tuple(layer["w"].shape) for layer in params["mlp"]]
-        cost = ncf_wave_least_work(
-            len(iq), n_items, int(table.shape[1]), mlp, k, "item_bias" in params
-        )
-        eff = device_obs.default_efficiency()
-        eff.record_cost("ncf.batch_predict", cost["flops"], cost["bytes"],
-                        signature=sig, source="least_work")
+        with device_obs.wave_stage("observe"):
+            provenance.note(engine_path="ncf.device_wave")
+            shapes = (n_items,) + tuple(table.shape)
+            # the launch shape (what a new shape costs): the padded b and k
+            device_obs.default_recompiles().note_signature(
+                "ncf.batch_predict", (b, k) + shapes)
+            # the wave's work, which the cost is keyed on: its rows, not
+            # the padding the menu adds
+            sig = (len(iq), k) + shapes
+            mlp = [tuple(layer["w"].shape) for layer in params["mlp"]]
+            cost = ncf_wave_least_work(
+                len(iq), n_items, int(table.shape[1]), mlp, k,
+                "item_bias" in params,
+            )
+            eff = device_obs.default_efficiency()
+            eff.record_cost("ncf.batch_predict", cost["flops"], cost["bytes"],
+                            signature=sig, source="least_work")
 
         def observe(kernel_s: float) -> None:
             device_obs.note_wave_device(device_obs.device_label(table))

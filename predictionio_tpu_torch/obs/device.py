@@ -35,7 +35,11 @@ card whose work is asynchronous:
   in the JAX package: ``h2d`` is the enqueue of the upload, ``compute`` the
   wait in the fence, ``d2h`` the read of the pinned result.  On a card the
   split says where the host waited, not where the card worked; the card's
-  own time rides beside it as the wave's ``kernel_s``.
+  own time rides beside it as the wave's ``kernel_s``.  The port's waves
+  mark three stages more, which the split counts under ``other``:
+  ``launch`` (the enqueue of a card wave's kernels and result copy),
+  ``render`` and ``observe`` (the wave's bookkeeping); under a capture
+  every stage is also a span ``wave.<stage>`` (``obs/tracing.py``).
 - a sharded wave adds its per-slot attribution and settle seconds to the
   timeline (:func:`note_wave_shards`, :func:`note_shard_seconds`), and
   :class:`StragglerBoard` turns the settle seconds into the skew gauge and
@@ -65,6 +69,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Mapping
 
+from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.obs.metrics import (
     REGISTRY,
     STAGE_BUCKETS,
@@ -492,6 +497,7 @@ class RecompileTracker:
 # wave timeline: the 4-way device_s split
 
 #: the stages a wave decomposes into; anything unattributed lands in "other"
+#: (the port's further stages too: ``launch``, ``render``, ``observe``)
 WAVE_STAGES: tuple[str, ...] = ("host_gather", "h2d", "compute", "d2h")
 
 
@@ -589,16 +595,21 @@ def current_timeline() -> WaveTimeline | None:
 def wave_stage(name: str):
     """Time a block of HOST work into the current wave's ``name`` stage
     (no-op without an open timeline, e.g. a ``batch_predict`` called
-    outside serving)."""
+    outside serving).  Under a capture (``obs.tracing.capturing``) the
+    block is also the span ``wave.<name>``: a profiler range and the
+    capture's totals, with or without a timeline."""
+    captured = _tracing.capturing()
+    rng = _tracing.open_range("wave." + name) if captured else None
     t0 = time.perf_counter()
     try:
         yield
     finally:
+        dt = time.perf_counter() - t0
         tl = _timeline_var.get()
         if tl is not None:
-            tl.stages[name] = (
-                tl.stages.get(name, 0.0) + time.perf_counter() - t0
-            )
+            tl.stages[name] = tl.stages.get(name, 0.0) + dt
+        if captured:
+            _tracing.close_range(rng, "wave." + name, dt)
 
 
 def note_wave_device(label: str) -> None:

@@ -21,7 +21,10 @@ capture directory with the ``key_averages()`` table beside it
 (``key_averages.txt``), and its status names the device operations it saw
 with their device time.  A capture that asked for CUDA activity and saw no
 device events is a FAILED capture: its status carries the error, never a
-quiet CPU-only success.
+quiet CPU-only success.  For its window the capture holds every thread's
+spans captured (``obs.tracing.process_capture``, the store cleared at the
+start), so the trace names the program's stages (``wave.<stage>``, the
+``trace`` spans) and the status lists their totals under ``spans``.
 
 :func:`sample_runtime_gauges` refreshes the card's memory gauges from
 ``torch.cuda.memory_stats`` and ``torch.cuda.mem_get_info`` and mirrors the
@@ -41,6 +44,7 @@ import time
 from typing import Any
 
 from predictionio_tpu_torch.obs import device as device_obs
+from predictionio_tpu_torch.obs import tracing
 from predictionio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 
 #: upper bound on one capture; profiles are for debugging, not surveillance
@@ -218,19 +222,23 @@ class ProfilerController:
                 self._running = None
             armed.set()
             return
-        if cuda:
-            # a kernel of the window's first instants may be stamped before
-            # its start and dropped (DEVICE_CLOCK_GUARD_S)
-            self._wakeup.wait(DEVICE_CLOCK_GUARD_S)
-        armed.set()
-        # paced by an Event, not a sleep poll: interruptible
-        self._wakeup.wait(seconds)
+        tracing.clear_capture_totals()
+        with tracing.process_capture():
+            if cuda:
+                # a kernel of the window's first instants may be stamped
+                # before its start and dropped (DEVICE_CLOCK_GUARD_S)
+                self._wakeup.wait(DEVICE_CLOCK_GUARD_S)
+            armed.set()
+            # paced by an Event, not a sleep poll: interruptible
+            self._wakeup.wait(seconds)
         error: str | None = None
         result: dict[str, Any] = {}
         try:
             result = _stop_trace(prof, out_dir, cuda)
         except Exception as e:
             error = f"{type(e).__name__}: {e}"
+        # device spans still running are left out (``capture_totals``)
+        result["spans"] = tracing.capture_totals()
         with self._lock:
             done = self._running or {}
             self._running = None

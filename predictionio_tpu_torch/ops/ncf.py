@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs.tracing import device_span
 
 LOSSES = ("bpr", "softmax", "full_softmax", "wals")
 
@@ -363,16 +364,21 @@ def train_step(
     [b, K] for the sampled losses, ``w`` the wals ``1/|P_u|`` weights),
     its gradient by autograd, one optimizer update of every leaf.  Returns
     the step's loss before the update, a detached 0-d tensor on the
-    device."""
-    if p.loss == "wals":
-        loss = wals_loss(params, u, pos, valid, w, p.alpha, n_items)
-    elif p.loss == "full_softmax":
-        loss = full_softmax_loss(params, u, pos, valid, n_items)
-    else:
-        loss = _SAMPLED_LOSSES[p.loss](params, u, pos, neg, valid)
-    optimizer.zero_grad(set_to_none=False)
-    loss.backward()
-    optimizer.step()
+    device.  Under a capture (``obs.tracing``) the three phases are device
+    spans: ``ncf.step.forward``, ``ncf.step.backward`` (the gradients'
+    zeroing and autograd) and ``ncf.step.optimizer``."""
+    with device_span("ncf.step.forward", u.device):
+        if p.loss == "wals":
+            loss = wals_loss(params, u, pos, valid, w, p.alpha, n_items)
+        elif p.loss == "full_softmax":
+            loss = full_softmax_loss(params, u, pos, valid, n_items)
+        else:
+            loss = _SAMPLED_LOSSES[p.loss](params, u, pos, neg, valid)
+    with device_span("ncf.step.backward", u.device):
+        optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+    with device_span("ncf.step.optimizer", u.device):
+        optimizer.step()
     return loss.detach()
 
 

@@ -1004,6 +1004,86 @@ def test_ncf_device_wave_on_the_card_matches_the_host_replica(cuda):
             assert a.item == b.item or min(abs(s - x) for x in hs if x != s) <= 1e-5 * abs(s)
 
 
+#: two NCF waves and one NCF step on the card under a torch.profiler capture
+#: of host and card, in a process of its own (a capture in the pytest
+#: process would be one more before the profiler tests that count on
+#: theirs): prints the ranges seen, the device operations named as a span,
+#: and the capture's totals
+_SPAN_CAPTURE_SCRIPT = r'''
+import dataclasses, json
+import numpy as np, torch
+from torch.autograd import DeviceType
+from predictionio_tpu_torch.core.base import EngineContext
+from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.models.ncf import engine as ncf_engine
+from predictionio_tpu_torch.models.recommendation.engine import Query
+from predictionio_tpu_torch.obs import tracing
+from predictionio_tpu_torch.ops import ncf
+
+cuda = torch.device("cuda")
+p = ncf.NCFParams(embed_dim=32, batch_size=1024)
+nu, ni, b = 500, 3000, 1024
+params = ncf.init_ncf(torch.Generator().manual_seed(2), nu, ni, p)
+blob = {"params": ncf.host_params(params), "n_users": nu, "n_items": ni,
+        "config": dataclasses.asdict(p),
+        "user_vocab": BiMap.from_keys(np.array([f"u{i}" for i in range(nu)])).to_state(),
+        "item_vocab": BiMap.from_keys(np.array([f"i{i}" for i in range(ni)])).to_state()}
+algo = ncf_engine.NCFAlgorithm()
+model = algo.load_persistent_model(EngineContext(device=cuda), blob)
+queries = [(j, Query(user=f"u{j}", num=10)) for j in range(2 * algo.MAX_WAVE)]
+algo.batch_predict(model, queries)  # warm
+train = ncf.tree_map(lambda x: x.clone().to(cuda).requires_grad_(True), params)
+opt = ncf.make_optimizer(train, p)
+rng = np.random.default_rng(3)
+u, pos = (torch.from_numpy(rng.integers(0, n, b)).to(cuda) for n in (nu, ni))
+neg = torch.from_numpy(rng.integers(0, ni, (b, 4))).to(cuda)
+valid, w = torch.ones(b, device=cuda), torch.zeros(b, device=cuda)
+tracing.clear_capture_totals()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    answered = len(algo.batch_predict(model, queries))
+    ncf.train_step(train, opt, u, pos, neg, valid, w, p, ni)
+    torch.cuda.synchronize()
+host, device = set(), set()
+for e in prof.profiler.kineto_results.events():
+    (device if e.device_type() == DeviceType.CUDA else host).add(e.name())
+print(json.dumps({"answered": answered, "host": sorted(host),
+                  "device": sorted(device), "totals": tracing.capture_totals()}))
+'''
+
+
+@pytest.mark.cuda
+def test_a_capture_on_the_card_names_the_wave_and_times_the_step(cuda):
+    """Two NCF waves on the card mark every wave stage (``launch`` and
+    ``h2d`` only a card wave has) as host ranges and totals; one NCF
+    step's three phases read device time from their CUDA events; no span
+    shows on the device timeline (where a ``record_function`` user
+    annotation would add its kernels' time again)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _SPAN_CAPTURE_SCRIPT],
+        capture_output=True, text=True, timeout=600, env=dict(os.environ),
+        cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["answered"] == 64
+    stages = ("h2d", "launch", "compute", "d2h", "render", "host_gather")
+    phases = ("ncf.step.forward", "ncf.step.backward", "ncf.step.optimizer")
+    wanted = {f"wave.{s}" for s in stages} | {"wave.observe"} | set(phases)
+    assert wanted <= set(got["host"]), wanted - set(got["host"])
+    assert not wanted & set(got["device"]), wanted & set(got["device"])
+    totals = got["totals"]
+    for s in stages:
+        assert totals[f"wave.{s}"]["count"] == 2, (s, totals)
+    assert totals["wave.observe"]["count"] == 4
+    for ph in phases:
+        assert totals[ph]["count"] == 1 and totals[ph]["device_s"] > 0, totals
+
+
 def _covtype_like(n, f=54, c=7, seed=0):
     """Binary features whose per-class probabilities plant the classes."""
     rng = np.random.default_rng(seed)

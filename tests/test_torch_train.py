@@ -365,8 +365,9 @@ def test_stop_flags_and_failures(trained, caplog):
                          warm_start_from=instance.id)
     assert done.status == "COMPLETED"
     (record,) = [r for r in caplog.records if hasattr(r, "stages")]
-    assert {"datasource.read", "preparator.prepare", "algorithm.als",
-            "persist.save_models", "total"} <= set(record.stages)
+    assert {"train.datasource.read", "train.preparator.prepare",
+            "train.algorithm.als", "train.persist.save_models",
+            "total"} <= set(record.stages)
 
 
 def test_train_needs_cuda_unless_cpu(trained, monkeypatch):
